@@ -1,0 +1,12 @@
+"""avatarclip_torch: the PyTorch + CUDA (NVIDIA Hopper) port of avatarclip_tpu.
+
+The JAX package :mod:`avatarclip_tpu` stays the reference; every module here
+is the torch twin of the module of the same name there, held against it by a
+``tests/test_torch_*.py`` parity test. This first slice runs AppearanceGen's
+photometric ``train`` and CLIP-guided ``train_clip`` steps
+(:mod:`avatarclip_torch.pipelines.appearance`), with the per-ray NeuS
+megakernel pair and the tiled z-buffer as hand-written CUDA kernels
+(``csrc/``, built at first use by :mod:`avatarclip_torch.ops._build`).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,695 @@
+"""AppearanceGen: CLIP-guided NeuS avatar sculpting in PyTorch.
+
+Torch twin of avatarclip_tpu/pipelines/appearance.py: the same conf schema,
+CLI and artifact layout, for the photometric ``train`` mode and the
+CLIP-guided ``train_clip`` mode. One train_clip step: host-side camera,
+GT template raster (CUDA z-buffer), silhouette ray selection, hierarchical
+NeuS render (per-ray CUDA megakernel pair in render_core), relighting,
+background augmentation, dense scatter, CLIP scoring, losses, backward and
+the Adam update. The step's random draws come from the Runner's seeded
+``torch.Generator`` as one explicit dict (``draw_clip``), the camera stream
+from numpy exactly as in the JAX package.
+
+Not ported yet: the validation modes (validate_image, validate_mesh, cast
+light) and the periodic validations of the train loops.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import re
+import time
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from avatarclip_tpu import config as config_mod
+from avatarclip_tpu.clipjax import tokenizer as clip_tokenizer
+from avatarclip_tpu.utils.logging import MetricsLogger
+
+from .. import assets
+from ..body import rotations
+from ..clip import model as clip_model
+from ..fields import networks as nets
+from ..render import cameras, neus, raster
+from .dataset import SMPLViewDataset, sample_random_rays
+
+# Full f32 everywhere: the K=3 raster dots (the 1e-3 px^2 face gate of
+# raster._face_coefficients and the inside test, docs/VALIDATION.md:29-60),
+# the winner barycentrics (raster._winner_outputs) and the gaussian blur of
+# sample_background all decide on values near zero, and TF32 keeps ~3 digits
+# (cuDNN runs f32 convolutions in TF32 unless told not to).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# config plumbing
+# ---------------------------------------------------------------------------
+
+
+def build_network_configs(conf):
+    dtype = conf.get_string("train.compute_dtype", "bfloat16")
+    sdf_kw = conf["model.sdf_network"].as_dict()
+    sdf_kw["skip_in"] = tuple(sdf_kw.get("skip_in", [4]))
+    sdf_kw.setdefault("dtype", dtype)
+    col_kw = conf["model.rendering_network"].as_dict()
+    col_kw.setdefault("dtype", dtype)
+    ncfg = neus.NeuSConfig(**conf["model.neus_renderer"].as_dict())
+    return ncfg, nets.SDFConfig(**sdf_kw), nets.ColorConfig(**col_kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 5e-4
+    learning_rate_alpha: float = 0.05
+    end_iter: int = 30000
+    batch_size: int = 512
+    max_ray_num: int = 112 * 112
+    warm_up_end: float = 500.0
+    anneal_end: float = 0.0
+    use_white_bkgd: bool = False
+    igr_weight: float = 0.1
+    mask_weight: float = 0.5
+    clip_weight: float | None = 1.0
+    add_no_texture: bool = False
+    texture_cast_light: bool = False
+    use_face_prompt: bool = False
+    use_back_prompt: bool = False
+    use_silhouettes: bool = False
+    use_bg_aug: bool = True
+    head_height: float = 0.65
+    save_freq: int = 1000
+    report_freq: int = 100
+    silhouette_res: int = 0  # 0 => derived from max_ray_num
+    sil_buckets: Sequence[int] = ()
+    gt_render_res: int = 0  # 0 => the selection resolution
+    clip_stop_iter: int = 30010
+
+    @property
+    def sil_res(self) -> int:
+        if self.silhouette_res > 0:
+            return self.silhouette_res
+        s = int(np.sqrt(self.max_ray_num / 0.35))
+        return int(np.clip((s + 7) // 8 * 8, 64, 256))
+
+
+def train_config_from_conf(conf) -> TrainConfig:
+    g = conf["train"]
+    kw: dict[str, Any] = {}
+    for f in dataclasses.fields(TrainConfig):
+        if f.name == "clip_weight":
+            kw[f.name] = g.get_float("clip_weight", None)
+        elif f.name == "sil_buckets":
+            if f.name in g:
+                kw[f.name] = tuple(int(b) for b in g._resolve(f.name))
+        elif f.name in g:
+            kw[f.name] = g._resolve(f.name)
+    return TrainConfig(**kw)
+
+
+def make_lr_schedule(tc: TrainConfig):
+    """Warm-up then cosine decay to alpha (main.py:577-586); evaluated at the
+    0-based update count, as optax does."""
+
+    def sched(step: int) -> float:
+        warm = step / max(tc.warm_up_end, 1.0)
+        progress = (step - tc.warm_up_end) / max(tc.end_iter - tc.warm_up_end, 1.0)
+        alpha = tc.learning_rate_alpha
+        cos = (math.cos(math.pi * progress) + 1.0) * 0.5 * (1 - alpha) + alpha
+        factor = warm if (step < tc.warm_up_end and tc.warm_up_end > 0) else cos
+        return tc.learning_rate * factor
+
+    return sched
+
+
+def cos_anneal_ratio(tc: TrainConfig, it: int) -> float:
+    if tc.anneal_end == 0.0:
+        return 1.0
+    return min(1.0, it / tc.anneal_end)
+
+
+# ---------------------------------------------------------------------------
+# background augmentation (main.py:387-405)
+# ---------------------------------------------------------------------------
+
+
+def _gaussian_blur(img: torch.Tensor, sigma: float, kx: int = 5, ky: int = 9) -> torch.Tensor:
+    """Separable gaussian blur of (H, W, 1), zero 'SAME' padding."""
+
+    def kernel(n):
+        x = torch.arange(n, dtype=torch.float32, device=img.device) - (n - 1) / 2.0
+        k = torch.exp(-(x**2) / (2.0 * sigma**2))
+        return k / k.sum()
+
+    out = img[..., 0][None, None]
+    out = F.conv2d(out, kernel(ky).reshape(1, 1, ky, 1), padding=(ky // 2, 0))
+    out = F.conv2d(out, kernel(kx).reshape(1, 1, 1, kx), padding=(0, kx // 2))
+    return out[0, 0][..., None]
+
+
+def sample_background(S: int, draws: dict, device) -> torch.Tensor:
+    """(S, S, 1) background: white / gaussian noise / blurred checkerboard /
+    black by ``draws["choice"]``."""
+    choice = draws["choice"]
+    if choice == 0:
+        return torch.ones(S, S, 1, device=device)
+    if choice == 1:
+        return (draws["noise"].to(device) * 0.2 + 0.5).clamp(0.0, 1.0)
+    if choice == 2:
+        chess_len = max(S // draws["chess_n"], 1)
+        i = torch.arange(S, device=device)
+        board = ((i[:, None] // chess_len + i[None, :] // chess_len) % 2) == 0
+        board = torch.where(board, 0.8, 0.2).float()
+        return _gaussian_blur(board[..., None], draws["chess_sigma"])
+    return torch.zeros(S, S, 1, device=device)
+
+
+def load_reference_pth(path: str, fields: nets.NeuSFields) -> None:
+    """Load a reference torch NeuS checkpoint (lin{i}.weight_g / weight_v /
+    bias) into the fields; the extra head keeps its init when absent."""
+    ck = torch.load(path, map_location="cpu", weights_only=False)
+
+    def load_net(sd, net, extra=False):
+        state = {}
+        i = 0
+        while f"lin{i}.bias" in sd:
+            state[f"layers.{i}.g"] = sd[f"lin{i}.weight_g"]
+            state[f"layers.{i}.v"] = sd[f"lin{i}.weight_v"]
+            state[f"layers.{i}.b"] = sd[f"lin{i}.bias"]
+            i += 1
+        if extra and "extra_lin.bias" in sd:
+            for k, src in (("g", "weight_g"), ("v", "weight_v"), ("b", "bias")):
+                state[f"extra.{k}"] = sd[f"extra_lin.{src}"]
+        net.load_state_dict(state, strict=False)
+
+    load_net(ck["sdf_network_fine"], fields.sdf)
+    load_net(ck["color_network_fine"], fields.color, extra=True)
+    with torch.no_grad():
+        fields.variance.variance.copy_(torch.as_tensor(ck["variance_network_fine"]["variance"]))
+
+
+_CKPT_RE = re.compile(r"ckpt_(\d+)$")
+
+
+def latest_checkpoint(base_dir: str, end_iter: int | None = None) -> str | None:
+    ckpt_dir = os.path.join(base_dir, "checkpoints")
+    if not os.path.isdir(ckpt_dir):
+        return None
+    best, best_it = None, -1
+    for name in os.listdir(ckpt_dir):
+        m = _CKPT_RE.match(name)
+        if m and (end_iter is None or int(m.group(1)) <= end_iter) and int(m.group(1)) > best_it:
+            best, best_it = os.path.join(ckpt_dir, name), int(m.group(1))
+    return best
+
+
+# ---------------------------------------------------------------------------
+# Runner
+# ---------------------------------------------------------------------------
+
+
+class Runner:
+    def __init__(self, conf_path: str | None, mode: str = "train", case: str = "CASE_NAME",
+                 is_continue: bool = False, conf=None, device=None):
+        self.conf_path = conf_path
+        self.conf = conf if conf is not None else config_mod.parse_file(conf_path, case=case)
+        conf = self.conf
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        self.base_exp_dir = conf.get_string("general.base_exp_dir")
+        os.makedirs(self.base_exp_dir, exist_ok=True)
+        self.dataset = SMPLViewDataset(conf["dataset"], self.device)
+        self.iter_step = 0
+        self.mode = mode
+        self.tc = train_config_from_conf(conf)
+        self.ncfg, sdf_cfg, col_cfg = build_network_configs(conf)
+        self.extra_color = col_cfg.extra_color
+
+        seed = conf.get_int("train.seed", 0) or 0
+        self.gen = torch.Generator().manual_seed(seed)  # every draw of a step
+        self._camera_seed = seed  # the host-side camera stream (numpy)
+        self.pose_type = conf.get_string("general.pose_type", "stand_pose")
+        if self.pose_type not in ("stand_pose", "t_pose"):
+            raise ValueError(f"general.pose_type must be stand_pose or t_pose, got {self.pose_type}")
+
+        init_val = conf.get_float("model.variance_network.init_val")
+        self.fields = nets.NeuSFields(sdf_cfg, col_cfg, init_val, self.gen).to(self.device)
+        self.lr_schedule = make_lr_schedule(self.tc)
+        self.optimizer = torch.optim.Adam(self.fields.parameters(), lr=0.0, eps=1e-8)
+        self.update_count = 0  # optax's count: the schedule's argument
+
+        pretrain = conf.get_string("train.pretrain", None)
+        if pretrain is not None:
+            path = pretrain
+            if not os.path.exists(path) and assets.find(os.path.basename(path)):
+                path = assets.find(os.path.basename(path))
+            if path and os.path.exists(path):
+                print(f"Load pretrain: {path}")
+                if path.endswith(".pth"):
+                    load_reference_pth(path, self.fields)
+                else:  # a JAX pytree npz (keys params/sdf/layers/0/g, ...)
+                    from ..utils.convert import params_from_jax
+
+                    with np.load(path) as data:
+                        params_from_jax(dict(data), self.fields, prefix="params/")
+                self.fields.to(self.device)
+
+        if is_continue:
+            latest = latest_checkpoint(self.base_exp_dir, self.tc.end_iter)
+            if latest is not None:
+                print(f"Find checkpoint: {latest}")
+                self.load_checkpoint(latest)
+
+        self.logger = None
+        self._clip = None
+        self._template = None
+        self.step_seconds: list[float] = []  # wall time of each step, synchronised
+        self.step_sil_res: list[int] = []  # silhouette bucket of each train_clip step
+        if mode.startswith("train"):
+            self.file_backup()
+
+    # -- setup ------------------------------------------------------------
+
+    def init_clip(self):
+        """Load CLIP and encode the prompts once (main.py:258-288)."""
+        model_name = self.conf.get_string("clip.model", "vit_b32")
+        if model_name == "tiny":
+            cfg = clip_model.TINY
+            params, pretrained = clip_model.init_params(cfg, torch.Generator().manual_seed(42)), False
+        else:
+            params, pretrained = clip_model.load_pretrained()
+            cdt = self.conf.get_string("train.compute_dtype", "bfloat16")
+            cfg = dataclasses.replace(clip_model.VIT_B32, compute_dtype=cdt)
+            if not pretrained:
+                print("WARNING: no pretrained CLIP weights found (place clip_vit_b32.npz in "
+                      "the data dir); using random init — CLIP guidance will be meaningless.")
+        params = clip_model.tree_to(params, self.device)
+        prompts = [self.conf.get_string("clip.prompt")]
+        prompts.append(self.conf.get_string("clip.face_prompt", prompts[0])
+                       if self.tc.use_face_prompt else prompts[0])
+        prompts.append(self.conf.get_string("clip.back_prompt", prompts[0])
+                       if self.tc.use_back_prompt else prompts[0])
+        print(f"Prompt: {prompts[0]}")
+        toks = torch.from_numpy(clip_tokenizer.tokenize(prompts)).to(self.device)
+        with torch.no_grad():
+            self._encoded_texts = clip_model.encode_text(params, cfg, toks)
+        self._clip = (params, cfg)
+        self._clip_pretrained = bool(pretrained)
+
+    def init_smpl(self):
+        """Pose the template body into the NeuS world frame (main.py:290-335)."""
+        from avatarclip_tpu.export import mesh_io
+
+        template_obj = self.conf.get_string("dataset.template_obj", None)
+        model = assets.load_smpl(self.conf.get_string("general.smpl_model_path", None))
+        pose = assets.load_stand_pose() if self.pose_type == "stand_pose" else assets.t_pose()
+        pose_rot = rotations.rodrigues(torch.from_numpy(np.asarray(pose)).reshape(-1, 3))
+        pose_rot = pose_rot.reshape(1, 24, 3, 3)
+        if template_obj is not None and not os.path.exists(template_obj):
+            template_obj = assets.find(os.path.basename(template_obj)) or template_obj
+        v_shaped = None
+        if template_obj is not None and os.path.exists(template_obj):
+            v, _, _, _ = mesh_io.read_obj(template_obj)
+            v_shaped = torch.from_numpy(np.asarray(v, np.float32)).reshape(1, -1, 3)
+        verts, _ = model.forward(v_shaped=v_shaped, body_pose=pose_rot[:, 1:],
+                                 global_orient=pose_rot[:, :1], pose2rot=False)
+        v_world = (verts[0] @ torch.from_numpy(cameras.BODY_TO_WORLD).t()).to(self.device)
+        faces = torch.from_numpy(np.asarray(model.faces, np.int64)).to(self.device)
+        self._template = (v_world, faces)
+        self._template_normals = raster.vertex_normals(v_world, faces)
+        self._template_face_normals = self._template_normals[faces]
+
+    # -- random draws of one step ------------------------------------------
+
+    def _uniform(self, lo: float, hi: float) -> float:
+        return lo + (hi - lo) * float(torch.rand((), generator=self.gen))
+
+    def draw_clip(self, S: int) -> dict:
+        """Every random draw of one train_clip step (main.py:375-453)."""
+        g = self.gen
+        return {
+            "shift": int(torch.randint(0, S * S, (), generator=g)),
+            "choice": int(torch.randint(0, 4, (), generator=g)) if self.tc.use_bg_aug else 3,
+            "noise": torch.randn((S, S, 1), generator=g),
+            "chess_n": int(torch.randint(10, 20, (), generator=g)),
+            "chess_sigma": self._uniform(0.1, 2.0),
+            "light_dtheta": self._uniform(-np.pi / 4, np.pi / 4),
+            "light_dphi": self._uniform(-np.pi / 4, np.pi / 4),
+            "ambience": self._uniform(0.0, 0.2),
+        }
+
+    def draw_photometric(self) -> dict:
+        g, ds, B = self.gen, self.dataset, self.tc.batch_size
+        return {
+            "img_idx": int(torch.randint(0, ds.n_images, (), generator=g)),
+            "px": torch.randint(0, ds.W, (B,), generator=g),
+            "py": torch.randint(0, ds.H, (B,), generator=g),
+        }
+
+    # -- losses -----------------------------------------------------------
+
+    def photometric_loss(self, draws: dict, it: int):
+        """Photometric NeuS loss on random pixels of one stored view
+        (main.py:345-380 of the reference's train mode)."""
+        tc, ds, dev = self.tc, self.dataset, self.device
+        rays_o, rays_d, true_rgb, mask = sample_random_rays(
+            ds.images, ds.masks, ds.poses, ds.focal, draws["img_idx"],
+            draws["px"].to(dev), draws["py"].to(dev),
+        )
+        near, far = ds.near_far_from_sphere(rays_o, rays_d)
+        background_rgb = torch.ones(1, 3, device=dev) if tc.use_white_bkgd else None
+        mask = (mask > 0.5).float() if tc.mask_weight > 0.0 else torch.ones_like(mask)
+        mask_sum = mask.sum() + 1e-5
+        out = neus.render(self.fields, self.ncfg, rays_o, rays_d, near, far,
+                          generator=self.gen, background_rgb=background_rgb,
+                          cos_anneal_ratio=cos_anneal_ratio(tc, it), per_ray=True)
+        color_fine = out["color_fine"]
+        color_loss = ((color_fine - true_rgb) * mask).abs().sum() / mask_sum
+        psnr = 20.0 * torch.log10(
+            1.0 / torch.sqrt(((color_fine - true_rgb) ** 2 * mask).sum() / (mask_sum * 3.0))
+        )
+        eikonal_loss = out["gradient_error"]
+        ws = out["weight_sum"].clamp(1e-3, 1.0 - 1e-3)
+        mask_loss = (-(mask * torch.log(ws) + (1 - mask) * torch.log(1 - ws))).mean()
+        loss = color_loss + eikonal_loss * tc.igr_weight + mask_loss * tc.mask_weight
+        metrics = {"loss": loss, "color_loss": color_loss, "eikonal_loss": eikonal_loss,
+                   "mask_loss": mask_loss, "psnr": psnr, "s_val": out["s_val"].mean()}
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
+    def clip_loss(self, S: int, cam: dict, draws: dict, it: int):
+        """The train_clip loss at silhouette / ray-grid resolution ``S``."""
+        tc, ncfg, ds, dev = self.tc, self.ncfg, self.dataset, self.device
+        clip_params, clip_cfg = self._clip
+        template_v, template_f = self._template
+        GT = tc.gt_render_res or S
+        SENSOR = ds.W
+        R = min(tc.max_ray_num, S * S) if tc.use_silhouettes else S * S
+        R = min((R + 7) // 8 * 8, S * S)
+        dil_iters = max(1, round(10 * S / 256))
+        focal = ds.focal
+        pose = torch.as_tensor(cam["pose"], dtype=torch.float32, device=dev)
+
+        with torch.no_grad():  # GT template render (main.py:360)
+            gt = raster.render_mesh(
+                template_v, template_f, pose, GT, GT, focal * GT / SENSOR,
+                normals=self._template_normals, face_normals=self._template_face_normals,
+            )
+            gt_rgb = gt["rgb"] if GT == S else clip_model.resize_image(gt["rgb"][None], S, S)[0]
+        mask_img = (gt_rgb.sum(-1) > 1e-6).float()
+
+        rays_o_g, rays_d_g = cameras.pixel_grid_rays(pose, S, S, focal, SENSOR, SENSOR)
+        if tc.use_silhouettes:
+            idx, _, _ = cameras.select_silhouette_rays(mask_img > 0.5, R, dil_iters, draws["shift"])
+        else:
+            idx = torch.arange(R, device=dev)
+        rays_o = rays_o_g.reshape(-1, 3)[idx]
+        rays_d = rays_d_g.reshape(-1, 3)[idx]
+        near, far = cameras.near_far_from_sphere(rays_o, rays_d)
+
+        bg_img = sample_background(S, draws, dev)
+        bg_rays = bg_img.reshape(-1, 1)[idx]
+        mask = mask_img.reshape(-1, 1)
+        mask = (mask > 0.5).float() if tc.mask_weight > 0.0 else torch.ones_like(mask)
+        mask_sum = mask.sum() + 1e-5
+        true_rgb = gt_rgb.reshape(-1, 3)
+
+        light_theta = torch.tensor(float(cam["theta"]) + draws["light_dtheta"], device=dev)
+        light_phi = torch.tensor(float(cam["phi"]) + draws["light_dphi"], device=dev)
+        light_dir = cameras.sphere_coord(light_theta, light_phi)
+        ambience = draws["ambience"]
+        if cam["face_iter"]:
+            text_idx = 1
+        elif tc.use_back_prompt and int(cam["is_front"]) == 0:
+            text_idx = 2
+        else:
+            text_idx = 0
+        text_emb = self._encoded_texts[text_idx]
+
+        out = neus.render(self.fields, ncfg, rays_o, rays_d, near, far, generator=self.gen,
+                          background_rgb=bg_rays, cos_anneal_ratio=cos_anneal_ratio(tc, it),
+                          per_ray=True)
+        color_fine = out["color_fine"]
+        extra = out["extra_color_fine"] if self.extra_color else color_fine
+        ws = out["weight_sum"].reshape(-1)
+
+        normals = out.get("normals_weighted")
+        if normals is None:
+            n_total = ncfg.n_samples + ncfg.n_importance
+            normals = (out["gradients"] * out["weights"][:, :n_total, None]).sum(1)
+        normals = normals / (normals.norm(dim=-1, keepdim=True) + 1e-7)
+        shading = (normals * light_dir).sum(-1, keepdim=True).clamp(0.0, 1.0)
+        shading = torch.nan_to_num(shading, nan=1.0)
+        rand_shading = ambience + (1.0 - ambience) * shading
+        lowws = (ws < 0.5)[:, None]
+        shading_rgb = torch.where(lowws, extra, rand_shading.expand(-1, 3))
+        rand_shading_full = torch.where(lowws, torch.ones_like(rand_shading), rand_shading)
+        texture_shading = (extra * rand_shading_full).clamp(0.0, 1.0)
+
+        # dense scatter (main.py:461-487); unrendered body pixels take the GT
+        # colour so the CLIP images have no holes and the losses see only
+        # rendered pixels
+        choice = draws["choice"]
+        if choice == 0:
+            bg3 = torch.ones(S * S, 3, device=dev)
+        elif choice == 3:
+            bg3 = torch.zeros(S * S, 3, device=dev)
+        else:
+            bg3 = bg_img.reshape(-1, 1).expand(-1, 3)
+        body = mask_img.reshape(-1, 1) > 0.5
+        clip_fill = torch.where(body, true_rgb, bg3)
+        chans = [
+            (color_fine, true_rgb),
+            (ws[:, None], body.float()),
+            (texture_shading if tc.texture_cast_light else extra, clip_fill),
+        ]
+        if tc.add_no_texture:
+            chans.append((shading_rgb, clip_fill))
+        dense = torch.cat([f for _, f in chans], 1).index_copy(
+            0, idx, torch.cat([v for v, _ in chans], 1)
+        )
+        color_dense, ws_dense, clip_src = dense[:, 0:3], dense[:, 3:4], dense[:, 4:7]
+
+        color_loss = ((color_dense - true_rgb) * mask).abs().sum() / mask_sum
+        psnr = 20.0 * torch.log10(
+            1.0 / torch.sqrt(((color_dense - true_rgb) ** 2 * mask).sum() / (mask_sum * 3.0))
+        )
+        eikonal_loss = out["gradient_error"]
+        wsc = ws_dense.clamp(1e-3, 1.0 - 1e-3)
+        mask_loss = (-(mask * torch.log(wsc) + (1 - mask) * torch.log(1 - wsc))).mean()
+
+        # both CLIP views ride one batch-2 ViT forward
+        clip_in = clip_model.resize_to_clip(clip_src.reshape(1, S, S, 3), clip_cfg.image_size)
+        if tc.add_no_texture:
+            shade_in = clip_model.resize_to_clip(dense[:, 7:10].reshape(1, S, S, 3),
+                                                 clip_cfg.image_size)
+            clip_in = torch.cat([clip_in, shade_in], 0)
+        emb = clip_model.encode_image(clip_params, clip_cfg, clip_model.normalize_image(clip_in))
+        cosine = clip_model.cosine_similarity(emb[0], text_emb)
+        clip_w = tc.clip_weight or 0.0
+        loss = (color_loss + eikonal_loss * tc.igr_weight + mask_loss * tc.mask_weight
+                + (1.0 - cosine) * clip_w)
+        metrics = {"color_loss": color_loss, "eikonal_loss": eikonal_loss,
+                   "mask_loss": mask_loss, "cosine": cosine, "psnr": psnr,
+                   "s_val": out["s_val"].mean()}
+        if tc.add_no_texture:
+            cosine_shading = clip_model.cosine_similarity(emb[1], text_emb)
+            loss = loss + (1.0 - cosine_shading) * clip_w
+            metrics["cosine_shading"] = cosine_shading
+        metrics["loss"] = loss
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
+    def _update(self, loss: torch.Tensor) -> None:
+        """Backward and one Adam update at lr = schedule(update count)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        lr = self.lr_schedule(self.update_count)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.update_count += 1
+
+    # -- silhouette-resolution buckets ----------------------------------------
+
+    def _calibrate_sil_coverage(self):
+        """Dilated-mask coverage of the GT template vs camera distance (mean
+        over four view directions) and for the face camera, at 128^2."""
+        tc, ds = self.tc, self.dataset
+        template_v, template_f = self._template
+        Sc = 128
+        focal_c = ds.focal * Sc / ds.W
+        dil_c = max(1, round(10 * Sc / 256))
+
+        def cov_at(eye, at):
+            pose = torch.from_numpy(cameras.lookat_np(
+                np.asarray(eye, np.float32), np.asarray(at, np.float32),
+                np.array([0.0, 1.0, 0.0], np.float32),
+            )).to(self.device)
+            with torch.no_grad():
+                out = raster.render_mesh(template_v, template_f, pose, Sc, Sc, focal_c,
+                                         normals=self._template_normals)
+                return cameras.dilate_mask(out["rgb"].sum(-1) > 1e-6, dil_c).float().mean()
+
+        dists = np.linspace(0.35, 2.3, 12)
+        dirs = ((0.0, 0.0), (np.pi / 3, 0.0), (2 * np.pi / 3, 0.0), (np.pi / 2, np.pi / 2))
+        covs = [torch.stack([cov_at(cameras.sphere_coord_np(t, p, d), np.zeros(3))
+                             for t, p in dirs]).mean() for d in dists]
+        at_f = np.array([0.0, tc.head_height, 0.3], np.float32)
+        face = torch.stack([cov_at(cameras.sphere_coord_np(t, 0.0, 0.4) + at_f, at_f)
+                            for t in (0.0, np.pi / 6)]).mean()
+        covs = torch.stack(covs + [face]).cpu().numpy()  # one host sync
+        self._sil_cov_table = (dists, np.clip(covs[:-1], 1e-3, 1.0))
+        self._sil_cov_face = float(np.clip(covs[-1], 1e-3, 1.0))
+
+    def _pick_sil_bucket(self, buckets, cam):
+        """Bucket closest (in log space) to W = min(sensor, sqrt(max_ray_num /
+        coverage)) (dataset.py:258)."""
+        if cam["face_iter"]:
+            c = self._sil_cov_face
+        else:
+            dists, covs = self._sil_cov_table
+            c = float(np.interp(cam["distance"], dists, covs))
+        s_star = min(float(self.dataset.W), np.sqrt(self.tc.max_ray_num / max(c, 1e-3)))
+        return min(buckets, key=lambda b: abs(np.log(b / s_star)))
+
+    def sample_iteration_camera(self, it: int, buckets=None):
+        """Host-side camera + bucket of iteration ``it`` (seeded
+        np.random.default_rng([seed, it]), face camera every 4th iteration)."""
+        tc = self.tc
+        if buckets is None:
+            buckets = tuple(sorted(tc.sil_buckets)) or (tc.sil_res,)
+        face_iter = bool(tc.use_face_prompt) and (it % 4 == 0)
+        rng = np.random.default_rng([self._camera_seed, it])
+        cam = cameras.sample_training_camera(rng, face_iter, tc.head_height)
+        if len(buckets) > 1:
+            if not hasattr(self, "_sil_cov_table"):
+                self._calibrate_sil_coverage()
+            S = self._pick_sil_bucket(buckets, cam)
+        else:
+            S = buckets[0]
+        return cam, S
+
+    # -- train loops --------------------------------------------------------
+
+    def _timed(self, fn):
+        t0 = time.perf_counter()
+        metrics = fn()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.step_seconds.append(time.perf_counter() - t0)
+        return metrics
+
+    def train(self):
+        self.logger = MetricsLogger(os.path.join(self.base_exp_dir, "logs"), use_tensorboard=False)
+
+        def step():
+            loss, metrics = self.photometric_loss(self.draw_photometric(), self.iter_step)
+            self._update(loss)
+            return metrics
+
+        for _ in range(self.tc.end_iter - self.iter_step):
+            metrics = self._timed(step)
+            self.iter_step += 1
+            self._post_iter(metrics)
+        self.logger.close()
+
+    def train_clip(self):
+        self.logger = MetricsLogger(os.path.join(self.base_exp_dir, "logs"), use_tensorboard=False)
+        if self._clip is None:
+            self.init_clip()
+        if self._template is None:
+            self.init_smpl()
+        tc = self.tc
+        buckets = tuple(sorted(tc.sil_buckets)) or (tc.sil_res,)
+        if len(buckets) > 1 and min(buckets) ** 2 < tc.max_ray_num:
+            raise ValueError(f"every sil bucket must hold the full ray budget: "
+                             f"{min(buckets)}^2 < {tc.max_ray_num}")
+        for i in range(tc.end_iter - self.iter_step):
+            if i == tc.clip_stop_iter:
+                break
+            cam, S = self.sample_iteration_camera(self.iter_step, buckets)
+            self.step_sil_res.append(S)
+
+            def step():
+                loss, metrics = self.clip_loss(S, cam, self.draw_clip(S), self.iter_step)
+                self._update(loss)
+                return metrics
+
+            metrics = self._timed(step)
+            self.iter_step += 1
+            self._post_iter(metrics)
+        self.logger.close()
+
+    def _post_iter(self, metrics):
+        it, tc = self.iter_step, self.tc
+        if self.logger is not None and (it % 10 == 0 or it < 10):
+            self.logger.log(it, {k: float(v) for k, v in metrics.items()})
+        if it % tc.report_freq == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            extra = "".join(f" {k}={m[k]:.4f}" for k in ("cosine", "cosine_shading", "psnr")
+                            if k in m)
+            print(f"iter:{it:8d} loss = {m.get('loss', 0):.4f}{extra} "
+                  f"lr={self.lr_schedule(self.update_count):.6f}")
+        if it % tc.save_freq == 0:
+            self.save_checkpoint()
+
+    # -- persistence ----------------------------------------------------------
+
+    def save_checkpoint(self) -> str:
+        ckpt_dir = os.path.join(self.base_exp_dir, "checkpoints")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = os.path.join(ckpt_dir, f"ckpt_{self.iter_step:06d}")
+        torch.save({"fields": self.fields.state_dict(),
+                    "optimizer": self.optimizer.state_dict(),
+                    "iter_step": self.iter_step, "update_count": self.update_count}, path)
+        return path
+
+    def load_checkpoint(self, path: str) -> None:
+        ck = torch.load(path, map_location=self.device, weights_only=False)
+        self.fields.load_state_dict(ck["fields"])
+        self.optimizer.load_state_dict(ck["optimizer"])
+        self.iter_step = int(ck["iter_step"])
+        self.update_count = int(ck["update_count"])
+
+    def file_backup(self):
+        """Record the conf for reproducibility (main.py:588-599)."""
+        import shutil
+
+        rec_dir = os.path.join(self.base_exp_dir, "recording")
+        os.makedirs(rec_dir, exist_ok=True)
+        if self.conf_path and os.path.exists(self.conf_path):
+            shutil.copyfile(self.conf_path, os.path.join(rec_dir, "config.conf"))
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description="AppearanceGen (PyTorch + CUDA)")
+    parser.add_argument("--conf", type=str, default="./confs/base.conf")
+    parser.add_argument("--mode", type=str, default="train", choices=("train", "train_clip"))
+    parser.add_argument("--is_continue", default=False, action="store_true")
+    parser.add_argument("--case", type=str, default="smpl")
+    parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                        help="override conf entries, e.g. --set general.base_exp_dir=/tmp/exp")
+    args = parser.parse_args(argv)
+    conf = config_mod.parse_file(args.conf, case=args.case)
+    for kv in args.set:
+        key, _, value = kv.partition("=")
+        conf.put(key, config_mod._parse_value(value))
+    runner = Runner(args.conf, args.mode, args.case, args.is_continue, conf=conf)
+    if args.mode == "train":
+        runner.train()
+    else:
+        runner.init_clip()
+        runner.init_smpl()
+        runner.train_clip()
+    return runner
+
+
+if __name__ == "__main__":
+    main()

@@ -36,3 +36,11 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device; run on the card with "
+        "python -m pytest --noconftest -m cuda tests/test_torch_cuda.py",
+    )
