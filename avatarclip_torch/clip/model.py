@@ -233,7 +233,7 @@ def load_npz(path: str):
 def load_pretrained(path: str | None = None):
     """(params, pretrained): the npz on disk, else a seeded random init.
     Real weights without the real BPE vocabulary are refused, as in JAX."""
-    from avatarclip_tpu.clipjax import tokenizer as tk
+    from . import tokenizer as tk
 
     from .. import assets
 

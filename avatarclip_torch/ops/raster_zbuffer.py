@@ -130,5 +130,5 @@ def zbuffer_select_tiled(coef: torch.Tensor, valid: torch.Tensor,
     err = fn(_build.ptr(coef_p), _build.ptr(valid_p), _build.ptr(tab), _build.ptr(out),
              H, W, n_tx, n_ty, n_fb, _build.stream_ptr(coef.device))
     _build.check(err, "zbuffer_tiled launch")
-    LAUNCHES["zbuffer_tiled"] += 1
+    _build.count(LAUNCHES, "zbuffer_tiled")
     return out

@@ -1,8 +1,10 @@
 """AppearanceGen: CLIP-guided NeuS avatar sculpting in PyTorch.
 
 Torch twin of avatarclip_tpu/pipelines/appearance.py: the same conf schema,
-CLI and artifact layout, for the photometric ``train`` mode and the
-CLIP-guided ``train_clip`` mode. One train_clip step: host-side camera,
+CLI and artifact layout, for the photometric ``train`` mode, the
+CLIP-guided ``train_clip`` mode, and the validation modes (``validate_mesh``:
+512^3 extraction, vertex-colour baking and the cast-light head render;
+``render_geometry_cast_light``). One train_clip step: host-side camera,
 GT template raster (CUDA z-buffer), silhouette ray selection, hierarchical
 NeuS render (per-ray CUDA megakernel pair in render_core), relighting,
 background augmentation, dense scatter, CLIP scoring, losses, backward and
@@ -10,16 +12,26 @@ the Adam update. The step's random draws come from the Runner's seeded
 ``torch.Generator`` as one explicit dict (``draw_clip``), the camera stream
 from numpy exactly as in the JAX package.
 
-Not ported yet: the validation modes (validate_image, validate_mesh, cast
-light) and the periodic validations of the train loops.
+Validation renders (``render_rays_chunked``) run ``neus.render`` with
+``per_ray=False``: on the card at >= 128 wide that is the point-level NeuS
+kernel pair followed by the compositing pair. The train loops validate every
+``val_freq`` / ``val_mesh_freq`` steps, by default on one worker thread
+against a snapshot of the fields (a bounded queue, drained at loop end).
+Images are written with ``utils/png.write_png`` and meshes with
+``export/mesh_io.write_ply``.
+
+Not ported yet: ``interpolate_view`` and ``render_novel_image``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import functools
 import math
 import os
 import re
+import threading
 import time
 from typing import Any, Sequence
 
@@ -27,15 +39,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from avatarclip_tpu import config as config_mod
-from avatarclip_tpu.clipjax import tokenizer as clip_tokenizer
-from avatarclip_tpu.utils.logging import MetricsLogger
-
 from .. import assets
+from .. import config as config_mod
 from ..body import rotations
 from ..clip import model as clip_model
+from ..clip import tokenizer as clip_tokenizer
+from ..export import marching_cubes as mc
+from ..export import mesh_io
 from ..fields import networks as nets
 from ..render import cameras, neus, raster
+from ..utils.logging import MetricsLogger
+from ..utils.png import write_png
 from .dataset import SMPLViewDataset, sample_random_rays
 
 # Full f32 everywhere: the K=3 raster dots (the 1e-3 px^2 face gate of
@@ -85,10 +99,18 @@ class TrainConfig:
     head_height: float = 0.65
     save_freq: int = 1000
     report_freq: int = 100
+    val_freq: int = 100
+    val_mesh_freq: int = 500
+    # pending async validations (running + queued) at most; on overflow the
+    # oldest not-yet-started ones are cancelled (a fresher snapshot wins)
+    val_queue_cap: int = 2
+    validate_resolution_level: int = 1
     silhouette_res: int = 0  # 0 => derived from max_ray_num
     sil_buckets: Sequence[int] = ()
     gt_render_res: int = 0  # 0 => the selection resolution
     clip_stop_iter: int = 30010
+    # periodic validations on a worker thread against a snapshot of the fields
+    async_validation: bool = True
 
     @property
     def sil_res(self) -> int:
@@ -125,6 +147,10 @@ def make_lr_schedule(tc: TrainConfig):
         return tc.learning_rate * factor
 
     return sched
+
+
+def to8b(x: np.ndarray) -> np.ndarray:
+    return (255 * np.clip(x, 0, 1)).astype(np.uint8)
 
 
 def cos_anneal_ratio(tc: TrainConfig, it: int) -> float:
@@ -193,6 +219,25 @@ def load_reference_pth(path: str, fields: nets.NeuSFields) -> None:
         fields.variance.variance.copy_(torch.as_tensor(ck["variance_network_fine"]["variance"]))
 
 
+def save_reference_pth(path: str, fields: nets.NeuSFields) -> None:
+    """Write weight-normed fields in the layout load_reference_pth reads."""
+
+    def net_state(net):
+        sd = {}
+        for i, layer in enumerate(net.layers):
+            sd[f"lin{i}.weight_g"], sd[f"lin{i}.weight_v"] = layer.g, layer.v
+            sd[f"lin{i}.bias"] = layer.b
+        if getattr(net, "extra", None) is not None:
+            sd["extra_lin.weight_g"], sd["extra_lin.weight_v"] = net.extra.g, net.extra.v
+            sd["extra_lin.bias"] = net.extra.b
+        return {k: v.detach().cpu() for k, v in sd.items()}
+
+    torch.save({"sdf_network_fine": net_state(fields.sdf),
+                "color_network_fine": net_state(fields.color),
+                "variance_network_fine": {"variance": fields.variance.variance.detach().cpu()}},
+               path)
+
+
 _CKPT_RE = re.compile(r"ckpt_(\d+)$")
 
 
@@ -214,14 +259,18 @@ def latest_checkpoint(base_dir: str, end_iter: int | None = None) -> str | None:
 
 
 class Runner:
+    """``device``: the card (the default, ``"cuda"``), or the CPU only when
+    asked for (``"cpu"``). Asking for CUDA without a card raises."""
+
     def __init__(self, conf_path: str | None, mode: str = "train", case: str = "CASE_NAME",
                  is_continue: bool = False, conf=None, device=None):
         self.conf_path = conf_path
         self.conf = conf if conf is not None else config_mod.parse_file(conf_path, case=case)
         conf = self.conf
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Runner: CUDA was asked for but torch.cuda.is_available() is false; "
+                               "pass device='cpu' (--device cpu) to run on the CPU")
         self.base_exp_dir = conf.get_string("general.base_exp_dir")
         os.makedirs(self.base_exp_dir, exist_ok=True)
         self.dataset = SMPLViewDataset(conf["dataset"], self.device)
@@ -271,6 +320,9 @@ class Runner:
         self._template = None
         self.step_seconds: list[float] = []  # wall time of each step, synchronised
         self.step_sil_res: list[int] = []  # silhouette bucket of each train_clip step
+        self._val_futures: list = []
+        self._val_dropped = 0
+        self.val_seconds: list[tuple[str, int, float]] = []  # (name, iter, s), synchronised
         if mode.startswith("train"):
             self.file_backup()
 
@@ -304,7 +356,7 @@ class Runner:
 
     def init_smpl(self):
         """Pose the template body into the NeuS world frame (main.py:290-335)."""
-        from avatarclip_tpu.export import mesh_io
+        from ..export import mesh_io
 
         template_obj = self.conf.get_string("dataset.template_obj", None)
         model = assets.load_smpl(self.conf.get_string("general.smpl_model_path", None))
@@ -585,7 +637,7 @@ class Runner:
         return metrics
 
     def train(self):
-        self.logger = MetricsLogger(os.path.join(self.base_exp_dir, "logs"), use_tensorboard=False)
+        self.logger = MetricsLogger(os.path.join(self.base_exp_dir, "logs"))
 
         def step():
             loss, metrics = self.photometric_loss(self.draw_photometric(), self.iter_step)
@@ -596,10 +648,11 @@ class Runner:
             metrics = self._timed(step)
             self.iter_step += 1
             self._post_iter(metrics)
+        self._drain_validations()
         self.logger.close()
 
     def train_clip(self):
-        self.logger = MetricsLogger(os.path.join(self.base_exp_dir, "logs"), use_tensorboard=False)
+        self.logger = MetricsLogger(os.path.join(self.base_exp_dir, "logs"))
         if self._clip is None:
             self.init_clip()
         if self._template is None:
@@ -623,6 +676,7 @@ class Runner:
             metrics = self._timed(step)
             self.iter_step += 1
             self._post_iter(metrics)
+        self._drain_validations()
         self.logger.close()
 
     def _post_iter(self, metrics):
@@ -637,6 +691,222 @@ class Runner:
                   f"lr={self.lr_schedule(self.update_count):.6f}")
         if it % tc.save_freq == 0:
             self.save_checkpoint()
+        if it % tc.val_freq == 0:
+            self._submit_validation(self.validate_image,
+                                    idx=58 if self.mode == "train_clip" else -1)
+        if it % tc.val_mesh_freq == 0:
+            self._submit_validation(self.validate_mesh)
+
+    # -- asynchronous validation (appearance.py:1100-1161) --------------------
+    #
+    # With tc.async_validation the periodic validations run on one worker
+    # thread against a snapshot of the fields, so the host side of a
+    # validation (marching cubes, PNG / PLY encoding) overlaps training. Adam
+    # updates the fields in place, so the snapshot is a deep copy on the
+    # device, taken at submission. The queue is bounded at tc.val_queue_cap:
+    # the oldest not-yet-started validations are cancelled (counted in
+    # _val_dropped); worker exceptions re-raise at the next submission or at
+    # the drain that ends each train loop.
+
+    @functools.cached_property
+    def _val_executor(self):
+        from concurrent.futures import ThreadPoolExecutor
+
+        def deprioritize():
+            # the train loop's dispatch thread keeps the core
+            try:
+                os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 10)
+            except (OSError, AttributeError):
+                pass
+
+        return ThreadPoolExecutor(max_workers=1, thread_name_prefix="val",
+                                  initializer=deprioritize)
+
+    def _run_validation(self, fn, kw):
+        t0 = time.perf_counter()
+        with torch.no_grad():  # grad mode is per thread
+            fn(**kw)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.val_seconds.append((fn.__name__, kw.get("it", self.iter_step),
+                                 time.perf_counter() - t0))
+
+    def _submit_validation(self, fn, **kw):
+        if not self.tc.async_validation:
+            self._run_validation(fn, kw)
+            return
+        kw.setdefault("fields", copy.deepcopy(self.fields))
+        kw.setdefault("it", self.iter_step)
+        pending = []
+        for f in self._val_futures:
+            if f.done():
+                if not f.cancelled() and f.exception() is not None:
+                    raise f.exception()
+            else:
+                pending.append(f)
+        self._val_futures = pending
+        self._val_futures.append(self._val_executor.submit(self._run_validation, fn, kw))
+        cap = max(1, self.tc.val_queue_cap)
+        i = 0
+        while len(self._val_futures) > cap and i < len(self._val_futures) - 1:
+            if self._val_futures[i].cancel():
+                self._val_futures.pop(i)
+                self._val_dropped += 1
+            else:
+                i += 1
+
+    def _drain_validations(self):
+        futs, self._val_futures = self._val_futures, []
+        for f in futs:
+            if not f.cancelled():
+                f.result()  # re-raises worker exceptions
+        if self._val_dropped:
+            print(f"[val] decimated {self._val_dropped} stale pending validation(s) "
+                  f"(val_queue_cap={self.tc.val_queue_cap})")
+            self._val_dropped = 0
+
+    # -- validation / extraction (appearance.py:1193-1433) ---------------------
+
+    def _render_chunk(self, fields, rays_o, rays_d, background_rgb):
+        """One validation chunk (appearance.py:1197-1218): the render without
+        jitter at cos_anneal_ratio 1, plus the per-ray depth and weighted
+        normal sums (with and without the inside-sphere mask)."""
+        near, far = cameras.near_far_from_sphere(rays_o, rays_d)
+        out = neus.render(fields, self.ncfg, rays_o, rays_d, near, far, generator=None,
+                          background_rgb=background_rgb, cos_anneal_ratio=1.0)
+        S = self.ncfg.n_samples + self.ncfg.n_importance
+        w = out["weights"][:, :S]
+        out["depth"] = (out["mid_z_vals"][:, :S] * w).sum(1)
+        out["normal_map"] = (out["gradients"] * w[..., None]
+                             * out["inside_sphere"][..., None]).sum(1)
+        out["normal_map_nomask"] = (out["gradients"] * w[..., None]).sum(1)
+        return out
+
+    def render_rays_chunked(self, rays_o, rays_d, background_rgb=None, keys=None, chunk=None,
+                            fields=None):
+        """Render N rays in chunks of max(batch_size, 16384) (the kernels take
+        any ray count, so the last chunk is not padded); returns a numpy dict
+        of the requested keys, gathered on the host once at the end."""
+        keys = keys or ["color_fine", "extra_color_fine"]
+        chunk = chunk or max(self.tc.batch_size, 16384)
+        fields = self.fields if fields is None else fields
+        outs: dict[str, list] = {k: [] for k in keys}
+        with torch.no_grad():
+            for start in range(0, rays_o.shape[0], chunk):
+                out = self._render_chunk(fields, rays_o[start:start + chunk],
+                                         rays_d[start:start + chunk], background_rgb)
+                for k in keys:
+                    outs[k].append(None if out[k] is None else out[k].detach())
+        return {k: None if v[0] is None else torch.cat(v, 0).float().cpu().numpy()
+                for k, v in outs.items()}
+
+    def validate_image(self, idx: int = -1, resolution_level: int = -1, fields=None, it=None):
+        """Render stored camera ``idx`` (numpy's global RNG picks one when
+        negative) and write the colour, extra-colour and normal PNGs
+        (main.py:760-820)."""
+        if idx < 0:
+            idx = int(np.random.randint(self.dataset.n_images))
+        if resolution_level < 0:
+            resolution_level = self.tc.validate_resolution_level
+        it = self.iter_step if it is None else it
+        print(f"Validate: iter: {it}, camera: {idx}")
+        rays_o, rays_d = self.dataset.gen_rays_at(idx, resolution_level)
+        H, W = rays_o.shape[0], rays_o.shape[1]
+        bg = torch.ones(1, 3, device=self.device) if self.tc.use_white_bkgd else None
+        out = self.render_rays_chunked(rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), bg,
+                                       keys=["color_fine", "extra_color_fine", "normal_map"],
+                                       fields=fields)
+        name = f"{it:08d}_0_{idx}.png"
+        for sub in ("validations_fine", "validations_extra_fine", "normals"):
+            os.makedirs(os.path.join(self.base_exp_dir, sub), exist_ok=True)
+        img = to8b(out["color_fine"].reshape(H, W, 3))
+        # the dataset view below the render, as the reference does (main.py:806-810)
+        lvl = max(1, resolution_level)
+        gt = self.dataset.images[idx].cpu().numpy()[::lvl, ::lvl]
+        img = np.concatenate([img, to8b(gt[:img.shape[0], :img.shape[1]])], axis=0)
+        write_png(os.path.join(self.base_exp_dir, "validations_fine", name), img)
+        if out["extra_color_fine"] is not None:
+            write_png(os.path.join(self.base_exp_dir, "validations_extra_fine", name),
+                      to8b(out["extra_color_fine"].reshape(H, W, 3)))
+        # normal map in the camera frame (main.py:777-798)
+        rot = np.linalg.inv(self.dataset.poses[idx][:3, :3].cpu().numpy())
+        normals = (rot[None] @ out["normal_map"][..., None])[..., 0].reshape(H, W, 3)
+        write_png(os.path.join(self.base_exp_dir, "normals", name),
+                  np.clip(normals * 128 + 128, 0, 255).astype(np.uint8))
+
+    def validate_mesh(self, world_space: bool = False, resolution: int = 256,
+                      threshold: float = 0.0, fields=None, it=None):
+        """Extract, colour-bake and export the mesh (main.py:850-919) as
+        meshes/{it:08d}.ply. ``world_space`` is a no-op for the SMPL dataset,
+        which has no scale mats (as in the JAX package)."""
+        fields = self.fields if fields is None else fields
+        it = self.iter_step if it is None else it
+
+        def query(pts):
+            return -fields.sdf.sdf(pts)[..., 0]
+
+        vertices, triangles = mc.extract_geometry(
+            self.dataset.object_bbox_min, self.dataset.object_bbox_max, resolution=resolution,
+            threshold=threshold, query_fn=query, device=self.device,
+        )
+        os.makedirs(os.path.join(self.base_exp_dir, "meshes"), exist_ok=True)
+        rgb_final, _ = self._bake_vertex_colors(vertices, fields)
+        mesh_io.write_ply(os.path.join(self.base_exp_dir, "meshes", f"{it:08d}.ply"),
+                          vertices, triangles, vertex_colors=to8b(rgb_final))
+        return vertices, triangles, rgb_final
+
+    def _bake_vertex_colors(self, vertices: np.ndarray, fields=None):
+        """6-axis ray shooting with the depth-consistency pick (main.py:858-913)."""
+        origins = [[0, 0, 2], [0, 0, -2], [0, 2, 0], [0, -2, 0], [2, 0, 0], [-2, 0, 0]]
+        rgb_final = diff_final = None
+        verts = torch.from_numpy(np.asarray(vertices, np.float32)).to(self.device)
+        for o in origins:
+            rays_o = torch.tensor(o, dtype=torch.float32, device=self.device).expand_as(verts)
+            rays_d = verts - rays_o
+            dist = rays_d.norm(dim=-1)
+            rays_d = rays_d / dist[:, None]
+            out = self.render_rays_chunked(rays_o, rays_d, None,
+                                           keys=["color_fine", "extra_color_fine", "depth"],
+                                           fields=fields)
+            color = (out["extra_color_fine"] if self.extra_color
+                     and out["extra_color_fine"] is not None else out["color_fine"])
+            depth_diff = np.abs(out["depth"] - dist.cpu().numpy())
+            if rgb_final is None:
+                rgb_final, diff_final = color.copy(), depth_diff.copy()
+            else:
+                ind = diff_final > depth_diff
+                rgb_final[ind] = color[ind]
+                diff_final[ind] = depth_diff[ind]
+        return rgb_final, diff_final
+
+    def render_geometry_cast_light(self, fields=None):
+        """Head close-up under a random cast light (main.py:634-739), written
+        to cast_light_texture_head_black.png; the light direction is drawn
+        from numpy's global RNG."""
+        hh = self.tc.head_height
+        dev = self.device
+        pose = cameras.lookat(torch.tensor([0.0, hh, 0.8], device=dev),
+                              torch.tensor([0.0, hh, 0.3], device=dev),
+                              torch.tensor([0.0, 1.0, 0.0], device=dev))
+        rays_o, rays_d = self.dataset.gen_rays_pose(pose, 0.5)
+        H, W = rays_o.shape[0], rays_o.shape[1]
+        out = self.render_rays_chunked(
+            rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), None,
+            keys=["color_fine", "extra_color_fine", "normal_map_nomask", "weight_sum"],
+            fields=fields,
+        )
+        extra = out["extra_color_fine"] if out["extra_color_fine"] is not None else out["color_fine"]
+        normals = out["normal_map_nomask"]
+        normals = normals / (np.linalg.norm(normals, axis=-1, keepdims=True) + 1e-7)
+        theta = np.random.uniform(-np.pi / 4, np.pi / 4)
+        phi = np.random.uniform(-np.pi / 4, np.pi / 4)
+        light = cameras.sphere_coord(torch.tensor(theta, dtype=torch.float32),
+                                     torch.tensor(phi, dtype=torch.float32)).numpy()
+        shading = np.clip((normals * light).sum(-1, keepdims=True), 0, 1)
+        shading[np.isnan(shading)] = 1.0
+        shading[out["weight_sum"].reshape(-1) < 0.5] = 1.0
+        img = np.clip(extra * shading, 0, 1).reshape(H, W, 3)
+        write_png(os.path.join(self.base_exp_dir, "cast_light_texture_head_black.png"), to8b(img))
 
     # -- persistence ----------------------------------------------------------
 
@@ -671,23 +941,35 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(description="AppearanceGen (PyTorch + CUDA)")
     parser.add_argument("--conf", type=str, default="./confs/base.conf")
-    parser.add_argument("--mode", type=str, default="train", choices=("train", "train_clip"))
+    parser.add_argument("--mode", type=str, default="train",
+                        choices=("train", "train_clip", "validate_mesh", "render_geometry_cast_light"))
+    parser.add_argument("--mcube_threshold", type=float, default=0.0)
+    parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
+                        help="run on the card (default) or, when asked, on the CPU")
     parser.add_argument("--is_continue", default=False, action="store_true")
     parser.add_argument("--case", type=str, default="smpl")
     parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                         help="override conf entries, e.g. --set general.base_exp_dir=/tmp/exp")
     args = parser.parse_args(argv)
+    if args.mode in ("validate_mesh", "render_geometry_cast_light"):
+        args.is_continue = True
     conf = config_mod.parse_file(args.conf, case=args.case)
     for kv in args.set:
         key, _, value = kv.partition("=")
         conf.put(key, config_mod._parse_value(value))
-    runner = Runner(args.conf, args.mode, args.case, args.is_continue, conf=conf)
+    runner = Runner(args.conf, args.mode, args.case, args.is_continue, conf=conf,
+                    device=args.device)
     if args.mode == "train":
         runner.train()
-    else:
+    elif args.mode == "train_clip":
         runner.init_clip()
         runner.init_smpl()
         runner.train_clip()
+    elif args.mode == "validate_mesh":
+        runner.validate_mesh(world_space=True, resolution=512, threshold=args.mcube_threshold)
+        runner.render_geometry_cast_light()
+    else:
+        runner.render_geometry_cast_light()
     return runner
 
 

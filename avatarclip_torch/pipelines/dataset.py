@@ -1,6 +1,7 @@
-"""Multi-view dataset for the photometric NeuS step (twin of
-avatarclip_tpu/pipelines/dataset.py): Blender-style ``transforms_train.json``
-plus N rendered PNGs, held as tensors on the chosen device."""
+"""Multi-view dataset for the photometric NeuS step and the validation renders
+(twin of avatarclip_tpu/pipelines/dataset.py): Blender-style
+``transforms_train.json`` plus N rendered PNGs, held as tensors on the chosen
+device."""
 
 from __future__ import annotations
 
@@ -61,6 +62,18 @@ class SMPLViewDataset:
         self.H, self.W = int(arr.shape[1]), int(arr.shape[2])
         self.focal = cameras.focal_from_fov(self.W, float(meta["camera_angle_x"]))
         self.image_pixels = self.H * self.W
+        self.object_bbox_min = np.array([-1.01, -1.01, -1.01], np.float32)
+        self.object_bbox_max = np.array([1.01, 1.01, 1.01], np.float32)
+
+    def gen_rays_at(self, img_idx: int, resolution_level: float = 1):
+        """Dense ray grid for one stored camera (dataset.py:295-312)."""
+        return self.gen_rays_pose(self.poses[img_idx], resolution_level)
+
+    def gen_rays_pose(self, pose, resolution_level: float = 1):
+        """Dense ray grid for an arbitrary pose (dataset.py:277-293): the
+        sensor's frustum sampled at (H // level, W // level)."""
+        H, W = int(self.H // resolution_level), int(self.W // resolution_level)
+        return cameras.pixel_grid_rays(pose, H, W, self.focal, sensor_h=self.H, sensor_w=self.W)
 
     def near_far_from_sphere(self, rays_o, rays_d):
         return cameras.near_far_from_sphere(rays_o, rays_d, clip_near=True)

@@ -1,6 +1,6 @@
-"""Synthetic views and confs for smoke runs (twin of
-avatarclip_tpu/pipelines/synthetic.py; the conf text is the JAX package's
-own ``make_conf_text``)."""
+"""Synthetic views, confs and a fitted stand-in pretrain for smoke runs
+(twin of avatarclip_tpu/pipelines/synthetic.py, whose ``make_conf_text`` is
+copied here unchanged in what it writes)."""
 
 from __future__ import annotations
 
@@ -8,8 +8,7 @@ import json
 import os
 
 import numpy as np
-
-from avatarclip_tpu.pipelines.synthetic import make_conf_text  # noqa: F401  (no JAX)
+import torch
 
 from ..utils.png import write_png
 
@@ -37,11 +36,170 @@ def write_synthetic_views(out_dir: str, n_views: int = 8, res: int = 64) -> str:
     return out_dir
 
 
-def make_runner(tmp_dir: str, scale: str = "tiny", res: int = 64, n_views: int = 4,
-                device="cpu"):
-    """Self-contained Runner at the requested scale."""
-    from avatarclip_tpu import config as config_mod
+def make_conf_text(
+    exp_dir: str,
+    data_dir: str,
+    scale: str = "tiny",  # tiny | small | full
+    end_iter: int = 10,
+    prompt: str = "a 3D rendering of a test person in unreal engine",
+) -> str:
+    if scale == "full":
+        sdf = dict(d_out=257, d_hidden=256, n_layers=4, skip=4, multires=6,
+                   use_pallas=True)
+        color = dict(d_feature=256, d_hidden=256, n_layers=2)
+        samples = dict(n_samples=32, n_importance=32, steps=4)
+        max_ray = 112 * 112
+        clip_model = "vit_b32"
+        batch = 512
+        # GT template renders at 256^2 (main.py:376) and the adaptive
+        # silhouette-resolution ladder (dataset.py:252-275)
+        extra = (
+            "gt_render_res = 256\n"
+            "    sil_buckets = [112, 134, 160, 192, 230, 256]"
+        )
+    elif scale == "small":
+        sdf = dict(d_out=129, d_hidden=128, n_layers=3, skip=3, multires=6,
+                   use_pallas=True)
+        color = dict(d_feature=128, d_hidden=128, n_layers=1)
+        samples = dict(n_samples=32, n_importance=32, steps=4)
+        max_ray = 7000
+        clip_model = "vit_b32"
+        batch = 512
+        extra = ""
+    else:
+        sdf = dict(d_out=17, d_hidden=16, n_layers=2, skip=5, multires=2)
+        color = dict(d_feature=16, d_hidden=16, n_layers=2)
+        samples = dict(n_samples=8, n_importance=8, steps=2)
+        max_ray = 256
+        clip_model = "tiny"
+        batch = 64
+        extra = "silhouette_res = 32\n    gt_render_res = 64\n    compute_dtype = float32"
+    return f"""
+general {{
+    base_exp_dir = {exp_dir}
+}}
+dataset {{
+    data_dir = {data_dir}
+}}
+train {{
+    learning_rate = 5e-4
+    learning_rate_alpha = 0.05
+    end_iter = {end_iter}
+    batch_size = {batch}
+    max_ray_num = {max_ray}
+    validate_resolution_level = 4
+    warm_up_end = 500
+    anneal_end = 0
+    use_white_bkgd = False
+    save_freq = 100000
+    val_freq = 100000
+    val_mesh_freq = 100000
+    report_freq = 100
+    igr_weight = 0.1
+    mask_weight = 1.0
+    clip_weight = 1.0
+    add_no_texture = True
+    texture_cast_light = True
+    use_face_prompt = True
+    use_back_prompt = True
+    use_silhouettes = True
+    head_height = 0.7
+    seed = 0
+    {extra}
+}}
+clip {{
+    model = {clip_model}
+    prompt = {prompt}
+    face_prompt = a 3D rendering of the face of a test person in unreal engine
+    back_prompt = a 3D rendering of the back of a test person in unreal engine
+}}
+model {{
+    sdf_network {{
+        d_out = {sdf['d_out']}
+        d_in = 3
+        d_hidden = {sdf['d_hidden']}
+        n_layers = {sdf['n_layers']}
+        skip_in = [{sdf['skip']}]
+        multires = {sdf['multires']}
+        use_pallas = {sdf.get('use_pallas', False)}
+        bias = 0.5
+        scale = 1.0
+        geometric_init = True
+        weight_norm = True
+    }}
+    variance_network {{
+        init_val = 0.3
+    }}
+    rendering_network {{
+        d_feature = {color['d_feature']}
+        mode = no_view_dir
+        d_in = 6
+        d_out = 3
+        d_hidden = {color['d_hidden']}
+        n_layers = {color['n_layers']}
+        weight_norm = True
+        multires_view = 0
+        squeeze_out = True
+        extra_color = True
+    }}
+    neus_renderer {{
+        n_samples = {samples['n_samples']}
+        n_importance = {samples['n_importance']}
+        n_outside = 0
+        up_sample_steps = {samples['steps']}
+        perturb = 1.0
+        extra_color = True
+    }}
+}}
+"""
 
+
+def template_sdf(verts, normals, pts):
+    """Signed distance of ``pts`` to a mesh, taken at its nearest vertex:
+    |p - v|, negative where p lies behind v's (outward) normal."""
+    out = []
+    for a in range(0, pts.shape[0], 8192):
+        p = pts[a:a + 8192]
+        dist, idx = torch.cdist(p, verts).min(1)
+        side = ((p - verts[idx]) * normals[idx]).sum(-1)
+        out.append(torch.where(side < 0, -dist, dist))
+    return torch.cat(out)
+
+
+def fit_template_pretrain(runner, path: str, steps: int = 500, batch: int = 16384) -> float:
+    """Fit ``runner``'s SDF net to its posed template body (``init_smpl``
+    first), a stand-in for the confs' ``train.pretrain`` (a NeuS pretrained
+    on the template, which the repo does not ship), and write the fields to
+    ``path`` for ``train.pretrain``. An untrained net's surface is a mesh of
+    wrinkles many times denser than a trained avatar's; the fitted one has
+    an avatar's surface. L1 on half uniform points in [-1, 1]^3, half within
+    ~2 cm of the template's vertices; returns the last step's loss."""
+    verts, _ = runner._template
+    normals = runner._template_normals
+    dev = verts.device
+    g = torch.Generator().manual_seed(0)
+    sdf = runner.fields.sdf
+    opt = torch.optim.Adam(sdf.parameters(), lr=1e-3)
+    half = batch // 2
+    for _ in range(steps):
+        near = verts[torch.randint(verts.shape[0], (half,), generator=g).to(dev)]
+        pts = torch.cat([(torch.rand(half, 3, generator=g) * 2 - 1).to(dev),
+                         near + 0.02 * torch.randn(half, 3, generator=g).to(dev)])
+        loss = (sdf.sdf(pts)[:, 0] - template_sdf(verts, normals, pts)).abs().mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    from .appearance import save_reference_pth
+
+    save_reference_pth(path, runner.fields)
+    return float(loss.detach())
+
+
+def make_runner(tmp_dir: str, scale: str = "tiny", res: int = 64, n_views: int = 4,
+                device=None):
+    """Self-contained Runner at the requested scale, on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    from .. import config as config_mod
     from .appearance import Runner
 
     data_dir = write_synthetic_views(os.path.join(tmp_dir, "views"), n_views=n_views, res=res)

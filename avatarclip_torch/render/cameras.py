@@ -40,6 +40,18 @@ def sphere_coord_np(theta: float, phi: float, r: float) -> np.ndarray:
     )
 
 
+def lookat(eye: torch.Tensor, at: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """Camera-to-world matrix (models/utils.py:9-27), on the inputs' device."""
+    z = eye - at
+    z = z / z.norm()
+    x = torch.linalg.cross(up, z)
+    x = x / x.norm()
+    y = torch.linalg.cross(z, x)
+    pose = torch.eye(4, dtype=eye.dtype, device=eye.device)
+    pose[:3, 0], pose[:3, 1], pose[:3, 2], pose[:3, 3] = x, y, z, eye
+    return pose
+
+
 def lookat_np(eye: np.ndarray, at: np.ndarray, up: np.ndarray) -> np.ndarray:
     z = eye - at
     z = z / np.linalg.norm(z)

@@ -4,10 +4,13 @@
 same formulas (logistic-CDF alpha, cos annealing, eikonal weighting,
 background blending). ``torch.searchsorted`` / ``torch.sort`` /
 ``torch.gather`` stand in for the JAX package's rank merges and one-hot
-gathers. With ``per_ray=True`` and the kernel gate open, `render_core` runs
-the per-ray megakernel pair (ops/fused_neus.py) and returns per-ray
-quantities only; otherwise it is the plain per-sample path. The NeRF
-background (``n_outside > 0``) is not ported yet.
+gathers. With the kernel gate open, `render_core` runs the per-ray
+megakernel pair (ops/fused_neus.py) with ``per_ray=True`` and returns
+per-ray quantities only, or with ``per_ray=False`` the point-level pair
+followed by the compositing pair (ops/fused_composite.py) and returns every
+per-sample key plus ``normals_weighted``; with the gate closed it is the
+plain per-sample path. The NeRF background (``n_outside > 0``) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -17,10 +20,10 @@ import dataclasses
 import torch
 
 from ..fields.networks import NeuSFields
-from ..ops import fused_neus
+from ..ops import fused_composite, fused_neus
 
-# test hook: None = gate on device / config; True / False forces the per-ray
-# megakernel path on / off (on a CPU tensor it runs the kernel's plain version)
+# test hook: None = gate on device / config; True / False forces the
+# megakernel path on / off (on a CPU tensor it runs the kernels' plain versions)
 _FORCE_MEGA: bool | None = None
 # narrower nets stay on the plain path (as in the JAX package)
 _MIN_KERNEL_WIDTH = 128
@@ -94,9 +97,9 @@ def cat_z_vals(sdf_fn, rays_o, rays_d, z_vals, new_z_vals, sdf, last: bool):
     return z_sorted, torch.cat([sdf, new_sdf], -1).gather(1, order)
 
 
-def _use_mega(fields: NeuSFields, rays_o, per_ray: bool, S: int) -> bool:
-    if not per_ray:
-        return False
+def _use_mega(fields: NeuSFields, rays_o, S: int) -> bool:
+    """The JAX package's gate (render/neus.py:331-353): both nets ask for
+    kernels, d_hidden >= 128, a CUDA tensor, and a spec the kernels take."""
     if _FORCE_MEGA is not None:
         use = _FORCE_MEGA
     else:
@@ -113,14 +116,21 @@ def render_core(fields: NeuSFields, cfg: NeuSConfig, rays_o, rays_d, z_vals,
 
     ``per_ray=True`` (training steps) takes the per-ray megakernel path when
     the gate is open: the dict then carries per-ray quantities only (the
-    per-sample keys are None) plus ``normals_weighted``."""
+    per-sample keys are None) plus ``normals_weighted``. With the gate open
+    and ``per_ray=False`` (validation renders) the point-level pair and the
+    compositing pair carry the pass; the dict has every key plus
+    ``normals_weighted``."""
     R, S = z_vals.shape
     dists = z_vals[:, 1:] - z_vals[:, :-1]
     dists = torch.cat([dists, torch.full_like(dists[:, :1], sample_dist)], -1)
     mid_z = z_vals + dists * 0.5
     inv_s = fields.variance.inv_s().clamp(1e-6, 1e6)
 
-    if _use_mega(fields, rays_o, per_ray, S):
+    use_mega = _use_mega(fields, rays_o, S)
+    if use_mega and not per_ray:
+        return _render_core_points(fields, cfg, rays_o, rays_d, mid_z, dists, inv_s,
+                                   cos_anneal_ratio, background_rgb, R, S)
+    if use_mega:
         col_w, normals_w, weight_sum, gradient_error = fused_neus.point_eval_ray(
             fields.sdf, fields.color, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal_ratio
         )
@@ -187,6 +197,33 @@ def render_core(fields: NeuSFields, cfg: NeuSConfig, rays_o, rays_d, z_vals,
         "gradients": gradients, "s_val": 1.0 / inv_s, "mid_z_vals": mid_z,
         "weights": weights, "cdf": c.reshape(R, S), "gradient_error": gradient_error,
         "inside_sphere": inside_sphere,
+    }
+
+
+def _render_core_points(fields, cfg, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal_ratio,
+                        background_rgb, R: int, S: int):
+    """render_core's kernel path for ``per_ray=False`` (the JAX package's
+    `_render_core_fused`): the point-level pair, then the compositing pair."""
+    sdf, gradients, raw_color, alpha_f, cdf_f, inside_f, gradient_error = fused_neus.point_eval(
+        fields.sdf, fields.color, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal_ratio
+    )
+    gradients = gradients.reshape(R, S, 3)
+    weights, color, extra_color, normals_w = fused_composite.composite(
+        alpha_f.reshape(R, S), raw_color.reshape(R, S, raw_color.shape[-1]), gradients
+    )
+    if not cfg.extra_color:
+        extra_color = None
+    if background_rgb is not None:
+        weights_sum = weights.sum(-1, keepdim=True)
+        if cfg.extra_color:
+            extra_color = extra_color + background_rgb * (1.0 - weights_sum)
+        else:
+            color = color + background_rgb * (1.0 - weights_sum)
+    return {
+        "color": color, "extra_color": extra_color, "sdf": sdf, "dists": dists,
+        "gradients": gradients, "s_val": 1.0 / inv_s, "mid_z_vals": mid_z, "weights": weights,
+        "cdf": cdf_f.reshape(R, S), "gradient_error": gradient_error,
+        "inside_sphere": inside_f.reshape(R, S).detach(), "normals_weighted": normals_w,
     }
 
 

@@ -1,7 +1,7 @@
 """Parameters from the JAX package into the port's modules.
 
 The JAX parameter pytree, flattened to numpy arrays by
-``avatarclip_tpu.utils.pytree.tree_flatten_paths`` (keys like
+``tree_flatten_paths`` (utils/pytree.py; keys like
 ``sdf/layers/0/g``), maps onto the port by path: the networks' state-dict
 keys are the same paths with ``.`` for ``/`` and the same (out, in) weight
 layout, so no transposes are needed. The CLIP tree keeps its nesting as a
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from avatarclip_tpu.utils.pytree import tree_unflatten_paths
+from .pytree import tree_unflatten_paths
 
 
 def params_from_jax(flat: dict, module: nn.Module | None = None, prefix: str = ""):

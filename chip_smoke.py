@@ -3,25 +3,49 @@
 
 Run from the root of a checkout, with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # everything below
+    python3 chip_smoke.py --kernels-only   # phases 1-3 (build, check, time);
+                                           # launches print as null
 
 Phases (any failure exits non-zero; nothing falls back to the CPU or to a
 kernel's plain version):
   1. the device: a CUDA card must be present; prints nvidia-smi's name and
      power limit;
-  2. builds the CUDA kernels from avatarclip_torch/csrc (nvcc, sm_90a) and
-     prints the build seconds;
-  3. holds each kernel against its plain PyTorch version on the card (the
-     tiled z-buffer on the template at 256^2 and 128^2 and on a random
-     triangle soup, exactly but for near-ties; the NeuS megakernel pair
-     forward and backward at 256 and 128 wide on 2,048 rays x 64 samples,
-     against the plain version evaluated in float64, outputs to 1e-4 and
-     gradients to 1e-3 of their largest magnitude) and times kernel and plain version
-     at the main path's shapes (12,544 rays x 64 samples, 4x256 / 2x256 nets;
-     a 256^2 template raster);
-  4. runs the main path: ``avatarclip_torch.pipelines.appearance.main`` with
-     ``--mode train_clip`` for 8 steps on the full-width synthetic conf, and
-     checks the losses, the kernel launch counts and the steps taken.
+  2. builds the CUDA kernels from avatarclip_torch/csrc (one nvcc per
+     library for sm_90a, all at once) and the host marching-cubes library
+     (g++), and prints the build seconds;
+  3. holds each kernel against its plain PyTorch version on the card and
+     times both at the main path's shapes:
+     - B2, the tiled z-buffer: the template at 256^2 and 128^2 and a random
+       triangle soup, exactly but for near-ties; timed on the 256^2 template;
+     - B1, the per-ray NeuS pair, and B3, the point-level NeuS pair: forward
+       and backward at 256 and 128 wide on 2,048 rays x 64 samples against
+       the plain version evaluated in float64, outputs to 1e-4 and gradients
+       to 1e-3 of their largest magnitude; B3's forward also under no_grad
+       at the validation chunk of 16,384 rays x 64 and at a ragged 16,347
+       (4x256 / 2x256 nets); B1 timed at the training step's 12,544 rays x
+       64, B3 at 16,384 rays x 64;
+     - B4, the compositing pair: rgb width 6 and 3 on 2,048 rays x 64 against
+       float64, same tolerances, and its forward under no_grad at 16,384 and
+       16,347 rays; timed at 16,384 rays x 64;
+     each kernel's bound is max(FLOPs / peak, bytes / 3.35 TB/s) for the
+     work of that call (f32 CUDA-core peak 67 TFLOP/s, the type the kernels
+     compute in; the bf16 tensor-core bound at 989 TFLOP/s is printed too);
+  4. fits the full-width SDF to the template body and writes it as the
+     conf's ``train.pretrain`` (the confs start from a NeuS pretrained on
+     the template, which the repo does not ship; an untrained net's meshes
+     are many times denser than an avatar's), then runs the main path
+     through ``avatarclip_torch.pipelines.appearance.main`` on the
+     full-width synthetic conf (60 views) with that pretrain, each path with
+     the launch counts set to 0 just before it and read just after:
+     a. ``--mode train_clip`` for 8 steps with val_freq = val_mesh_freq =
+        save_freq = 8 (asynchronous validation on, as in the confs): step 8
+        validates an image (camera 58), extracts and bakes a 256^3 mesh and
+        saves a checkpoint;
+     b. ``--mode validate_mesh --is_continue``: the 512^3 extraction with
+        its colour baking, then the cast-light head render;
+     and checks the losses, the artifacts, and the launch counts against the
+     chunk counts predicted from the ray counts.
 Prints a {"kernels": [...]} JSON line, then as the last line
 {"ok": true, "device": {...}}.
 """
@@ -40,9 +64,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_STEPS = 8
+N_VIEWS = 60  # train_clip validates camera 58
 NEAR_TIE = 1e-6  # relative inverse-depth gap under which two winners may differ
-OUT_TOL = 1e-4  # NeuS outputs, relative to the output's largest magnitude
-GRAD_TOL = 1e-3  # NeuS gradients (f32 sums over 131k points), same measure
+OUT_TOL = 1e-4  # kernel outputs, relative to the output's largest magnitude
+GRAD_TOL = 1e-3  # kernel gradients (f32 sums over 131k points), same measure
+PEAK_F32 = 67e12  # H100 SXM, FLOP/s outside the tensor cores
+PEAK_BF16 = 989e12  # H100 SXM, dense bf16 tensor cores
+HBM = 3.35e12  # bytes/s
+VAL_CHUNK = 16384  # render_rays_chunked's chunk: max(batch_size, 16384)
+PRETRAIN_L1 = 0.05  # the template fit's last mean |sdf - target| (CPU fits end near 0.02)
 
 
 def fail(msg: str) -> None:
@@ -51,8 +81,9 @@ def fail(msg: str) -> None:
 
 def rel_err(a, b) -> tuple[float, float]:
     """(max |a - b|, that over max |b|)."""
-    err = float((a.float() - b.float()).abs().max())
-    return err, err / max(float(b.float().abs().max()), 1e-12)
+    a, b = a.detach().float(), b.detach().float()
+    err = float((a - b).abs().max())
+    return err, err / max(float(b.abs().max()), 1e-12)
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -68,6 +99,27 @@ def cuda_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_once(fn) -> float:
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: max(FLOPs / f32 peak, bytes / HBM
+    rate), which of the two bounds it, and the FLOPs bound at the bf16
+    tensor-core peak."""
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / HBM * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "bound_ms_bf16_tc": flops / PEAK_BF16 * 1e3}
 
 
 # ---------------------------------------------------------------------------
@@ -127,14 +179,23 @@ def check_zbuffer(runner, dev):
     pose = torch.as_tensor(cam["pose"], device=dev)
     proj = raster.project_vertices(template_v, pose, 256, 256, ds.focal)
     coef, valid = raster._face_coefficients(proj, faces)
-    args = (coef, valid, proj.sx[faces], proj.sy[faces], 256, 256)
+    sx, sy = proj.sx[faces], proj.sy[faces]
+    args = (coef, valid, sx, sy, 256, 256)
     ms = cuda_ms(lambda: rz.zbuffer_select_tiled(*args), reps=20)
     plain_ms = cuda_ms(lambda: rz.zbuffer_select_tiled_plain(*args), reps=5)
-    print(f"[B2] 256^2 template ({faces.shape[0]} faces): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # the work this image needs: every (pixel, valid face) pair inside the
+    # face's screen bbox gets 3 edge tests and an inverse depth (~17 FLOPs)
+    nx = (sx.amax(1).clamp(0, 255).floor() - sx.amin(1).clamp(0, 255).ceil() + 1).clamp_min(0)
+    ny = (sy.amax(1).clamp(0, 255).floor() - sy.amin(1).clamp(0, 255).ceil() + 1).clamp_min(0)
+    pairs = float((nx * ny * valid.float()).sum())
+    F = faces.shape[0]
+    b = bound(17.0 * pairs, F * (48 + 4 + 24) + 256 * 256 * 4)
+    print(f"[B2] 256^2 template ({F} faces, {pairs:.0f} bbox pixel-face pairs): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
     return {"name": "zbuffer_tiled", "route": "cuda",
             "source": "avatarclip_torch/csrc/raster_zbuffer.cu",
             "replaces": "avatarclip_tpu/ops/raster_zbuffer.py:266",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b}
 
 
 def runner_lookat(eye):
@@ -146,7 +207,7 @@ def runner_lookat(eye):
 
 
 # ---------------------------------------------------------------------------
-# B1: the per-ray NeuS megakernel pair
+# B1 and B3: the NeuS megakernel pairs
 # ---------------------------------------------------------------------------
 
 
@@ -192,98 +253,357 @@ def neus_problem(width: int, n_rays: int, dev, seed: int = 0):
     # random-sign ones a weight gradient is a random walk over 131k points,
     # and one ReLU of the colour net flipping between f32 and f64 moves it by
     # ~1/sqrt(131k) of its size
+    P = n_rays * S
     probes = [0.5 + torch.rand(n_rays, 6, generator=g), 0.5 + torch.rand(n_rays, 3, generator=g),
               0.5 + torch.rand(n_rays, 1, generator=g), 0.5 + torch.rand((), generator=g)]
-    return fields, [t.to(dev) for t in (rays_o, rays_d, mid, dists)], [t.to(dev) for t in probes]
+    point_probes = [0.5 + torch.rand(P, k, generator=g) for k in (1, 3, 6)]
+    point_probes += [0.5 + torch.rand(P, generator=g) for _ in range(2)]
+    point_probes.append(0.5 + torch.rand((), generator=g))
+    return (fields, [t.to(dev) for t in (rays_o, rays_d, mid, dists)],
+            [t.to(dev) for t in probes], [t.to(dev) for t in point_probes])
 
 
-def neus_loss(fn, fields, inputs, probes, cos_r=0.4):
-    col, nw, ws, ge = fn(fields.sdf, fields.color, *inputs, fields.variance.inv_s(), cos_r)
-    loss = (col * probes[0]).sum() + (nw * probes[1]).sum() + (ws * probes[2]).sum() + ge * probes[3]
-    return (col, nw, ws, ge), loss
+def neus_gemm_flops(spec) -> tuple[float, float]:
+    """(forward, backward) GEMM FLOPs per point of the NeuS kernel pairs, from
+    the network dims (the elementwise work, ~1-2% more, is not counted). The
+    forward: SDF stack, the spatial-gradient reverse sweep, the colour MLP.
+    The backward: SDF and colour primal stacks again (the gradient comes back
+    as a residual), the colour reverse and the forward-over-reverse SDF pass."""
+    d = spec.dims()
+    E, H, NH, SW, F1, CW, HC, NHC, W = d.E, d.H, d.NH, d.SW, 1 + d.F, d.CW, d.HC, d.NHC, d.W
+    sdf_fwd = 2 * E * H + (NH - 1) * 2 * H * H + 2 * H * SW + 2 * H * F1
+    sweep = 2 * SW * H + (NH - 1) * 2 * H * H + 2 * H * E
+    col_fwd = 2 * CW * HC + (NHC - 1) * 2 * HC * HC + 2 * HC * W
+    col_rev = 4 * HC * W + (NHC - 1) * 4 * HC * HC + 4 * HC * CW
+    sdf_rev = (2 * E * H + (NH - 1) * 2 * H * H + 2 * H * SW  # tangent forward
+               + 4 * F1 * H + 8 * SW * H + 8 * H * E + (NH - 1) * 8 * H * H)
+    return float(sdf_fwd + sweep + col_fwd), float(sdf_fwd + col_fwd + col_rev + sdf_rev)
 
 
-def neus_grads(fn, fields, inputs, probes):
+def neus_grads(fn, fields, inputs, probes, n_out):
+    """Outputs and gradients (parameters, then inputs) of sum(probe * out)."""
     import torch
 
     ins = [t.clone().requires_grad_(True) for t in inputs]
-    outs, loss = neus_loss(fn, fields, ins, probes)
-    params = list(fields.parameters())
-    grads = torch.autograd.grad(loss, params + ins)
-    return [o.detach() for o in outs], grads
+    outs = fn(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4)
+    used = [o for i, o in enumerate(outs) if i in n_out]
+    loss = sum((o * p).sum() for o, p in zip(used, probes))
+    grads = torch.autograd.grad(loss, list(fields.parameters()) + ins)
+    return [o.detach() for o in used], grads
 
 
-def check_neus(dev):
+def hold_against_f64(tag, kernel_fn, plain_fn, out_names, n_out, probe_idx, dev):
+    """The kernel vs the plain version in f64 (and the plain version in f32
+    beside it) at 256 and 128 wide on 2,048 rays x 64 samples."""
     import torch
 
-    from avatarclip_torch.ops import fused_neus as fn
-
-    worst_f, worst_b = 0.0, 0.0
+    worst_f = worst_b = 0.0
     for width in (256, 128):
-        fields, inputs, probes = neus_problem(width, 2048, dev)
-        outs_k, grads_k = neus_grads(fn.point_eval_ray, fields, inputs, probes)
-        outs_p, grads_p = neus_grads(fn.point_eval_ray_plain, fields, inputs, probes)
+        fields, inputs, probes, point_probes = neus_problem(width, 2048, dev)
+        probes = probes if probe_idx == "ray" else point_probes
+        outs_k, grads_k = neus_grads(kernel_fn, fields, inputs, probes, n_out)
+        outs_p, grads_p = neus_grads(plain_fn, fields, inputs, probes, n_out)
         # the plain version in float64 on the same (f32-valued) inputs is the
         # reference: it tells summation-order noise of either f32 side apart
         f64 = copy.deepcopy(fields).double()
-        outs_r, grads_r = neus_grads(fn.point_eval_ray_plain, f64, [t.double() for t in inputs],
-                                     [p.double() for p in probes])
+        outs_r, grads_r = neus_grads(plain_fn, f64, [t.double() for t in inputs],
+                                     [p.double() for p in probes], n_out)
         torch.cuda.synchronize()
         names = [n for n, _ in fields.named_parameters()] + ["rays_o", "rays_d", "mid_z", "dists"]
         rel_f = rel_b = rel_pb = 0.0
-        for nm, a, b in zip(("colorW", "normals_w", "weight_sum", "gradient_error"), outs_k, outs_r):
-            err, rel = rel_err(a, b)
+        for nm, a, b in zip(out_names, outs_k, outs_r):
+            err, rel = rel_err(a, b.reshape(a.shape))
             if not rel <= OUT_TOL or not torch.isfinite(a).all():
-                fail(f"NeuS forward {width}-wide {nm}: rel err {rel:.2e} > {OUT_TOL}")
+                fail(f"{tag} forward {width}-wide {nm}: rel err {rel:.2e} > {OUT_TOL}")
             worst_f, rel_f = max(worst_f, err), max(rel_f, rel)
         for nm, a, p, b in zip(names, grads_k, grads_p, grads_r):
             err, rel = rel_err(a, b)
             if not rel <= GRAD_TOL or not torch.isfinite(a).all():
-                fail(f"NeuS backward {width}-wide d/d {nm}: rel err {rel:.2e} > {GRAD_TOL}")
+                fail(f"{tag} backward {width}-wide d/d {nm}: rel err {rel:.2e} > {GRAD_TOL}")
             worst_b, rel_b = max(worst_b, err), max(rel_b, rel)
             rel_pb = max(rel_pb, rel_err(p, b)[1])
-        rel_pf = max(rel_err(p, b)[1] for p, b in zip(outs_p, outs_r))
-        print(f"[B1] {width}-wide, 2048 rays x 64 samples vs the plain version in f64: forward "
+        rel_pf = max(rel_err(p, b.reshape(p.shape))[1] for p, b in zip(outs_p, outs_r))
+        print(f"[{tag}] {width}-wide, 2048 rays x 64 samples vs the plain version in f64: forward "
               f"and all {len(names)} gradients within tolerance; worst relative err kernel "
               f"fwd {rel_f:.3e} bwd {rel_b:.3e}, plain f32 fwd {rel_pf:.3e} bwd {rel_pb:.3e}; "
               f"kernel max abs err fwd {worst_f:.3e}, bwd {worst_b:.3e}")
         del f64, outs_r, grads_r
+        torch.cuda.empty_cache()
+    return worst_f, worst_b
+
+
+def check_neus_ray(dev):
+    import torch
+
+    from avatarclip_torch.ops import fused_neus as fn
+
+    worst_f, worst_b = hold_against_f64(
+        "B1", fn.point_eval_ray, fn.point_eval_ray_plain,
+        ("colorW", "normals_w", "weight_sum", "gradient_error"), (0, 1, 2, 3), "ray", dev)
 
     # time at the main path's shapes: 12,544 rays x 64 samples, 4x256 / 2x256
-    fields, inputs, probes = neus_problem(256, 12544, dev, seed=1)
+    R = 12544
+    fields, inputs, probes, _ = neus_problem(256, R, dev, seed=1)
     times = {}
     for name, f in (("kernel", fn.point_eval_ray), ("plain", fn.point_eval_ray_plain)):
-        fwd_ms = cuda_ms(lambda: neus_loss(f, fields, inputs, probes), reps=3)
+        fwd_ms = cuda_ms(lambda: neus_grads_loss(f, fields, inputs, probes), reps=3)
         bwd_total = 0.0
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(3):
             ins = [t.clone().requires_grad_(True) for t in inputs]
-            _, loss = neus_loss(f, fields, ins, probes)
+            loss = neus_grads_loss(f, fields, ins, probes)
             torch.cuda.synchronize()
             bwd_total += cuda_ms_once(lambda: torch.autograd.grad(loss, list(fields.parameters()) + ins))
-        times[name] = (fwd_ms, bwd_total / 3)
+        times[name] = (fwd_ms, bwd_total / 3, torch.cuda.max_memory_allocated() / 2**30)
         del ins, loss
         torch.cuda.empty_cache()
-    print(f"[B1] 12544 rays x 64 samples, 4x256/2x256: forward kernel {times['kernel'][0]:.3f} ms "
-          f"(plain {times['plain'][0]:.3f} ms); backward kernel {times['kernel'][1]:.3f} ms "
-          f"(plain {times['plain'][1]:.3f} ms)")
-    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_neus_ray.cu"}
+    spec = fn.spec_from_configs(fields.sdf.cfg, fields.color.cfg, 64)
+    P, n_w = R * 64, sum(t.numel() for t in fn.dense_weights(fields.sdf, fields.color))
+    fl_f, fl_b = neus_gemm_flops(spec)
+    Wd = spec.rgb_width
+    b_f = bound(fl_f * P, 4 * (n_w + 6 * R + 2 * P + (Wd + 4) * R + 4 * P + 2))
+    b_b = bound(fl_b * P, 4 * (n_w + 6 * R + 2 * P + 4 * P + (Wd + 4) * R + 2
+                               + 6 * R + 2 * P + n_w + 1))
+    print(f"[B1] {R} rays x 64 samples, 4x256/2x256: forward kernel {times['kernel'][0]:.3f} ms "
+          f"(plain {times['plain'][0]:.3f} ms, bound {b_f['bound_ms']:.3f} ms {b_f['bound_by']}, "
+          f"bf16 tensor-core bound {b_f['bound_ms_bf16_tc']:.3f} ms); backward kernel "
+          f"{times['kernel'][1]:.3f} ms (plain {times['plain'][1]:.3f} ms, bound "
+          f"{b_b['bound_ms']:.3f} ms {b_b['bound_by']}, bf16 {b_b['bound_ms_bf16_tc']:.3f} ms); "
+          f"{fl_f:.0f} / {fl_b:.0f} GEMM FLOPs per point; peak memory kernel "
+          f"{times['kernel'][2]:.2f} GiB, plain {times['plain'][2]:.2f} GiB")
+    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_neus_ray.cu",
+              "library_ms": None}
     return [
         {"name": "neus_ray_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_neus.py:403",
-         "max_abs_err": worst_f, "ms": times["kernel"][0], "plain_ms": times["plain"][0]},
+         "max_abs_err": worst_f, "ms": times["kernel"][0], "plain_ms": times["plain"][0], **b_f},
         {"name": "neus_ray_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_neus.py:620",
-         "max_abs_err": worst_b, "ms": times["kernel"][1], "plain_ms": times["plain"][1]},
+         "max_abs_err": worst_b, "ms": times["kernel"][1], "plain_ms": times["plain"][1], **b_b},
     ]
 
 
-def cuda_ms_once(fn) -> float:
+def neus_grads_loss(fn, fields, inputs, probes):
+    col, nw, ws, ge = fn(fields.sdf, fields.color, *inputs, fields.variance.inv_s(), 0.4)
+    return (col * probes[0]).sum() + (nw * probes[1]).sum() + (ws * probes[2]).sum() + ge * probes[3]
+
+
+def hold_point_fwd_at_chunk(fields, inputs) -> float:
+    """B3 forward through its wrapper under no_grad, as validation runs it, at
+    the main path's chunk (16,384 rays) and at a ragged last chunk (37 rays
+    fewer), against the plain version in f64 (evaluated 4,096 rays at a
+    time); the max abs error."""
     import torch
 
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
+    from avatarclip_torch.ops import fused_neus as fn
+
+    f64 = copy.deepcopy(fields).double()
+    names = ("sdf", "grad", "rgb", "alpha", "cdf")
+    worst = 0.0
+    for R in (VAL_CHUNK, VAL_CHUNK - 37):
+        ins = [t[:R].contiguous() for t in inputs]
+        with torch.no_grad():
+            got = fn.point_eval(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4)
+            ref = [[] for _ in names]
+            for a in range(0, R, 4096):
+                part = fn.point_eval_plain(f64.sdf, f64.color, *[t[a:a + 4096].double() for t in ins],
+                                           f64.variance.inv_s(), 0.4)
+                for acc, t in zip(ref, part):
+                    acc.append(t.detach())
+            ref = [torch.cat(acc) for acc in ref]
+            ro, rd, mid, _ = [t.double() for t in ins]
+            r2 = ((ro[:, None] + rd[:, None] * mid[..., None]) ** 2).sum(-1).reshape(-1)
+            relax = (r2 < 1.44).double()
+            ge = (torch.sqrt((ref[1] ** 2).sum(-1) + 1e-12) - 1.0) ** 2
+            ref.append((relax * ge).sum() / (relax.sum() + 1e-5))
+        torch.cuda.synchronize()
+        rels = []
+        for nm, a, b in zip(names + ("gradient_error",), [got[i] for i in (0, 1, 2, 3, 4, 6)], ref):
+            err, rel = rel_err(a, b.reshape(a.shape))
+            if not rel <= OUT_TOL or not torch.isfinite(a).all():
+                fail(f"B3 forward at {R} rays x 64, {nm}: rel err {rel:.2e} > {OUT_TOL}")
+            worst = max(worst, err)
+            rels.append(rel)
+        print(f"[B3] forward under no_grad at {R} rays x 64 samples, 4x256/2x256, vs the plain "
+              f"version in f64: worst relative err {max(rels):.3e}, max abs err {worst:.3e}")
+        del got, ref
+    del f64
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_neus_point(dev):
+    import torch
+
+    from avatarclip_torch.ops import fused_neus as fn
+
+    worst_f, worst_b = hold_against_f64(
+        "B3", fn.point_eval, fn.point_eval_plain,
+        ("sdf", "grad", "rgb", "alpha", "cdf", "gradient_error"), (0, 1, 2, 3, 4, 6), "point", dev)
+
+    R = VAL_CHUNK
+    fields, inputs, _, probes = neus_problem(256, R, dev, seed=2)
+    worst_f = max(worst_f, hold_point_fwd_at_chunk(fields, inputs))
+
+    # time at the validation chunk: 16,384 rays x 64 samples, 4x256 / 2x256;
+    # the kernels through their wrappers, the plain version forward under
+    # no_grad (as validation runs) and its backward through autograd
+    spec = fn.spec_from_configs(fields.sdf.cfg, fields.color.cfg, 64)
+    weights = [w.detach().contiguous() for w in fn.dense_weights(fields.sdf, fields.color)]
+    flat = torch.cat([w.reshape(-1) for w in weights])
+    inv_s = fields.variance.inv_s().detach().reshape(()).contiguous()
+    ro, rd, mid, dists = [t.contiguous() for t in inputs]
+    fwd = lambda: fn.neus_point_fwd(spec, flat, ro, rd, mid, dists, inv_s, 0.4)
+    sdf_o, _, _, grad, _, _, _ = fwd()
+    P = R * 64
+    cots = [probes[0].reshape(P), probes[3], probes[4], probes[1], probes[2],
+            torch.stack([probes[5], torch.zeros((), device=dev)])]
+    bwd = lambda: fn.neus_point_bwd(spec, flat, ro, rd, mid, dists, inv_s, 0.4, sdf_o, grad, *cots)
+    torch.cuda.reset_peak_memory_stats()
+    ms_f, ms_b = cuda_ms(fwd, reps=5), cuda_ms(bwd, reps=3)
+    mem_k = torch.cuda.max_memory_allocated() / 2**30
+    del sdf_o, grad
+    with torch.no_grad():
+        plain_f = cuda_ms(lambda: fn.point_eval_plain(fields.sdf, fields.color, ro, rd, mid, dists,
+                                                      inv_s, 0.4), reps=3)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain_b = 0.0
+    for _ in range(2):
+        ins = [t.clone().requires_grad_(True) for t in inputs]
+        outs = fn.point_eval_plain(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4)
+        used = [outs[i] for i in (0, 1, 2, 3, 4, 6)]
+        loss = sum((o * p).sum() for o, p in zip(used, probes))
+        torch.cuda.synchronize()
+        plain_b += cuda_ms_once(lambda: torch.autograd.grad(loss, list(fields.parameters()) + ins))
+        del ins, outs, used, loss
+    plain_b /= 2
+    mem_p = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    n_w, Wd = flat.numel(), spec.rgb_width
+    fl_f, fl_b = neus_gemm_flops(spec)
+    b_f = bound(fl_f * P, 4 * (n_w + 6 * R + 2 * P + (7 + Wd) * P + 2))
+    b_b = bound(fl_b * P, 4 * (n_w + 6 * R + 2 * P + 4 * P + (6 + Wd) * P + 2
+                               + 6 * R + 2 * P + n_w + 1))
+    print(f"[B3] {R} rays x 64 samples, 4x256/2x256: forward kernel {ms_f:.3f} ms (plain "
+          f"{plain_f:.3f} ms, bound {b_f['bound_ms']:.3f} ms {b_f['bound_by']}, bf16 tensor-core "
+          f"bound {b_f['bound_ms_bf16_tc']:.3f} ms); backward kernel {ms_b:.3f} ms (plain "
+          f"{plain_b:.3f} ms, bound {b_b['bound_ms']:.3f} ms {b_b['bound_by']}, bf16 "
+          f"{b_b['bound_ms_bf16_tc']:.3f} ms); peak memory kernel {mem_k:.2f} GiB, plain "
+          f"{mem_p:.2f} GiB")
+    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_neus_point.cu",
+              "library_ms": None}
+    return [
+        {"name": "neus_point_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_neus.py:258",
+         "max_abs_err": worst_f, "ms": ms_f, "plain_ms": plain_f, **b_f},
+        {"name": "neus_point_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_neus.py:534",
+         "max_abs_err": worst_b, "ms": ms_b, "plain_ms": plain_b, **b_b},
+    ]
+
+
+# ---------------------------------------------------------------------------
+# B4: the compositing pair
+# ---------------------------------------------------------------------------
+
+
+def composite_problem(R, S, W, dev, seed=0):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    alpha = 0.15 * torch.rand(R, S, generator=g)
+    alpha[::7, 20] = 1.0  # opaque samples: transmittance exactly ~1e-7 past them
+    ins = [alpha, torch.rand(R, S, W, generator=g), torch.randn(R, S, 3, generator=g)]
+    cots = [0.5 + torch.rand(R, S, generator=g)] + [0.5 + torch.rand(R, 3, generator=g)
+                                                      for _ in range(3)]
+    return [t.to(dev) for t in ins], [t.to(dev) for t in cots]
+
+
+def composite_grads(fn, ins, cots):
+    import torch
+
+    xs = [t.clone().requires_grad_(True) for t in ins]
+    outs = fn(*xs)
+    return [o.detach() for o in outs], torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(outs, cots)), xs)
+
+
+def check_composite(dev):
+    import torch
+
+    from avatarclip_torch.ops import fused_composite as fc
+
+    worst_f = worst_b = 0.0
+    for W in (6, 3):
+        ins, cots = composite_problem(2048, 64, W, dev, seed=W)
+        ok, gk = composite_grads(fc.composite, ins, cots)
+        orf, grf = composite_grads(fc.composite_plain, [t.double() for t in ins],
+                                   [c.double() for c in cots])
+        torch.cuda.synchronize()
+        for nm, a, b in zip(("weights", "color", "extra", "normals_w"), ok, orf):
+            err, rel = rel_err(a, b)
+            if not rel <= OUT_TOL:
+                fail(f"B4 forward W={W} {nm}: rel err {rel:.2e} > {OUT_TOL}")
+            worst_f = max(worst_f, err)
+        for nm, a, b in zip(("alpha", "rgb", "grad"), gk, grf):
+            err, rel = rel_err(a, b)
+            if not rel <= GRAD_TOL:
+                fail(f"B4 backward W={W} d/d {nm}: rel err {rel:.2e} > {GRAD_TOL}")
+            worst_b = max(worst_b, err)
+        print(f"[B4] rgb width {W}, 2048 rays x 64 samples vs the plain version in f64: within "
+              f"tolerance; max abs err fwd {worst_f:.3e}, bwd {worst_b:.3e}")
+    # the forward alone under no_grad, as validation runs it, at the main
+    # path's chunk and at a ragged last chunk (not a multiple of a warp group)
+    for R, W in ((VAL_CHUNK, 6), (VAL_CHUNK - 37, 6), (VAL_CHUNK - 37, 3)):
+        ins, _ = composite_problem(R, 64, W, dev, seed=R + W)
+        with torch.no_grad():
+            got = fc.composite(*ins)
+            ref = fc.composite_plain(*[t.double() for t in ins])
+        torch.cuda.synchronize()
+        for nm, a, b in zip(("weights", "color", "extra", "normals_w"), got, ref):
+            err, rel = rel_err(a, b)
+            if not rel <= OUT_TOL:
+                fail(f"B4 forward at {R} rays, W={W}, {nm}: rel err {rel:.2e} > {OUT_TOL}")
+            worst_f = max(worst_f, err)
+        print(f"[B4] forward under no_grad at {R} rays x 64 samples, rgb width {W}, vs the plain "
+              f"version in f64: within tolerance; max abs err fwd {worst_f:.3e}")
+    R, S, W = VAL_CHUNK, 64, 6
+    ins, cots = composite_problem(R, S, W, dev, seed=1)
+    cots = [c.contiguous() for c in cots]
+    # the kernels alone: their C entry points on preallocated outputs (the
+    # wrappers' checks and allocations cost more host time than the kernel
+    # takes on the card, which events would count as idle gaps)
+    from avatarclip_torch.ops import _build
+
+    lib, p, st = fc._lib(), _build.ptr, _build.stream_ptr(dev)
+    outs_f = [p(t) for t in fc.composite_fwd(*ins)]
+    outs_b = [p(t) for t in fc.composite_bwd(*ins, *cots)]
+    args = [p(t) for t in ins]
+    ms_f = cuda_ms(lambda: lib.composite_fwd(R, S, W, *args, *outs_f, st), reps=50)
+    ms_b = cuda_ms(lambda: lib.composite_bwd(R, S, W, *args, *[p(c) for c in cots], *outs_b, st),
+                   reps=50)
+    wrap_f = cuda_ms(lambda: fc.composite_fwd(*ins), reps=20)
+    plain_f = cuda_ms(lambda: fc.composite_plain(*ins), reps=20)
+    # the plain backward alone: the graph is built first, then each rep
+    # times autograd's VJP with the kernel's cotangents
+    xs = [t.clone().requires_grad_(True) for t in ins]
+    outs = fc.composite_plain(*xs)
     torch.cuda.synchronize()
-    return start.elapsed_time(end)
+    plain_b = cuda_ms(lambda: torch.autograd.grad(outs, xs, cots, retain_graph=True), reps=10)
+    del outs, xs
+    P = R * S
+    b_f = bound(P * (4 + 2 * (W + 3)), 4 * (P * (1 + W + 3) + P + 9 * R))
+    b_b = bound(P * (13 + 3 * (W + 3)), 4 * (P * (2 + W + 3) + 9 * R + P * (1 + W + 3)))
+    print(f"[B4] {R} rays x {S} samples, rgb width {W}: forward kernel {ms_f:.4f} ms (through "
+          f"the wrapper {wrap_f:.4f} ms; plain {plain_f:.4f} ms, bound {b_f['bound_ms']:.4f} ms "
+          f"{b_f['bound_by']}); backward kernel "
+          f"{ms_b:.4f} ms (plain {plain_b:.4f} ms, bound "
+          f"{b_b['bound_ms']:.4f} ms {b_b['bound_by']})")
+    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_composite.cu",
+              "library_ms": None}
+    return [
+        {"name": "composite_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_composite.py:73",
+         "max_abs_err": worst_f, "ms": ms_f, "plain_ms": plain_f, **b_f},
+        {"name": "composite_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_composite.py:82",
+         "max_abs_err": worst_b, "ms": ms_b, "plain_ms": plain_b, **b_b},
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -291,30 +611,66 @@ def cuda_ms_once(fn) -> float:
 # ---------------------------------------------------------------------------
 
 
-def run_main_path(tmp: str):
+def zero_counts():
+    from avatarclip_torch.ops import fused_composite, fused_neus, raster_zbuffer
+
+    for m in (fused_composite, fused_neus, raster_zbuffer):
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] = 0
+
+
+def read_counts() -> dict:
+    from avatarclip_torch.ops import fused_composite, fused_neus, raster_zbuffer
+
+    return {**raster_zbuffer.LAUNCHES, **fused_neus.LAUNCHES, **fused_composite.LAUNCHES}
+
+
+def ply_counts(path: str) -> tuple[int, int]:
+    with open(path, "rb") as f:
+        head = f.read(4096).split(b"end_header")[0].decode()
+    nv = int(head.split("element vertex")[1].split()[0])
+    nf = int(head.split("element face")[1].split()[0])
+    return nv, nf
+
+
+def check_png(path: str):
+    from avatarclip_torch.utils.png import read_png
+
+    if not os.path.exists(path):
+        fail(f"missing {path}")
+    img = read_png(path)
+    if img.std() == 0:
+        fail(f"{path} is one constant colour")
+    return img.shape
+
+
+def run_main_path(tmp: str, pretrain: str):
     import torch
 
-    from avatarclip_torch.ops import fused_neus, raster_zbuffer
     from avatarclip_torch.pipelines import appearance, synthetic
 
-    data = synthetic.write_synthetic_views(os.path.join(tmp, "views"), n_views=4, res=256)
+    data = synthetic.write_synthetic_views(os.path.join(tmp, "views"), n_views=N_VIEWS, res=256)
     conf_path = os.path.join(tmp, "full.conf")
+    exp = os.path.join(tmp, "exp")
     with open(conf_path, "w") as f:
-        f.write(synthetic.make_conf_text(os.path.join(tmp, "exp"), data, "full"))
-    argv = ["--mode", "train_clip", "--conf", conf_path, "--set", f"train.end_iter={N_STEPS}"]
-    for k in raster_zbuffer.LAUNCHES:
-        raster_zbuffer.LAUNCHES[k] = 0
-    for k in fused_neus.LAUNCHES:
-        fused_neus.LAUNCHES[k] = 0
-    t0 = time.perf_counter()
-    runner = appearance.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {**raster_zbuffer.LAUNCHES, **fused_neus.LAUNCHES}
+        f.write(synthetic.make_conf_text(exp, data, "full"))
+    sets = [f"train.end_iter={N_STEPS}", f"train.val_freq={N_STEPS}",
+            f"train.val_mesh_freq={N_STEPS}", f"train.save_freq={N_STEPS}",
+            f"train.pretrain={pretrain}"]
+    argv = ["--conf", conf_path] + [a for kv in sets for a in ("--set", kv)]
 
+    # a. train_clip with the step-8 validations
+    zero_counts()
+    t0 = time.perf_counter()
+    runner = appearance.main(["--mode", "train_clip"] + argv)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches_a = read_counts()
     if runner.iter_step != N_STEPS:
         fail(f"main path took {runner.iter_step} steps, expected {N_STEPS}")
-    with open(os.path.join(tmp, "exp", "logs", "metrics.jsonl")) as f:
+    if not runner.tc.async_validation:
+        fail("the conf's validations are not asynchronous")
+    with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     if len(recs) != N_STEPS:
         fail(f"{len(recs)} metric records for {N_STEPS} steps")
@@ -322,23 +678,74 @@ def run_main_path(tmp: str):
         bad = [k for k, v in r.items() if not math.isfinite(v)]
         if bad:
             fail(f"step {r['step']}: non-finite {bad}")
+    if not os.path.exists(os.path.join(exp, "checkpoints", f"ckpt_{N_STEPS:06d}")):
+        fail("no step-8 checkpoint")
+    name = f"{N_STEPS:08d}_0_58.png"
+    shapes = [check_png(os.path.join(exp, sub, name))
+              for sub in ("validations_fine", "validations_extra_fine", "normals")]
+    mesh = os.path.join(exp, "meshes", f"{N_STEPS:08d}.ply")
+    if not os.path.exists(mesh):
+        fail("no step-8 mesh")
+    nv256, nt256 = ply_counts(mesh)
+    if nt256 <= 0:
+        fail("the step-8 mesh has no triangles")
+    lvl = runner.tc.validate_resolution_level
+    img_rays = (runner.dataset.H // lvl) * (runner.dataset.W // lvl)
+    chunks_a = math.ceil(img_rays / VAL_CHUNK) + 6 * math.ceil(nv256 / VAL_CHUNK)
     n_calib = 12 * 4 + 2  # coverage renders of the silhouette calibration
-    want = {"neus_ray_fwd": N_STEPS, "neus_ray_bwd": N_STEPS, "zbuffer_tiled": N_STEPS + n_calib}
-    if launches != want:
-        fail(f"kernel launches {launches}, expected {want}")
+    want = {"neus_ray_fwd": N_STEPS, "neus_ray_bwd": N_STEPS, "zbuffer_tiled": N_STEPS + n_calib,
+            "neus_point_fwd": chunks_a, "neus_point_bwd": 0,
+            "composite_fwd": chunks_a, "composite_bwd": 0}
+    if launches_a != want:
+        fail(f"path a: kernel launches {launches_a}, expected {want}")
     faces = [it for it in range(N_STEPS) if it % 4 == 0]
     if len(set(runner.step_sil_res)) < 2:
         fail(f"only one silhouette bucket used: {runner.step_sil_res}")
     median = statistics.median(runner.step_seconds[1:])
-    print(f"[main] train_clip via appearance.main: {N_STEPS} steps in {wall:.3f} s, buckets "
-          f"{runner.step_sil_res}, face-camera steps {faces}, launches {launches}")
-    print(f"[main] losses finite; loss by step {[round(r['loss'], 6) for r in recs]}")
-    print(f"[main] median step time excluding the first: {median * 1e3:.3f} ms "
+    val = {n: round(s, 3) for n, _, s in runner.val_seconds}
+    print(f"[main a] train_clip via appearance.main: {N_STEPS} steps + the step-{N_STEPS} "
+          f"validations in {wall_a:.3f} s, buckets {runner.step_sil_res}, face-camera steps "
+          f"{faces}, launches {launches_a}")
+    print(f"[main a] losses finite; loss by step {[round(r['loss'], 6) for r in recs]}")
+    print(f"[main a] median step time excluding the first: {median * 1e3:.3f} ms "
           f"(first step {runner.step_seconds[0] * 1e3:.3f} ms)")
-    return launches
+    print(f"[main a] validation seconds (worker thread, synchronised): {val}; image "
+          f"{img_rays} rays -> PNGs {shapes}; 256^3 mesh {nv256} vertices, {nt256} triangles, "
+          f"{6 * nv256} bake rays; {chunks_a} chunks of <= {VAL_CHUNK} rays")
+    del runner
+    torch.cuda.empty_cache()
+
+    # b. the validate_mesh CLI mode: 512^3 extraction, baking, cast light
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = appearance.main(["--mode", "validate_mesh", "--is_continue"] + argv)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches_b = read_counts()
+    if runner.iter_step != N_STEPS:
+        fail(f"validate_mesh did not resume the step-{N_STEPS} checkpoint")
+    nv512, nt512 = ply_counts(mesh)
+    if nt512 <= 0:
+        fail("the 512^3 mesh has no triangles")
+    cast = os.path.join(exp, "cast_light_texture_head_black.png")
+    cast_shape = check_png(cast)
+    cast_rays = cast_shape[0] * cast_shape[1]
+    chunks_b = 6 * math.ceil(nv512 / VAL_CHUNK) + math.ceil(cast_rays / VAL_CHUNK)
+    want = {"neus_ray_fwd": 0, "neus_ray_bwd": 0, "zbuffer_tiled": 0,
+            "neus_point_fwd": chunks_b, "neus_point_bwd": 0,
+            "composite_fwd": chunks_b, "composite_bwd": 0}
+    if launches_b != want:
+        fail(f"path b: kernel launches {launches_b}, expected {want}")
+    print(f"[main b] validate_mesh via appearance.main in {wall_b:.3f} s: 512^3 mesh {nv512} "
+          f"vertices, {nt512} triangles, {6 * nv512} bake rays; cast light {cast_shape}, "
+          f"{cast_rays} rays; {chunks_b} chunks; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches_b}")
+    return {k: launches_a[k] + launches_b[k] for k in launches_a}
 
 
 def main() -> None:
+    kernels_only = "--kernels-only" in sys.argv[1:]
     if not os.path.isdir(os.path.join(ROOT, "avatarclip_torch", "csrc")):
         fail(f"no avatarclip_torch/csrc next to {__file__}: run from a checkout of the repository")
     sys.path.insert(0, ROOT)
@@ -355,17 +762,19 @@ def main() -> None:
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    from avatarclip_torch.ops import _build, fused_neus
+    from avatarclip_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load("raster_zbuffer", "raster_zbuffer.cu")
-    fused_neus._lib()
-    print(f"[build] {time.perf_counter() - t0:.3f} s ({_build.build_seconds})")
-    for name in ("raster_zbuffer", "fused_neus_ray"):
-        log = (_build.BUILD / f"{name}.log")
+    libs = [("raster_zbuffer", "raster_zbuffer.cu"), ("fused_neus_ray", "fused_neus_ray.cu"),
+            ("fused_neus_point", "fused_neus_point.cu"), ("fused_composite", "fused_composite.cu")]
+    _build.load_all(libs)
+    _build.load_host("marching_cubes", "marching_cubes.cpp")
+    print(f"[build] {time.perf_counter() - t0:.3f} s in parallel ({_build.build_seconds})")
+    for name, _ in libs:
+        log = _build.BUILD / f"{name}.log"
         if log.exists():
             info = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
-            print(f"[build] {name}: " + " | ".join(info[:6]))
+            print(f"[build] {name}: " + " | ".join(info[:8]))
 
     from avatarclip_torch.pipelines import synthetic
 
@@ -373,14 +782,29 @@ def main() -> None:
         runner = synthetic.make_runner(os.path.join(tmp, "probe"), "full", res=256, device=dev)
         runner.init_smpl()
         kernels = [check_zbuffer(runner, dev)]
+        pretrain = os.path.join(tmp, "pretrain.pth")
+        if not kernels_only:
+            t0 = time.perf_counter()
+            loss = synthetic.fit_template_pretrain(runner, pretrain)
+            torch.cuda.synchronize()
+            print(f"[pretrain] full-width SDF fitted to the template body in "
+                  f"{time.perf_counter() - t0:.3f} s, last L1 {loss:.4f}")
+            if not loss <= PRETRAIN_L1:
+                fail(f"the pretrain fit ended at L1 {loss:.4f} > {PRETRAIN_L1}")
         del runner
-        kernels += check_neus(dev)
+        kernels += check_neus_ray(dev)
         torch.cuda.empty_cache()
-        launches = run_main_path(tmp)
+        kernels += check_neus_point(dev)
+        kernels += check_composite(dev)
+        torch.cuda.empty_cache()
+        if kernels_only:  # no main path ran: no launch count to report
+            launches = {k["name"]: None for k in kernels}
+        else:
+            launches = run_main_path(tmp, pretrain)
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    if any(m.split(".")[0] in ("jax", "avatarclip_tpu") for m in sys.modules):
+        fail("jax or the JAX package was imported")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

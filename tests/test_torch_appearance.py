@@ -191,7 +191,8 @@ def test_cli_train_clip_writes_logs_and_checkpoint(tmp_path):
     data = synthetic.write_synthetic_views(str(tmp_path / "views"), n_views=4, res=64)
     conf_path = tmp_path / "tiny.conf"
     conf_path.write_text(synthetic.make_conf_text(str(tmp_path / "exp"), data, "tiny"))
-    base = ["--mode", "train_clip", "--conf", str(conf_path), "--set", "train.save_freq=2"]
+    base = ["--mode", "train_clip", "--conf", str(conf_path), "--set", "train.save_freq=2",
+            "--device", "cpu"]
     r = tapp.main(base + ["--set", "train.end_iter=2"])
     assert r.iter_step == 2 and len(r.step_seconds) == 2
     recs = [json.loads(x) for x in (tmp_path / "exp" / "logs" / "metrics.jsonl").read_text().splitlines()]
@@ -201,3 +202,25 @@ def test_cli_train_clip_writes_logs_and_checkpoint(tmp_path):
     r2 = tapp.main(base + ["--set", "train.end_iter=3", "--is_continue"])
     assert r2.iter_step == 3 and r2.update_count == 3
     assert os.path.exists(tmp_path / "exp" / "recording" / "config.conf")
+
+
+def test_runner_and_cli_use_cuda_unless_asked_for_the_cpu(tmp_path):
+    """The card is the default; without one, asking for it (the default)
+    raises instead of running on the CPU."""
+    import torch
+
+    from avatarclip_torch.pipelines import synthetic
+
+    data = synthetic.write_synthetic_views(str(tmp_path / "views"), n_views=2, res=32)
+    conf_path = tmp_path / "tiny.conf"
+    conf_path.write_text(synthetic.make_conf_text(str(tmp_path / "exp"), data, "tiny"))
+    conf = config_mod.parse_file(str(conf_path))
+    assert tapp.Runner(None, mode="none", conf=conf, device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert tapp.Runner(None, mode="none", conf=conf).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tapp.Runner(None, mode="none", conf=conf)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tapp.main(["--mode", "train", "--conf", str(conf_path)])
+
