@@ -76,6 +76,31 @@ def find(name: str, explicit: str | None = None) -> str | None:
     return None
 
 
+@functools.lru_cache(maxsize=1)
+def load_smpl_uv():
+    """(face_uvs (F, 3, 2), texture (H, W, 3) f32 in [0, 1]) of the
+    SURREAL-textured ``smpl_uv.obj`` (reference: ShapeGen/utils.py:6-7) and
+    the PNG beside it (smpl_texture.png, texture.png or smpl_uv.png), else
+    None."""
+    obj = find("smpl_uv.obj")
+    if obj is None:
+        return None
+    from .export.mesh_io import read_obj
+    from .utils.png import read_png
+
+    _, _, Vt, Ft = read_obj(obj)
+    if Vt is None or Ft is None:
+        return None
+    base = os.path.dirname(obj)
+    for cand in ("smpl_texture.png", "texture.png", "smpl_uv.png"):
+        p = os.path.join(base, cand)
+        if os.path.exists(p):
+            tex = read_png(p)
+            face_uvs = np.asarray(Vt)[np.asarray(Ft)]
+            return face_uvs.astype(np.float32), tex[..., :3].astype(np.float32) / 255.0
+    return None
+
+
 def load_stand_pose() -> np.ndarray:
     """The 72-dof stand pose of NeuS-init and appearance sculpting
     (reference: AvatarGen/ShapeGen/output/stand_pose.npy), else the t-pose."""

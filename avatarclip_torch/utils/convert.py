@@ -4,8 +4,11 @@ The JAX parameter pytree, flattened to numpy arrays by
 ``tree_flatten_paths`` (utils/pytree.py; keys like
 ``sdf/layers/0/g``), maps onto the port by path: the networks' state-dict
 keys are the same paths with ``.`` for ``/`` and the same (out, in) weight
-layout, so no transposes are needed. The CLIP tree keeps its nesting as a
-dict of tensors (clip/model.py).
+layout, so no transposes are needed. The trees of plain functions keep
+their nesting as dicts and lists of tensors: CLIP (clip/model.py), VPoser
+(body/vposer.py), the motion VAE (pipelines/motion_vae.py), the RealNVP
+blocks and masks and the codebook (pipelines/animate.py); the JAX pytree
+itself converts with ``params_from_jax(tree_flatten_paths(tree))``.
 """
 
 from __future__ import annotations

@@ -16,8 +16,10 @@ kernel's plain version):
      (g++), and prints the build seconds;
   3. holds each kernel against its plain PyTorch version on the card and
      times both at the main path's shapes:
-     - B2, the tiled z-buffer: the template at 256^2 and 128^2 and a random
-       triangle soup, exactly but for near-ties; timed on the 256^2 template;
+     - B2, the tiled z-buffer: the template at 256^2 and 128^2, a random
+       triangle soup, and the animate paths' 13,776-face body at the five
+       224^2 scoring views and visualize's 512^2 camera, exactly but for
+       near-ties; timed on the 256^2 template and the 512^2 body;
      - B1, the per-ray NeuS pair, and B3, the point-level NeuS pair: forward
        and backward at 256 and 128 wide on 2,048 rays x 64 samples against
        the plain version evaluated in float64, outputs to 1e-4 and gradients
@@ -28,24 +30,41 @@ kernel's plain version):
      - B4, the compositing pair: rgb width 6 and 3 on 2,048 rays x 64 against
        float64, same tolerances, and its forward under no_grad at 16,384 and
        16,347 rays; timed at 16,384 rays x 64;
+     - B5, the soft aggregation pair: forward and backward against the plain
+       version in float64 (outputs to 1e-4 of their largest magnitude, the
+       rgb and silhouette to 2e-4 absolute, the gradients of the x, y and
+       constant edge coefficients, ezf and colf each to 1e-3 of its own
+       largest magnitude) at one PoseOptimizer step's shapes (5 views x
+       224^2 x the 13,776-face body, sigma 0.5), at a ragged 200 x 136 x
+       1,000 faces and on a compact 320^2 scene at sigma 0.1 where the culling
+       table skips pairs; timed at the pose step's shapes, with its kept share
+       and its bound (f32 operations, special functions and bytes);
      each kernel's bound is max(FLOPs / peak, bytes / 3.35 TB/s) for the
      work of that call (f32 CUDA-core peak 67 TFLOP/s, the type the kernels
      compute in; the bf16 tensor-core bound at 989 TFLOP/s is printed too);
   4. fits the full-width SDF to the template body and writes it as the
      conf's ``train.pretrain`` (the confs start from a NeuS pretrained on
      the template, which the repo does not ship; an untrained net's meshes
-     are many times denser than an avatar's), then runs the main path
-     through ``avatarclip_torch.pipelines.appearance.main`` on the
-     full-width synthetic conf (60 views) with that pretrain, each path with
-     the launch counts set to 0 just before it and read just after:
-     a. ``--mode train_clip`` for 8 steps with val_freq = val_mesh_freq =
-        save_freq = 8 (asynchronous validation on, as in the confs): step 8
-        validates an image (camera 58), extracts and bakes a 256^3 mesh and
-        saves a checkpoint;
-     b. ``--mode validate_mesh --is_continue``: the 512^3 extraction with
-        its colour baking, then the cast-light head render;
-     and checks the losses, the artifacts, and the launch counts against the
-     chunk counts predicted from the ray counts.
+     are many times denser than an avatar's), then runs the main paths,
+     each with the launch counts set to 0 just before it and read just
+     after:
+     a. ``appearance.main --mode train_clip`` for 8 steps with val_freq =
+        val_mesh_freq = save_freq = 8 (asynchronous validation on, as in the
+        confs): step 8 validates an image (camera 58), extracts and bakes a
+        256^3 mesh and saves a checkpoint;
+     b. ``appearance.main --mode validate_mesh --is_continue``: the 512^3
+        extraction with its colour baking, then the cast-light head render;
+     c. ``animate.main`` in pose mode on the procedural body at SMPL's
+        13,776 faces (written as the template OBJ): PoseOptimizer, 2
+        restarts x 8 steps at 224^2 with CLIP ViT-B/32, the candidates'
+        scoring and 512^2 pictures; then VPoserOptimizer and VPoserRealNVP
+        through ``build_pose_generator``;
+     d. ``animate.main`` in motion mode: VPoserCodebook candidates,
+        MotionOptimizer for 8 steps, motion.npy and a 60-frame motion.mp4;
+        then MotionInterpolation;
+     and checks the losses, the artifacts, and the launch counts against
+     the counts predicted from the ray, step and render counts; c and d
+     also profile a few steps (device time by kernel, busy share).
 Prints a {"kernels": [...]} JSON line, then as the last line
 {"ok": true, "device": {...}}.
 """
@@ -68,6 +87,7 @@ N_VIEWS = 60  # train_clip validates camera 58
 NEAR_TIE = 1e-6  # relative inverse-depth gap under which two winners may differ
 OUT_TOL = 1e-4  # kernel outputs, relative to the output's largest magnitude
 GRAD_TOL = 1e-3  # kernel gradients (f32 sums over 131k points), same measure
+RENDER_TOL = 2e-4  # B5: absolute on the rgb and silhouette in [0, 1] (5% of an 8-bit level)
 PEAK_F32 = 67e12  # H100 SXM, FLOP/s outside the tensor cores
 PEAK_BF16 = 989e12  # H100 SXM, dense bf16 tensor cores
 HBM = 3.35e12  # bytes/s
@@ -132,6 +152,7 @@ def check_zbuffer(runner, dev):
     import torch
 
     from avatarclip_torch.ops import raster_zbuffer as rz
+    from avatarclip_torch.pipelines import visualize
     from avatarclip_torch.render import raster
 
     template_v, faces = runner._template
@@ -149,12 +170,21 @@ def check_zbuffer(runner, dev):
     eye = np.array([0.05, -0.1, 1.6], np.float32)
     soup_pose = torch.as_tensor(runner_lookat(eye), device=dev)
     cases.append(("triangle soup 200x232", soup_v, soup_f, soup_pose, (200, 232), 180.0))
+    # the animate paths' shapes: the 13,776-face body at the five 224^2
+    # scoring azimuths (elevation 0, as sort_poses_by_score renders) and at
+    # visualize's 512^2 frontal camera
+    body_v, body_f, body_poses, body_focal = humanoid_views(dev, elev_std=0.0)
+    for k, azim in enumerate((120, 150, 180, 210, 240)):
+        cases.append((f"13,776-face body 224^2 azimuth {azim}", body_v[0], body_f, body_poses[k], 224,
+                      body_focal))
+    vis_pose, vis_focal = visualize.camera(dev, 512)
+    cases.append(("13,776-face body 512^2 visualize camera", body_v[0], body_f, vis_pose, 512, vis_focal))
 
     worst = 0.0  # largest inverse-depth gap between differing winners
     for name, v, f, pose, res, focal in cases:
         H, W = (res, res) if isinstance(res, int) else res
         proj = raster.project_vertices(v, pose, H, W, focal)
-        coef, valid = raster._face_coefficients(proj, f)
+        coef, valid, _ = raster._face_coefficients(proj, f)
         args = (coef, valid, proj.sx[f], proj.sy[f], H, W)
         got = rz.zbuffer_select_tiled(*args)
         want = rz.zbuffer_select_tiled_plain(*args)
@@ -174,28 +204,42 @@ def check_zbuffer(runner, dev):
             worst = max(worst, float(gap.max()))
         print(f"[B2] {name}: {int((want >= 0).sum())} covered px, {diff.numel()} near-tie "
               f"differences, kernel == plain elsewhere")
-    # time at the main path's GT raster: the template at 256^2
+    # time at the train_clip GT raster (the template at 256^2) and at the
+    # animate paths' largest render (the body at 512^2)
     cam, _ = runner.sample_iteration_camera(1, (256,))
-    pose = torch.as_tensor(cam["pose"], device=dev)
-    proj = raster.project_vertices(template_v, pose, 256, 256, ds.focal)
-    coef, valid = raster._face_coefficients(proj, faces)
-    sx, sy = proj.sx[faces], proj.sy[faces]
-    args = (coef, valid, sx, sy, 256, 256)
-    ms = cuda_ms(lambda: rz.zbuffer_select_tiled(*args), reps=20)
-    plain_ms = cuda_ms(lambda: rz.zbuffer_select_tiled_plain(*args), reps=5)
-    # the work this image needs: every (pixel, valid face) pair inside the
-    # face's screen bbox gets 3 edge tests and an inverse depth (~17 FLOPs)
-    nx = (sx.amax(1).clamp(0, 255).floor() - sx.amin(1).clamp(0, 255).ceil() + 1).clamp_min(0)
-    ny = (sy.amax(1).clamp(0, 255).floor() - sy.amin(1).clamp(0, 255).ceil() + 1).clamp_min(0)
-    pairs = float((nx * ny * valid.float()).sum())
-    F = faces.shape[0]
-    b = bound(17.0 * pairs, F * (48 + 4 + 24) + 256 * 256 * 4)
-    print(f"[B2] 256^2 template ({F} faces, {pairs:.0f} bbox pixel-face pairs): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
+    ms, plain_ms, b = time_zbuffer("256^2 template", template_v, faces,
+                                   torch.as_tensor(cam["pose"], device=dev), 256, ds.focal)
+    ms_v, plain_ms_v, b_v = time_zbuffer("512^2 body, visualize camera", body_v[0], body_f, vis_pose, 512,
+                                         vis_focal)
     return {"name": "zbuffer_tiled", "route": "cuda",
             "source": "avatarclip_torch/csrc/raster_zbuffer.cu",
             "replaces": "avatarclip_tpu/ops/raster_zbuffer.py:266",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b,
+            "ms_512_body": ms_v, "plain_ms_512_body": plain_ms_v, "bound_ms_512_body": b_v["bound_ms"],
+            "bound_by_512_body": b_v["bound_by"]}
+
+
+def time_zbuffer(name, v, faces, pose, res, focal):
+    """B2's and its plain version's milliseconds on one render, and the bound
+    of the work that render needs: every (pixel, valid face) pair inside the
+    face's screen bbox gets 3 edge tests and an inverse depth (~17 FLOPs)."""
+    from avatarclip_torch.ops import raster_zbuffer as rz
+    from avatarclip_torch.render import raster
+
+    proj = raster.project_vertices(v, pose, res, res, focal)
+    coef, valid, _ = raster._face_coefficients(proj, faces)
+    sx, sy = proj.sx[faces], proj.sy[faces]
+    args = (coef, valid, sx, sy, res, res)
+    ms = cuda_ms(lambda: rz.zbuffer_select_tiled(*args), reps=20)
+    plain_ms = cuda_ms(lambda: rz.zbuffer_select_tiled_plain(*args), reps=5)
+    nx = (sx.amax(1).clamp(0, res - 1).floor() - sx.amin(1).clamp(0, res - 1).ceil() + 1).clamp_min(0)
+    ny = (sy.amax(1).clamp(0, res - 1).floor() - sy.amin(1).clamp(0, res - 1).ceil() + 1).clamp_min(0)
+    pairs = float((nx * ny * valid.float()).sum())
+    F = faces.shape[0]
+    b = bound(17.0 * pairs, F * (48 + 4 + 24) + res * res * 4)
+    print(f"[B2] {name} ({F} faces, {pairs:.0f} bbox pixel-face pairs): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
+    return ms, plain_ms, b
 
 
 def runner_lookat(eye):
@@ -607,22 +651,294 @@ def check_composite(dev):
 
 
 # ---------------------------------------------------------------------------
+# B5: the soft aggregation pair
+# ---------------------------------------------------------------------------
+
+# Operations per (pixel, face) pair, counted from csrc/fused_soft.cu. Every
+# pair of a kept (tile, block) with a valid face: 3 edge distances (2 mul +
+# 2 add each), 2 min, the scale and the x > -110 test. A live pair (x > -110,
+# where the sigmoid is not exactly 0 in f32) adds, in the forward, |x|, 1 + e,
+# the sigmoid select, softplus's max, add and subtract, w, 3 FMA (6) and den
+# (14) with exp, reciprocal and log1p's log on the special-function unit;
+# in the backward |x|, 1 + e, the select, dw (6), dd (7), the tie test (5),
+# one edge's 3 sums (5), dezf (2), w (1) and dcolf (6), 35, with exp and
+# reciprocal.
+SOFT_OPS_PAIR = 16
+SOFT_FWD_OPS_LIVE, SOFT_FWD_SFU_LIVE = 14, 3
+SOFT_BWD_OPS_LIVE, SOFT_BWD_SFU_LIVE = 35, 2
+SFU_PER_SM_CLOCK = 16  # H100: special-function results per SM per clock
+N_SM = 132
+X_DEAD = -110.0  # the kernels' live-pair threshold
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def soft_bound(ops: float, sfu: float, nbytes: float, clock_hz: float) -> dict:
+    """max(f32 operations / 67 TFLOP/s, special-function operations / (132
+    SMs x 16 per clock x the SM clock), bytes / 3.35 TB/s)."""
+    t = {"operations": ops / PEAK_F32 * 1e3, "special functions": sfu / (N_SM * SFU_PER_SM_CLOCK * clock_hz) * 1e3,
+         "bytes": nbytes / HBM * 1e3}
+    by = max(t, key=t.get)
+    return {"bound_ms": t[by], "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_resource": by, "ops": ops, "sfu_ops": sfu, "bytes": nbytes}
+
+
+def humanoid_views(dev, n_views=5, res=224, seed=0, elev_std=0.3):
+    """The pose optimizer's five 224^2 views of the 13,776-face procedural
+    body (SMPL's face count), posed as AnimateContext._pose_vertices poses
+    it at the zero body pose, elevations ~ N(0, elev_std): (vertices (B, V,
+    3), faces, poses (B, 4, 4), focal)."""
+    import numpy as np
+    import torch
+
+    from avatarclip_torch import assets
+    from avatarclip_torch.body import smpl
+    from avatarclip_torch.pipelines import animate
+    from avatarclip_torch.render import cameras
+
+    v, f = assets._procedural_humanoid(n_seg=41, n_ring=28)
+    model = smpl.approximate_model_from_mesh(v, f)
+    go = torch.tensor([[np.pi / 2, 0.0, 0.0]])
+    verts, _ = model.forward(body_pose=torch.zeros(1, 23, 3), global_orient=go)
+    verts = (verts[0] @ torch.from_numpy(cameras.BODY_TO_WORLD).t()).to(dev)
+    elevs = torch.randn(n_views, generator=torch.Generator().manual_seed(seed)) * elev_std
+    azims = torch.tensor([120.0, 150.0, 180.0, 210.0, 240.0])[:n_views]
+    poses = animate.view_poses(elevs.to(dev), azims.to(dev))
+    focal = cameras.focal_from_fov(res, np.deg2rad(60.0))
+    return verts.expand(n_views, -1, -1).contiguous(), torch.from_numpy(f).to(dev), poses, focal
+
+
+def soup_views(dev, n_faces, seed, eyes, compact=False):
+    """A triangle soup in front of cameras at ``eyes``: random small faces
+    with 5% slivers and 5 degenerate (gated) faces, or with ``compact`` the
+    clean scene of equilateral faces on which the table skips pairs."""
+    import numpy as np
+    import torch
+
+    from avatarclip_torch.render import cameras
+
+    g = np.random.default_rng(seed)
+    c = g.uniform(-0.35 if compact else -0.6, 0.35 if compact else 0.6, (n_faces, 3)).astype(np.float32)
+    c[:, 2] *= 0.3
+    if compact:
+        a = np.array([0.0, 2 * np.pi / 3, 4 * np.pi / 3], np.float32)
+        offs = np.broadcast_to(0.05 * np.stack([np.cos(a), np.sin(a), np.zeros(3)], -1),
+                               (n_faces, 3, 3)).astype(np.float32)
+    else:
+        offs = g.uniform(-0.08, 0.08, (n_faces, 3, 3)).astype(np.float32)
+        k = n_faces // 20
+        offs[:k, :, 0] *= 40.0
+        offs[:k, :, 1] *= 0.02
+        offs[k:k + 5] = 0.0
+    v = torch.from_numpy((c[:, None] + offs).reshape(-1, 3)).to(dev)
+    f = torch.arange(n_faces * 3, device=dev).reshape(n_faces, 3)
+    poses = torch.stack([torch.from_numpy(cameras.lookat_np(np.asarray(e, np.float32), np.zeros(3, np.float32),
+                                                            np.array([0, 1, 0], np.float32))) for e in eyes]).to(dev)
+    return v.expand(len(eyes), -1, -1).contiguous(), f, poses
+
+
+def soft_problem(verts, faces, poses, H, W, focal, sigma, gamma=0.005):
+    from avatarclip_torch.ops import fused_soft as fs
+    from avatarclip_torch.render import raster
+
+    fi = raster.soft_face_inputs(verts, faces, poses, H, W, focal)
+    faces_p, tab = fs.prepare(fi["coef"], fi["valid"], fi["edge_inv_len"], fi["iz_face"],
+                              fi["colors_face"], H, W, sigma, gamma, fi["face_sx"], fi["face_sy"])
+    return faces_p.detach().contiguous(), tab
+
+
+def soft_loss(outs, probes):
+    """A loss on the render as soft_render_mesh forms it: rgb and silhouette."""
+    import torch
+
+    sil_log, num, den = outs
+    rgb = num / (den[..., None] + 1.0 + 1e-20)
+    return (rgb * probes[0]).sum() + ((1.0 - torch.exp(sil_log)) * probes[1]).sum()
+
+
+def soft_grads(fn, faces, probes, *args):
+    import torch
+
+    x = faces.clone().requires_grad_(True)
+    outs = fn(x, *args)
+    (g,) = torch.autograd.grad(soft_loss(outs, probes), [x])
+    return [o.detach() for o in outs], g
+
+
+def hold_soft(tag, faces, tab, H, W, sigma, dev) -> tuple[float, float]:
+    """B5 through its autograd Function against the plain version in f64 on
+    the same (f32-valued) packed faces: sil_log, num and den to OUT_TOL of
+    their largest magnitude, the rgb and silhouette the render forms from
+    them to RENDER_TOL absolute, and the gradients of the edge coefficients
+    of x, of y and the constant ones, of ezf and of colf each to GRAD_TOL of
+    its own largest magnitude (the x and y columns carry factors of the
+    pixel coordinates, so one group would hide a wrong constant term)."""
+    import torch
+
+    from avatarclip_torch.ops import fused_soft as fs
+
+    B, P = faces.shape[0], H * W
+    g = torch.Generator().manual_seed(P)
+    probes = [(0.5 + torch.rand(B, P, 3, generator=g)).to(dev), (0.5 + torch.rand(B, P, generator=g)).to(dev)]
+    inv = 1.0 / sigma
+    outs_k, g_k = soft_grads(lambda x: fs.aggregate(x, tab, H, W, inv), faces, probes)
+    outs_r, g_r = soft_grads(lambda x: fs.aggregate_plain(x, H, W, inv), faces.double(),
+                             [p.double() for p in probes])
+    torch.cuda.synchronize()
+    worst_f = worst_b = 0.0
+    rels = {}
+    for nm, a, b in zip(("sil_log", "num", "den"), outs_k, outs_r):
+        err, rel = rel_err(a, b)
+        if not rel <= OUT_TOL or not torch.isfinite(a).all():
+            fail(f"B5 {tag} forward {nm}: rel err {rel:.2e} > {OUT_TOL}")
+        rels[nm] = rel
+    # what the render forms, rgb and the silhouette, is held absolutely: num
+    # and den reach ~1e30 at saturated depth weights, so their relative
+    # measure alone says little about the image
+    for nm, a, b in (("rgb", outs_k[1] / (outs_k[2][..., None] + 1.0), outs_r[1] / (outs_r[2][..., None] + 1.0)),
+                     ("silhouette", torch.exp(outs_k[0]), torch.exp(outs_r[0]))):
+        err = rel_err(a, b)[0]
+        if not err <= RENDER_TOL:
+            fail(f"B5 {tag} forward {nm}: max abs err {err:.2e} > {RENDER_TOL}")
+        worst_f = max(worst_f, err)
+    for nm, cols in (("cs x", slice(0, 9, 3)), ("cs y", slice(1, 9, 3)), ("cs constant", slice(2, 9, 3)),
+                     ("ezf", slice(9, 10)), ("colf", slice(10, 13))):
+        err, rel = rel_err(g_k[..., cols], g_r[..., cols])
+        if not rel <= GRAD_TOL or not torch.isfinite(g_k).all():
+            fail(f"B5 {tag} backward d/d {nm}: rel err {rel:.2e} > {GRAD_TOL}")
+        worst_b = max(worst_b, err)
+        rels["d " + nm] = rel
+    if g_k[..., 13:].abs().max() != 0:
+        fail(f"B5 {tag}: the backward wrote the vmask or padding columns")
+    print(f"[B5] {tag}: {B} views, {faces.shape[1]} padded faces, kept share "
+          f"{float(tab.float().mean()):.4f}; vs the plain version in f64: forward and gradients "
+          f"within tolerance; max abs err of rgb and silhouette {worst_f:.3e}, of the face "
+          f"gradients {worst_b:.3e}; relative errs " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+    del outs_r, g_r
+    torch.cuda.empty_cache()
+    return worst_f, worst_b
+
+
+def soft_pair_counts(faces, tab, H, W, sigma) -> tuple[float, float]:
+    """(kept pairs, live pairs) of this input: the pairs of image pixels and
+    valid faces in the table's kept (tile, block) pairs, and those with
+    x > -110 (all of which are kept: the table is sound)."""
+    import torch
+
+    from avatarclip_torch.ops import fused_soft as fs
+
+    B, Fp, _ = faces.shape
+    n_ty, n_tx = fs.grid_dims(H, W)
+    ty = torch.arange(n_ty * n_tx, device=faces.device) // n_tx
+    tx = torch.arange(n_ty * n_tx, device=faces.device) % n_tx
+    px_tile = ((H - ty * fs.TILE_H).clamp(max=fs.TILE_H) * (W - tx * fs.TILE_W).clamp(max=fs.TILE_W)).double()
+    valid_blk = (faces[..., 13] != 0).reshape(B, -1, fs.FBLOCK).sum(-1).double()  # (B, n_fb)
+    kept = float((tab.double() * px_tile[None, :, None] * valid_blk[:, None, :]).sum())
+    live = 0.0
+    px, py = fs._pixel_coords(H, W, faces.device, torch.float32)
+    for f0 in range(0, Fp, 256):
+        fc = faces[:, f0:f0 + 256]
+        v = [(px * fc[:, None, :, 3 * e] + py * fc[:, None, :, 3 * e + 1]) + fc[:, None, :, 3 * e + 2]
+             for e in range(3)]
+        x = torch.minimum(torch.minimum(v[0], v[1]), v[2]) * (1.0 / sigma)
+        live += float(((x > X_DEAD) & (fc[:, None, :, 13] != 0)).sum())
+    return kept, live
+
+
+def check_soft(dev):
+    import torch
+
+    from avatarclip_torch.ops import _build
+    from avatarclip_torch.ops import fused_soft as fs
+
+    worst_f = worst_b = 0.0
+    # 1. one PoseOptimizer step's shapes: 5 views x 224^2 x 13,776 faces
+    verts, faces, poses, focal = humanoid_views(dev)
+    H = W = 224
+    sigma = 0.5
+    fp, tab = soft_problem(verts, faces, poses, H, W, focal, sigma)
+    f_, b_ = hold_soft("pose step 224^2 x 13,776 faces, sigma 0.5", fp, tab, H, W, sigma, dev)
+    worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
+    # 2. ragged: partial tiles and a partial face block
+    v2, f2, p2 = soup_views(dev, 1000, 5, [(0.0, 0.0, 2.0), (0.3, 0.2, 1.9)])
+    fp2, tab2 = soft_problem(v2, f2, p2, 200, 136, 150.0, 0.5)
+    f_, b_ = hold_soft("ragged 200x136 x 1,000 faces (1,024 padded)", fp2, tab2, 200, 136, 0.5, dev)
+    worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
+    # 3. compact scene at small sigma: the table skips most pairs
+    v3, f3, p3 = soup_views(dev, 1500, 11, [(0.0, 0.0, 2.0)], compact=True)
+    fp3, tab3 = soft_problem(v3, f3, p3, 320, 320, 320 * 0.5 / math.tan(math.radians(30.0)), 0.1)
+    if not float(tab3.float().mean()) < 0.9:
+        fail(f"B5: the compact scene keeps {float(tab3.float().mean()):.3f} of its pairs")
+    f_, b_ = hold_soft("compact 320^2 x 1,500 faces, sigma 0.1", fp3, tab3, 320, 320, 0.1, dev)
+    worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
+
+    # time at size 1: the kernels alone, on preallocated outputs
+    inv = 1.0 / sigma
+    B, Fp, _ = fp.shape
+    P = H * W
+    g = torch.Generator().manual_seed(7)
+    cots = [(torch.rand(B, P, generator=g) * 1e-3).to(dev), (torch.rand(B, P, 3, generator=g) * 1e-30).to(dev),
+            (torch.rand(B, P, generator=g) * -1e-30).to(dev)]
+    lib, p, st = fs._lib(), _build.ptr, _build.stream_ptr(dev)
+    n_ty, n_tx = fs.grid_dims(H, W)
+    outs = fs.soft_fwd(fp, tab, H, W, inv)
+    dfp = fs.soft_bwd(fp, tab, *cots, H, W, inv)
+    torch.cuda.synchronize()
+    args = (B, H, W, n_tx, n_ty, Fp // fs.FBLOCK, inv, st)
+    ms_f = cuda_ms(lambda: lib.soft_fwd(p(fp), p(tab), *[p(o) for o in outs], *args), reps=10)
+    ms_b = cuda_ms(lambda: lib.soft_bwd(p(fp), p(tab), *[p(c) for c in cots], p(dfp), *args), reps=10)
+    with torch.no_grad():
+        plain_f = cuda_ms(lambda: fs.aggregate_plain(fp, H, W, inv), reps=2)
+    x = fp.clone().requires_grad_(True)
+    o = fs.aggregate_plain(x, H, W, inv)
+    torch.cuda.synchronize()
+    plain_b = cuda_ms(lambda: torch.autograd.grad(o, [x], cots, retain_graph=True), reps=2)
+    del x, o
+    torch.cuda.empty_cache()
+    kept, live = soft_pair_counts(fp, tab, H, W, sigma)
+    clock = sm_clock_hz()
+    face_b, pix_b, tab_b = B * Fp * 64, B * P * 20, tab.numel() * 4
+    b_f = soft_bound(kept * SOFT_OPS_PAIR + live * SOFT_FWD_OPS_LIVE, live * SOFT_FWD_SFU_LIVE,
+                     face_b + tab_b + pix_b, clock)
+    b_b = soft_bound(kept * SOFT_OPS_PAIR + live * SOFT_BWD_OPS_LIVE, live * SOFT_BWD_SFU_LIVE,
+                     face_b + tab_b + pix_b + face_b, clock)
+    print(f"[B5] pose step 5 x 224^2 x {Fp} padded faces: kept share {float(tab.float().mean()):.4f} "
+          f"of (tile, block) pairs, {kept:.0f} kept pixel-face pairs, {live:.0f} live (x > -110, "
+          f"{live / max(kept, 1):.4f} of kept); SM clock {clock / 1e6:.0f} MHz")
+    print(f"[B5] forward kernel {ms_f:.4f} ms (plain {plain_f:.4f} ms, bound {b_f['bound_ms']:.4f} ms "
+          f"by {b_f['bound_resource']}); backward kernel {ms_b:.4f} ms (plain {plain_b:.4f} ms, bound "
+          f"{b_b['bound_ms']:.4f} ms by {b_b['bound_resource']}); one launch each per step")
+    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_soft.cu", "library_ms": None}
+    return [
+        {"name": "soft_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_soft.py:106",
+         "max_abs_err": worst_f, "ms": ms_f, "plain_ms": plain_f, **b_f},
+        {"name": "soft_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_soft.py:132",
+         "max_abs_err": worst_b, "ms": ms_b, "plain_ms": plain_b, **b_b},
+    ]
+
+
+# ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
 
 
 def zero_counts():
-    from avatarclip_torch.ops import fused_composite, fused_neus, raster_zbuffer
+    from avatarclip_torch.ops import fused_composite, fused_neus, fused_soft, raster_zbuffer
 
-    for m in (fused_composite, fused_neus, raster_zbuffer):
+    for m in (fused_composite, fused_neus, fused_soft, raster_zbuffer):
         for k in m.LAUNCHES:
             m.LAUNCHES[k] = 0
 
 
 def read_counts() -> dict:
-    from avatarclip_torch.ops import fused_composite, fused_neus, raster_zbuffer
+    from avatarclip_torch.ops import fused_composite, fused_neus, fused_soft, raster_zbuffer
 
-    return {**raster_zbuffer.LAUNCHES, **fused_neus.LAUNCHES, **fused_composite.LAUNCHES}
+    return {**raster_zbuffer.LAUNCHES, **fused_neus.LAUNCHES, **fused_composite.LAUNCHES,
+            **fused_soft.LAUNCHES}
 
 
 def ply_counts(path: str) -> tuple[int, int]:
@@ -695,7 +1011,7 @@ def run_main_path(tmp: str, pretrain: str):
     n_calib = 12 * 4 + 2  # coverage renders of the silhouette calibration
     want = {"neus_ray_fwd": N_STEPS, "neus_ray_bwd": N_STEPS, "zbuffer_tiled": N_STEPS + n_calib,
             "neus_point_fwd": chunks_a, "neus_point_bwd": 0,
-            "composite_fwd": chunks_a, "composite_bwd": 0}
+            "composite_fwd": chunks_a, "composite_bwd": 0, "soft_fwd": 0, "soft_bwd": 0}
     if launches_a != want:
         fail(f"path a: kernel launches {launches_a}, expected {want}")
     faces = [it for it in range(N_STEPS) if it % 4 == 0]
@@ -734,7 +1050,7 @@ def run_main_path(tmp: str, pretrain: str):
     chunks_b = 6 * math.ceil(nv512 / VAL_CHUNK) + math.ceil(cast_rays / VAL_CHUNK)
     want = {"neus_ray_fwd": 0, "neus_ray_bwd": 0, "zbuffer_tiled": 0,
             "neus_point_fwd": chunks_b, "neus_point_bwd": 0,
-            "composite_fwd": chunks_b, "composite_bwd": 0}
+            "composite_fwd": chunks_b, "composite_bwd": 0, "soft_fwd": 0, "soft_bwd": 0}
     if launches_b != want:
         fail(f"path b: kernel launches {launches_b}, expected {want}")
     print(f"[main b] validate_mesh via appearance.main in {wall_b:.3f} s: 512^3 mesh {nv512} "
@@ -742,6 +1058,227 @@ def run_main_path(tmp: str, pretrain: str):
           f"{cast_rays} rays; {chunks_b} chunks; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches_b}")
     return {k: launches_a[k] + launches_b[k] for k in launches_a}
+
+
+# ---------------------------------------------------------------------------
+# AvatarAnimate paths: (c) pose mode, (d) motion mode, through animate.main
+# ---------------------------------------------------------------------------
+
+POSE_ITERS = 8
+MOTION_ITERS = 8
+TEXT = "a rendered 3d man is arguing"
+
+
+def write_body(data_dir: str) -> int:
+    """The procedural humanoid at SMPL's 13,776 faces as the zero-beta
+    template OBJ, where assets.load_smpl looks for it; its face count."""
+    from avatarclip_torch import assets
+
+    v, f = assets._procedural_humanoid(n_seg=41, n_ring=28)
+    with open(os.path.join(data_dir, "zero_beta_smpl.obj"), "w") as fh:
+        fh.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in v)
+        fh.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f)
+    return f.shape[0]
+
+
+def write_conf(path: str, exp: str, mode: str, pose_gen: str, motion_gen: str = "") -> str:
+    with open(path, "w") as fh:
+        fh.write(f"general {{\n    base_exp_dir = {exp}\n    mode = {mode}\n    text = {TEXT}\n}}\n"
+                 f"pose_generator {{\n{pose_gen}\n}}\n")
+        if motion_gen:
+            fh.write(f"motion_generator {{\n{motion_gen}\n}}\n")
+    return path
+
+
+def check_jpeg(path: str) -> int:
+    from avatarclip_torch.utils.jpeg import jpeg_markers
+
+    if not os.path.exists(path):
+        fail(f"missing {path}")
+    with open(path, "rb") as fh:
+        data = fh.read()
+    jpeg_markers(data)  # raises on a malformed stream
+    return len(data)
+
+
+def check_losses(tag: str, losses) -> list:
+    vals = [float(x) for x in losses]
+    if not vals or not all(math.isfinite(v) for v in vals):
+        fail(f"{tag}: losses {vals}")
+    return vals
+
+
+def expect(tag: str, got: dict, soft: int, zbuffer: int) -> None:
+    want = {k: 0 for k in got}
+    want.update(soft_fwd=soft, soft_bwd=soft, zbuffer_tiled=zbuffer)
+    if got != want:
+        fail(f"{tag}: kernel launches {got}, expected {want}")
+
+
+def profile_steps(tag: str, step, n: int = 4) -> None:
+    """Device time by kernel over n steps under torch.profiler (one warm-up
+    step first), per step, and the device's busy share of the window's wall
+    time. These launches fall outside the counted paths."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        t = getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+        if t > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            dev.append((t / 1e3 / n, e.key))
+    if not dev:
+        print(f"[profile {tag}] the profiler saw no device time: breakdown not measured")
+        return
+    busy = sum(t for t, _ in dev)
+    dev.sort(reverse=True)
+    top = "; ".join(f"{k[:48]} {t:.3f}" for t, k in dev[:8])
+    print(f"[profile {tag}] {n} steps, wall {wall / n * 1e3:.3f} ms per step under the profiler, device "
+          f"busy {busy:.3f} ms ({busy / (wall / n * 1e3):.1%}); ms per step by kernel: {top}")
+
+
+def run_animate_paths(tmp: str) -> dict:
+    """Paths (c) and (d) and the other generators; the summed launches."""
+    import numpy as np
+    import torch
+
+    from avatarclip_torch import assets
+    from avatarclip_torch.pipelines import animate
+    from avatarclip_torch.utils.mp4 import read_mp4_frames
+
+    data = os.path.join(tmp, "animate_data")
+    os.makedirs(data)
+    n_faces = write_body(data)
+    os.environ["AVATARCLIP_TPU_DATA"] = data
+    assets.load_smpl.cache_clear()  # paths (a) and (b) filled it
+    assets.load_smpl_uv.cache_clear()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # c. pose mode: PoseOptimizer, 2 restarts x 8 steps, scoring, 2 pictures
+    exp_c = os.path.join(tmp, "exp_pose")
+    conf = write_conf(os.path.join(tmp, "pose.conf"), exp_c, "pose",
+                      f"    type = PoseOptimizer\n    topk = 2\n    num_iteration = {POSE_ITERS}")
+    zero_counts()
+    t0 = time.perf_counter()
+    out = animate.main(["--conf", conf])
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    got = read_counts()
+    add(got)
+    ctx, gen = out["ctx"], out["pose_generator"]
+    if ctx.faces.shape[0] != n_faces:
+        fail(f"path c posed {ctx.faces.shape[0]} faces, not the {n_faces} of the written body")
+    losses = check_losses("path c", gen.losses)
+    if len(losses) != 2 * POSE_ITERS:
+        fail(f"path c took {len(losses)} steps")
+    sizes = []
+    for i in range(2):
+        pose = np.load(os.path.join(exp_c, f"candidate_{i}.npy"))
+        if pose.shape != (69,) or not np.isfinite(pose).all():
+            fail(f"candidate_{i}.npy: shape {pose.shape}, finite {np.isfinite(pose).all()}")
+        sizes.append(check_jpeg(os.path.join(exp_c, f"candidate_{i}.jpg")))
+    # one soft render of the 5 views per step; scoring: 2 candidates x 5 views; 2 pictures
+    expect("path c", got, 2 * POSE_ITERS, 2 * 5 + 2)
+    print(f"[main c] pose mode via animate.main (PoseOptimizer, 2 x {POSE_ITERS} steps, 5 views x "
+          f"224^2 x {n_faces} faces, CLIP ViT-B/32 random init) in {wall_c:.3f} s; launches {got}")
+    print(f"[main c] losses finite: {[round(v, 6) for v in losses]}")
+    print(f"[main c] median step {gen.median_step_s() * 1e3:.3f} ms (first {gen.timing['first_step_s'] * 1e3:.3f} "
+          f"ms); candidate_0/1.npy (69,), JPEGs of {sizes} bytes at 512^2, JPEG writes "
+          f"{[round(t * 1e3, 3) for t in out['jpeg_write_s']]} ms host")
+    tf = ctx.get_text_feature(TEXT)
+    var = gen.draw_init().to(ctx.device).requires_grad_(True)
+    opt = gen.make_optimizer(var)
+    profile_steps("c: PoseOptimizer step", lambda: gen.step(var, opt, tf, gen.draw_step()))
+
+    zero_counts()
+    vgen = animate.build_pose_generator({"type": "VPoserOptimizer", "topk": 1, "num_iteration": 4}, ctx=ctx)
+    poses = vgen.get_topk_poses(TEXT)
+    torch.cuda.synchronize()
+    got = read_counts()
+    add(got)
+    check_losses("VPoserOptimizer", vgen.losses)
+    if poses.shape != (1, 69) or not torch.isfinite(poses).all():
+        fail(f"VPoserOptimizer poses {tuple(poses.shape)}")
+    expect("VPoserOptimizer", got, 4, 5)
+    print(f"[main c] VPoserOptimizer (1 x 4 steps): median step {vgen.median_step_s() * 1e3:.3f} ms; "
+          f"launches {got}")
+    zero_counts()
+    rgen = animate.build_pose_generator({"type": "VPoserRealNVP", "topk": 1, "num_batch": 2}, ctx=ctx)
+    poses = rgen.get_topk_poses(TEXT)
+    torch.cuda.synchronize()
+    got = read_counts()
+    add(got)
+    if poses.shape != (1, 69) or not torch.isfinite(poses).all():
+        fail(f"VPoserRealNVP poses {tuple(poses.shape)}")
+    expect("VPoserRealNVP", got, 0, 2 * rgen.num_sample * 5 + 5)
+    print(f"[main c] VPoserRealNVP (2 batches of {rgen.num_sample}, hard-scored): median batch "
+          f"{rgen.median_step_s() * 1e3:.3f} ms; launches {got}")
+
+    # d. motion mode: VPoserCodebook candidates, MotionOptimizer, 60 frames
+    exp_d = os.path.join(tmp, "exp_motion")
+    conf = write_conf(os.path.join(tmp, "motion.conf"), exp_d, "motion", "    type = VPoserCodebook",
+                      f"    type = MotionOptimizer\n    num_iteration = {MOTION_ITERS}")
+    zero_counts()
+    t0 = time.perf_counter()
+    out = animate.main(["--conf", conf])
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    got = read_counts()
+    add(got)
+    mgen, cands = out["motion_generator"], out["candidates"]
+    losses = check_losses("path d", mgen.losses)
+    if len(losses) != MOTION_ITERS:
+        fail(f"path d took {len(losses)} steps")
+    motion = np.load(os.path.join(exp_d, "motion.npy"))
+    if motion.shape != (60, 69) or not np.isfinite(motion).all():
+        fail(f"motion.npy: shape {motion.shape}")
+    frames = read_mp4_frames(os.path.join(exp_d, "motion.mp4"))
+    if len(frames) != 60:
+        fail(f"motion.mp4 holds {len(frames)} frames")
+    from avatarclip_torch.utils.jpeg import jpeg_markers
+
+    for fr in frames:
+        jpeg_markers(fr)
+    n_c = cands.shape[0]
+    # one soft render of the n_part = 2 strided frames per step; the candidates' and the frames' pictures
+    expect("path d", got, MOTION_ITERS, n_c + 60)
+    print(f"[main d] motion mode via animate.main (VPoserCodebook {n_c} candidates, MotionOptimizer "
+          f"{MOTION_ITERS} steps, 2 frames x 224^2 per step) in {wall_d:.3f} s; launches {got}")
+    print(f"[main d] losses finite: {[round(v, 6) for v in losses]}; median step "
+          f"{mgen.median_step_s() * 1e3:.3f} ms (first {mgen.timing['first_step_s'] * 1e3:.3f} ms)")
+    lat = mgen.draw_init().to(mgen.ctx.device).requires_grad_(True)
+    opt = torch.optim.Adam([lat], lr=0.01)
+    p63, tf_d = cands[:, :63], mgen.ctx.get_text_feature(TEXT)
+    profile_steps("d: MotionOptimizer step", lambda: mgen.step(lat, opt, p63, tf_d, mgen.draw_step()))
+    print(f"[main d] motion.npy (60, 69) finite; motion.mp4 60 frames, "
+          f"{os.path.getsize(os.path.join(exp_d, 'motion.mp4'))} bytes; MP4 write (60 JPEG encodes + mux) "
+          f"{out['mp4_write_s']:.3f} s host")
+    zero_counts()
+    igen = animate.build_motion_generator({"type": "MotionInterpolation"}, ctx=ctx)
+    if n_c != len(igen.anchor_position):
+        fail(f"{n_c} candidates for {len(igen.anchor_position)} interpolation anchors")
+    motion = igen.get_motion(TEXT, cands)
+    torch.cuda.synchronize()
+    got = read_counts()
+    add(got)
+    if motion.shape != (60, 69) or not torch.isfinite(motion).all():
+        fail(f"MotionInterpolation motion {tuple(motion.shape)}")
+    expect("MotionInterpolation", got, 0, 0)
+    print(f"[main d] MotionInterpolation: (60, 69) finite; launches {got}")
+    return total
 
 
 def main() -> None:
@@ -766,7 +1303,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     libs = [("raster_zbuffer", "raster_zbuffer.cu"), ("fused_neus_ray", "fused_neus_ray.cu"),
-            ("fused_neus_point", "fused_neus_point.cu"), ("fused_composite", "fused_composite.cu")]
+            ("fused_neus_point", "fused_neus_point.cu"), ("fused_composite", "fused_composite.cu"),
+            ("fused_soft", "fused_soft.cu")]
     _build.load_all(libs)
     _build.load_host("marching_cubes", "marching_cubes.cpp")
     print(f"[build] {time.perf_counter() - t0:.3f} s in parallel ({_build.build_seconds})")
@@ -797,10 +1335,15 @@ def main() -> None:
         kernels += check_neus_point(dev)
         kernels += check_composite(dev)
         torch.cuda.empty_cache()
+        kernels += check_soft(dev)
+        torch.cuda.empty_cache()
         if kernels_only:  # no main path ran: no launch count to report
             launches = {k["name"]: None for k in kernels}
         else:
             launches = run_main_path(tmp, pretrain)
+            torch.cuda.empty_cache()
+            for k, v in run_animate_paths(tmp).items():
+                launches[k] += v
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if any(m.split(".")[0] in ("jax", "avatarclip_tpu") for m in sys.modules):

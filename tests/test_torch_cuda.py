@@ -34,7 +34,7 @@ def test_zbuffer_kernel_matches_plain(dev):
                                              np.array([0, 1, 0], np.float32)), device=dev)
     H, W = 50, 70
     proj = raster.project_vertices(v, pose, H, W, 60.0)
-    coef, valid = raster._face_coefficients(proj, f)
+    coef, valid, _ = raster._face_coefficients(proj, f)
     args = (coef, valid, proj.sx[f], proj.sy[f], H, W)
     n0 = rz.LAUNCHES["zbuffer_tiled"]
     got = rz.zbuffer_select_tiled(*args)
@@ -135,3 +135,52 @@ def test_composite_kernel_pair_matches_plain(dev, W, R, S):
     op, gp = run(fc.composite_plain)
     for a, b in zip(list(ok) + list(gk), list(op) + list(gp)):
         assert (a.detach() - b.detach()).abs().max() <= 1e-5 * max(b.detach().abs().max(), 1e-6)
+
+
+def test_soft_kernel_pair_matches_plain(dev):
+    """B5 at a ragged size (partial tiles, a partial face block, 2 views)
+    against the plain version in float64: sil_log, num and den to 1e-4 of
+    their largest magnitude, the rgb and silhouette they form to 2e-4
+    absolute, and the gradients of the x, y and constant edge coefficients,
+    ezf and colf each to 1e-3 of its own largest magnitude."""
+    from avatarclip_torch.ops import fused_soft as fs
+    from avatarclip_torch.render import cameras, raster
+
+    g = np.random.default_rng(2)
+    n = 137
+    c = g.uniform(-0.6, 0.6, (n, 3)).astype(np.float32)
+    c[:, 2] *= 0.3
+    v = torch.as_tensor((c[:, None] + g.uniform(-0.08, 0.08, (n, 3, 3)).astype(np.float32))
+                        .reshape(-1, 3), device=dev)
+    f = torch.arange(3 * n, device=dev).reshape(n, 3)
+    eyes = [np.array(e, np.float32) for e in ((0.0, 0.0, 2.0), (0.3, -0.2, 1.9))]
+    poses = torch.stack([torch.as_tensor(cameras.lookat_np(e, np.zeros(3, np.float32),
+                                                           np.array([0, 1, 0], np.float32)))
+                         for e in eyes]).to(dev)
+    H, W = 50, 70
+    fi = raster.soft_face_inputs(v.expand(2, -1, -1), f, poses, H, W, 60.0)
+    faces, tab = fs.prepare(fi["coef"], fi["valid"], fi["edge_inv_len"], fi["iz_face"],
+                            fi["colors_face"], H, W, 0.5, 0.005, fi["face_sx"], fi["face_sy"])
+    faces = faces.detach().contiguous()
+    cot = [torch.rand(2, H * W, device=dev), torch.rand(2, H * W, 3, device=dev) * 1e-26,
+           -torch.rand(2, H * W, device=dev) * 1e-26]
+
+    def run(fn, x0, cots):
+        x = x0.clone().requires_grad_(True)
+        outs = fn(x)
+        return [o.detach() for o in outs], torch.autograd.grad(
+            sum((o * c).sum() for o, c in zip(outs, cots)), [x])[0]
+
+    n0 = dict(fs.LAUNCHES)
+    ok, gk = run(lambda x: fs.aggregate(x, tab, H, W, 2.0), faces, cot)
+    assert fs.LAUNCHES["soft_fwd"] == n0["soft_fwd"] + 1
+    assert fs.LAUNCHES["soft_bwd"] == n0["soft_bwd"] + 1
+    op, gp = run(lambda x: fs.aggregate_plain(x, H, W, 2.0), faces.double(), [c.double() for c in cot])
+    for a, b in zip(ok, op):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    for a, b in ((ok[1] / (ok[2][..., None] + 1.0), op[1] / (op[2][..., None] + 1.0)),
+                 (torch.exp(ok[0]), torch.exp(op[0]))):
+        assert (a - b).abs().max() <= 2e-4
+    for cols in (slice(0, 9, 3), slice(1, 9, 3), slice(2, 9, 3), slice(9, 10), slice(10, 13)):
+        assert (gk[..., cols] - gp[..., cols]).abs().max() <= 1e-3 * gp[..., cols].abs().max()
+    assert float(gk[..., 13:].abs().max()) == 0.0

@@ -2,7 +2,8 @@
 or cv2): statically, no import statement of ``avatarclip_torch`` or
 ``chip_smoke.py`` reaches ``avatarclip_tpu``; and in a fresh interpreter,
 import every avatarclip_torch module, run one tiny train_clip step, one
-photometric step, ``validate_image`` and ``validate_mesh``, and check
+photometric step, ``validate_image``, ``validate_mesh``, one PoseOptimizer
+step, one MotionOptimizer step and ``visualize.render_pose``, and check
 sys.modules. The kernel modules import and build nothing without nvcc."""
 
 import ast
@@ -56,6 +57,19 @@ def test_port_imports_no_jax_and_runs_a_step(tmp_path):
         r.validate_image(idx=1)
         v, t, _ = r.validate_mesh(resolution=16)
         assert t.shape[0] > 0
+        import torch
+        from avatarclip_torch.pipelines import animate, visualize
+        ctx = animate.AnimateContext(clip_size="tiny", render_res=32, device="cpu")
+        tf = ctx.get_text_feature("a man")
+        g = animate.PoseOptimizer(ctx=ctx, topk=1, num_iteration=1)
+        var = g.draw_init().requires_grad_(True)
+        assert torch.isfinite(g.step(var, g.make_optimizer(var), tf, g.draw_step()))
+        m = animate.MotionOptimizer(ctx=ctx, num_frame=12, latent_dim=32, num_layers=1, num_heads=2,
+                                    num_iteration=1, clip_num_part=6)
+        lat = m.draw_init().requires_grad_(True)
+        opt = torch.optim.Adam([lat], lr=0.01)
+        assert torch.isfinite(m.step(lat, opt, torch.zeros(2, 63), tf, m.draw_step()))
+        visualize.render_pose(torch.zeros(69), {str(tmp_path / "pose.jpg")!r}, ctx=ctx, res=32)
         banned = ("jax", "jaxlib", "optax", "orbax", "imageio", "cv2", "avatarclip_tpu")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
         assert not bad, bad

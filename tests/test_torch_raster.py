@@ -49,7 +49,7 @@ def test_plain_zbuffer_matches_pallas_interpret(H, W):
     want = jrz.zbuffer_select_tiled(coef, valid, proj.sx[f], proj.sy[f], H, W, interpret=True)
     tproj = traster.project_vertices(torch.from_numpy(v), torch.from_numpy(_pose()), H, W, 60.0)
     tf = torch.from_numpy(f).long()
-    tcoef, tvalid = traster._face_coefficients(tproj, tf)
+    tcoef, tvalid, _ = traster._face_coefficients(tproj, tf)
     np.testing.assert_array_equal(tvalid.numpy(), np.asarray(valid))
     got = trz.zbuffer_select_tiled(tcoef, tvalid, tproj.sx[tf], tproj.sy[tf], H, W)
     assert (np.asarray(want) >= 0).sum() > 500
@@ -103,7 +103,40 @@ def test_gated_sliver_adds_no_coverage():
     H = W = 256
     focal = jcam.focal_from_fov(W, np.deg2rad(60.0))
     proj = traster.project_vertices(verts, pose, H, W, focal)
-    _, valid = traster._face_coefficients(proj, faces)
+    _, valid, _ = traster._face_coefficients(proj, faces)
     assert valid.tolist() == [False, True]
     fid = traster.render_mesh(verts, faces, pose, H, W, focal)["face_id"].numpy()
     assert not (fid == 0).any() and (fid == 1).sum() > 0
+
+
+@pytest.mark.parametrize("shading", ["vertex_colors", "uv_texture"])
+def test_render_mesh_options_match_jax(shading):
+    """The hard render's colour options (per-vertex colours; per-corner uv
+    with a bilinearly sampled texture), with AvatarAnimate's picture light
+    and white background, against the JAX kernel semantics."""
+    from avatarclip_tpu import assets as jassets
+
+    model = jassets.load_smpl()
+    v = np.asarray(model.v_template) @ jcam.BODY_TO_WORLD.T
+    f = np.asarray(model.faces, np.int32)
+    g = np.random.default_rng(5)
+    pose = _pose((0.3, 0.4, 1.9))
+    H = W = 64
+    focal = jcam.focal_from_fov(W, np.deg2rad(50.0))
+    light = np.array([0.4, 0.8, 0.6], np.float32)
+    if shading == "vertex_colors":
+        kw = {"vertex_colors": g.uniform(0.1, 0.9, (v.shape[0], 3)).astype(np.float32)}
+    else:
+        kw = {"face_uvs": g.uniform(0.0, 1.0, (f.shape[0], 3, 2)).astype(np.float32),
+              "texture": g.uniform(0.0, 1.0, (16, 24, 3)).astype(np.float32)}
+    want = jraster.render_mesh(jnp.asarray(v), jnp.asarray(f), jnp.asarray(pose), H, W, focal,
+                               light_dir=jnp.asarray(light), background=1.0, use_kernel=True,
+                               interpret=True, **{k: jnp.asarray(a) for k, a in kw.items()})
+    got = traster.render_mesh(torch.from_numpy(v), torch.from_numpy(f).long(), torch.from_numpy(pose),
+                              H, W, focal, light_dir=light, background=1.0,
+                              **{k: torch.from_numpy(a) for k, a in kw.items()})
+    np.testing.assert_array_equal(got["face_id"].numpy(), np.asarray(want["face_id"]))
+    assert (np.asarray(want["rgb"]) < 1.0).any(axis=-1).mean() > 0.05  # the body is in view
+    # as test_render_mesh_matches_jax_kernel_semantics: the winner's
+    # barycentrics are recomputed in another summation order
+    np.testing.assert_allclose(got["rgb"].numpy(), np.asarray(want["rgb"]), atol=1e-3, rtol=1e-4)
