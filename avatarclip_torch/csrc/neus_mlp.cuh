@@ -1,6 +1,7 @@
-// Shared device code for the per-ray NeuS megakernel pair (fused_neus_ray.cu):
-// network dimensions, the flat weight layout, the per-CTA workspace layout
-// and one CTA-wide f32 GEMM.
+// Shared device code of the NeuS kernel pairs (fused_neus_ray.cu,
+// fused_neus_point.cu, fused_sdf.cu, fused_color.cu): network dimensions,
+// the flat weight layout, the per-CTA workspace layout, one CTA-wide f32
+// GEMM and the fixed-order sum of per-CTA partials.
 //
 // Every 2-D activation is a row-major (rows x width) f32 matrix with one row
 // per sample point of the ray being processed (rows <= MAXS). All weights are
@@ -247,6 +248,26 @@ __device__ inline void pe_column(int j, int& c, float& f, int& kind) {
   c = r % 3;
   f = (float)(1 << k);
   kind = r < 3 ? 1 : 2;
+}
+
+// out[i] = sum_c part[c * n + i], c in fixed order
+__global__ void reduce_partials_kernel(const float* __restrict__ part, int n_part, long long n,
+                                       float* __restrict__ out) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int c = 0; c < n_part; ++c) s += part[(size_t)c * n + i];
+    out[i] = s;
+  }
+}
+
+int reduce_partials(const float* part, int n_part, long long n, float* out, cudaStream_t st) {
+  const int threads = 256;
+  long long blocks = (n + threads - 1) / threads;
+  if (blocks > 4096) blocks = 4096;
+  if (blocks < 1) blocks = 1;
+  reduce_partials_kernel<<<(int)blocks, threads, 0, st>>>(part, n_part, n, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace neus

@@ -1,6 +1,7 @@
 // Device code of one ray's NeuS network pass, shared by the per-ray kernel
-// pair (fused_neus_ray.cu, B1) and the point-level pair
-// (fused_neus_point.cu, B3): the alpha chain and its VJP, the SDF primal
+// pair (fused_neus_ray.cu, B1), the point-level pair (fused_neus_point.cu,
+// B3) and the standalone SDF pair (fused_sdf.cu, B6, which runs a block of
+// up to MAXS points as one "ray"): the alpha chain and its VJP, the SDF primal
 // stack with its analytic spatial gradient, the colour MLP, their reverse
 // passes (forward-over-reverse through the SDF MLP) and the fixed-order
 // partial-sum pass. Every function is called by all NT threads of a CTA
@@ -38,18 +39,12 @@ struct RayShared {
   float alpha[MAXS], w[MAXS], T[MAXS], calpha[MAXS];
 };
 
-// points, embedding (+ first and second derivatives), SDF primal stack:
-// h[i], p[i] = softplus', u = [softplus(z_skip), e] / sqrt(2), p_s, and
-// out = [s_net, feature]
-__device__ void sdf_primal(GemmSmem& sm, const Dims& d, const float* wts,
-                           const WeightOffsets& wo, float* ws, const Workspace& L,
-                           const RayShared& rs, const float* z) {
+// from the d.S points in ws[L.pts]: embedding (+ first and second
+// derivatives), SDF primal stack: h[i], p[i] = softplus',
+// u = [softplus(z_skip), e] / sqrt(2), p_s, and out = [s_net, feature]
+__device__ void sdf_stack(GemmSmem& sm, const Dims& d, const float* wts,
+                          const WeightOffsets& wo, float* ws, const Workspace& L) {
   const int S = d.S, tid = threadIdx.x;
-  for (int e = tid; e < S * 3; e += NT) {
-    const int r = e / 3, c = e % 3;
-    ws[L.pts + e] = rs.o[c] + rs.d[c] * z[r];
-  }
-  __syncthreads();
   for (int e = tid; e < S * d.E; e += NT) {
     const int r = e / d.E, j = e % d.E;
     int c, kind;
@@ -98,6 +93,18 @@ __device__ void sdf_primal(GemmSmem& sm, const Dims& d, const float* wts,
   __syncthreads();
   gemm(sm, S, 1 + d.F, d.H, ws + L.u, d.H, false, wts + wo.sw[d.NH + 1], d.H, true,
        ws + L.out, 1 + d.F, false, wts + wo.sb[d.NH + 1]);
+}
+
+// the ray's points o + d z, then sdf_stack
+__device__ void sdf_primal(GemmSmem& sm, const Dims& d, const float* wts,
+                           const WeightOffsets& wo, float* ws, const Workspace& L,
+                           const RayShared& rs, const float* z) {
+  for (int e = threadIdx.x; e < d.S * 3; e += NT) {
+    const int r = e / 3, c = e % 3;
+    ws[L.pts + e] = rs.o[c] + rs.d[c] * z[r];
+  }
+  __syncthreads();
+  sdf_stack(sm, d, wts, wo, ws, L);
 }
 
 // analytic spatial gradient g = d s_net / d xs by one reverse sweep
@@ -330,26 +337,6 @@ __device__ void sdf_reverse(GemmSmem& sm, const Dims& d, const float* wts,
     ws[L.dx + e] = acc * d.scale + ws[L.ccin + r * d.CW + c];
   }
   __syncthreads();
-}
-
-// out[i] = sum_c part[c * n + i], c in fixed order
-__global__ void reduce_partials_kernel(const float* __restrict__ part, int n_part, long long n,
-                                       float* __restrict__ out) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int c = 0; c < n_part; ++c) s += part[(size_t)c * n + i];
-    out[i] = s;
-  }
-}
-
-int reduce_partials(const float* part, int n_part, long long n, float* out, cudaStream_t st) {
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;
-  if (blocks < 1) blocks = 1;
-  reduce_partials_kernel<<<(int)blocks, threads, 0, st>>>(part, n_part, n, out);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace neus

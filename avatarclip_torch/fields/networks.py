@@ -1,15 +1,25 @@
-"""Neural fields: SDF, rendering (colour) and variance networks as nn.Modules.
+"""Neural fields: SDF, rendering (colour), variance and NeRF background
+networks as nn.Modules.
 
 Torch twin of avatarclip_tpu/fields/networks.py. Parameter names mirror the
-JAX pytree (``layers.{i}.{g,v,b}``, ``extra.{g,v,b}``, ``variance``) so that
-:func:`avatarclip_torch.utils.convert.params_from_jax` maps one onto the
-other by path. Weights keep the (out, in) layout of the JAX tree and of
-``torch.nn.Linear``; weight norm is w = g * v / |v| per output row.
+JAX pytree (``layers.{i}.{g,v,b}``, ``extra.{g,v,b}``, ``variance``,
+``pts.{i}.{w,b}`` / ``view`` / ``feature`` / ``alpha`` / ``rgb`` of the
+NeRF) so that :func:`avatarclip_torch.utils.convert.params_from_jax` maps
+one onto the other by path. Weights keep the (out, in) layout of the JAX
+tree and of ``torch.nn.Linear``; weight norm is w = g * v / |v| per output
+row.
 
 Fidelity notes (as in the JAX package): geometric init of the SDF MLP,
 softplus(beta=100) activations, the skip concat scaled by 1/sqrt(2), and the
-``extra_color`` head off the last hidden activation. The NeRF background
-(``n_outside > 0``) is not ported yet.
+``extra_color`` head off the last hidden activation. The NeRF++ background
+net always runs its view branch (``use_viewdirs`` is not read), concatenates
+``[pts, h]`` after layer ``i in skips`` and has no weight norm.
+
+:func:`sdf_with_gradient` and :func:`color_eval` are the renderer's entry
+points, with the JAX package's gate ("TPU backend" read as "CUDA tensor"):
+on a CUDA tensor with ``use_pallas`` and ``d_hidden >= 256`` and a spec the
+kernel takes they run the CUDA pairs of ops/fused_sdf.py and
+ops/fused_color.py, otherwise the plain modules.
 """
 
 from __future__ import annotations
@@ -85,7 +95,8 @@ class SDFConfig:
     weight_norm: bool = True
     inside_outside: bool = False
     dtype: str = "float32"
-    # route render_core through the hand-written CUDA megakernel on the card
+    # on the card: the hand-written CUDA kernels (the megakernel in
+    # render_core, B6 in the per-sample branch) instead of the plain module
     use_pallas: bool = True
 
     @property
@@ -257,13 +268,110 @@ class VarianceNetwork(nn.Module):
         return torch.exp(self.variance * 10.0)
 
 
+# ---------------------------------------------------------------------------
+# NeRF++ background network (inverted-sphere background, n_outside > 0)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NeRFConfig:
+    D: int = 8
+    W: int = 256
+    d_in: int = 4
+    d_in_view: int = 3
+    multires: int = 10
+    multires_view: int = 4
+    skips: Sequence[int] = (4,)
+    use_viewdirs: bool = True
+    output_ch: int = 4
+
+
+class NeRFNetwork(nn.Module):
+    """Twin of the JAX package's ``nerf_init`` / ``nerf_apply``: D relu
+    linears over the encoded (x/r, 1/r) points, an alpha head, a feature
+    linear, one relu linear over [feature, encoded view], an rgb head."""
+
+    def __init__(self, cfg: NeRFConfig, generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        in_ch = embed_dim(cfg.multires, cfg.d_in)
+        in_ch_view = embed_dim(cfg.multires_view, cfg.d_in_view)
+
+        def dense(d_out, d_in):
+            bound = 1.0 / np.sqrt(d_in)
+            w = (torch.rand(d_out, d_in, generator=generator) * 2 - 1) * bound
+            b = (torch.rand(d_out, generator=generator) * 2 - 1) * bound
+            return WNLinear(w, b, weight_norm=False)
+
+        self.pts = nn.ModuleList(
+            [dense(cfg.W, in_ch)]
+            + [dense(cfg.W, cfg.W + in_ch if i in cfg.skips else cfg.W) for i in range(cfg.D - 1)]
+        )
+        self.view = dense(cfg.W // 2, in_ch_view + cfg.W)
+        self.feature = dense(cfg.W, cfg.W)
+        self.alpha = dense(1, cfg.W)
+        self.rgb = dense(3, cfg.W // 2)
+
+    def forward(self, pts: torch.Tensor, views: torch.Tensor):
+        """(P, 4) points [x / r, 1 / r] and (P, 3) directions -> raw
+        (density (P, 1), rgb (P, 3))."""
+        cfg = self.cfg
+        pts = positional_encoding(pts, cfg.multires)
+        views = positional_encoding(views, cfg.multires_view)
+        h = pts
+        for i, layer in enumerate(self.pts):
+            h = torch.relu(layer(h))
+            if i in cfg.skips:
+                h = torch.cat([pts, h], dim=-1)
+        alpha = self.alpha(h)
+        feature = self.feature(h)
+        h = torch.relu(self.view(torch.cat([feature, views], dim=-1)))
+        return alpha, self.rgb(h)
+
+
 class NeuSFields(nn.Module):
-    """The three trained networks of one avatar; state-dict paths mirror the
-    JAX params tree (``sdf/...``, ``color/...``, ``variance/variance``)."""
+    """The trained networks of one avatar; state-dict paths mirror the JAX
+    params tree (``sdf/...``, ``color/...``, ``variance/variance`` and, with
+    a NeRF++ background, ``nerf/...``)."""
 
     def __init__(self, sdf_cfg: SDFConfig, color_cfg: ColorConfig,
-                 variance_init: float, generator: torch.Generator | None = None):
+                 variance_init: float, generator: torch.Generator | None = None,
+                 nerf_cfg: NeRFConfig | None = None):
         super().__init__()
         self.sdf = SDFNetwork(sdf_cfg, generator)
         self.color = ColorNetwork(color_cfg, generator)
         self.variance = VarianceNetwork(variance_init)
+        self.nerf = NeRFNetwork(nerf_cfg, generator) if nerf_cfg is not None else None
+
+
+# ---------------------------------------------------------------------------
+# the renderer's entry points, with the kernel gate
+# ---------------------------------------------------------------------------
+
+_KERNEL_WIDTH = 256  # narrower nets stay on the plain modules (as in the JAX package)
+
+
+def sdf_with_gradient(sdf: SDFNetwork, pts: torch.Tensor):
+    """(sdf (P, 1), feature (P, F), gradient (P, 3)): the B6 kernel pair on a
+    CUDA tensor when the gate is open, else the plain module (twin of the JAX
+    package's ``sdf_with_gradient``)."""
+    cfg = sdf.cfg
+    if cfg.use_pallas and pts.is_cuda and cfg.d_hidden >= _KERNEL_WIDTH:
+        from ..ops import fused_sdf
+
+        if fused_sdf.spec_from_config(cfg) is not None:
+            return fused_sdf.sdf_with_gradient_fused(sdf, pts)
+    return sdf.sdf_with_gradient(pts)
+
+
+def color_eval(color: ColorNetwork, points, normals, view_dirs, features) -> torch.Tensor:
+    """The colour net's output (P, 3 | 6): the B7 kernel pair on a CUDA
+    tensor when the gate is open, else the plain module (twin of the JAX
+    package's ``color_eval``)."""
+    cfg = color.cfg
+    if cfg.use_pallas and points.is_cuda and cfg.d_hidden >= _KERNEL_WIDTH:
+        from ..ops import fused_color
+
+        if fused_color.spec_from_config(cfg) is not None:
+            return fused_color.color_apply_fused(color, points, normals, view_dirs, features)
+    return color(points, normals, view_dirs, features)

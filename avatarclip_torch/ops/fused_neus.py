@@ -204,9 +204,20 @@ def _lib():
     return lib
 
 
-def _n_cta(device, R: int) -> int:
+def n_cta_for(device, R: int) -> int:
+    """CTAs for R row blocks: two per SM, at most one per block."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(R, 2 * sms))
+
+
+def split_flat(d_flat: torch.Tensor, shapes) -> list[torch.Tensor]:
+    """The flat weight gradient cut back into the weights' shapes."""
+    out, off = [], 0
+    for shape in shapes:
+        n = shape.numel()
+        out.append(d_flat[off:off + n].reshape(shape))
+        off += n
+    return out
 
 
 def _check_inputs(spec, flat, rays_o, rays_d, mid_z, dists, inv_s):
@@ -234,7 +245,7 @@ def neus_ray_fwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s, c
         raise ValueError("flat weight buffer does not match the network dims")
     R, S = mid_z.shape
     dev = mid_z.device
-    n_cta = _n_cta(dev, R)
+    n_cta = n_cta_for(dev, R)
     stride = int(lib.neus_workspace_floats(d, 0))
     ws = torch.empty(n_cta * stride, device=dev)
     eik_part = torch.empty(n_cta * 2, device=dev)
@@ -269,7 +280,7 @@ def neus_ray_bwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s, c
                               ("sdf_res", sdf_res, (R * S,)), ("g_res", g_res, (R * S, 3))))
     dev = mid_z.device
     n_w = int(lib.neus_weight_count(d))
-    n_cta = _n_cta(dev, R)
+    n_cta = n_cta_for(dev, R)
     stride = int(lib.neus_workspace_floats(d, 1))
     ws = torch.empty(n_cta * stride, device=dev)
     gpart = torch.empty(n_cta * (n_w + 1), device=dev)
@@ -320,12 +331,7 @@ class NeuSRayFunction(torch.autograd.Function):
             cot(c_col, (R, ctx.spec.rgb_width)), cot(c_nw, (R, 3)), cot(c_ws, (R, 1)),
             cot(c_eik, (2,)),
         )
-        grads, off = [], 0
-        for shape in ctx.shapes:
-            n = shape.numel()
-            grads.append(d_flat[off:off + n].reshape(shape))
-            off += n
-        return (None, None, d_o, d_d, d_z, d_t, d_inv_s, *grads)
+        return (None, None, d_o, d_d, d_z, d_t, d_inv_s, *split_flat(d_flat, ctx.shapes))
 
 
 def point_eval_ray(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z, dists,
@@ -378,7 +384,7 @@ def neus_point_fwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s,
         raise ValueError("flat weight buffer does not match the network dims")
     R, S = mid_z.shape
     dev = mid_z.device
-    n_cta = _n_cta(dev, R)
+    n_cta = n_cta_for(dev, R)
     stride = int(lib.neus_point_workspace_floats(d, 0))
     ws = torch.empty(n_cta * stride, device=dev)
     eik_part = torch.empty(n_cta * 2, device=dev)
@@ -412,7 +418,7 @@ def neus_point_bwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s,
                               ("c_rgb", c_rgb, (P, spec.rgb_width)), ("c_eik", c_eik, (2,))))
     dev = mid_z.device
     n_w = int(lib.neus_point_weight_count(d))
-    n_cta = _n_cta(dev, R)
+    n_cta = n_cta_for(dev, R)
     stride = int(lib.neus_point_workspace_floats(d, 1))
     ws = torch.empty(n_cta * stride, device=dev)
     gpart = torch.empty(n_cta * (n_w + 1), device=dev)
@@ -467,12 +473,7 @@ class NeuSPointFunction(torch.autograd.Function):
             cot(c_sdf, (P,)), cot(c_alpha, (P,)), cot(c_cdf, (P,)), cot(c_grad, (P, 3)),
             cot(c_rgb, (P, ctx.spec.rgb_width)), cot(c_eik, (2,)),
         )
-        grads, off = [], 0
-        for shape in ctx.shapes:
-            n = shape.numel()
-            grads.append(d_flat[off:off + n].reshape(shape))
-            off += n
-        return (None, None, None, d_o, d_d, d_z, d_t, d_inv_s, *grads)
+        return (None, None, None, d_o, d_d, d_z, d_t, d_inv_s, *split_flat(d_flat, ctx.shapes))
 
 
 def point_eval(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z, dists, inv_s,

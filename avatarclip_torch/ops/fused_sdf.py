@@ -1,0 +1,219 @@
+"""The standalone SDF pair (B6): CUDA forward/backward, plain version, autograd.
+
+Twin of avatarclip_tpu/ops/fused_sdf.py: `sdf_with_gradient_fused` (the
+entry), `_fused_core` (the custom VJP), Pallas `_fwd_kernel` /
+`_bwd_kernel`. Per point of (P, 3): the SDF MLP with its analytic spatial
+gradient, returning ``(sdf (P, 1), feature (P, F), gradient (P, 3))``; the
+backward takes cotangents on all three and returns d(points) and every dense
+weight gradient (forward-over-reverse, csrc/fused_sdf.cu). The renderer's
+per-sample branch reaches it through ``fields.networks.sdf_with_gradient``
+when the megakernel is declined (the NeRF++ background is on).
+
+:func:`sdf_with_gradient_fused` takes a CUDA tensor and launches the kernel
+pair through :class:`SDFFunction`, or raises; on the CPU only the gate in
+fields/networks.py picks :func:`sdf_with_gradient_plain`, autograd through
+the plain module with ``create_graph=True`` in the input's dtype. The kernels
+compute in f32 throughout. Weight norm is resolved to dense (out, in) weights
+in plain torch before the Function (:func:`dense_weights`), so autograd
+carries the kernel's dense weight gradients on to ``g``, ``v`` and ``b``.
+The Function's backward is itself not differentiable: the eikonal term's
+second derivative is the backward kernel's tangent path, not a double
+backward.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from . import _build
+from .fused_neus import Dims, n_cta_for, split_flat
+from ..fields.networks import SDFNetwork
+
+LAUNCHES = {"sdf_fwd": 0, "sdf_bwd": 0}
+BLOCK = 64  # points per CTA iteration (neus_mlp.cuh's MAXS)
+LANE = 128  # the JAX family's width granule, kept so both packages take one family
+MAX_HIDDEN = 8  # neus_mlp.cuh's MAXNH
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedSDFSpec:
+    multires: int
+    d_hidden: int
+    n_hidden: int  # hidden linears before the skip-producing layer
+    feat_dim: int  # d_out - 1
+    scale: float
+
+    @property
+    def d_embed(self) -> int:
+        return 3 * (1 + 2 * self.multires)
+
+    def dims(self) -> Dims:
+        """neus::Dims of the SDF half alone: no colour layers; CW = 6 + F is
+        the slot layout in which the backward reads the feature cotangent."""
+        E = self.d_embed
+        return Dims(BLOCK, self.multires, E, self.d_hidden, self.n_hidden, self.d_hidden - E,
+                    self.feat_dim, 0, 0, 6 + self.feat_dim, 0, 0, float(self.scale))
+
+
+def spec_from_config(cfg) -> FusedSDFSpec | None:
+    """SDFConfig -> FusedSDFSpec, or None outside the family the kernels take
+    (the JAX package's: d_in 3, positional encoding, d_hidden a multiple of
+    128 wider than the embedding, one skip concat right before the head; and
+    1 to 8 hidden linears before the skip-producing layer)."""
+    if cfg.d_in != 3 or cfg.multires < 1 or cfg.d_hidden % LANE != 0:
+        return None
+    if tuple(cfg.skip_in) != (cfg.n_layers,) or not 2 <= cfg.n_layers <= MAX_HIDDEN + 1:
+        return None
+    if cfg.d_hidden <= 3 * (1 + 2 * cfg.multires):
+        return None
+    return FusedSDFSpec(multires=cfg.multires, d_hidden=cfg.d_hidden, n_hidden=cfg.n_layers - 1,
+                        feat_dim=cfg.d_out - 1, scale=cfg.scale)
+
+
+def dense_weights(sdf: SDFNetwork) -> list[torch.Tensor]:
+    """Kernel weight list (differentiable, weight norm resolved in f32):
+    every layer as (W (out, in), b), the flat layout of csrc/neus_mlp.cuh's
+    SDF part."""
+    out = []
+    for layer in sdf.layers:
+        out += [layer.dense(), layer.b]
+    return [t.float() for t in out]
+
+
+def sdf_with_gradient_plain(sdf: SDFNetwork, pts: torch.Tensor):
+    """Plain PyTorch version of the kernel pair: the module's forward and
+    its spatial gradient by autograd (create_graph=True), computed in the
+    input's dtype (f32 like the kernels; f64 gives a reference)."""
+    return sdf.sdf_with_gradient(pts, dtype=pts.dtype)
+
+
+def flops_per_point(spec: FusedSDFSpec) -> tuple[float, float]:
+    """(forward, backward) GEMM FLOPs per point of the kernels, from the
+    network dims. Forward: the stack and the gradient's reverse sweep.
+    Backward: the primal stack again, the tangent stack, the head and the
+    reverse passes over primal and tangent (the elementwise work is not
+    counted)."""
+    E, H, NH, F1 = spec.d_embed, spec.d_hidden, spec.n_hidden, spec.feat_dim + 1
+    SW = H - E
+    stack = 2 * E * H + (NH - 1) * 2 * H * H + 2 * H * SW
+    fwd = stack + 2 * H * F1 + 2 * SW * H + (NH - 1) * 2 * H * H + 2 * H * E
+    bwd = (stack + 2 * H * F1) + stack + 4 * F1 * H + 8 * SW * H + 8 * H * E + (NH - 1) * 8 * H * H
+    return float(fwd), float(bwd)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel pair
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    lib = _build.load("fused_sdf", "fused_sdf.cu")
+    if not getattr(lib, "_typed", False):
+        P, I, L_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.sdf_weight_count.argtypes = [Dims]
+        lib.sdf_weight_count.restype = L_
+        lib.sdf_workspace_floats.argtypes = [Dims, I]
+        lib.sdf_workspace_floats.restype = L_
+        lib.sdf_fwd.argtypes = [Dims, P, P, I, P, P, P, P, L_, I, P]
+        lib.sdf_fwd.restype = I
+        lib.sdf_bwd.argtypes = [Dims, P, P, I, P, P, P, P, P, P, P, L_, I, P]
+        lib.sdf_bwd.restype = I
+        lib._typed = True
+    return lib
+
+
+def _check(spec: FusedSDFSpec, lib, flat, pts):
+    if not pts.is_cuda or flat.device != pts.device:
+        raise ValueError("the SDF kernel takes points and weights on one CUDA device")
+    _build.check_f32(pts.device, (("pts", pts, (pts.shape[0], 3)), ("flat", flat, (flat.numel(),))))
+    if flat.numel() != lib.sdf_weight_count(spec.dims()):
+        raise ValueError("flat weight buffer does not match the network dims")
+    if pts.shape[0] >= 2**31:
+        raise ValueError("the SDF kernel takes fewer than 2^31 points")
+
+
+def sdf_fwd(spec: FusedSDFSpec, flat, pts):
+    """Launch the forward kernel. Returns (sdf (P, 1), feature (P, F),
+    gradient (P, 3))."""
+    lib = _lib()
+    _check(spec, lib, flat, pts)
+    d, dev, P = spec.dims(), pts.device, pts.shape[0]
+    n_cta = n_cta_for(dev, -(-P // BLOCK))
+    stride = int(lib.sdf_workspace_floats(d, 0))
+    ws = torch.empty(n_cta * stride, device=dev)
+    sdf = torch.empty(P, 1, device=dev)
+    feat = torch.empty(P, spec.feat_dim, device=dev)
+    grad = torch.empty(P, 3, device=dev)
+    p = _build.ptr
+    err = lib.sdf_fwd(d, p(flat), p(pts), P, p(sdf), p(feat), p(grad), p(ws), stride, n_cta,
+                      _build.stream_ptr(dev))
+    _build.check(err, "sdf_fwd launch")
+    _build.count(LAUNCHES, "sdf_fwd")
+    return sdf, feat, grad
+
+
+def sdf_bwd(spec: FusedSDFSpec, flat, pts, c_sdf, c_feat, c_grad):
+    """Launch the backward kernel (+ its partial-sum pass). Returns
+    (d_pts (P, 3), d_flat)."""
+    lib = _lib()
+    _check(spec, lib, flat, pts)
+    d, dev, P = spec.dims(), pts.device, pts.shape[0]
+    _build.check_f32(dev, (("c_sdf", c_sdf, (P, 1)), ("c_feat", c_feat, (P, spec.feat_dim)),
+                           ("c_grad", c_grad, (P, 3))))
+    n_w = flat.numel()
+    n_cta = n_cta_for(dev, -(-P // BLOCK))
+    stride = int(lib.sdf_workspace_floats(d, 1))
+    ws = torch.empty(n_cta * stride, device=dev)
+    gpart = torch.empty(n_cta * n_w, device=dev)
+    d_pts = torch.empty(P, 3, device=dev)
+    d_w = torch.empty(n_w, device=dev)
+    p = _build.ptr
+    err = lib.sdf_bwd(d, p(flat), p(pts), P, p(c_sdf), p(c_feat), p(c_grad), p(d_pts), p(d_w),
+                      p(gpart), p(ws), stride, n_cta, _build.stream_ptr(dev))
+    _build.check(err, "sdf_bwd launch")
+    _build.count(LAUNCHES, "sdf_bwd")
+    return d_pts, d_w
+
+
+class SDFFunction(torch.autograd.Function):
+    """(spec, pts, *dense weights) -> (sdf, feature, gradient); forward and
+    backward are the CUDA kernels, and the backward is not differentiated
+    again."""
+
+    @staticmethod
+    def forward(ctx, spec, pts, *weights):
+        flat = torch.cat([w.detach().reshape(-1) for w in weights])
+        sdf, feat, grad = sdf_fwd(spec, flat, pts)
+        ctx.save_for_backward(flat, pts)
+        ctx.spec = spec
+        ctx.shapes = [w.shape for w in weights]
+        return sdf, feat, grad
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, c_sdf, c_feat, c_grad):
+        flat, pts = ctx.saved_tensors
+        P, dev = pts.shape[0], pts.device
+
+        def cot(t, shape):
+            return torch.zeros(shape, device=dev) if t is None else t.float().contiguous()
+
+        d_pts, d_flat = sdf_bwd(ctx.spec, flat, pts, cot(c_sdf, (P, 1)),
+                                cot(c_feat, (P, ctx.spec.feat_dim)), cot(c_grad, (P, 3)))
+        return (None, d_pts, *split_flat(d_flat, ctx.shapes))
+
+
+def sdf_with_gradient_fused(sdf: SDFNetwork, pts: torch.Tensor):
+    """(sdf (P, 1), feature (P, F), gradient (P, 3)) by the kernel pair.
+    Takes a CUDA tensor and raises on any other: on the CPU the gate
+    (fields.networks.sdf_with_gradient) picks the plain module."""
+    if not pts.is_cuda:
+        raise ValueError("sdf_with_gradient_fused takes CUDA tensors (the kernels have no CPU mode)")
+    spec = spec_from_config(sdf.cfg)
+    if spec is None:
+        raise ValueError("network configuration not supported by the SDF kernel")
+    return SDFFunction.apply(spec, pts.float().contiguous(), *dense_weights(sdf))

@@ -20,7 +20,10 @@ against a snapshot of the fields (a bounded queue, drained at loop end).
 Images are written with ``utils/png.write_png`` and meshes with
 ``export/mesh_io.write_ply``.
 
-Not ported yet: ``interpolate_view`` and ``render_novel_image``.
+View interpolation: ``render_novel_image`` renders the camera between two
+stored views (rotation by Slerp, centre linearly) through
+``render_rays_chunked``, and ``interpolate_view`` writes 60 such frames and
+their reversal at 30 fps as an MP4 with ``utils/mp4.write_mp4``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..export import mesh_io
 from ..fields import networks as nets
 from ..render import cameras, neus, raster
 from ..utils.logging import MetricsLogger
+from ..utils.mp4 import write_mp4
 from ..utils.png import write_png
 from .dataset import SMPLViewDataset, sample_random_rays
 
@@ -75,6 +79,15 @@ def build_network_configs(conf):
     col_kw.setdefault("dtype", dtype)
     ncfg = neus.NeuSConfig(**conf["model.neus_renderer"].as_dict())
     return ncfg, nets.SDFConfig(**sdf_kw), nets.ColorConfig(**col_kw)
+
+
+def nerf_config(conf) -> nets.NeRFConfig:
+    """The conf's ``model.nerf`` block as a NeRFConfig. The Runner builds no
+    NeRF (nor does the JAX package's, whose confs all set n_outside = 0): a
+    caller that renders with n_outside > 0 passes it to NeuSFields."""
+    kw = conf["model.nerf"].as_dict()
+    kw["skips"] = tuple(kw.get("skips", [4]))
+    return nets.NeRFConfig(**kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -907,6 +920,45 @@ class Runner:
         shading[out["weight_sum"].reshape(-1) < 0.5] = 1.0
         img = np.clip(extra * shading, 0, 1).reshape(H, W, 3)
         write_png(os.path.join(self.base_exp_dir, "cast_light_texture_head_black.png"), to8b(img))
+
+    # -- view interpolation (main.py:822-848) ----------------------------------
+
+    def render_novel_image(self, idx_0: int, idx_1: int, ratio: float,
+                           resolution_level: int) -> np.ndarray:
+        """The (H, W, 3) uint8 render from the camera at ``ratio`` between
+        stored cameras idx_0 and idx_1: camera-to-world rotations by Slerp,
+        centres linearly."""
+        from scipy.spatial.transform import Rotation, Slerp
+
+        poses = self.dataset.poses.cpu().numpy()
+        p0, p1 = np.linalg.inv(poses[idx_0]), np.linalg.inv(poses[idx_1])
+        rot = Slerp([0, 1], Rotation.from_matrix(np.stack([p0[:3, :3], p1[:3, :3]])))(ratio)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = rot.as_matrix()
+        pose[:3, 3] = (1.0 - ratio) * p0[:3, 3] + ratio * p1[:3, 3]
+        pose = torch.from_numpy(np.linalg.inv(pose)).to(self.device)
+        rays_o, rays_d = self.dataset.gen_rays_pose(pose, resolution_level)
+        H, W = rays_o.shape[0], rays_o.shape[1]
+        bg = torch.ones(1, 3, device=self.device) if self.tc.use_white_bkgd else None
+        out = self.render_rays_chunked(rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), bg,
+                                       keys=["color_fine"])
+        return to8b(out["color_fine"].reshape(H, W, 3))
+
+    def interpolate_view(self, img_idx_0: int, img_idx_1: int) -> str:
+        """Write render/{iter:08d}_{idx_0}_{idx_1}.mp4: 60 renders at
+        resolution level 4 along a sine-eased path between the two cameras,
+        then the same frames reversed, at 30 fps. Returns the path."""
+        n_frames = 60
+        images = []
+        for i in range(n_frames):
+            ratio = np.sin(((i / n_frames) - 0.5) * np.pi) * 0.5 + 0.5
+            images.append(self.render_novel_image(img_idx_0, img_idx_1, ratio, 4))
+        images += images[::-1]
+        video_dir = os.path.join(self.base_exp_dir, "render")
+        os.makedirs(video_dir, exist_ok=True)
+        path = os.path.join(video_dir, f"{self.iter_step:08d}_{img_idx_0}_{img_idx_1}.mp4")
+        write_mp4(path, images, fps=30)
+        return path
 
     # -- persistence ----------------------------------------------------------
 

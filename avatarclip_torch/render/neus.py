@@ -1,16 +1,26 @@
 """NeuS volume renderer (twin of avatarclip_tpu/render/neus.py).
 
-`sample_pdf`, `up_sample`, `cat_z_vals`, `render_core` and `render`, with the
-same formulas (logistic-CDF alpha, cos annealing, eikonal weighting,
-background blending). ``torch.searchsorted`` / ``torch.sort`` /
-``torch.gather`` stand in for the JAX package's rank merges and one-hot
-gathers. With the kernel gate open, `render_core` runs the per-ray
-megakernel pair (ops/fused_neus.py) with ``per_ray=True`` and returns
-per-ray quantities only, or with ``per_ray=False`` the point-level pair
-followed by the compositing pair (ops/fused_composite.py) and returns every
-per-sample key plus ``normals_weighted``; with the gate closed it is the
-plain per-sample path. The NeRF background (``n_outside > 0``) is not ported
-yet.
+`sample_pdf`, `up_sample`, `cat_z_vals`, `render_core_outside`,
+`render_core` and `render`, with the same formulas (logistic-CDF alpha, cos
+annealing, eikonal weighting, the NeRF++ background blend).
+``torch.searchsorted`` / ``torch.sort`` / ``torch.gather`` stand in for the
+JAX package's rank merges and one-hot gathers. With the kernel gate open,
+`render_core` runs the per-ray megakernel pair (ops/fused_neus.py) with
+``per_ray=True`` and returns per-ray quantities only, or with
+``per_ray=False`` the point-level pair followed by the compositing pair
+(ops/fused_composite.py) and returns every per-sample key plus
+``normals_weighted``. With the gate closed, which a background always closes,
+it is the per-sample path: the SDF and the colour net through
+``fields.networks.sdf_with_gradient`` / ``color_eval``, which run the B6 / B7
+kernel pairs on the card at >= 256 wide and the plain modules otherwise.
+
+With ``n_outside > 0`` (the fields then need a NeRF) the background is
+evaluated at the sorted union of the inner and the outside samples, as in
+the reference and the JAX package: ``background_alpha[:, :S]`` blends with
+the inner samples by index in that union, its last ``dists`` is
+``sample_dist``, the compositing runs over all S + n_outside samples, and
+with ``extra_color`` only the main colour is blended (the extra colour
+composites over ``weights[:, :S]``).
 """
 
 from __future__ import annotations
@@ -18,8 +28,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
-from ..fields.networks import NeuSFields
+from ..fields import networks as nets
 from ..ops import fused_composite, fused_neus
 
 # test hook: None = gate on device / config; True / False forces the
@@ -97,9 +108,32 @@ def cat_z_vals(sdf_fn, rays_o, rays_d, z_vals, new_z_vals, sdf, last: bool):
     return z_sorted, torch.cat([sdf, new_sdf], -1).gather(1, order)
 
 
-def _use_mega(fields: NeuSFields, rays_o, S: int) -> bool:
-    """The JAX package's gate (render/neus.py:331-353): both nets ask for
-    kernels, d_hidden >= 128, a CUDA tensor, and a spec the kernels take."""
+def render_core_outside(fields: nets.NeuSFields, rays_o, rays_d, z_vals, sample_dist: float):
+    """NeRF++ inverted-sphere background (renderer.py:95-131): alpha,
+    sampled colour and weights at the (R, S) samples ``z_vals``."""
+    R, S = z_vals.shape
+    dists = z_vals[:, 1:] - z_vals[:, :-1]
+    dists = torch.cat([dists, torch.full_like(dists[:, :1], sample_dist)], -1)
+    mid_z = z_vals + dists * 0.5
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., None]
+    dis_to_center = pts.norm(dim=-1, keepdim=True).clamp(1.0, 1e10)
+    pts4 = torch.cat([pts / dis_to_center, 1.0 / dis_to_center], -1)
+    dirs = rays_d[:, None, :].expand(R, S, 3)
+    density, color = fields.nerf(pts4.reshape(-1, 4), dirs.reshape(-1, 3))
+    alpha = 1.0 - torch.exp(-F.softplus(density.reshape(R, S)) * dists)
+    trans = torch.cumprod(
+        torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha + 1e-7], -1), -1
+    )[:, :-1]
+    return {"alpha": alpha, "sampled_color": torch.sigmoid(color).reshape(R, S, 3),
+            "weights": alpha * trans}
+
+
+def _use_mega(fields: nets.NeuSFields, rays_o, S: int, background_alpha=None) -> bool:
+    """The JAX package's gate (render/neus.py:331-353): no background, both
+    nets ask for kernels, d_hidden >= 128, a CUDA tensor, and a spec the
+    kernels take."""
+    if background_alpha is not None:
+        return False
     if _FORCE_MEGA is not None:
         use = _FORCE_MEGA
     else:
@@ -109,9 +143,9 @@ def _use_mega(fields: NeuSFields, rays_o, S: int) -> bool:
     return use and fused_neus.spec_from_configs(fields.sdf.cfg, fields.color.cfg, S) is not None
 
 
-def render_core(fields: NeuSFields, cfg: NeuSConfig, rays_o, rays_d, z_vals,
-                sample_dist: float, background_rgb=None, cos_anneal_ratio: float = 0.0,
-                per_ray: bool = False):
+def render_core(fields: nets.NeuSFields, cfg: NeuSConfig, rays_o, rays_d, z_vals,
+                sample_dist: float, background_alpha=None, background_sampled_color=None,
+                background_rgb=None, cos_anneal_ratio: float = 0.0, per_ray: bool = False):
     """Core SDF -> alpha -> composite pass (renderer.py:195-300).
 
     ``per_ray=True`` (training steps) takes the per-ray megakernel path when
@@ -119,14 +153,15 @@ def render_core(fields: NeuSFields, cfg: NeuSConfig, rays_o, rays_d, z_vals,
     per-sample keys are None) plus ``normals_weighted``. With the gate open
     and ``per_ray=False`` (validation renders) the point-level pair and the
     compositing pair carry the pass; the dict has every key plus
-    ``normals_weighted``."""
+    ``normals_weighted``. A background (``background_alpha``, (R, S +
+    n_outside)) closes the gate."""
     R, S = z_vals.shape
     dists = z_vals[:, 1:] - z_vals[:, :-1]
     dists = torch.cat([dists, torch.full_like(dists[:, :1], sample_dist)], -1)
     mid_z = z_vals + dists * 0.5
     inv_s = fields.variance.inv_s().clamp(1e-6, 1e6)
 
-    use_mega = _use_mega(fields, rays_o, S)
+    use_mega = _use_mega(fields, rays_o, S, background_alpha)
     if use_mega and not per_ray:
         return _render_core_points(fields, cfg, rays_o, rays_d, mid_z, dists, inv_s,
                                    cos_anneal_ratio, background_rgb, R, S)
@@ -150,8 +185,8 @@ def render_core(fields: NeuSFields, cfg: NeuSConfig, rays_o, rays_d, z_vals,
 
     pts = (rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., None]).reshape(-1, 3)
     dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
-    sdf, feature, gradients = fields.sdf.sdf_with_gradient(pts)
-    raw_color = fields.color(pts, gradients, dirs, feature)
+    sdf, feature, gradients = nets.sdf_with_gradient(fields.sdf, pts)
+    raw_color = nets.color_eval(fields.color, pts, gradients, dirs, feature)
     if cfg.extra_color:
         raw_color = raw_color.reshape(R, S, 6)
         sampled_color, extra_sampled_color = raw_color[..., :3], raw_color[..., 3:]
@@ -171,6 +206,13 @@ def render_core(fields: NeuSFields, cfg: NeuSConfig, rays_o, rays_d, z_vals,
     pts_norm = pts.norm(dim=-1).reshape(R, S)
     inside_sphere = (pts_norm < 1.0).float().detach()
     relax_inside_sphere = (pts_norm < 1.2).float().detach()
+
+    if background_alpha is not None:
+        alpha = alpha * inside_sphere + background_alpha[:, :S] * (1.0 - inside_sphere)
+        alpha = torch.cat([alpha, background_alpha[:, S:]], -1)
+        sampled_color = (sampled_color * inside_sphere[..., None]
+                         + background_sampled_color[:, :S] * (1.0 - inside_sphere)[..., None])
+        sampled_color = torch.cat([sampled_color, background_sampled_color[:, S:]], 1)
 
     trans = torch.cumprod(
         torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha + 1e-7], -1), -1
@@ -227,24 +269,38 @@ def _render_core_points(fields, cfg, rays_o, rays_d, mid_z, dists, inv_s, cos_an
     }
 
 
-def render(fields: NeuSFields, cfg: NeuSConfig, rays_o, rays_d, near, far,
+def render(fields: nets.NeuSFields, cfg: NeuSConfig, rays_o, rays_d, near, far,
            generator: torch.Generator | None = None, background_rgb=None,
            cos_anneal_ratio: float = 0.0, perturb_overwrite: int = -1,
            per_ray: bool = False):
     """Full hierarchical render (renderer.py:302-397). The stratified jitter
-    is drawn from ``generator`` (on the CPU) when perturb > 0; without a
-    generator there is no jitter."""
-    if cfg.n_outside > 0:
-        raise NotImplementedError("the NeRF background (n_outside > 0) is not ported yet")
+    is drawn from ``generator`` (on the CPU) when perturb > 0, the outside
+    samples' after the inner samples'; without a generator there is no
+    jitter. ``n_outside > 0`` needs a NeRF in the fields."""
     R = rays_o.shape[0]
     dev = rays_o.device
+    n_out = cfg.n_outside
+    if n_out > 0 and fields.nerf is None:
+        raise ValueError("n_outside > 0 renders the NeRF++ background: the fields need a NeRF "
+                         "(NeuSFields(..., nerf_cfg=...))")
     sample_dist = 2.0 / cfg.n_samples
     z_vals = torch.linspace(0.0, 1.0, cfg.n_samples, device=dev)
     z_vals = near + (far - near) * z_vals[None, :]
+    z_out = None
+    if n_out > 0:
+        z_out = torch.linspace(1e-3, 1.0 - 1.0 / (n_out + 1.0), n_out, device=dev)
     perturb = cfg.perturb if perturb_overwrite < 0 else perturb_overwrite
     if perturb > 0 and generator is not None:
         t_rand = torch.rand((R, 1), generator=generator).to(dev) - 0.5
         z_vals = z_vals + t_rand * 2.0 / cfg.n_samples
+        if n_out > 0:
+            mids = 0.5 * (z_out[1:] + z_out[:-1])
+            upper = torch.cat([mids, z_out[-1:]])
+            lower = torch.cat([z_out[:1], mids])
+            t_rand = torch.rand((R, n_out), generator=generator).to(dev)
+            z_out = lower[None, :] + (upper - lower)[None, :] * t_rand
+    if n_out > 0:
+        z_out = far / torch.flip(z_out, dims=[-1]) + 1.0 / cfg.n_samples
 
     if cfg.n_importance > 0:
         with torch.no_grad():
@@ -259,7 +315,16 @@ def render(fields: NeuSFields, cfg: NeuSConfig, rays_o, rays_d, near, far,
                                      last=(i + 1 == cfg.up_sample_steps))
         z_vals = zi.detach()
 
+    background_alpha = background_sampled_color = None
+    if n_out > 0:
+        z_feed = torch.sort(torch.cat([z_vals, z_out.expand(R, n_out)], -1), dim=-1).values
+        ret_out = render_core_outside(fields, rays_o, rays_d, z_feed, sample_dist)
+        background_alpha = ret_out["alpha"]
+        background_sampled_color = ret_out["sampled_color"]
+
     ret = render_core(fields, cfg, rays_o, rays_d, z_vals, sample_dist,
+                      background_alpha=background_alpha,
+                      background_sampled_color=background_sampled_color,
                       background_rgb=background_rgb, cos_anneal_ratio=cos_anneal_ratio,
                       per_ray=per_ray)
     weights = ret["weights"]

@@ -4,7 +4,8 @@ The JAX parameter pytree, flattened to numpy arrays by
 ``tree_flatten_paths`` (utils/pytree.py; keys like
 ``sdf/layers/0/g``), maps onto the port by path: the networks' state-dict
 keys are the same paths with ``.`` for ``/`` and the same (out, in) weight
-layout, so no transposes are needed. The trees of plain functions keep
+layout, so no transposes are needed; a NeRF++ background's ``nerf/pts/{i}/w``,
+``nerf/view/b``, ... land on ``NeuSFields.nerf`` the same way. The trees of plain functions keep
 their nesting as dicts and lists of tensors: CLIP (clip/model.py), VPoser
 (body/vposer.py), the motion VAE (pipelines/motion_vae.py), the RealNVP
 blocks and masks and the codebook (pipelines/animate.py); the JAX pytree

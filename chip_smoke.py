@@ -39,6 +39,15 @@ kernel's plain version):
        1,000 faces and on a compact 320^2 scene at sigma 0.1 where the culling
        table skips pairs; timed at the pose step's shapes, with its kept share
        and its bound (f32 operations, special functions and bytes);
+     - B6, the standalone SDF pair (4x256), and B7, the colour pair (2x256):
+       forward and backward on 2,048 rays x 64 samples' points and on a
+       ragged 131,071 of them against the plain version in float64, with
+       cotangents on every output; outputs to 1e-4 and each gradient column
+       (d(points) or d(inputs), and each weight) to 1e-3 of its own largest
+       magnitude, at every point (at B7's relu near-ties the f64 input
+       cotangents take the masks the kernel took, ops/hold.py); B7 in
+       no_view_dir with the extra head and in idr without it; both timed at
+       path (e)'s 802,816 points a step (and held there in path e);
      each kernel's bound is max(FLOPs / peak, bytes / 3.35 TB/s) for the
      work of that call (f32 CUDA-core peak 67 TFLOP/s, the type the kernels
      compute in; the bf16 tensor-core bound at 989 TFLOP/s is printed too);
@@ -54,6 +63,9 @@ kernel's plain version):
         256^3 mesh and saves a checkpoint;
      b. ``appearance.main --mode validate_mesh --is_continue``: the 512^3
         extraction with its colour baking, then the cast-light head render;
+     a'. ``Runner.interpolate_view(0, 30)`` on a Runner resumed from (a)'s
+        checkpoint: 60 renders at resolution level 4 and their reversal as a
+        120-frame MP4;
      c. ``animate.main`` in pose mode on the procedural body at SMPL's
         13,776 faces (written as the template OBJ): PoseOptimizer, 2
         restarts x 8 steps at 224^2 with CLIP ViT-B/32, the candidates'
@@ -62,15 +74,26 @@ kernel's plain version):
      d. ``animate.main`` in motion mode: VPoserCodebook candidates,
         MotionOptimizer for 8 steps, motion.npy and a 60-frame motion.mp4;
         then MotionInterpolation;
+     e. the NeRF++ background: the full conf's nets (the fitted SDF) with a
+        NeRF from confs/examples/hulk.conf's ``model.nerf`` block (seeded
+        random init) and n_outside = 32 (the published NeuS womask conf;
+        the repo's confs set 0): 8 photometric ``Runner.train`` steps of
+        12,544 random rays (Adam over sdf, colour, variance and NeRF), the
+        per-sample render through B6 and B7, then one 256^2 image in 16,384-ray
+        chunks; then, outside the counts, B6 and B7 held as in phase 3 on
+        the inputs and cotangents one more step gives them (802,816
+        points) and, forward, on one more image's first chunk (1,048,576);
      and checks the losses, the artifacts, and the launch counts against
-     the counts predicted from the ray, step and render counts; c and d
-     also profile a few steps (device time by kernel, busy share).
+     the counts predicted from the ray, step and render counts (paths a-d
+     launch B6 / B7 no time: the megakernels take those renders); c, d and
+     e also profile a few steps (device time by kernel, busy share).
 Prints a {"kernels": [...]} JSON line, then as the last line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -922,23 +945,311 @@ def check_soft(dev):
 
 
 # ---------------------------------------------------------------------------
+# B6 and B7: the standalone SDF pair and the colour pair
+# ---------------------------------------------------------------------------
+
+PATH_E_RAYS = 112 * 112  # path (e)'s rays a step: the train_clip budget
+PATH_E_POINTS = PATH_E_RAYS * 64  # the per-sample branch's points a step
+
+
+def ray_points(inputs):
+    """The (R * S, 3) sample points of neus_problem's rays and their (R * S,
+    3) directions."""
+    ro, rd, mid, _ = inputs
+    S = mid.shape[1]
+    pts = (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3).contiguous()
+    return pts, rd[:, None].expand(-1, S, -1).reshape(-1, 3).contiguous()
+
+
+REF_CHUNK = 131072  # points per chunk of a float64 reference
+
+
+def hold_outputs(tag, names, got, ref) -> tuple[float, dict]:
+    """Each output to OUT_TOL of its largest magnitude; the max abs error
+    and each output's relative error."""
+    import torch
+
+    from avatarclip_torch.ops import hold
+
+    worst, rels = 0.0, {}
+    for nm, a, b, rel in zip(names, got, ref, hold.rel_errors(got, ref)):
+        if not rel <= OUT_TOL:
+            fail(f"{tag} forward {nm}: rel err {rel:.2e} > {OUT_TOL}")
+        worst, rels[nm] = max(worst, float((a.detach().double() - b).abs().max())), rel
+    torch.cuda.synchronize()
+    return worst, rels
+
+
+def hold_net(tag, fused, plain, net, ins, cots, in_names, out_names,
+             relu_ties: bool = False) -> tuple[float, float]:
+    """The kernel pair through its entry, at once on all the points, against
+    the plain version in f64 (in REF_CHUNK-point chunks) on the same
+    (f32-valued) inputs and net: each output to OUT_TOL and each gradient
+    column (every parameter, every input) to GRAD_TOL of its own largest
+    magnitude, at every point. ``relu_ties`` (the colour net): at the points
+    with a relu near-tie the f64 input cotangents are those under the masks
+    the kernel took (ops/hold.resolve_relu_ties). Returns the max abs errors
+    (forward, backward)."""
+    import torch
+
+    from avatarclip_torch.ops import hold
+
+    ok, gk = hold.net_grads(fused, net, ins, cots)
+    ref = copy.deepcopy(net).double()
+    ins64, cots64 = [t.double() for t in ins], [c.double() for c in cots]
+    orf, grf = hold.net_grads(plain, ref, ins64, cots64, chunk=REF_CHUNK)
+    worst_f, rels = hold_outputs(tag, out_names, ok, orf)
+    names = [n for n, _ in net.named_parameters()] + list(in_names)
+    note = ""
+    if relu_ties:
+        n_p = len(names) - len(in_names)
+        plain_rel = hold.rel_errors(gk[n_p:], grf[n_p:])
+        grf[n_p:], rep = hold.resolve_relu_ties(ref, ins64, cots64[0], gk[n_p:], grf[n_p:],
+                                                chunk=REF_CHUNK)
+        note = (f"{rep['near_tie_points']} points with a relu near-tie, {rep['taken_the_other_way']} "
+                f"taken the other way by the kernel (at most {rep['most_ties_at_a_point']} near-ties a "
+                f"point); d(inputs) against the plain f64 masks " + ", ".join(
+                    f"{nm} {r:.2e}" for nm, r in zip(in_names, plain_rel)))
+        if "worst_point_err_plain" in rep:
+            note += (f"; the point farthest from them: {rep['worst_point_err_plain']:.2e} under f64's "
+                     f"masks, {rep['worst_point_err_resolved']:.2e} with "
+                     f"{rep['worst_point_units_flipped']} unit(s) flipped; ")
+    worst_b = 0.0
+    for nm, a, b, rel in zip(names, gk, grf, hold.rel_errors(gk, grf)):
+        if not rel <= GRAD_TOL:
+            fail(f"{tag} backward d/d {nm}: rel err {rel:.2e} > {GRAD_TOL}")
+        worst_b, rels["d " + nm] = max(worst_b, float((a.double() - b).abs().max())), rel
+    print(f"[{tag}] vs the plain version in f64: within tolerance at every point; {note}max abs err "
+          f"fwd {worst_f:.3e}, bwd {worst_b:.3e}; relative errs "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+    del ref, orf, grf, ok, gk
+    torch.cuda.empty_cache()
+    return worst_f, worst_b
+
+
+def hold_forward(tag, fused, plain, net, ins, out_names) -> float:
+    """The forward kernel alone (under no_grad, as a render chunk runs it)
+    against the plain version in f64, each output to OUT_TOL of its largest
+    magnitude; the max abs error."""
+    import torch
+
+    from avatarclip_torch.ops import hold
+
+    with torch.no_grad():
+        got = fused(net, *ins)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = hold.net_outputs(plain, copy.deepcopy(net).double(), [t.double() for t in ins], chunk=REF_CHUNK)
+    worst, rels = hold_outputs(tag, out_names, got, ref)
+    print(f"[{tag}] forward under no_grad vs the plain version in f64: within tolerance; max abs err "
+          f"{worst:.3e}; relative errs " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+    del got, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_plain(fn, args, params, cots, reps=2) -> tuple[float, float]:
+    """The plain version's forward (building its graph, as training does)
+    and autograd's VJP of it alone, in ms."""
+    import torch
+
+    fwd = cuda_ms(lambda: fn(*args), reps=reps)
+    xs = [a.clone().requires_grad_(True) if torch.is_tensor(a) else a for a in args]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    wrt = params + [x for x in xs if torch.is_tensor(x)]
+    torch.cuda.synchronize()
+    bwd = cuda_ms(lambda: torch.autograd.grad(outs, wrt, cots, retain_graph=True, allow_unused=True),
+                  reps=reps)
+    del outs, xs
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def check_sdf(dev):
+    import torch
+
+    from avatarclip_torch.ops import fused_sdf as fs
+
+    worst_f = worst_b = 0.0
+    fields, inputs, _, _ = neus_problem(256, 2048, dev, seed=4)
+    sdf = fields.sdf
+    pts, _ = ray_points(inputs)
+    g = torch.Generator().manual_seed(5)
+    for P in (pts.shape[0], pts.shape[0] - 1):
+        cots = [(0.5 + torch.rand(P, k, generator=g)).to(dev) for k in (1, 256, 3)]
+        f_, b_ = hold_net(f"B6 4x256, {P} points", fs.sdf_with_gradient_fused,
+                          fs.sdf_with_gradient_plain, sdf, [pts[:P].contiguous()], cots,
+                          ("points",), ("sdf", "feature", "gradient"))
+        worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
+
+    # time at path (e)'s points: 12,544 rays x 64 samples
+    fields, inputs, _, _ = neus_problem(256, PATH_E_RAYS, dev, seed=6)
+    sdf = fields.sdf
+    pts, _ = ray_points(inputs)
+    P = pts.shape[0]
+    spec = fs.spec_from_config(sdf.cfg)
+    flat = torch.cat([w.detach().reshape(-1) for w in fs.dense_weights(sdf)])
+    cots = [(0.5 + torch.rand(P, k, generator=g)).to(dev) for k in (1, 256, 3)]
+    torch.cuda.reset_peak_memory_stats()
+    ms_f = cuda_ms(lambda: fs.sdf_fwd(spec, flat, pts), reps=3)
+    ms_b = cuda_ms(lambda: fs.sdf_bwd(spec, flat, pts, *cots), reps=3)
+    mem_k = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    plain_f, plain_b = time_plain(lambda x: fs.sdf_with_gradient_plain(sdf, x), [pts],
+                                  list(sdf.parameters()), cots)
+    mem_p = torch.cuda.max_memory_allocated() / 2**30
+    fl_f, fl_b = fs.flops_per_point(spec)
+    n_w, F = flat.numel(), spec.feat_dim
+    b_f = bound(fl_f * P, 4 * (n_w + 3 * P + (1 + F + 3) * P))
+    b_b = bound(fl_b * P, 4 * (n_w + 3 * P + (1 + F + 3) * P + 3 * P + n_w))
+    print(f"[B6] {P} points (path e's step), 4x256: forward kernel {ms_f:.3f} ms (plain "
+          f"{plain_f:.3f} ms, bound {b_f['bound_ms']:.3f} ms {b_f['bound_by']}, bf16 tensor-core "
+          f"bound {b_f['bound_ms_bf16_tc']:.3f} ms); backward kernel {ms_b:.3f} ms (plain "
+          f"{plain_b:.3f} ms, bound {b_b['bound_ms']:.3f} ms {b_b['bound_by']}, bf16 "
+          f"{b_b['bound_ms_bf16_tc']:.3f} ms); {fl_f:.0f} / {fl_b:.0f} GEMM FLOPs per point; peak "
+          f"memory kernel {mem_k:.2f} GiB, plain {mem_p:.2f} GiB")
+    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_sdf.cu", "library_ms": None}
+    return [
+        {"name": "sdf_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_sdf.py:261",
+         "max_abs_err": worst_f, "ms": ms_f, "plain_ms": plain_f, **b_f},
+        {"name": "sdf_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_sdf.py:403",
+         "max_abs_err": worst_b, "ms": ms_b, "plain_ms": plain_b, **b_b},
+    ]
+
+
+def colour_net(mode: str, extra: bool, dev, seed: int):
+    """A 2x256 colour net (no weight norm, so its parameters are the dense
+    weights the kernel differentiates) with seeded, perturbed weights."""
+    import torch
+
+    from avatarclip_torch.fields import networks as nets
+
+    g = torch.Generator().manual_seed(seed)
+    net = nets.ColorNetwork(nets.ColorConfig(mode=mode, d_in=9 if mode == "idr" else 6, d_feature=256,
+                                             d_hidden=256, n_layers=2, extra_color=extra,
+                                             weight_norm=False), g)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    return net.to(dev)
+
+
+def colour_inputs(fields, inputs):
+    """Points, unit normals, directions and the SDF net's feature at
+    neus_problem's sample points (the colour net's inputs on the path)."""
+    import torch
+
+    pts, dirs = ray_points(inputs)
+    with torch.no_grad():
+        _, feat, grad = fields.sdf.sdf_with_gradient(pts)
+    normals = grad / (grad.norm(dim=-1, keepdim=True) + 1e-6)
+    return [pts, normals.detach().contiguous(), dirs, feat.detach().contiguous()]
+
+
+def check_colour(dev):
+    import torch
+
+    from avatarclip_torch.ops import fused_color as fc
+
+    worst_f = worst_b = 0.0
+    fields, inputs, _, _ = neus_problem(256, 2048, dev, seed=7)
+    ins = colour_inputs(fields, inputs)
+    g = torch.Generator().manual_seed(8)
+    for mode, extra in (("no_view_dir", True), ("idr", False)):
+        net = colour_net(mode, extra, dev, seed=9)
+        for P in (ins[0].shape[0], ins[0].shape[0] - 1):
+            cots = [(0.5 + torch.rand(P, 6 if extra else 3, generator=g)).to(dev)]
+            sub = [t[:P].contiguous() for t in ins]
+            f_, b_ = hold_net(f"B7 {mode}{' + extra head' if extra else ''}, {P} points",
+                              fc.color_apply_fused, fc.color_apply_plain, net, sub, cots,
+                              ("points", "normals", "view_dirs", "features"), ("rgb",),
+                              relu_ties=True)
+            worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
+
+    # time at path (e)'s points, in the path's mode (no_view_dir, extra head)
+    fields, inputs, _, _ = neus_problem(256, PATH_E_RAYS, dev, seed=10)
+    ins = colour_inputs(fields, inputs)
+    del fields
+    net = colour_net("no_view_dir", True, dev, seed=11)
+    spec = fc.spec_from_config(net.cfg)
+    flat = torch.cat([w.detach().reshape(-1) for w in fc.dense_weights(net, spec)])
+    P = ins[0].shape[0]
+    cot = (0.5 + torch.rand(P, 6, generator=g)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ms_f = cuda_ms(lambda: fc.color_fwd(spec, flat, *ins), reps=3)
+    ms_b = cuda_ms(lambda: fc.color_bwd(spec, flat, *ins, cot), reps=3)
+    mem_k = torch.cuda.max_memory_allocated() / 2**30
+    plain_f, plain_b = time_plain(lambda *xs: fc.color_apply_plain(net, *xs), ins,
+                                  list(net.parameters()), [cot])
+    fl_f, fl_b = fc.flops_per_point(spec)
+    n_w, W = flat.numel(), spec.rgb_width
+    n_in = 3 * spec.n_vectors + spec.d_feature  # the input floats a point the mode reads
+    b_f = bound(fl_f * P, 4 * (n_w + n_in * P + W * P))
+    b_b = bound(fl_b * P, 4 * (n_w + n_in * P + W * P + n_in * P + n_w))
+    print(f"[B7] {P} points (path e's step), 2x256 no_view_dir + extra head: forward kernel "
+          f"{ms_f:.3f} ms (plain {plain_f:.3f} ms, bound {b_f['bound_ms']:.3f} ms "
+          f"{b_f['bound_by']}, bf16 tensor-core bound {b_f['bound_ms_bf16_tc']:.3f} ms); backward "
+          f"kernel {ms_b:.3f} ms (plain {plain_b:.3f} ms, bound {b_b['bound_ms']:.3f} ms "
+          f"{b_b['bound_by']}, bf16 {b_b['bound_ms_bf16_tc']:.3f} ms); {fl_f:.0f} / {fl_b:.0f} GEMM "
+          f"FLOPs per point; peak memory kernel {mem_k:.2f} GiB")
+    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_color.cu", "library_ms": None}
+    return [
+        {"name": "color_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_color.py:230",
+         "max_abs_err": worst_f, "ms": ms_f, "plain_ms": plain_f, **b_f},
+        {"name": "color_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_color.py:244",
+         "max_abs_err": worst_b, "ms": ms_b, "plain_ms": plain_b, **b_b},
+    ]
+
+
+def b8_bound() -> dict:
+    """The bound of row 12 (B8, still to port), the TPU's sdf-only forward
+    (``fused_sdf._sdf_only_kernel``), at the work it would do: one
+    train_clip step's up-sample sweeps at the full conf, 12,544 rays x (32
+    + 3 x 8) points (the last of the 4 sweeps evaluates nothing), each
+    through the SDF stack and the sdf row of the head, reading 12 bytes and
+    writing 4. Arithmetic only: nothing runs."""
+    from avatarclip_torch.fields import networks as nets
+    from avatarclip_torch.ops import fused_sdf as fs
+
+    spec = fs.spec_from_config(nets.SDFConfig())
+    E, H, NH = spec.d_embed, spec.d_hidden, spec.n_hidden
+    per_point = 2 * E * H + (NH - 1) * 2 * H * H + 2 * H * (H - E) + 2 * H
+    P = PATH_E_RAYS * (32 + 3 * 8)
+    n_w = sum(o * i + o for o, i in [(H, E)] + [(H, H)] * (NH - 1) + [(H - E, H), (1, H)])
+    b = bound(per_point * P, 4 * (n_w + 4 * P))
+    print(f"[B8] row 12 (sdf-only forward, not ported) at one train_clip step's sweeps, {P} points x "
+          f"{per_point} FLOPs: bound {b['bound_ms']:.3f} ms ({b['bound_by']}); row 15 (the untiled "
+          f"z-buffer) computes B2's function: its bound is B2's at the same render")
+    return b
+
+
+# ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
 
 
-def zero_counts():
-    from avatarclip_torch.ops import fused_composite, fused_neus, fused_soft, raster_zbuffer
+def counted_modules():
+    from avatarclip_torch.ops import (fused_color, fused_composite, fused_neus, fused_sdf,
+                                      fused_soft, raster_zbuffer)
 
-    for m in (fused_composite, fused_neus, fused_soft, raster_zbuffer):
+    return (raster_zbuffer, fused_neus, fused_composite, fused_soft, fused_sdf, fused_color)
+
+
+def zero_counts():
+    for m in counted_modules():
         for k in m.LAUNCHES:
             m.LAUNCHES[k] = 0
 
 
 def read_counts() -> dict:
-    from avatarclip_torch.ops import fused_composite, fused_neus, fused_soft, raster_zbuffer
+    return {k: v for m in counted_modules() for k, v in m.LAUNCHES.items()}
 
-    return {**raster_zbuffer.LAUNCHES, **fused_neus.LAUNCHES, **fused_composite.LAUNCHES,
-            **fused_soft.LAUNCHES}
+
+def want_counts(**nonzero) -> dict:
+    """Every kernel's launch count 0 but those given."""
+    want = {k: 0 for k in read_counts()}
+    want.update(nonzero)
+    return want
 
 
 def ply_counts(path: str) -> tuple[int, int]:
@@ -1009,9 +1320,8 @@ def run_main_path(tmp: str, pretrain: str):
     img_rays = (runner.dataset.H // lvl) * (runner.dataset.W // lvl)
     chunks_a = math.ceil(img_rays / VAL_CHUNK) + 6 * math.ceil(nv256 / VAL_CHUNK)
     n_calib = 12 * 4 + 2  # coverage renders of the silhouette calibration
-    want = {"neus_ray_fwd": N_STEPS, "neus_ray_bwd": N_STEPS, "zbuffer_tiled": N_STEPS + n_calib,
-            "neus_point_fwd": chunks_a, "neus_point_bwd": 0,
-            "composite_fwd": chunks_a, "composite_bwd": 0, "soft_fwd": 0, "soft_bwd": 0}
+    want = want_counts(neus_ray_fwd=N_STEPS, neus_ray_bwd=N_STEPS, zbuffer_tiled=N_STEPS + n_calib,
+                       neus_point_fwd=chunks_a, composite_fwd=chunks_a)
     if launches_a != want:
         fail(f"path a: kernel launches {launches_a}, expected {want}")
     faces = [it for it in range(N_STEPS) if it % 4 == 0]
@@ -1048,16 +1358,228 @@ def run_main_path(tmp: str, pretrain: str):
     cast_shape = check_png(cast)
     cast_rays = cast_shape[0] * cast_shape[1]
     chunks_b = 6 * math.ceil(nv512 / VAL_CHUNK) + math.ceil(cast_rays / VAL_CHUNK)
-    want = {"neus_ray_fwd": 0, "neus_ray_bwd": 0, "zbuffer_tiled": 0,
-            "neus_point_fwd": chunks_b, "neus_point_bwd": 0,
-            "composite_fwd": chunks_b, "composite_bwd": 0, "soft_fwd": 0, "soft_bwd": 0}
+    want = want_counts(neus_point_fwd=chunks_b, composite_fwd=chunks_b)
     if launches_b != want:
         fail(f"path b: kernel launches {launches_b}, expected {want}")
     print(f"[main b] validate_mesh via appearance.main in {wall_b:.3f} s: 512^3 mesh {nv512} "
           f"vertices, {nt512} triangles, {6 * nv512} bake rays; cast light {cast_shape}, "
           f"{cast_rays} rays; {chunks_b} chunks; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches_b}")
-    return {k: launches_a[k] + launches_b[k] for k in launches_a}
+    del runner
+    torch.cuda.empty_cache()
+
+    # a'. view interpolation on the step-8 checkpoint
+    from avatarclip_torch import config as config_mod
+    from avatarclip_torch.utils.jpeg import jpeg_markers
+    from avatarclip_torch.utils.mp4 import read_mp4_frames
+
+    conf = config_mod.parse_file(conf_path)
+    for kv in sets:
+        key, _, value = kv.partition("=")
+        conf.put(key, config_mod._parse_value(value))
+    zero_counts()
+    t0 = time.perf_counter()
+    runner = appearance.Runner(conf_path, "interpolate_0_30", conf=conf, is_continue=True)
+    video = runner.interpolate_view(0, 30)
+    torch.cuda.synchronize()
+    wall_i = time.perf_counter() - t0
+    launches_i = read_counts()
+    if runner.iter_step != N_STEPS:
+        fail(f"interpolate_view did not resume the step-{N_STEPS} checkpoint")
+    frames = read_mp4_frames(video)
+    if len(frames) != 120:
+        fail(f"{video} holds {len(frames)} frames, expected 120")
+    for fr in frames:
+        jpeg_markers(fr)
+    n_rays = (runner.dataset.H // 4) * (runner.dataset.W // 4)
+    per_frame = math.ceil(n_rays / VAL_CHUNK)
+    want = want_counts(neus_point_fwd=60 * per_frame, composite_fwd=60 * per_frame)
+    if launches_i != want:
+        fail(f"path a': kernel launches {launches_i}, expected {want}")
+    print(f"[main a'] interpolate_view(0, 30) on the step-{N_STEPS} checkpoint in {wall_i:.3f} s: "
+          f"60 renders of {n_rays} rays, {os.path.basename(video)} 120 frames, "
+          f"{os.path.getsize(video)} bytes; launches {launches_i}")
+    del runner
+    torch.cuda.empty_cache()
+    return {k: launches_a[k] + launches_b[k] + launches_i[k] for k in launches_a}
+
+
+# ---------------------------------------------------------------------------
+# (e) the NeRF++ background path
+# ---------------------------------------------------------------------------
+
+N_OUTSIDE = 32  # the published NeuS confs/womask.conf (the repo's confs set 0)
+
+
+def run_background_path(tmp: str, pretrain: str) -> tuple[dict, dict]:
+    """8 photometric steps with the NeRF++ background on at full width, then
+    one 256^2 image; the launches, and B6's and B7's max abs errors on the
+    path's own inputs (hold_recorded)."""
+    import dataclasses
+
+    import torch
+
+    from avatarclip_torch import config as config_mod
+    from avatarclip_torch.fields import networks as nets
+    from avatarclip_torch.pipelines import appearance, synthetic
+
+    data = os.path.join(tmp, "views")  # path (a)'s 60 synthetic 256^2 views
+    exp = os.path.join(tmp, "exp_background")
+    conf = config_mod.parse_string(synthetic.make_conf_text(exp, data, "full"))
+    for key, value in (("train.end_iter", N_STEPS), ("train.batch_size", PATH_E_RAYS),
+                       ("train.val_freq", 10**6), ("train.val_mesh_freq", 10**6),
+                       ("train.save_freq", 10**6), ("train.pretrain", pretrain)):
+        conf.put(key, value)
+    runner = appearance.Runner(None, mode="train", conf=conf)
+    nerf_cfg = appearance.nerf_config(config_mod.parse_file(os.path.join(ROOT, "confs", "examples",
+                                                                         "hulk.conf")))
+    fields = runner.fields
+    fields.nerf = nets.NeRFNetwork(nerf_cfg, torch.Generator().manual_seed(0)).to(runner.device)
+    runner.optimizer.add_param_group({"params": fields.nerf.parameters()})
+    runner.ncfg = dataclasses.replace(runner.ncfg, n_outside=N_OUTSIDE)
+    n_params = {k: sum(p.numel() for p in getattr(fields, k).parameters())
+                for k in ("sdf", "color", "variance", "nerf")}
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner.train()
+    torch.cuda.synchronize()
+    wall_steps = time.perf_counter() - t0
+    mem_steps = torch.cuda.max_memory_allocated() / 2**30
+    launches_steps = read_counts()
+    want = want_counts(sdf_fwd=N_STEPS, sdf_bwd=N_STEPS, color_fwd=N_STEPS, color_bwd=N_STEPS)
+    if launches_steps != want:
+        fail(f"path e steps: kernel launches {launches_steps}, expected {want}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner.validate_image(idx=0, resolution_level=1)
+    torch.cuda.synchronize()
+    wall_img = time.perf_counter() - t0
+    mem_img = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_counts()
+    with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if runner.iter_step != N_STEPS or len(recs) != N_STEPS:
+        fail(f"path e took {runner.iter_step} steps, {len(recs)} metric records")
+    for r in recs:
+        bad = [k for k, v in r.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"path e step {r['step']}: non-finite {bad}")
+    name = f"{N_STEPS:08d}_0_0.png"
+    shape = check_png(os.path.join(exp, "validations_fine", name))
+    check_png(os.path.join(exp, "validations_extra_fine", name))
+    img_rays = runner.dataset.H * runner.dataset.W
+    chunks = math.ceil(img_rays / VAL_CHUNK)
+    want = want_counts(sdf_fwd=N_STEPS + chunks, sdf_bwd=N_STEPS, color_fwd=N_STEPS + chunks,
+                       color_bwd=N_STEPS)
+    if launches != want:
+        fail(f"path e: kernel launches {launches}, expected {want}")
+    median = statistics.median(runner.step_seconds[1:])
+    print(f"[main e] NeRF++ background: n_outside {N_OUTSIDE}, NeRF D {nerf_cfg.D} W {nerf_cfg.W} "
+          f"(confs/examples/hulk.conf), parameters {n_params}; {N_STEPS} photometric steps of "
+          f"{PATH_E_RAYS} rays via Runner.train in {wall_steps:.3f} s, launches after the steps "
+          f"{launches_steps}")
+    print(f"[main e] losses finite; loss by step {[round(r['loss'], 6) for r in recs]}")
+    print(f"[main e] median step time excluding the first: {median * 1e3:.3f} ms (first step "
+          f"{runner.step_seconds[0] * 1e3:.3f} ms); peak memory over the steps {mem_steps:.2f} GiB")
+    print(f"[main e] one 256^2 image ({img_rays} rays, {chunks} chunks, per_ray=False) in "
+          f"{wall_img:.3f} s, PNG {shape}, peak memory {mem_img:.2f} GiB; launches {launches}")
+
+    def step():
+        loss, _ = runner.photometric_loss(runner.draw_photometric(), N_STEPS)
+        runner._update(loss)
+
+    # B6 / B7 on the inputs and cotangents the path gives them: one more
+    # step and one more image with the entries recorded (outside the counts)
+    with record_entries() as rec:
+        step()
+        runner.validate_image(idx=0, resolution_level=1)
+    errs = hold_recorded(rec)
+    profile_steps("e: background photometric step", step, n=2)
+    del runner, fields
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
+@contextlib.contextmanager
+def record_entries():
+    """Within the block, B6's and B7's entries record their first call with
+    grad (a training step) and their first without (a render chunk): the
+    net, copies of the inputs and, with grad, the cotangents their outputs
+    receive in the backward (None for an output that receives none)."""
+    import torch
+
+    from avatarclip_torch.ops import fused_color, fused_sdf
+
+    rec = {}
+
+    def recording(mod, name, tag):
+        entry = getattr(mod, name)
+
+        def call(net, *ins):
+            outs = entry(net, *ins)
+            key = (tag, "step" if torch.is_grad_enabled() else "render")
+            if key not in rec:
+                tup = outs if isinstance(outs, tuple) else (outs,)
+                r = rec[key] = {"net": net, "ins": [t.detach().clone() for t in ins],
+                                "cots": [None] * len(tup), "shapes": [o.shape for o in tup]}
+                for i, o in enumerate(tup):
+                    if o.requires_grad:
+                        o.register_hook(lambda g, i=i, r=r: r["cots"].__setitem__(i, g.detach().clone()))
+            return outs
+
+        setattr(mod, name, call)
+        return mod, name, entry
+
+    saved = [recording(fused_sdf, "sdf_with_gradient_fused", "B6"),
+             recording(fused_color, "color_apply_fused", "B7")]
+    try:
+        yield rec
+    finally:
+        for mod, name, entry in saved:
+            setattr(mod, name, entry)
+
+
+def hold_recorded(rec) -> dict:
+    """B6 and B7 held against their plain versions in f64 on path (e)'s
+    recorded inputs: the step's 802,816 points forward and backward with the
+    step's own cotangents, and a 16,384-ray render chunk's 1,048,576 points
+    forward. The nets are dense copies (weight norm resolved), so the weight
+    columns are the dense gradients the kernels compute. The max abs errors
+    by kernel name."""
+    import torch
+
+    from avatarclip_torch.ops import fused_color as fc
+    from avatarclip_torch.ops import fused_sdf as fs
+    from avatarclip_torch.ops import hold
+
+    want = {("B6", "step"): PATH_E_POINTS, ("B7", "step"): PATH_E_POINTS,
+            ("B6", "render"): VAL_CHUNK * 64, ("B7", "render"): VAL_CHUNK * 64}
+    got = {k: rec[k]["ins"][0].shape[0] if k in rec else None for k in want}
+    if got != want:
+        fail(f"path e: B6 / B7 recorded at {got} points, expected {want}")
+    errs = {}
+    col_names = ("points", "normals", "view_dirs", "features")
+    for tag, fused, plain, in_names, out_names, fwd, bwd in (
+            ("B6", fs.sdf_with_gradient_fused, fs.sdf_with_gradient_plain, ("points",),
+             ("sdf", "feature", "gradient"), "sdf_fwd", "sdf_bwd"),
+            ("B7", fc.color_apply_fused, fc.color_apply_plain, col_names, ("rgb",),
+             "color_fwd", "color_bwd")):
+        r = rec[(tag, "step")]
+        net = hold.dense_copy(r["net"])
+        cots = [torch.zeros(s, device=r["ins"][0].device) if c is None else c
+                for c, s in zip(r["cots"], r["shapes"])]
+        errs[fwd], errs[bwd] = hold_net(f"{tag} path e step, {PATH_E_POINTS} points", fused, plain, net,
+                                        r["ins"], cots, in_names, out_names, relu_ties=tag == "B7")
+        del net, cots, rec[(tag, "step")]
+        r = rec[(tag, "render")]
+        f_ = hold_forward(f"{tag} path e render chunk, {VAL_CHUNK * 64} points", fused, plain,
+                          hold.dense_copy(r["net"]), r["ins"], out_names)
+        errs[fwd] = max(errs[fwd], f_)
+        del rec[(tag, "render")]
+        torch.cuda.empty_cache()
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1304,7 +1826,8 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = [("raster_zbuffer", "raster_zbuffer.cu"), ("fused_neus_ray", "fused_neus_ray.cu"),
             ("fused_neus_point", "fused_neus_point.cu"), ("fused_composite", "fused_composite.cu"),
-            ("fused_soft", "fused_soft.cu")]
+            ("fused_soft", "fused_soft.cu"), ("fused_sdf", "fused_sdf.cu"),
+            ("fused_color", "fused_color.cu")]
     _build.load_all(libs)
     _build.load_host("marching_cubes", "marching_cubes.cpp")
     print(f"[build] {time.perf_counter() - t0:.3f} s in parallel ({_build.build_seconds})")
@@ -1337,6 +1860,11 @@ def main() -> None:
         torch.cuda.empty_cache()
         kernels += check_soft(dev)
         torch.cuda.empty_cache()
+        kernels += check_sdf(dev)
+        torch.cuda.empty_cache()
+        kernels += check_colour(dev)
+        torch.cuda.empty_cache()
+        b8_bound()
         if kernels_only:  # no main path ran: no launch count to report
             launches = {k["name"]: None for k in kernels}
         else:
@@ -1344,6 +1872,14 @@ def main() -> None:
             torch.cuda.empty_cache()
             for k, v in run_animate_paths(tmp).items():
                 launches[k] += v
+            torch.cuda.empty_cache()
+            counts, path_errs = run_background_path(tmp, pretrain)
+            for k, v in counts.items():
+                launches[k] += v
+            for k in kernels:  # B6 / B7 held on path (e)'s own inputs too
+                k["max_abs_err"] = max(k["max_abs_err"], path_errs.get(k["name"], 0.0))
+    if len(kernels) != 13:
+        fail(f"{len(kernels)} kernels checked, expected 13")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if any(m.split(".")[0] in ("jax", "avatarclip_tpu") for m in sys.modules):

@@ -184,3 +184,67 @@ def test_soft_kernel_pair_matches_plain(dev):
     for cols in (slice(0, 9, 3), slice(1, 9, 3), slice(2, 9, 3), slice(9, 10), slice(10, 13)):
         assert (gk[..., cols] - gp[..., cols]).abs().max() <= 1e-3 * gp[..., cols].abs().max()
     assert float(gk[..., 13:].abs().max()) == 0.0
+
+
+def test_sdf_kernel_pair_matches_plain(dev):
+    """B6 at 256 wide on a ragged 1,000 points (15 full blocks of 64 and
+    one of 40) against the plain version in float64: sdf, feature and
+    gradient to 1e-4, every weight gradient and d(points) to 1e-3 of their
+    largest magnitude, with cotangents on all three outputs."""
+    import copy
+
+    from avatarclip_torch.fields import networks as nets
+    from avatarclip_torch.ops import fused_sdf as fs
+    from avatarclip_torch.ops import hold
+
+    g = torch.Generator().manual_seed(3)
+    sdf = nets.SDFNetwork(nets.SDFConfig(weight_norm=False), g)
+    with torch.no_grad():
+        for p in sdf.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    sdf = sdf.to(dev)
+    P = 1000
+    pts = (0.6 * torch.randn(P, 3, generator=g)).to(dev)
+    cots = [(0.5 + torch.rand(P, k, generator=g)).to(dev) for k in (1, 256, 3)]
+    n0 = dict(fs.LAUNCHES)
+    ok, gk = hold.net_grads(fs.sdf_with_gradient_fused, sdf, [pts], cots)
+    assert fs.LAUNCHES == {"sdf_fwd": n0["sdf_fwd"] + 1, "sdf_bwd": n0["sdf_bwd"] + 1}
+    ref = copy.deepcopy(sdf).double()
+    orf, grf = hold.net_grads(fs.sdf_with_gradient_plain, ref, [pts.double()], [c.double() for c in cots])
+    assert max(hold.rel_errors(ok, orf)) <= 1e-4
+    assert max(hold.rel_errors(gk, grf)) <= 1e-3
+    # the gate takes the kernels on the card
+    assert nets.sdf_with_gradient(sdf, pts)[0].grad_fn.name().startswith("SDFFunction")
+
+
+@pytest.mark.parametrize("mode,extra", [("no_view_dir", True), ("idr", False)])
+def test_color_kernel_pair_matches_plain(dev, mode, extra):
+    """B7 at 256 wide on a ragged 1,000 points against the plain version in
+    float64: the output to 1e-4, every weight gradient and the four input
+    cotangents to 1e-3 of their largest magnitude, at every point (at a relu
+    near-tie, under the masks the kernel took)."""
+    import copy
+
+    from avatarclip_torch.fields import networks as nets
+    from avatarclip_torch.ops import fused_color as fc
+    from avatarclip_torch.ops import hold
+
+    g = torch.Generator().manual_seed(4)
+    color = nets.ColorNetwork(nets.ColorConfig(mode=mode, d_in=9 if mode == "idr" else 6,
+                                               extra_color=extra, weight_norm=False), g).to(dev)
+    P = 1000
+    ins = [torch.rand(P, 3, generator=g) * 2 - 1, torch.randn(P, 3, generator=g),
+           torch.randn(P, 3, generator=g), torch.randn(P, 256, generator=g)]
+    ins = [t.to(dev) for t in ins]
+    cots = [(0.5 + torch.rand(P, 6 if extra else 3, generator=g)).to(dev)]
+
+    n0 = dict(fc.LAUNCHES)
+    ok, gk = hold.net_grads(fc.color_apply_fused, color, ins, cots)
+    assert fc.LAUNCHES == {"color_fwd": n0["color_fwd"] + 1, "color_bwd": n0["color_bwd"] + 1}
+    ref = copy.deepcopy(color).double()
+    ins64 = [t.double() for t in ins]
+    orf, grf = hold.net_grads(fc.color_apply_plain, ref, ins64, [c.double() for c in cots])
+    assert max(hold.rel_errors(ok, orf)) <= 1e-4
+    n_p = len(grf) - 4
+    grf[n_p:], _ = hold.resolve_relu_ties(ref, ins64, cots[0].double(), gk[n_p:], grf[n_p:])
+    assert max(hold.rel_errors(gk, grf)) <= 1e-3

@@ -3,8 +3,8 @@ or cv2): statically, no import statement of ``avatarclip_torch`` or
 ``chip_smoke.py`` reaches ``avatarclip_tpu``; and in a fresh interpreter,
 import every avatarclip_torch module, run one tiny train_clip step, one
 photometric step, ``validate_image``, ``validate_mesh``, one PoseOptimizer
-step, one MotionOptimizer step and ``visualize.render_pose``, and check
-sys.modules. The kernel modules import and build nothing without nvcc."""
+step, one MotionOptimizer step, ``visualize.render_pose`` and one
+background (NeRF++, n_outside > 0) render step, and check sys.modules. The kernel modules import and build nothing without nvcc."""
 
 import ast
 import glob
@@ -70,6 +70,18 @@ def test_port_imports_no_jax_and_runs_a_step(tmp_path):
         opt = torch.optim.Adam([lat], lr=0.01)
         assert torch.isfinite(m.step(lat, opt, torch.zeros(2, 63), tf, m.draw_step()))
         visualize.render_pose(torch.zeros(69), {str(tmp_path / "pose.jpg")!r}, ctx=ctx, res=32)
+        from avatarclip_torch.fields import networks as nets
+        from avatarclip_torch.render import neus
+        f = nets.NeuSFields(nets.SDFConfig(d_out=17, d_hidden=16, n_layers=2, multires=2),
+                            nets.ColorConfig(d_feature=16, d_hidden=16, n_layers=1), 0.3,
+                            nerf_cfg=nets.NeRFConfig(D=2, W=16, multires=2, multires_view=2))
+        ro = torch.tensor([[0.0, 0.0, 2.0]]).expand(4, 3)
+        rd = torch.nn.functional.normalize(torch.tensor([[0.05, 0.0, -1.0]]).expand(4, 3), dim=-1)
+        out = neus.render(f, neus.NeuSConfig(n_samples=8, n_importance=8, up_sample_steps=2,
+                                             n_outside=4), ro, rd, torch.ones(4, 1), 3 * torch.ones(4, 1),
+                          generator=torch.Generator().manual_seed(0), per_ray=True)
+        (out["color_fine"].sum() + out["gradient_error"]).backward()
+        assert f.nerf.pts[0].w.grad is not None
         banned = ("jax", "jaxlib", "optax", "orbax", "imageio", "cv2", "avatarclip_tpu")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
         assert not bad, bad
