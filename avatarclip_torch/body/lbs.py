@@ -55,3 +55,22 @@ def lbs(v_shaped, pose, posedirs, J_regressor, parents, lbs_weights, pose2rot: b
     T = torch.einsum("vj,njab->nvab", lbs_weights, A)
     verts = torch.einsum("nvab,nvb->nva", T[..., :3, :3], v_posed) + T[..., :3, 3]
     return verts, posed_joints
+
+
+def inv_lbs(verts_posed, weights, v_shaped_template, pose, posedirs_offsets, J_regressor,
+            parents, pose2rot: bool = True):
+    """Un-pose vertices back to the rest pose (drive.py:242-253, Avatar2FBX
+    ply_utils.py:91-102): the joints of ``v_shaped_template`` (N, Vt, 3), the
+    per-vertex blended transform of ``weights`` (V, J) at ``pose``, its 3x3
+    block inverted in f32 (a convex combination of rotations is not a
+    rotation), then the pose blend offsets (N, V, 3) subtracted if given."""
+    N, J = pose.shape[0], J_regressor.shape[0]
+    joints = vertices2joints(J_regressor, v_shaped_template)
+    rot_mats = rodrigues(pose.reshape(N, J, 3)) if pose2rot else pose.reshape(N, J, 3, 3)
+    _, A = batch_rigid_transform(rot_mats, joints, parents)
+    T = torch.einsum("vj,njab->nvab", weights, A)
+    M_inv = torch.linalg.inv(T[..., :3, :3])
+    unposed = torch.einsum("nvab,nvb->nva", M_inv, verts_posed - T[..., :3, 3])
+    if posedirs_offsets is not None:
+        unposed = unposed - posedirs_offsets
+    return unposed

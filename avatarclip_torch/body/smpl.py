@@ -39,6 +39,17 @@ class SMPLModel:
     def num_betas(self) -> int:
         return self.shapedirs.shape[-1]
 
+    def to(self, device) -> "SMPLModel":
+        """The model with its tensors on ``device``."""
+        return dataclasses.replace(
+            self, v_template=self.v_template.to(device), shapedirs=self.shapedirs.to(device),
+            posedirs=self.posedirs.to(device), J_regressor=self.J_regressor.to(device),
+            lbs_weights=self.lbs_weights.to(device))
+
+    def shape(self, betas: torch.Tensor) -> torch.Tensor:
+        """betas (N, B) -> shaped rest vertices (N, V, 3)."""
+        return self.v_template[None] + _lbs.blend_shapes(betas, self.shapedirs)
+
     def forward(self, betas=None, body_pose=None, global_orient=None, v_shaped=None,
                 pose2rot: bool = True):
         """-> (vertices (N, V, 3), joints (N, J, 3)); ``v_shaped`` bypasses

@@ -1,4 +1,5 @@
-// Standalone SDF kernel pair for Hopper (sm_90a): forward and backward (B6).
+// Standalone SDF kernels for Hopper (sm_90a): the sdf+gradient pair (B6) and
+// the sdf-only forward (B8's #12).
 //
 // Replaces the Pallas kernels avatarclip_tpu/ops/fused_sdf.py `_fwd_kernel`
 // (:261) and `_bwd_kernel` (:403), launched by `_run_fwd` / `_run_bwd` under
@@ -26,6 +27,19 @@
 // gradients go to per-CTA partials and a fixed-order second pass:
 // deterministic, no atomics (the TPU kernel accumulated into revisited
 // blocks of a sequential grid, which CTAs running in parallel cannot).
+//
+// The sdf-only forward replaces avatarclip_tpu/ops/fused_sdf.py
+// `_sdf_only_kernel` (:626, under `_sdf_only_core` :682, entry
+// `sdf_value_fused` :731): per point the encoding, the hidden stack and the
+// skip-producing layer and the head's sdf row alone, / scale; no feature, no
+// gradient. It serves the sdf-only queries (the NeuS up-sample sweeps and the
+// marching-cubes grid) behind fields/networks.py's `_SWEEP_KERNEL` hook. What
+// bounds it: f32 FMA throughput of the stack (393,728 FLOPs a point at 4 x
+// 256) against 16 bytes a point. Design: B6's forward with sdf_stack's
+// value_only mode (no embedding derivatives, the 1-column head GEMM) and no
+// reverse sweep; a ragged last block runs with fewer rows, nothing padded.
+// No backward kernel: the TPU package differentiates its plain version
+// (`_sdf_only_bwd`), and so does the port's autograd Function.
 #include "neus_ray.cuh"
 
 using namespace neus;
@@ -58,6 +72,28 @@ __global__ void __launch_bounds__(NT) sdf_fwd_kernel(
       else feat_out[(row0 + r) * d.F + (j - 1)] = v;
     }
     for (int e = tid; e < S * 3; e += NT) g_out[row0 * 3 + e] = ws[L.g + e];
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(NT) sdf_only_kernel(
+    Dims d, const float* __restrict__ wts, const float* __restrict__ pts, int P,
+    float* __restrict__ sdf_out, float* __restrict__ ws_all, long long ws_stride) {
+  __shared__ GemmSmem sm;
+  const WeightOffsets wo = weight_offsets(d);
+  const Workspace L = workspace_layout(d, false);
+  float* ws = ws_all + (size_t)blockIdx.x * ws_stride;
+  const int F1 = 1 + d.F, tid = threadIdx.x;
+  const int n_blk = (P + MAXS - 1) / MAXS;
+  for (int blk = blockIdx.x; blk < n_blk; blk += gridDim.x) {
+    const size_t row0 = (size_t)blk * MAXS;
+    Dims db = d;
+    db.S = min(MAXS, P - (int)row0);
+    const int S = db.S;
+    for (int e = tid; e < S * 3; e += NT) ws[L.pts + e] = pts[row0 * 3 + e];
+    __syncthreads();
+    sdf_stack(sm, db, wts, wo, ws, L, true);
+    for (int r = tid; r < S; r += NT) sdf_out[row0 + r] = ws[L.out + r * F1] / d.scale;
     __syncthreads();
   }
 }
@@ -118,6 +154,14 @@ int sdf_fwd(Dims d, const float* wts, const float* pts, int P, float* sdf, float
             float* grad, float* ws, long long ws_stride, int n_cta, void* stream) {
   sdf_fwd_kernel<<<n_cta, NT, 0, (cudaStream_t)stream>>>(d, wts, pts, P, sdf, feat, grad, ws,
                                                           ws_stride);
+  return (int)cudaGetLastError();
+}
+
+// sdf-only forward: sdf (P,) of P points (P, 3), the same weights and
+// workspace as sdf_fwd.
+int sdf_only_fwd(Dims d, const float* wts, const float* pts, int P, float* sdf, float* ws,
+                 long long ws_stride, int n_cta, void* stream) {
+  sdf_only_kernel<<<n_cta, NT, 0, (cudaStream_t)stream>>>(d, wts, pts, P, sdf, ws, ws_stride);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@
 // up to MAXS points as one "ray"): the alpha chain and its VJP, the SDF primal
 // stack with its analytic spatial gradient, the colour MLP, their reverse
 // passes (forward-over-reverse through the SDF MLP) and the fixed-order
-// partial-sum pass. Every function is called by all NT threads of a CTA
+// partial-sum pass. The sdf-only kernel (fused_sdf.cu, #12) runs the primal
+// stack alone. Every function is called by all NT threads of a CTA
 // working on one ray of d.S <= MAXS samples, with the ray's states in the
 // CTA's workspace slice ``ws`` (layout: neus_mlp.cuh).
 #pragma once
@@ -41,9 +42,12 @@ struct RayShared {
 
 // from the d.S points in ws[L.pts]: embedding (+ first and second
 // derivatives), SDF primal stack: h[i], p[i] = softplus',
-// u = [softplus(z_skip), e] / sqrt(2), p_s, and out = [s_net, feature]
+// u = [softplus(z_skip), e] / sqrt(2), p_s, and out = [s_net, feature].
+// value_only (the sdf-only kernel): no embedding derivatives, and the head's
+// sdf row alone, into out's column 0 (row stride 1 + F as before)
 __device__ void sdf_stack(GemmSmem& sm, const Dims& d, const float* wts,
-                          const WeightOffsets& wo, float* ws, const Workspace& L) {
+                          const WeightOffsets& wo, float* ws, const Workspace& L,
+                          bool value_only = false) {
   const int S = d.S, tid = threadIdx.x;
   for (int e = tid; e < S * d.E; e += NT) {
     const int r = e / d.E, j = e % d.E;
@@ -51,6 +55,10 @@ __device__ void sdf_stack(GemmSmem& sm, const Dims& d, const float* wts,
     float f;
     pe_column(j, c, f, kind);
     const float xs = ws[L.pts + r * 3 + c] * d.scale;
+    if (value_only) {
+      ws[L.e + e] = kind == 0 ? xs : (kind == 1 ? sinf(f * xs) : cosf(f * xs));
+      continue;
+    }
     float val, dv, ddv;
     if (kind == 0) {
       val = xs; dv = 1.f; ddv = 0.f;
@@ -91,8 +99,8 @@ __device__ void sdf_stack(GemmSmem& sm, const Dims& d, const float* wts,
     }
   }
   __syncthreads();
-  gemm(sm, S, 1 + d.F, d.H, ws + L.u, d.H, false, wts + wo.sw[d.NH + 1], d.H, true,
-       ws + L.out, 1 + d.F, false, wts + wo.sb[d.NH + 1]);
+  gemm(sm, S, value_only ? 1 : 1 + d.F, d.H, ws + L.u, d.H, false, wts + wo.sw[d.NH + 1], d.H,
+       true, ws + L.out, 1 + d.F, false, wts + wo.sb[d.NH + 1]);
 }
 
 // the ray's points o + d z, then sdf_stack

@@ -1,4 +1,5 @@
-// Tiled hard z-buffer winner selection for Hopper (sm_90a).
+// Hard z-buffer winner selection for Hopper (sm_90a): the tiled, culled
+// kernel (B2) and the brute-force kernel (B8's #15).
 //
 // Replaces the Pallas kernel avatarclip_tpu/ops/raster_zbuffer.py
 // `_zbuffer_kernel_tiled` (:266), launched by `zbuffer_select_tiled` (:304)
@@ -23,6 +24,17 @@
 // same order the plain PyTorch version uses, so the two agree bit for bit.
 // At 256^2 there are 64 tiles for 132 SMs: the card is under-filled (later
 // work: split face blocks across CTAs and merge).
+//
+// The brute-force kernel replaces avatarclip_tpu/ops/raster_zbuffer.py
+// `_zbuffer_kernel` (:104, entry `zbuffer_select` :144): every (pixel, face)
+// pair with no culling table, the same winner rule, the same (px * c0 + py *
+// c1) + c2 evaluation and the same increasing face order, so its winners are
+// B2's exactly. What bounds it: the full pair count, 4 K=3 dots each (about
+// 17 f32 operations a pair). Design: B2's CTA (one 32 x 32 tile, one thread a
+// pixel, faces staged FBLOCK at a time in shared memory) over every face
+// block; the faces are read from the caller's (F, 3, 4) coefficients and
+// (F,) bool valid flags in place: the ragged last block is masked by F and
+// the ragged edge tiles by H and W, with no padded copies.
 #include <cuda_runtime.h>
 
 namespace {
@@ -72,7 +84,51 @@ __global__ void __launch_bounds__(TILE * TILE) zbuffer_tiled_kernel(
   if (py < H && px < W) face_id[py * W + px] = best;
 }
 
+__global__ void __launch_bounds__(TILE * TILE) zbuffer_brute_kernel(
+    const float* __restrict__ coef,           // (F, 3, 4)
+    const unsigned char* __restrict__ valid,  // (F,) bool
+    int* __restrict__ face_id,                // (H * W,) row-major
+    int F, int H, int W, int n_tx) {
+  __shared__ float s_coef[FBLOCK * 12];
+  __shared__ int s_valid[FBLOCK];
+  const int ty = blockIdx.x / n_tx, tx = blockIdx.x % n_tx;
+  const int py = ty * TILE + threadIdx.x / TILE;
+  const int px = tx * TILE + threadIdx.x % TILE;
+  const float fx = (float)px, fy = (float)py;
+  float best_iz = -1.f;
+  int best = -1;
+  for (int f0 = 0; f0 < F; f0 += FBLOCK) {
+    const int nf = min(FBLOCK, F - f0);
+    __syncthreads();
+    const float* src = coef + (size_t)f0 * 12;
+    for (int e = threadIdx.x; e < nf * 12; e += blockDim.x) s_coef[e] = src[e];
+    for (int e = threadIdx.x; e < nf; e += blockDim.x) s_valid[e] = valid[f0 + e];
+    __syncthreads();
+    for (int f = 0; f < nf; ++f) {
+      if (!s_valid[f]) continue;
+      const float* c = s_coef + f * 12;
+      const float b0 = lin(fx, fy, c[0], c[4], c[8]);
+      const float b1 = lin(fx, fy, c[1], c[5], c[9]);
+      const float b2 = lin(fx, fy, c[2], c[6], c[10]);
+      const float iz = lin(fx, fy, c[3], c[7], c[11]);
+      if (b0 >= 0.f && b1 >= 0.f && b2 >= 0.f && iz > 0.f && iz >= best_iz) {
+        best_iz = iz;
+        best = f0 + f;
+      }
+    }
+  }
+  if (py < H && px < W) face_id[py * W + px] = best;
+}
+
 }  // namespace
+
+extern "C" int zbuffer_brute(const float* coef, const unsigned char* valid, int* face_id, int F,
+                             int H, int W, void* stream) {
+  const int n_tx = (W + TILE - 1) / TILE, n_ty = (H + TILE - 1) / TILE;
+  zbuffer_brute_kernel<<<n_tx * n_ty, TILE * TILE, 0, (cudaStream_t)stream>>>(coef, valid, face_id, F,
+                                                                               H, W, n_tx);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int zbuffer_tiled(const float* coef, const int* valid, const int* tab, int* face_id,
                              int H, int W, int n_tx, int n_ty, int n_fb, void* stream) {

@@ -19,7 +19,12 @@ net always runs its view branch (``use_viewdirs`` is not read), concatenates
 points, with the JAX package's gate ("TPU backend" read as "CUDA tensor"):
 on a CUDA tensor with ``use_pallas`` and ``d_hidden >= 256`` and a spec the
 kernel takes they run the CUDA pairs of ops/fused_sdf.py and
-ops/fused_color.py, otherwise the plain modules.
+ops/fused_color.py, otherwise the plain modules. :func:`sdf_value` serves
+the sdf-only queries (the up-sample sweeps, the marching-cubes grid): the
+plain module unless the ``_SWEEP_KERNEL`` hook is on (it is off, as in the
+JAX package), and then the sdf-only kernel on a CUDA tensor with
+``use_pallas`` and a spec it takes, at any width (the JAX hook has no width
+gate).
 """
 
 from __future__ import annotations
@@ -349,6 +354,32 @@ class NeuSFields(nn.Module):
 # ---------------------------------------------------------------------------
 
 _KERNEL_WIDTH = 256  # narrower nets stay on the plain modules (as in the JAX package)
+
+
+# the JAX package's importance-sweep hook (avatarclip_tpu/fields/
+# networks.py:179-198): when True, sdf_value takes the sdf-only kernel
+_SWEEP_KERNEL = False
+
+
+def sdf_value(sdf: SDFNetwork, pts: torch.Tensor) -> torch.Tensor:
+    """sdf (P, 1) of (P, 3) points: the sdf-only kernel (ops/fused_sdf.py)
+    when the hook is on and the gate is open, else the plain module (twin of
+    the JAX package's ``sdf_value``).
+
+    Precision: the kernel computes in f32 whatever ``cfg.dtype`` says, while
+    the plain module casts its operands to ``cfg.dtype`` (bf16 at the confs'
+    default ``train.compute_dtype``). So at bf16, turning the hook on moves
+    the sweeps and the marching-cubes grid from bf16 to f32 operands, enough
+    to change an extracted surface's vertex count by a few percent
+    (chip_smoke.py's path h prints the gap); the JAX hook keeps the operand
+    type. At f32 the two ways agree to rounding."""
+    cfg = sdf.cfg
+    if _SWEEP_KERNEL and cfg.use_pallas and pts.is_cuda:
+        from ..ops import fused_sdf
+
+        if fused_sdf.spec_from_config(cfg) is not None:
+            return fused_sdf.sdf_value_fused(sdf, pts)
+    return sdf.sdf(pts)
 
 
 def sdf_with_gradient(sdf: SDFNetwork, pts: torch.Tensor):

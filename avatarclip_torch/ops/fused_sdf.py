@@ -1,4 +1,5 @@
-"""The standalone SDF pair (B6): CUDA forward/backward, plain version, autograd.
+"""The standalone SDF kernels: the sdf+gradient pair (B6) and the sdf-only
+forward (B8's #12), with their plain versions and autograd Functions.
 
 Twin of avatarclip_tpu/ops/fused_sdf.py: `sdf_with_gradient_fused` (the
 entry), `_fused_core` (the custom VJP), Pallas `_fwd_kernel` /
@@ -19,6 +20,13 @@ carries the kernel's dense weight gradients on to ``g``, ``v`` and ``b``.
 The Function's backward is itself not differentiable: the eikonal term's
 second derivative is the backward kernel's tangent path, not a double
 backward.
+
+The sdf-only forward (twin of `sdf_value_fused` / `_sdf_only_core`, Pallas
+`_sdf_only_kernel`) returns sdf (P, 1) alone, for the sdf-only queries behind
+``fields.networks.sdf_value``'s ``_SWEEP_KERNEL`` hook. Its Function's forward
+is the kernel and its backward autograd of :func:`sdf_only_plain`, as the JAX
+package's ``_sdf_only_bwd`` differentiates its plain ``_dense_sdf_only``:
+there is no backward kernel.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from . import _build
 from .fused_neus import Dims, n_cta_for, split_flat
 from ..fields.networks import SDFNetwork
 
-LAUNCHES = {"sdf_fwd": 0, "sdf_bwd": 0}
+LAUNCHES = {"sdf_fwd": 0, "sdf_bwd": 0, "sdf_only_fwd": 0}
 BLOCK = 64  # points per CTA iteration (neus_mlp.cuh's MAXS)
 LANE = 128  # the JAX family's width granule, kept so both packages take one family
 MAX_HIDDEN = 8  # neus_mlp.cuh's MAXNH
@@ -91,6 +99,19 @@ def sdf_with_gradient_plain(sdf: SDFNetwork, pts: torch.Tensor):
     return sdf.sdf_with_gradient(pts, dtype=pts.dtype)
 
 
+def sdf_only_plain(sdf: SDFNetwork, pts: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the sdf-only kernel: the module's forward
+    with the head's sdf row alone, in the input's dtype -> (P, 1)."""
+    return sdf.forward(pts, sdf_only=True, dtype=pts.dtype)[:, :1]
+
+
+def sdf_only_flops_per_point(spec: FusedSDFSpec) -> float:
+    """GEMM FLOPs per point of the sdf-only forward: the stack and the
+    head's sdf row."""
+    E, H, NH = spec.d_embed, spec.d_hidden, spec.n_hidden
+    return float(2 * E * H + (NH - 1) * 2 * H * H + 2 * H * (H - E) + 2 * H)
+
+
 def flops_per_point(spec: FusedSDFSpec) -> tuple[float, float]:
     """(forward, backward) GEMM FLOPs per point of the kernels, from the
     network dims. Forward: the stack and the gradient's reverse sweep.
@@ -122,6 +143,8 @@ def _lib():
         lib.sdf_fwd.restype = I
         lib.sdf_bwd.argtypes = [Dims, P, P, I, P, P, P, P, P, P, P, L_, I, P]
         lib.sdf_bwd.restype = I
+        lib.sdf_only_fwd.argtypes = [Dims, P, P, I, P, P, L_, I, P]
+        lib.sdf_only_fwd.restype = I
         lib._typed = True
     return lib
 
@@ -154,6 +177,24 @@ def sdf_fwd(spec: FusedSDFSpec, flat, pts):
     _build.check(err, "sdf_fwd launch")
     _build.count(LAUNCHES, "sdf_fwd")
     return sdf, feat, grad
+
+
+def sdf_only_fwd(spec: FusedSDFSpec, flat, pts):
+    """Launch the sdf-only kernel. Returns sdf (P, 1)."""
+    lib = _lib()
+    _check(spec, lib, flat, pts)
+    d, dev, P = spec.dims(), pts.device, pts.shape[0]
+    sdf = torch.empty(P, 1, device=dev)
+    if P == 0:
+        return sdf
+    n_cta = n_cta_for(dev, -(-P // BLOCK))
+    stride = int(lib.sdf_workspace_floats(d, 0))
+    ws = torch.empty(n_cta * stride, device=dev)
+    err = lib.sdf_only_fwd(d, _build.ptr(flat), _build.ptr(pts), P, _build.ptr(sdf), _build.ptr(ws),
+                           stride, n_cta, _build.stream_ptr(dev))
+    _build.check(err, "sdf_only_fwd launch")
+    _build.count(LAUNCHES, "sdf_only_fwd")
+    return sdf
 
 
 def sdf_bwd(spec: FusedSDFSpec, flat, pts, c_sdf, c_feat, c_grad):
@@ -217,3 +258,39 @@ def sdf_with_gradient_fused(sdf: SDFNetwork, pts: torch.Tensor):
     if spec is None:
         raise ValueError("network configuration not supported by the SDF kernel")
     return SDFFunction.apply(spec, pts.float().contiguous(), *dense_weights(sdf))
+
+
+class SDFOnlyFunction(torch.autograd.Function):
+    """(spec, net, pts, *net parameters) -> sdf (P, 1): the forward is the
+    sdf-only kernel; the backward differentiates :func:`sdf_only_plain`
+    (f32) with respect to the points and the net's parameters."""
+
+    @staticmethod
+    def forward(ctx, spec, sdf, pts, *params):
+        flat = torch.cat([w.detach().reshape(-1) for w in dense_weights(sdf)])
+        ctx.sdf = sdf
+        ctx.save_for_backward(pts)
+        return sdf_only_fwd(spec, flat, pts)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, c_sdf):
+        (pts,) = ctx.saved_tensors
+        params = list(ctx.sdf.parameters())
+        with torch.enable_grad():
+            x = pts.detach().requires_grad_(True)
+            grads = torch.autograd.grad(sdf_only_plain(ctx.sdf, x), [x, *params], c_sdf,
+                                        allow_unused=True)
+        return (None, None, *grads)
+
+
+def sdf_value_fused(sdf: SDFNetwork, pts: torch.Tensor) -> torch.Tensor:
+    """sdf (P, 1) by the sdf-only kernel. Takes a CUDA tensor and raises on
+    any other: on the CPU the hook (fields.networks.sdf_value) picks the
+    plain module."""
+    if not pts.is_cuda:
+        raise ValueError("sdf_value_fused takes CUDA tensors (the kernel has no CPU mode)")
+    spec = spec_from_config(sdf.cfg)
+    if spec is None:
+        raise ValueError("network configuration not supported by the sdf-only kernel")
+    return SDFOnlyFunction.apply(spec, sdf, pts.float().contiguous(), *sdf.parameters())

@@ -1,14 +1,19 @@
-"""Tiled hard z-buffer winner selection: CUDA kernel, plain version, culling table.
+"""Hard z-buffer winner selection: the tiled CUDA kernel (B2) and the
+brute-force one (B8's #15), their plain version, the culling table.
 
 Twin of avatarclip_tpu/ops/raster_zbuffer.py (`zbuffer_select_tiled`,
-`overlap_table`, the `_select_update` winner rule). Semantics on every
-device: the winner of a pixel is the inside, valid face with iz > 0 that
-maximises (exact f32 inverse depth, face id); -1 is background. Edge values
-are evaluated as (px * c0 + py * c1) + c2 with separately rounded products
-and sums in both versions, so kernel and plain version agree exactly.
+`overlap_table`, the `_select_update` winner rule, and the untiled
+`zbuffer_select`). Semantics on every device: the winner of a pixel is the
+inside, valid face with iz > 0 that maximises (exact f32 inverse depth, face
+id); -1 is background. Edge values are evaluated as (px * c0 + py * c1) + c2
+with separately rounded products and sums in every version, so the kernels
+and the plain version agree exactly, and the two kernels with each other
+(the tiled one's culling is winner-exact).
 
-The kernel is ``csrc/raster_zbuffer.cu``; a CUDA tensor launches it (or the
-call raises), a CPU tensor takes :func:`zbuffer_select_tiled_plain`.
+The kernels are in ``csrc/raster_zbuffer.cu``; a CUDA tensor launches them
+(or the call raises), a CPU tensor takes :func:`zbuffer_select_plain`. The
+renderer calls the tiled kernel; the brute-force one, as in the JAX package,
+is held against it and timed beside it.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ TILE_W = 32
 FBLOCK_T = 512  # faces per block (the kernel's shared-memory stage)
 
 # kernel launches, counted by the wrapper (reset by callers that measure)
-LAUNCHES = {"zbuffer_tiled": 0}
+LAUNCHES = {"zbuffer_tiled": 0, "zbuffer_brute": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -70,12 +75,10 @@ def lin3(px, py, c0, c1, c2):
     return (px * c0 + py * c1) + c2
 
 
-def zbuffer_select_tiled_plain(coef: torch.Tensor, valid: torch.Tensor,
-                               face_sx: torch.Tensor, face_sy: torch.Tensor,
-                               H: int, W: int, chunk: int = 256) -> torch.Tensor:
-    """Brute-force plain version: every (pixel, face) pair, faces in chunks.
-    The bbox culling of the kernel is winner-exact, so it is not needed for
-    the same result. Returns (H*W,) int32 face ids, -1 for background."""
+def zbuffer_select_plain(coef: torch.Tensor, valid: torch.Tensor, H: int, W: int,
+                         chunk: int = 256) -> torch.Tensor:
+    """Plain version of both kernels, brute force: every (pixel, face) pair,
+    faces in chunks. Returns (H*W,) int32 face ids, -1 for background."""
     dev = coef.device
     py, px = torch.meshgrid(
         torch.arange(H, device=dev, dtype=torch.float32),
@@ -100,6 +103,33 @@ def zbuffer_select_tiled_plain(coef: torch.Tensor, valid: torch.Tensor,
     return best
 
 
+def zbuffer_select(coef: torch.Tensor, valid: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Winner face id per pixel by the brute-force kernel, (H*W,) int32
+    row-major, -1 = background; coef (F, 3, 4) f32 from
+    raster._face_coefficients, valid (F,) bool."""
+    if not coef.is_cuda:
+        return zbuffer_select_plain(coef, valid, H, W)
+    F = coef.shape[0]
+    if coef.shape != (F, 3, 4) or coef.dtype != torch.float32 or not coef.is_contiguous():
+        raise ValueError(f"coef must be contiguous (F, 3, 4) float32, got {tuple(coef.shape)} {coef.dtype}")
+    if valid.shape != (F,) or valid.dtype != torch.bool or not valid.is_contiguous():
+        raise ValueError("valid must be a contiguous (F,) bool tensor")
+    if valid.device != coef.device:
+        raise ValueError("all inputs must be on one device")
+    out = torch.empty(H * W, dtype=torch.int32, device=coef.device)
+    if H * W == 0:
+        return out
+    lib = _build.load("raster_zbuffer", "raster_zbuffer.cu")
+    fn = lib.zbuffer_brute
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    err = fn(_build.ptr(coef), _build.ptr(valid), _build.ptr(out), F, H, W,
+             _build.stream_ptr(coef.device))
+    _build.check(err, "zbuffer_brute launch")
+    _build.count(LAUNCHES, "zbuffer_brute")
+    return out
+
+
 def zbuffer_select_tiled(coef: torch.Tensor, valid: torch.Tensor,
                          face_sx: torch.Tensor, face_sy: torch.Tensor,
                          H: int, W: int) -> torch.Tensor:
@@ -108,7 +138,7 @@ def zbuffer_select_tiled(coef: torch.Tensor, valid: torch.Tensor,
     coef (F, 3, 4) f32 from raster._face_coefficients, valid (F,) bool,
     face_sx / face_sy (F, 3) screen coordinates of each face's corners."""
     if not coef.is_cuda:
-        return zbuffer_select_tiled_plain(coef, valid, face_sx, face_sy, H, W)
+        return zbuffer_select_plain(coef, valid, H, W)
     F = coef.shape[0]
     if coef.shape != (F, 3, 4) or coef.dtype != torch.float32:
         raise ValueError(f"coef must be (F, 3, 4) float32, got {tuple(coef.shape)} {coef.dtype}")

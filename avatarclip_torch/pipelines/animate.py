@@ -26,7 +26,6 @@ asked for; asking for CUDA without a card raises.
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import statistics
 import time
@@ -40,6 +39,7 @@ from ..body import rotations, vposer as vposer_mod
 from ..clip import model as clip_model
 from ..clip import tokenizer as clip_tokenizer
 from ..render import cameras, raster
+from ..utils import device as device_mod
 from . import motion_vae
 
 # every screen-space dot is K = 3 and must stay full f32 (thin faces decide
@@ -49,20 +49,6 @@ torch.backends.cudnn.allow_tf32 = False
 
 ANGLES = (120.0, 150.0, 180.0, 210.0, 240.0)  # the five scoring azimuths (deg)
 SOFT_SIGMA = 0.5  # px, the soft render of the optimizers (pose_generation.py:120-127)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The card by default; the CPU only when asked for."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("AvatarAnimate: CUDA was asked for but torch.cuda.is_available() is "
-                           "false; pass device='cpu' (--device cpu) to run on the CPU")
-    return dev
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def pose_padding(pose: torch.Tensor) -> torch.Tensor:
@@ -99,12 +85,9 @@ def view_poses(elevs: torch.Tensor, azims_deg: torch.Tensor, dist: float = 2.0) 
 class AnimateContext:
     def __init__(self, smpl_path: str | None = None, vposer_path: str | None = None,
                  clip_size: str = "vit_b32", render_res: int = 224, device=None):
-        self.device = dev = resolve_device(device)
+        self.device = dev = device_mod.resolve(device, "AvatarAnimate")
         model = assets.load_smpl(smpl_path)
-        self.smpl = dataclasses.replace(
-            model, v_template=model.v_template.to(dev), shapedirs=model.shapedirs.to(dev),
-            posedirs=model.posedirs.to(dev), J_regressor=model.J_regressor.to(dev),
-            lbs_weights=model.lbs_weights.to(dev))
+        self.smpl = model.to(dev)
         vp, self.vposer_pretrained = vposer_mod.load_pretrained(vposer_path)
         self.vposer = clip_model.tree_to(vp, dev)
         if clip_size == "tiny":
@@ -197,7 +180,7 @@ class _Timed:
     step's synchronised seconds in ``step_s``."""
 
     def _clock(self, t0: float) -> None:
-        _sync(self.ctx.device)
+        device_mod.sync(self.ctx.device)
         t = time.perf_counter()
         self.timing.setdefault("step_s", []).append(t - t0)
         if "first_step_s" not in self.timing:

@@ -51,6 +51,7 @@ from ..export import marching_cubes as mc
 from ..export import mesh_io
 from ..fields import networks as nets
 from ..render import cameras, neus, raster
+from ..utils import device as device_mod
 from ..utils.logging import MetricsLogger
 from ..utils.mp4 import write_mp4
 from ..utils.png import write_png
@@ -280,10 +281,7 @@ class Runner:
         self.conf_path = conf_path
         self.conf = conf if conf is not None else config_mod.parse_file(conf_path, case=case)
         conf = self.conf
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Runner: CUDA was asked for but torch.cuda.is_available() is false; "
-                               "pass device='cpu' (--device cpu) to run on the CPU")
+        self.device = device_mod.resolve(device, "Runner")
         self.base_exp_dir = conf.get_string("general.base_exp_dir")
         os.makedirs(self.base_exp_dir, exist_ok=True)
         self.dataset = SMPLViewDataset(conf["dataset"], self.device)
@@ -856,7 +854,7 @@ class Runner:
         it = self.iter_step if it is None else it
 
         def query(pts):
-            return -fields.sdf.sdf(pts)[..., 0]
+            return -nets.sdf_value(fields.sdf, pts)[..., 0]
 
         vertices, triangles = mc.extract_geometry(
             self.dataset.object_bbox_min, self.dataset.object_bbox_max, resolution=resolution,

@@ -36,6 +36,32 @@ def write_synthetic_views(out_dir: str, n_views: int = 8, res: int = 64) -> str:
     return out_dir
 
 
+def smpl_size_body() -> tuple[np.ndarray, np.ndarray]:
+    """A body mesh with SMPL's 6,890 vertices, all referenced, for ShapeGen's
+    fixed-size VAE: the procedural humanoid at 40 segments x 28 ring
+    vertices a capsule (6 x 41 x 28 = 6,888 vertices, 13,440 faces) and one
+    small triangle on the top of the head that adds two vertices (13,441
+    faces)."""
+    from ..assets import _procedural_humanoid
+
+    v, f = _procedural_humanoid(n_seg=40, n_ring=28)
+    top = int(np.argmax(v[:, 1]))
+    extra = v[top] + np.array([[0.01, 0.004, 0.0], [-0.01, 0.004, 0.0]], np.float32)
+    n = len(v)
+    return (np.concatenate([v, extra]).astype(np.float32),
+            np.concatenate([f, [[top, n, n + 1]]]).astype(np.int32))
+
+
+def write_template_obj(data_dir: str, v: np.ndarray, f: np.ndarray) -> str:
+    """Write a body as the zero-beta template OBJ, where both packages'
+    ``assets.load_smpl`` look for it (under ``$AVATARCLIP_TPU_DATA``)."""
+    path = os.path.join(data_dir, "zero_beta_smpl.obj")
+    with open(path, "w") as fh:
+        fh.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in v)
+        fh.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f)
+    return path
+
+
 def make_conf_text(
     exp_dir: str,
     data_dir: str,

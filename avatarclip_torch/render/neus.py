@@ -26,6 +26,7 @@ composites over ``weights[:, :S]``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -304,7 +305,7 @@ def render(fields: nets.NeuSFields, cfg: NeuSConfig, rays_o, rays_d, near, far,
 
     if cfg.n_importance > 0:
         with torch.no_grad():
-            sdf_fn = fields.sdf.sdf
+            sdf_fn = functools.partial(nets.sdf_value, fields.sdf)
             pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
             sdf = sdf_fn(pts.reshape(-1, 3)).reshape(R, cfg.n_samples)
             zi = z_vals

@@ -12,14 +12,18 @@ kernel's plain version):
   1. the device: a CUDA card must be present; prints nvidia-smi's name and
      power limit;
   2. builds the CUDA kernels from avatarclip_torch/csrc (one nvcc per
-     library for sm_90a, all at once) and the host marching-cubes library
-     (g++), and prints the build seconds;
+     library for sm_90a, all at once) and the host marching-cubes and mesh
+     libraries (g++), and prints the build seconds;
   3. holds each kernel against its plain PyTorch version on the card and
      times both at the main path's shapes:
      - B2, the tiled z-buffer: the template at 256^2 and 128^2, a random
        triangle soup, and the animate paths' 13,776-face body at the five
        224^2 scoring views and visualize's 512^2 camera, exactly but for
        near-ties; timed on the 256^2 template and the 512^2 body;
+     - #15, the brute-force z-buffer: against the plain version and B2's
+       winners, exactly but for near-ties, on the template at 256^2, a
+       ragged triangle soup and the 13,441-face ShapeGen body at 256^2
+       (and on path f's 109 renders); timed on that body beside B2;
      - B1, the per-ray NeuS pair, and B3, the point-level NeuS pair: forward
        and backward at 256 and 128 wide on 2,048 rays x 64 samples against
        the plain version evaluated in float64, outputs to 1e-4 and gradients
@@ -48,6 +52,12 @@ kernel's plain version):
        cotangents take the masks the kernel took, ops/hold.py); B7 in
        no_view_dir with the extra head and in idr without it; both timed at
        path (e)'s 802,816 points a step (and held there in path e);
+     - #12, the sdf-only forward, through its entry (backward: autograd of
+       the plain version) against the plain version in float64 at 4x256
+       and 3x128 on 2,048 rays x 56 sweep points and on a ragged 131,071
+       points (the sdf to 1e-4, its VJP to 1e-3), and its forward at one
+       train_clip step's 12,544 x 56 points; timed there and on a
+       262,144-point grid chunk;
      each kernel's bound is max(FLOPs / peak, bytes / 3.35 TB/s) for the
      work of that call (f32 CUDA-core peak 67 TFLOP/s, the type the kernels
      compute in; the bf16 tensor-core bound at 989 TFLOP/s is printed too);
@@ -66,6 +76,13 @@ kernel's plain version):
      a'. ``Runner.interpolate_view(0, 30)`` on a Runner resumed from (a)'s
         checkpoint: 60 renders at resolution level 4 and their reversal as a
         120-frame MP4;
+     h. the sweep hook (``networks._SWEEP_KERNEL``) on against off on (a)'s
+        checkpoint, computing in float32 as #12 does (the confs' bf16
+        operands would measure the precision gap, not the kernel): the
+        validate_mesh mode's 512^3 extraction (grids within
+        1e-5, vertex counts within 0.1%, #12 once a grid chunk) and one
+        train_clip step at the same seed (losses within 1e-4, #12 four
+        times: the coarse query and three up-sample sweeps);
      c. ``animate.main`` in pose mode on the procedural body at SMPL's
         13,776 faces (written as the template OBJ): PoseOptimizer, 2
         restarts x 8 steps at 224^2 with CLIP ViT-B/32, the candidates'
@@ -83,10 +100,20 @@ kernel's plain version):
         chunks; then, outside the counts, B6 and B7 held as in phase 3 on
         the inputs and cotangents one more step gives them (802,816
         points) and, forward, on one more image's first chunk (1,048,576);
+     f. ShapeGen through ``shape.main`` on a 6,890-vertex body (the SMPL
+        vertex count the VAE fixes) written as the template OBJ: ``gen`` with
+        a seeded VAE at the checkpoint's shapes (16 -> 8,192 -> 20,670,
+        the decoder scaled to mm offsets), a seeded 256 x (16, 512) codebook
+        and ViT-B/32 random init; ``render`` writes the 108 views at 256^2
+        (B2, 1 + 108 launches), read back through the dataset loader;
+     g. the export: ``drive.main`` (a 60-frame .pc2) and ``rigged.main``
+        (a GLB with the motion baked, an FBX ASCII) on (b)'s 512^3 mesh and
+        (d)'s motion, with each phase's seconds;
      and checks the losses, the artifacts, and the launch counts against
      the counts predicted from the ray, step and render counts (paths a-d
-     launch B6 / B7 no time: the megakernels take those renders); c, d and
-     e also profile a few steps (device time by kernel, busy share).
+     launch B6 / B7 no time: the megakernels take those renders; no path
+     launches #15, which no default path of the JAX package runs either);
+     c, d and e also profile a few steps (device time by kernel, busy share).
 Prints a {"kernels": [...]} JSON line, then as the last line
 {"ok": true, "device": {...}}.
 """
@@ -209,23 +236,10 @@ def check_zbuffer(runner, dev):
         proj = raster.project_vertices(v, pose, H, W, focal)
         coef, valid, _ = raster._face_coefficients(proj, f)
         args = (coef, valid, proj.sx[f], proj.sy[f], H, W)
-        got = rz.zbuffer_select_tiled(*args)
-        want = rz.zbuffer_select_tiled_plain(*args)
-        torch.cuda.synchronize()
-        diff = (got != want).nonzero().flatten()
-        if diff.numel():
-            # only near-ties may differ: both faces cover the pixel and their
-            # inverse depths agree to NEAR_TIE
-            px, py = (diff % W).float(), (diff // W).float()
-            if (got[diff] < 0).any() or (want[diff] < 0).any():
-                fail(f"z-buffer {name}: coverage differs at {diff.numel()} pixels")
-            izs = [rz.lin3(px, py, coef[i.long(), 0, 3], coef[i.long(), 1, 3], coef[i.long(), 2, 3])
-                   for i in (got[diff], want[diff])]
-            gap = (izs[0] - izs[1]).abs()
-            if (gap > NEAR_TIE * izs[1].abs()).any():
-                fail(f"z-buffer {name}: {diff.numel()} pixels differ beyond near-ties")
-            worst = max(worst, float(gap.max()))
-        print(f"[B2] {name}: {int((want >= 0).sum())} covered px, {diff.numel()} near-tie "
+        want = rz.zbuffer_select_plain(coef, valid, H, W)
+        gap, n = same_winners(f"z-buffer {name}", rz.zbuffer_select_tiled(*args), want, coef, W)
+        worst = max(worst, gap)
+        print(f"[B2] {name}: {int((want >= 0).sum())} covered px, {n} near-tie "
               f"differences, kernel == plain elsewhere")
     # time at the train_clip GT raster (the template at 256^2) and at the
     # animate paths' largest render (the body at 512^2)
@@ -242,26 +256,57 @@ def check_zbuffer(runner, dev):
             "bound_by_512_body": b_v["bound_by"]}
 
 
-def time_zbuffer(name, v, faces, pose, res, focal):
-    """B2's and its plain version's milliseconds on one render, and the bound
-    of the work that render needs: every (pixel, valid face) pair inside the
-    face's screen bbox gets 3 edge tests and an inverse depth (~17 FLOPs)."""
+def same_winners(tag, got, want, coef, W) -> tuple[float, int]:
+    """Two winner maps agree but at near-ties: where they differ both faces
+    cover the pixel and their inverse depths agree to NEAR_TIE. The largest
+    inverse-depth gap between differing winners and their count."""
+    import torch
+
+    from avatarclip_torch.ops import raster_zbuffer as rz
+
+    torch.cuda.synchronize()
+    diff = (got != want).nonzero().flatten()
+    if not diff.numel():
+        return 0.0, 0
+    px, py = (diff % W).float(), (diff // W).float()
+    if (got[diff] < 0).any() or (want[diff] < 0).any():
+        fail(f"{tag}: coverage differs at {diff.numel()} pixels")
+    izs = [rz.lin3(px, py, coef[i.long(), 0, 3], coef[i.long(), 1, 3], coef[i.long(), 2, 3])
+           for i in (got[diff], want[diff])]
+    gap = (izs[0] - izs[1]).abs()
+    if (gap > NEAR_TIE * izs[1].abs()).any():
+        fail(f"{tag}: {diff.numel()} pixels differ beyond near-ties")
+    return float(gap.max()), diff.numel()
+
+
+def time_zbuffer(name, v, faces, pose, res, focal, brute: bool = False):
+    """B2's (or with ``brute`` #15's) and the plain version's milliseconds on
+    one render, and the bound of the work that render needs: every (pixel,
+    valid face) pair inside the face's screen bbox gets 3 edge tests and an
+    inverse depth (~17 FLOPs). #15 computes B2's function, so it has B2's
+    operations; it evaluates every (pixel, face) pair. The bytes are each
+    kernel's own inputs and output: B2 reads coef (48 B a face), valid as
+    int32 and the corners' screen coordinates (24 B) for its culling table;
+    #15 reads coef and valid as bool (1 B)."""
     from avatarclip_torch.ops import raster_zbuffer as rz
     from avatarclip_torch.render import raster
 
     proj = raster.project_vertices(v, pose, res, res, focal)
     coef, valid, _ = raster._face_coefficients(proj, faces)
     sx, sy = proj.sx[faces], proj.sy[faces]
-    args = (coef, valid, sx, sy, res, res)
-    ms = cuda_ms(lambda: rz.zbuffer_select_tiled(*args), reps=20)
-    plain_ms = cuda_ms(lambda: rz.zbuffer_select_tiled_plain(*args), reps=5)
+    if brute:
+        ms = cuda_ms(lambda: rz.zbuffer_select(coef, valid, res, res), reps=20)
+    else:
+        ms = cuda_ms(lambda: rz.zbuffer_select_tiled(coef, valid, sx, sy, res, res), reps=20)
+    plain_ms = cuda_ms(lambda: rz.zbuffer_select_plain(coef, valid, res, res), reps=5)
     nx = (sx.amax(1).clamp(0, res - 1).floor() - sx.amin(1).clamp(0, res - 1).ceil() + 1).clamp_min(0)
     ny = (sy.amax(1).clamp(0, res - 1).floor() - sy.amin(1).clamp(0, res - 1).ceil() + 1).clamp_min(0)
     pairs = float((nx * ny * valid.float()).sum())
     F = faces.shape[0]
-    b = bound(17.0 * pairs, F * (48 + 4 + 24) + res * res * 4)
-    print(f"[B2] {name} ({F} faces, {pairs:.0f} bbox pixel-face pairs): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
+    b = bound(17.0 * pairs, F * (48 + 1 if brute else 48 + 4 + 24) + res * res * 4)
+    tag = "#15" if brute else "B2"
+    print(f"[{tag}] {name} ({F} faces, {pairs:.0f} bbox pixel-face pairs, {res * res * F} pairs in all): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
     return ms, plain_ms, b
 
 
@@ -1201,26 +1246,129 @@ def check_colour(dev):
     ]
 
 
-def b8_bound() -> dict:
-    """The bound of row 12 (B8, still to port), the TPU's sdf-only forward
-    (``fused_sdf._sdf_only_kernel``), at the work it would do: one
-    train_clip step's up-sample sweeps at the full conf, 12,544 rays x (32
-    + 3 x 8) points (the last of the 4 sweeps evaluates nothing), each
-    through the SDF stack and the sdf row of the head, reading 12 bytes and
-    writing 4. Arithmetic only: nothing runs."""
-    from avatarclip_torch.fields import networks as nets
+# ---------------------------------------------------------------------------
+# B8: #12, the sdf-only forward, and #15, the brute-force z-buffer
+# ---------------------------------------------------------------------------
+
+SWEEP_SAMPLES = 32 + 3 * 8  # a ray's sdf-only queries a render: 32 coarse, 3 up-sample batches of 8
+GRID_CHUNK = 64 ** 3  # export/marching_cubes._eval_points' chunk
+
+
+def sweep_points(inputs):
+    """The first SWEEP_SAMPLES sample points of each of neus_problem's rays."""
+    ro, rd, mid, _ = inputs
+    return (ro[:, None] + rd[:, None] * mid[:, :SWEEP_SAMPLES, None]).reshape(-1, 3).contiguous()
+
+
+def check_sdf_only(dev):
+    """#12 through its entry (the kernel forward, autograd of the plain
+    version backward) against the plain version in f64: at 4x256 and 3x128
+    on 2,048 rays x 56 sweep points and at 4x256 on a ragged 131,071 points,
+    the sdf to OUT_TOL and its VJP into every parameter and the points to
+    GRAD_TOL; the forward at one train_clip step's 12,544 rays x 56 points.
+    Timed there and on one 262,144-point grid chunk."""
+    import torch
+
     from avatarclip_torch.ops import fused_sdf as fs
 
-    spec = fs.spec_from_config(nets.SDFConfig())
-    E, H, NH = spec.d_embed, spec.d_hidden, spec.n_hidden
-    per_point = 2 * E * H + (NH - 1) * 2 * H * H + 2 * H * (H - E) + 2 * H
-    P = PATH_E_RAYS * (32 + 3 * 8)
-    n_w = sum(o * i + o for o, i in [(H, E)] + [(H, H)] * (NH - 1) + [(H - E, H), (1, H)])
-    b = bound(per_point * P, 4 * (n_w + 4 * P))
-    print(f"[B8] row 12 (sdf-only forward, not ported) at one train_clip step's sweeps, {P} points x "
-          f"{per_point} FLOPs: bound {b['bound_ms']:.3f} ms ({b['bound_by']}); row 15 (the untiled "
-          f"z-buffer) computes B2's function: its bound is B2's at the same render")
-    return b
+    worst_f = worst_b = 0.0
+    g = torch.Generator().manual_seed(13)
+    for width in (256, 128):
+        fields, inputs, _, _ = neus_problem(width, 2048, dev, seed=12)
+        sets = [sweep_points(inputs)]
+        if width == 256:
+            sets.append(ray_points(inputs)[0][:131071].contiguous())
+        for pts in sets:
+            P = pts.shape[0]
+            cots = [(0.5 + torch.rand(P, 1, generator=g)).to(dev)]
+            f_, b_ = hold_net(f"#12 {'4x256' if width == 256 else '3x128'}, {P} points", fs.sdf_value_fused,
+                              fs.sdf_only_plain, fields.sdf, [pts], cots, ("points",), ("sdf",))
+            worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
+
+    fields, inputs, _, _ = neus_problem(256, PATH_E_RAYS, dev, seed=14)
+    sdf = fields.sdf
+    pts = sweep_points(inputs)
+    P = pts.shape[0]
+    worst_f = max(worst_f, hold_forward(f"#12 4x256, {P} points (a train_clip step's sweeps)",
+                                        fs.sdf_value_fused, fs.sdf_only_plain, sdf, [pts], ("sdf",)))
+    spec = fs.spec_from_config(sdf.cfg)
+    flat = torch.cat([w.detach().reshape(-1) for w in fs.dense_weights(sdf)])
+    grid = ((torch.rand(GRID_CHUNK, 3, generator=g) * 2 - 1) * 1.01).to(dev)
+    times = {}
+    for tag, x in (("step", pts), ("grid", grid)):
+        n = x.shape[0]
+        with torch.no_grad():
+            times[tag] = (cuda_ms(lambda: fs.sdf_only_fwd(spec, flat, x), reps=5),
+                          cuda_ms(lambda: fs.sdf_only_plain(sdf, x), reps=3),
+                          bound(fs.sdf_only_flops_per_point(spec) * n, 4 * (flat.numel() + 4 * n)))
+    (ms, plain_ms, b), (ms_g, plain_g, b_g) = times["step"], times["grid"]
+    print(f"[#12] sdf-only forward, 4x256, {fs.sdf_only_flops_per_point(spec):.0f} GEMM FLOPs a point: "
+          f"{P} points (a train_clip step's sweeps) kernel {ms:.3f} ms (plain, no grad, {plain_ms:.3f} ms; "
+          f"bound {b['bound_ms']:.3f} ms {b['bound_by']}, bf16 tensor-core {b['bound_ms_bf16_tc']:.3f} ms); "
+          f"{GRID_CHUNK}-point grid chunk kernel {ms_g:.3f} ms (plain {plain_g:.3f} ms, bound "
+          f"{b_g['bound_ms']:.3f} ms); the VJP (autograd of the plain version) max abs err {worst_b:.3e}")
+    del fields, inputs
+    torch.cuda.empty_cache()
+    return {"name": "sdf_only_fwd", "route": "cuda", "source": "avatarclip_torch/csrc/fused_sdf.cu",
+            "replaces": "avatarclip_tpu/ops/fused_sdf.py:626", "max_abs_err": worst_f, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, **b, "ms_grid_chunk": ms_g,
+            "plain_ms_grid_chunk": plain_g, "bound_ms_grid_chunk": b_g["bound_ms"]}
+
+
+def hold_brute(tag, coef, valid, sx, sy, H, W) -> tuple[float, int, int, int]:
+    """#15 against the plain version and against B2's winners on one render:
+    the largest inverse-depth gap at a near-tie, the near-tie counts against
+    each, the covered pixels."""
+    from avatarclip_torch.ops import raster_zbuffer as rz
+
+    got = rz.zbuffer_select(coef, valid, H, W)
+    g1, n1 = same_winners(f"#15 {tag} vs plain", got, rz.zbuffer_select_plain(coef, valid, H, W), coef, W)
+    g2, n2 = same_winners(f"#15 {tag} vs B2", got, rz.zbuffer_select_tiled(coef, valid, sx, sy, H, W), coef, W)
+    return max(g1, g2), n1, n2, int((got >= 0).sum())
+
+
+def check_zbuffer_brute(runner, dev):
+    """#15 on the template at 256^2 (three training cameras), on a ragged
+    triangle soup (200 x 232, 2,000 faces) and on the 13,441-face ShapeGen
+    body at 256^2; timed on that body beside B2 (path f holds it on all of
+    ShapeGen's views)."""
+    import numpy as np
+    import torch
+
+    from avatarclip_torch.pipelines import shape, synthetic
+    from avatarclip_torch.render import cameras, raster
+
+    template_v, faces = runner._template
+    cases = []
+    for it in (0, 1, 2):
+        cam, _ = runner.sample_iteration_camera(it, (256,))
+        cases.append((f"template 256^2 it{it}", template_v, faces, torch.as_tensor(cam["pose"], device=dev),
+                      (256, 256), runner.dataset.focal))
+    g = np.random.default_rng(15)
+    soup_v = torch.as_tensor(g.normal(0.0, 0.4, (700, 3)).astype(np.float32), device=dev)
+    soup_f = torch.as_tensor(g.integers(0, 700, (2000, 3)), device=dev)
+    soup_pose = torch.as_tensor(runner_lookat(np.array([0.05, -0.1, 1.6], np.float32)), device=dev)
+    cases.append(("triangle soup 200x232, 2,000 faces", soup_v, soup_f, soup_pose, (200, 232), 180.0))
+    v, f = synthetic.smpl_size_body()
+    body_v = torch.as_tensor(v @ cameras.BODY_TO_WORLD.T, device=dev)
+    body_f = torch.as_tensor(f, device=dev).long()
+    body_pose = shape._eye_pose(0.0, float(np.deg2rad(-20.0)), 2.2).to(dev)
+    body_focal = cameras.focal_from_fov(256, np.deg2rad(60.0))
+    cases.append(("13,441-face body 256^2", body_v, body_f, body_pose, (256, 256), body_focal))
+    worst = 0.0
+    for name, v, f, pose, (H, W), focal in cases:
+        proj = raster.project_vertices(v, pose, H, W, focal)
+        coef, valid, _ = raster._face_coefficients(proj, f)
+        gap, n1, n2, cov = hold_brute(name, coef, valid, proj.sx[f], proj.sy[f], H, W)
+        worst = max(worst, gap)
+        print(f"[#15] {name}: {cov} covered px; {n1} near-tie differences from the plain version, "
+              f"{n2} from B2; equal elsewhere")
+    ms, plain_ms, b = time_zbuffer("256^2, the 13,441-face body", body_v, body_f, body_pose, 256, body_focal,
+                                   brute=True)
+    ms_b2, _, _ = time_zbuffer("256^2, the 13,441-face body", body_v, body_f, body_pose, 256, body_focal)
+    return {"name": "zbuffer_brute", "route": "cuda", "source": "avatarclip_torch/csrc/raster_zbuffer.cu",
+            "replaces": "avatarclip_tpu/ops/raster_zbuffer.py:104", "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, **b, "ms_b2_same_render": ms_b2}
 
 
 # ---------------------------------------------------------------------------
@@ -1369,17 +1517,13 @@ def run_main_path(tmp: str, pretrain: str):
     torch.cuda.empty_cache()
 
     # a'. view interpolation on the step-8 checkpoint
-    from avatarclip_torch import config as config_mod
     from avatarclip_torch.utils.jpeg import jpeg_markers
     from avatarclip_torch.utils.mp4 import read_mp4_frames
 
-    conf = config_mod.parse_file(conf_path)
-    for kv in sets:
-        key, _, value = kv.partition("=")
-        conf.put(key, config_mod._parse_value(value))
     zero_counts()
     t0 = time.perf_counter()
-    runner = appearance.Runner(conf_path, "interpolate_0_30", conf=conf, is_continue=True)
+    runner = appearance.Runner(conf_path, "interpolate_0_30", conf=resumed_conf(conf_path, sets),
+                               is_continue=True)
     video = runner.interpolate_view(0, 30)
     torch.cuda.synchronize()
     wall_i = time.perf_counter() - t0
@@ -1401,7 +1545,19 @@ def run_main_path(tmp: str, pretrain: str):
           f"{os.path.getsize(video)} bytes; launches {launches_i}")
     del runner
     torch.cuda.empty_cache()
-    return {k: launches_a[k] + launches_b[k] + launches_i[k] for k in launches_a}
+    return {k: launches_a[k] + launches_b[k] + launches_i[k] for k in launches_a}, (conf_path, sets)
+
+
+def resumed_conf(conf_path: str, sets):
+    """Path (a)'s conf with its --set overrides, for a Runner resumed from
+    its step-8 checkpoint."""
+    from avatarclip_torch import config as config_mod
+
+    conf = config_mod.parse_file(conf_path)
+    for kv in sets:
+        key, _, value = kv.partition("=")
+        conf.put(key, config_mod._parse_value(value))
+    return conf
 
 
 # ---------------------------------------------------------------------------
@@ -1595,11 +1751,10 @@ def write_body(data_dir: str) -> int:
     """The procedural humanoid at SMPL's 13,776 faces as the zero-beta
     template OBJ, where assets.load_smpl looks for it; its face count."""
     from avatarclip_torch import assets
+    from avatarclip_torch.pipelines import synthetic
 
     v, f = assets._procedural_humanoid(n_seg=41, n_ring=28)
-    with open(os.path.join(data_dir, "zero_beta_smpl.obj"), "w") as fh:
-        fh.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in v)
-        fh.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f)
+    synthetic.write_template_obj(data_dir, v, f)
     return f.shape[0]
 
 
@@ -1673,16 +1828,13 @@ def run_animate_paths(tmp: str) -> dict:
     import numpy as np
     import torch
 
-    from avatarclip_torch import assets
     from avatarclip_torch.pipelines import animate
     from avatarclip_torch.utils.mp4 import read_mp4_frames
 
     data = os.path.join(tmp, "animate_data")
     os.makedirs(data)
     n_faces = write_body(data)
-    os.environ["AVATARCLIP_TPU_DATA"] = data
-    assets.load_smpl.cache_clear()  # paths (a) and (b) filled it
-    assets.load_smpl_uv.cache_clear()
+    use_body_dir(data)
     total = {}
 
     def add(counts):
@@ -1803,8 +1955,305 @@ def run_animate_paths(tmp: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# (f) ShapeGen, (g) the export, (h) the sweep hook
+# ---------------------------------------------------------------------------
+
+SHAPE_TEXT = "a 3d rendering of a strong man in unreal engine"  # the gen CLI's default target
+VAE_DEC_SCALE = 0.005  # the seeded decoder's last layer, scaled: offsets of a few mm
+
+
+def use_body_dir(path: str | None) -> None:
+    """Point both asset lookups at ``path`` ($AVATARCLIP_TPU_DATA; None
+    unsets it) and drop the cached body."""
+    from avatarclip_torch import assets
+
+    if path is None:
+        os.environ.pop("AVATARCLIP_TPU_DATA", None)
+    else:
+        os.environ["AVATARCLIP_TPU_DATA"] = path
+    assets.load_smpl.cache_clear()
+    assets.load_smpl_uv.cache_clear()
+
+
+@contextlib.contextmanager
+def record_zbuffer():
+    """Within the block, B2's entry records every call's inputs (copies)."""
+    from avatarclip_torch.ops import raster_zbuffer as rz
+
+    entry, rec = rz.zbuffer_select_tiled, []
+
+    def call(coef, valid, sx, sy, H, W):
+        rec.append([t.detach().clone() for t in (coef, valid, sx, sy)] + [H, W])
+        return entry(coef, valid, sx, sy, H, W)
+
+    rz.zbuffer_select_tiled = call
+    try:
+        yield rec
+    finally:
+        rz.zbuffer_select_tiled = entry
+
+
+def run_shape_path(tmp: str, dev):
+    """ShapeGen through shape.main: ``gen`` (the seeded full-width VAE, a
+    seeded 256 x (16, 512) codebook, ViT-B/32 random init, one 256^2 render)
+    and ``render`` (108 views at 256^2 with transforms_train.json), read
+    back through the dataset loader. The launches and B2's recorded inputs."""
+    import numpy as np
+    import torch
+
+    from avatarclip_torch import config as config_mod
+    from avatarclip_torch.export import mesh_io
+    from avatarclip_torch.pipelines import dataset, shape, synthetic
+    from avatarclip_torch.utils.pytree import tree_flatten_paths
+
+    data = os.path.join(tmp, "shape_data")
+    os.makedirs(data)
+    v, f = synthetic.smpl_size_body()
+    synthetic.write_template_obj(data, v, f)
+    use_body_dir(data)
+    t0 = time.perf_counter()
+    vae = shape.vae_init(torch.Generator().manual_seed(16))
+    for k in ("w", "b"):
+        vae["dec2"][k] *= VAE_DEC_SCALE
+    vae_path, cb_path = os.path.join(tmp, "shape_vae.npz"), os.path.join(tmp, "shape_codebook.npz")
+    np.savez(vae_path, **tree_flatten_paths(vae))
+    g = np.random.default_rng(17)
+    np.savez(cb_path, codebook=g.normal(size=(256, shape.LATENT_DIM)).astype(np.float32),
+             codebook_embedding=g.normal(size=(256, 512)).astype(np.float32))
+    n_vae = sum(t.numel() for d in vae.values() for t in d.values())
+    del vae
+    setup_s = time.perf_counter() - t0
+
+    out, render_dir = os.path.join(tmp, "coarse_shape"), os.path.join(tmp, "shape_render")
+    zero_counts()
+    with record_zbuffer() as views:
+        t0 = time.perf_counter()
+        gen = shape.main(["gen", "--AE_path_fname", vae_path, "--codebook_fname", cb_path,
+                          "--output_folder", out])
+        torch.cuda.synchronize()
+        wall_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ren = shape.main(["render", "--coarse_shape_obj", gen["obj"], "--pose_type", "stand_pose",
+                          "--output_folder", render_dir])
+        torch.cuda.synchronize()
+        wall_render = time.perf_counter() - t0
+    launches = read_counts()
+    want = want_counts(zbuffer_tiled=1 + 108)
+    if launches != want:
+        fail(f"path f: kernel launches {launches}, expected {want}")
+    if os.path.basename(gen["obj"]) != "_".join(SHAPE_TEXT.split(" ")) + ".obj":
+        fail(f"path f: gen wrote {gen['obj']}")
+    body, faces, _, _ = mesh_io.read_obj(gen["obj"])
+    off = float(np.abs(body - v).max()) if body.shape == v.shape else float("nan")
+    if body.shape != (shape.N_VERTS, 3) or len(faces) != len(f) or not 0.0 < off < 0.03:
+        fail(f"path f: coarse body {body.shape}, {len(faces)} faces, largest offset {off}")
+    ds = dataset.SMPLViewDataset(config_mod.parse_string(f"data_dir = {render_dir}"), dev)
+    eyes = ds.poses[:, :3, 3].norm(dim=-1)
+    cover = ds.masks.mean(dim=(1, 2))
+    if ren["views"] != 108 or ds.n_images != 108 or (ds.H, ds.W) != (256, 256):
+        fail(f"path f: {ren['views']} views written, {ds.n_images} read at {ds.H}x{ds.W}")
+    if not torch.allclose(eyes, torch.full_like(eyes, 2.2), atol=1e-4) or not (cover > 0.01).all():
+        fail(f"path f: eye distances {eyes.min():.5f}-{eyes.max():.5f}, coverage min {cover.min():.4f}")
+    print(f"[main f] ShapeGen via shape.main: seeded VAE ({n_vae} parameters, 16 -> 8192 -> 20670) and "
+          f"codebook written in {setup_s:.3f} s; gen (ViT-B/32 random init, one 256^2 render) "
+          f"{wall_gen:.3f} s -> {os.path.basename(gen['obj'])}, {body.shape[0]} vertices, largest offset "
+          f"{off * 100:.3f} cm; render 108 views at 256^2 + PNGs {wall_render:.3f} s; read back: eyes at "
+          f"{float(eyes.mean()):.6f}, coverage {float(cover.min()):.4f}-{float(cover.max()):.4f}; launches "
+          f"{launches}")
+    del ds
+    return launches, views
+
+
+def hold_brute_on_views(views) -> float:
+    """#15 against its plain version and B2 on every render path (f) gave
+    B2; the largest near-tie inverse-depth gap."""
+    worst, ties, cov = 0.0, [0, 0], 0
+    t0 = time.perf_counter()
+    for i, (coef, valid, sx, sy, H, W) in enumerate(views):
+        gap, n1, n2, c = hold_brute(f"path f render {i}", coef, valid, sx, sy, H, W)
+        worst, ties, cov = max(worst, gap), [ties[0] + n1, ties[1] + n2], cov + c
+    print(f"[#15] on path (f)'s {len(views)} renders of the {views[0][0].shape[0]}-face body "
+          f"({views[0][4]}x{views[0][5]}): {cov} covered px in all, {ties[0]} near-tie differences from "
+          f"the plain version and {ties[1]} from B2, equal elsewhere ({time.perf_counter() - t0:.3f} s)")
+    return worst
+
+
+def run_export_path(tmp: str, mesh: str, motion: str, body_dir: str | None) -> dict:
+    """drive.main and rigged.main (GLB with the motion baked, FBX ASCII) on
+    path (b)'s 512^3 PLY and path (d)'s motion, on the body (a) and (b) used;
+    the launches (none: the export runs no kernel)."""
+    import struct
+
+    import numpy as np
+    import torch
+
+    from avatarclip_torch.export import drive, rigged
+
+    use_body_dir(body_dir)
+    pc2, glb, fbx = (os.path.join(tmp, f"avatar.{x}") for x in ("pc2", "glb", "fbx"))
+    zero_counts()
+    t0 = time.perf_counter()
+    t_drive = drive.main(["--mesh", mesh, "--motion", motion, "--out", pc2])
+    wall_drive = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t_glb = rigged.main(["--ply", mesh, "--out", glb, "--motion", motion])
+    wall_glb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t_fbx = rigged.main(["--ply", mesh, "--out", fbx])
+    wall_fbx = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches != want_counts():
+        fail(f"path g: kernel launches {launches}, expected none")
+    n_frames = np.load(motion).shape[0]
+    with open(pc2, "rb") as fh:
+        head = struct.unpack("<12siiffi", fh.read(32))
+    V = t_drive["vertices"]
+    if head != (b"POINTCACHE2\0", 1, V, 0.0, 1.0, n_frames) or os.path.getsize(pc2) != 32 + n_frames * V * 12:
+        fail(f"path g: .pc2 header {head}, {os.path.getsize(pc2)} bytes for {n_frames} x {V} vertices")
+    frames = np.fromfile(pc2, "<f4", offset=32).reshape(n_frames, V, 3)
+    moved = float(np.abs(frames[1:] - frames[:-1]).max())
+    if not np.isfinite(frames).all() or not moved > 1e-3:
+        fail(f"path g: frames finite {np.isfinite(frames).all()}, largest move between frames {moved}")
+    js, _ = rigged.read_glb(glb)
+    anim = js.get("animations", [{}])[0]
+    counts = {js["accessors"][sm["input"]]["count"] for sm in anim.get("samplers", [])}
+    if len(js["skins"][0]["joints"]) != 24 or len(anim.get("channels", [])) != 24 or counts != {n_frames}:
+        fail(f"path g: GLB skin {len(js['skins'][0]['joints'])} joints, animation "
+             f"{len(anim.get('channels', []))} channels, samples {counts}")
+    with open(fbx) as fh:
+        text = fh.read()
+    if "FBXVersion: 7300" not in text or text.count('"Model::mixamorig:') != 24:
+        fail("path g: the FBX lacks its header or its 24 limb nodes")
+    fmt = lambda t: ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in t.items())
+    print(f"[main g] drive.main on path (b)'s {t_drive['mesh_vertices']}-vertex 512^3 mesh ({V} vertices "
+          f"in its largest island) and path (d)'s motion: {wall_drive:.3f} s, a {n_frames}-frame .pc2 of "
+          f"{os.path.getsize(pc2)} bytes, finite, largest move between frames {moved:.4f}; phases: "
+          f"{fmt(t_drive)}")
+    print(f"[main g] rigged.main .glb with the motion baked: {wall_glb:.3f} s, {t_glb['vertices']} vertices "
+          f"after clustering, 24 joints, {n_frames} samples a channel, {os.path.getsize(glb)} bytes; phases: "
+          f"{fmt(t_glb)}")
+    print(f"[main g] rigged.main .fbx (ASCII 7.3): {wall_fbx:.3f} s, {os.path.getsize(fbx)} bytes; phases: "
+          f"{fmt(t_fbx)}; launches {launches}")
+    return launches
+
+
+def run_sweep_hook_path(conf_path: str, sets) -> dict:
+    """networks._SWEEP_KERNEL on against off on (a)'s step-8 checkpoint: the
+    validate_mesh mode's 512^3 extraction (its grid query through
+    networks.sdf_value) and one train_clip step at the same seed. The
+    runners of the holds compute in float32 (train.compute_dtype): #12
+    computes in f32 whatever the conf says, and the confs' default, bf16
+    operands in the plain module (the JAX package's operand type), would set
+    the precision gap against it rather than hold the kernel. That gap, what
+    a user at the conf's own dtype sees on turning the hook on, is printed as
+    a reading: one more hook-off extraction at the conf's dtype against the
+    hook-on grid. The launches of all."""
+    import numpy as np
+    import torch
+
+    from avatarclip_torch.export import marching_cubes as mc
+    from avatarclip_torch.fields import networks as nets
+    from avatarclip_torch.pipelines import appearance
+
+    def resumed(f32: bool = True):
+        conf = resumed_conf(conf_path, sets)
+        if f32:
+            conf.put("train.compute_dtype", "float32")
+        r = appearance.Runner(conf_path, "sweep_hook", conf=conf, is_continue=True)
+        if r.iter_step != N_STEPS:
+            fail(f"path h did not resume the step-{N_STEPS} checkpoint")
+        return r
+
+    total = want_counts()
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    def extract(runner):
+        """validate_mesh's 512^3 grid through networks.sdf_value: (grid,
+        marching-cubes vertices, chunks, launches, seconds)."""
+        calls = [0]
+        ds = runner.dataset
+
+        def query(pts):
+            calls[0] += 1
+            return -nets.sdf_value(runner.fields.sdf, pts)[..., 0]
+
+        zero_counts()
+        t0 = time.perf_counter()
+        u = mc.extract_fields(ds.object_bbox_min, ds.object_bbox_max, 512, query, threshold=0.0,
+                              device=runner.device)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        add(counts)
+        return u, len(mc.marching_cubes(u, 0.0)[0]), calls[0], counts, wall
+
+    runner, grid, step = resumed(), {}, {}
+    try:
+        for hook in (False, True):
+            nets._SWEEP_KERNEL = hook
+            grid[hook] = extract(runner)
+        nets._SWEEP_KERNEL = False
+        del runner
+        runner = resumed(f32=False)
+        conf_dtype = runner.conf.get_string("train.compute_dtype", "bfloat16")
+        grid["conf"] = extract(runner)
+        del runner
+        for hook in (False, True):
+            r = resumed()
+            r.init_clip()
+            r.init_smpl()
+            cam, S = r.sample_iteration_camera(r.iter_step)
+            nets._SWEEP_KERNEL = hook
+            zero_counts()
+            t0 = time.perf_counter()
+            loss, _ = r.clip_loss(S, cam, r.draw_clip(S), r.iter_step)
+            r._update(loss)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            add(counts)
+            # the coarse samples' query and one a non-final up-sample step
+            sweeps = 1 + r.ncfg.up_sample_steps - 1
+            step[hook] = (float(loss.detach()), counts, time.perf_counter() - t0, S)
+            nets._SWEEP_KERNEL = False
+            del r
+            torch.cuda.empty_cache()
+    finally:
+        nets._SWEEP_KERNEL = False
+
+    (u0, nv0, c0, k0, w0), (u1, nv1, c1, k1, w1) = grid[False], grid[True]
+    rel = float(np.abs(u1 - u0).max()) / max(float(np.abs(u0).max()), 1e-12)
+    if k0 != want_counts() or k1 != want_counts(sdf_only_fwd=c1):
+        fail(f"path h grid: launches hook off {k0}, hook on {k1} for {c1} chunks")
+    if not rel <= 1e-5 or not abs(nv1 - nv0) <= 1e-3 * nv0:
+        fail(f"path h grid: hook on vs off rel err {rel:.2e}, vertices {nv1} vs {nv0}")
+    u_c, nv_c, c_c, k_c, w_c = grid["conf"]
+    if k_c != want_counts():
+        fail(f"path h grid at the conf's dtype, hook off: launches {k_c}")
+    rel_c = float(np.abs(u1 - u_c).max()) / max(float(np.abs(u_c).max()), 1e-12)
+    (l0, s0, t_0, S), (l1, s1, t_1, _) = step[False], step[True]
+    if s0["sdf_only_fwd"] != 0 or s1 != {**s0, "sdf_only_fwd": sweeps}:
+        fail(f"path h step: launches hook off {s0}, hook on {s1}")
+    if not abs(l1 - l0) <= 1e-4 * abs(l0):
+        fail(f"path h step: loss hook on {l1} vs off {l0}")
+    print(f"[main h] the sweep hook, float32 runners: validate_mesh's 512^3 extraction, hook off "
+          f"{w0:.3f} s ({c0} chunks), on {w1:.3f} s ({c1} chunks, #12 launched {k1['sdf_only_fwd']} "
+          f"times); grid rel err {rel:.3e}, marching-cubes vertices {nv1} vs {nv0}")
+    print(f"[main h] reading, not a hold: at the conf's compute_dtype ({conf_dtype}) the hook-off grid "
+          f"({w_c:.3f} s, {c_c} chunks) is {rel_c:.3e} relative from the hook-on (f32 kernel) grid, "
+          f"marching-cubes vertices {nv_c} off vs {nv1} on ({(nv1 - nv_c) / nv_c * 100:+.3f}%)")
+    print(f"[main h] one train_clip step from the step-{N_STEPS} checkpoint ({S}^2 bucket): loss hook off "
+          f"{l0:.7f}, on {l1:.7f} (rel {abs(l1 - l0) / abs(l0):.2e}); {t_0 * 1e3:.3f} / {t_1 * 1e3:.3f} ms "
+          f"(first step of a runner); #12 launches {s1['sdf_only_fwd']}; launches hook on {s1}")
+    return total
+
+
 def main() -> None:
     kernels_only = "--kernels-only" in sys.argv[1:]
+    body_dir = os.environ.get("AVATARCLIP_TPU_DATA")  # the body paths a, b and g use
     if not os.path.isdir(os.path.join(ROOT, "avatarclip_torch", "csrc")):
         fail(f"no avatarclip_torch/csrc next to {__file__}: run from a checkout of the repository")
     sys.path.insert(0, ROOT)
@@ -1830,6 +2279,7 @@ def main() -> None:
             ("fused_color", "fused_color.cu")]
     _build.load_all(libs)
     _build.load_host("marching_cubes", "marching_cubes.cpp")
+    _build.load_host("mesh_ops", "mesh_ops.cpp")
     print(f"[build] {time.perf_counter() - t0:.3f} s in parallel ({_build.build_seconds})")
     for name, _ in libs:
         log = _build.BUILD / f"{name}.log"
@@ -1842,7 +2292,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         runner = synthetic.make_runner(os.path.join(tmp, "probe"), "full", res=256, device=dev)
         runner.init_smpl()
-        kernels = [check_zbuffer(runner, dev)]
+        kernels = [check_zbuffer(runner, dev), check_zbuffer_brute(runner, dev)]
         pretrain = os.path.join(tmp, "pretrain.pth")
         if not kernels_only:
             t0 = time.perf_counter()
@@ -1864,22 +2314,38 @@ def main() -> None:
         torch.cuda.empty_cache()
         kernels += check_colour(dev)
         torch.cuda.empty_cache()
-        b8_bound()
+        kernels.append(check_sdf_only(dev))
+        torch.cuda.empty_cache()
         if kernels_only:  # no main path ran: no launch count to report
             launches = {k["name"]: None for k in kernels}
         else:
-            launches = run_main_path(tmp, pretrain)
+            launches, (conf_path, sets) = run_main_path(tmp, pretrain)
             torch.cuda.empty_cache()
-            for k, v in run_animate_paths(tmp).items():
-                launches[k] += v
+
+            def add(counts):
+                for k, v in counts.items():
+                    launches[k] += v
+
+            add(run_sweep_hook_path(conf_path, sets))
+            torch.cuda.empty_cache()
+            add(run_animate_paths(tmp))
             torch.cuda.empty_cache()
             counts, path_errs = run_background_path(tmp, pretrain)
-            for k, v in counts.items():
-                launches[k] += v
+            add(counts)
             for k in kernels:  # B6 / B7 held on path (e)'s own inputs too
                 k["max_abs_err"] = max(k["max_abs_err"], path_errs.get(k["name"], 0.0))
-    if len(kernels) != 13:
-        fail(f"{len(kernels)} kernels checked, expected 13")
+            torch.cuda.empty_cache()
+            counts, views = run_shape_path(tmp, dev)
+            add(counts)
+            for k in kernels:  # #15 held on path (f)'s renders too
+                if k["name"] == "zbuffer_brute":
+                    k["max_abs_err"] = max(k["max_abs_err"], hold_brute_on_views(views))
+            del views
+            torch.cuda.empty_cache()
+            add(run_export_path(tmp, os.path.join(tmp, "exp", "meshes", f"{N_STEPS:08d}.ply"),
+                                os.path.join(tmp, "exp_motion", "motion.npy"), body_dir))
+    if len(kernels) != 15:
+        fail(f"{len(kernels)} kernels checked, expected 15")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if any(m.split(".")[0] in ("jax", "avatarclip_tpu") for m in sys.modules):

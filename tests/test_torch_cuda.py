@@ -39,7 +39,7 @@ def test_zbuffer_kernel_matches_plain(dev):
     n0 = rz.LAUNCHES["zbuffer_tiled"]
     got = rz.zbuffer_select_tiled(*args)
     assert rz.LAUNCHES["zbuffer_tiled"] == n0 + 1
-    assert torch.equal(got, rz.zbuffer_select_tiled_plain(*args))
+    assert torch.equal(got, rz.zbuffer_select_plain(coef, valid, H, W))
 
 
 def test_neus_kernel_pair_matches_plain(dev):
@@ -208,13 +208,74 @@ def test_sdf_kernel_pair_matches_plain(dev):
     cots = [(0.5 + torch.rand(P, k, generator=g)).to(dev) for k in (1, 256, 3)]
     n0 = dict(fs.LAUNCHES)
     ok, gk = hold.net_grads(fs.sdf_with_gradient_fused, sdf, [pts], cots)
-    assert fs.LAUNCHES == {"sdf_fwd": n0["sdf_fwd"] + 1, "sdf_bwd": n0["sdf_bwd"] + 1}
+    assert fs.LAUNCHES == {**n0, "sdf_fwd": n0["sdf_fwd"] + 1, "sdf_bwd": n0["sdf_bwd"] + 1}
     ref = copy.deepcopy(sdf).double()
     orf, grf = hold.net_grads(fs.sdf_with_gradient_plain, ref, [pts.double()], [c.double() for c in cots])
     assert max(hold.rel_errors(ok, orf)) <= 1e-4
     assert max(hold.rel_errors(gk, grf)) <= 1e-3
     # the gate takes the kernels on the card
     assert nets.sdf_with_gradient(sdf, pts)[0].grad_fn.name().startswith("SDFFunction")
+
+
+def test_sdf_only_kernel_matches_plain(dev):
+    """#12 (the sdf-only forward) at 256 wide on a ragged 1,000 points
+    against the plain version in float64: sdf to 1e-4 of its largest
+    magnitude; the Function's VJP (autograd of the plain version) into every
+    parameter and the points to 1e-3. The sweep hook, when on, takes it."""
+    import copy
+
+    from avatarclip_torch.fields import networks as nets
+    from avatarclip_torch.ops import fused_sdf as fs
+    from avatarclip_torch.ops import hold
+
+    g = torch.Generator().manual_seed(5)
+    sdf = nets.SDFNetwork(nets.SDFConfig(), g)
+    with torch.no_grad():
+        for p in sdf.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    sdf = sdf.to(dev)
+    P = 1000
+    pts = (0.6 * torch.randn(P, 3, generator=g)).to(dev)
+    cots = [(0.5 + torch.rand(P, 1, generator=g)).to(dev)]
+    n0 = dict(fs.LAUNCHES)
+    ok, gk = hold.net_grads(fs.sdf_value_fused, sdf, [pts], cots)
+    assert fs.LAUNCHES == {**n0, "sdf_only_fwd": n0["sdf_only_fwd"] + 1}
+    ref = copy.deepcopy(sdf).double()
+    orf, grf = hold.net_grads(fs.sdf_only_plain, ref, [pts.double()], [cots[0].double()])
+    assert max(hold.rel_errors(ok, orf)) <= 1e-4
+    assert max(hold.rel_errors(gk, grf)) <= 1e-3
+    nets._SWEEP_KERNEL = True
+    try:
+        with torch.no_grad():
+            got = nets.sdf_value(sdf, pts)
+    finally:
+        nets._SWEEP_KERNEL = False
+    assert fs.LAUNCHES["sdf_only_fwd"] == n0["sdf_only_fwd"] + 2
+    assert torch.equal(got, ok[0].detach())
+
+
+def test_zbuffer_brute_kernel_matches_plain_and_tiled(dev):
+    """#15 (the brute-force z-buffer) on a ragged 200 x 136 screen and 1,100
+    faces (a ragged last face block): equal to the plain version and to B2's
+    winners, exactly."""
+    from avatarclip_torch.ops import raster_zbuffer as rz
+    from avatarclip_torch.render import cameras, raster
+
+    g = np.random.default_rng(1)
+    v = torch.as_tensor(g.normal(0, 0.4, (400, 3)).astype(np.float32), device=dev)
+    f = torch.as_tensor(g.integers(0, 400, (1100, 3)), device=dev)
+    pose = torch.as_tensor(cameras.lookat_np(np.array([0.05, -0.1, 1.6], np.float32),
+                                             np.zeros(3, np.float32),
+                                             np.array([0, 1, 0], np.float32)), device=dev)
+    H, W = 200, 136
+    proj = raster.project_vertices(v, pose, H, W, 150.0)
+    coef, valid, _ = raster._face_coefficients(proj, f)
+    n0 = dict(rz.LAUNCHES)
+    got = rz.zbuffer_select(coef, valid, H, W)
+    assert rz.LAUNCHES == {**n0, "zbuffer_brute": n0["zbuffer_brute"] + 1}
+    assert int((got >= 0).sum()) > 1000
+    assert torch.equal(got, rz.zbuffer_select_plain(coef, valid, H, W))
+    assert torch.equal(got, rz.zbuffer_select_tiled(coef, valid, proj.sx[f], proj.sy[f], H, W))
 
 
 @pytest.mark.parametrize("mode,extra", [("no_view_dir", True), ("idr", False)])

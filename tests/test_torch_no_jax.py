@@ -3,8 +3,11 @@ or cv2): statically, no import statement of ``avatarclip_torch`` or
 ``chip_smoke.py`` reaches ``avatarclip_tpu``; and in a fresh interpreter,
 import every avatarclip_torch module, run one tiny train_clip step, one
 photometric step, ``validate_image``, ``validate_mesh``, one PoseOptimizer
-step, one MotionOptimizer step, ``visualize.render_pose`` and one
-background (NeRF++, n_outside > 0) render step, and check sys.modules. The kernel modules import and build nothing without nvcc."""
+step, one MotionOptimizer step, ``visualize.render_pose``, one
+background (NeRF++, n_outside > 0) render step, ShapeGen's ``gen`` CLI (tiny
+CLIP, the no-asset fallbacks, on a 6,890-vertex body) and the export CLIs
+(``drive.main``, ``rigged.main``) on validate_mesh's mesh, and check
+sys.modules. The kernel modules import and build nothing without nvcc."""
 
 import ast
 import glob
@@ -38,7 +41,7 @@ def test_no_import_statement_reaches_the_jax_package():
 
 def test_port_imports_no_jax_and_runs_a_step(tmp_path):
     code = textwrap.dedent(f"""
-        import importlib, pkgutil, sys
+        import importlib, os, pkgutil, sys
         sys.path.insert(0, {ROOT!r})
         import avatarclip_torch
         mods = [m.name for m in pkgutil.walk_packages(avatarclip_torch.__path__, "avatarclip_torch.")]
@@ -82,6 +85,28 @@ def test_port_imports_no_jax_and_runs_a_step(tmp_path):
                           generator=torch.Generator().manual_seed(0), per_ray=True)
         (out["color_fine"].sum() + out["gradient_error"]).backward()
         assert f.nerf.pts[0].w.grad is not None
+        import numpy as np
+        from avatarclip_torch.export import drive, mesh_io, rigged
+        from avatarclip_torch.pipelines import shape
+        data = {str(tmp_path / "body")!r}
+        os.makedirs(data)
+        synthetic.write_template_obj(data, *synthetic.smpl_size_body())
+        os.environ["AVATARCLIP_TPU_DATA"] = data
+        from avatarclip_torch import assets
+        assets.load_smpl.cache_clear()
+        import functools
+        shape.shape_gen = functools.partial(shape.shape_gen, render_res=32)  # the neutral render at 32^2
+        res = shape.main(["gen", "--device", "cpu", "--clip_size", "tiny",
+                          "--output_folder", {str(tmp_path / "coarse")!r}])
+        assert mesh_io.read_obj(res["obj"])[0].shape == (6890, 3)
+        ply, npy = {str(tmp_path / "mesh.ply")!r}, {str(tmp_path / "motion.npy")!r}
+        mesh_io.write_ply(ply, v, t)
+        np.save(npy, np.full((3, 69), 0.2, np.float32))
+        assert drive.main(["--mesh", ply, "--motion", npy, "--out", {str(tmp_path / "a.pc2")!r},
+                           "--device", "cpu"])["frames"] == 3
+        rigged.main(["--ply", ply, "--out", {str(tmp_path / "a.glb")!r}, "--motion", npy,
+                     "--device", "cpu"])
+        assert len(rigged.read_glb({str(tmp_path / "a.glb")!r})[0]["animations"][0]["channels"]) == 24
         banned = ("jax", "jaxlib", "optax", "orbax", "imageio", "cv2", "avatarclip_tpu")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
         assert not bad, bad
