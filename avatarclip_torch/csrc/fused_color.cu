@@ -17,7 +17,9 @@
 //
 // What bounds it on this card: f32 FMA throughput of the per-block GEMMs
 // (269,824 FLOPs a point forward, 809,472 backward at 2 x 256, head 6), well
-// above the bytes (about 1.1 KB a point, the feature). No tensor cores yet.
+// above the bytes (about 1.1 KB a point, the feature). No tensor cores yet;
+// in the bf16 operand mode (Dims::bf16, the confs' default) every dot operand
+// is rounded to bf16 as the JAX kernel's _dot, with f32 sums.
 //
 // Design: as B6 (fused_sdf.cu): a block of up to MAXS = 64 points is one
 // GEMM row block (neus_mlp.cuh's CTA-wide f32 GEMM), a ragged last block
@@ -89,10 +91,12 @@ __device__ void colour_stack(GemmSmem& sm, const Dims& d, const float* wts,
     const int r = e / HC, k = e % HC;
     const size_t p = (row0 + r) * 3;
     float z = a0[e];
+    // the three 3-wide input dots, their operands rounded as gemm's
+    auto op = [&](float t) { return d.bf16 ? round_bf16(t) : t; };
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      z += x[p + c] * wts[o.wx + k * 3 + c] + n[p + c] * wts[o.wn + k * 3 + c] +
-           v[p + c] * wts[o.wv + k * 3 + c];
+      z += op(x[p + c]) * op(wts[o.wx + k * 3 + c]) + op(n[p + c]) * op(wts[o.wn + k * 3 + c]) +
+           op(v[p + c]) * op(wts[o.wv + k * 3 + c]);
     a0[e] = fmaxf(z, 0.f);
   }
   __syncthreads();
@@ -112,6 +116,7 @@ __global__ void __launch_bounds__(NT) colour_fwd_kernel(
     const float* __restrict__ n, const float* __restrict__ v, const float* __restrict__ f,
     int P, float* __restrict__ out, float* __restrict__ ws_all, long long ws_stride) {
   __shared__ GemmSmem sm;
+  set_mode(sm, d);
   const ColOffsets o = col_offsets(d);
   const ColWork L = col_work(d, false);
   float* ws = ws_all + (size_t)blockIdx.x * ws_stride;
@@ -136,6 +141,7 @@ __global__ void __launch_bounds__(NT) colour_bwd_kernel(
     float* __restrict__ dv, float* __restrict__ df, float* __restrict__ gpart,
     float* __restrict__ ws_all, long long ws_stride) {
   __shared__ GemmSmem sm;
+  set_mode(sm, d);
   const ColOffsets o = col_offsets(d);
   const ColWork L = col_work(d, true);
   float* ws = ws_all + (size_t)blockIdx.x * ws_stride;

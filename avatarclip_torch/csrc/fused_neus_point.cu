@@ -17,7 +17,8 @@
 // What bounds it on this card: f32 FMA throughput of the per-ray GEMMs
 // (64 rows x 256 wide; about 1.37 MFLOP per point forward at 4x256 / 2x256,
 // about 3.4 MFLOP backward) and the shared-memory traffic of the simple
-// tiled GEMM of neus_mlp.cuh; no tensor cores yet (f32 throughout). The
+// tiled GEMM of neus_mlp.cuh; no tensor cores yet (bf16-rounded operands in
+// the bf16 operand mode, f32 sums; f32 throughout in the f32 mode). The
 // per-point outputs are 48 bytes a point (rgb 6 wide), small beside the
 // arithmetic.
 //
@@ -41,6 +42,7 @@ __global__ void __launch_bounds__(NT) neus_point_fwd_kernel(
     float* __restrict__ rgb_out, float* __restrict__ eik_part, float* __restrict__ ws_all,
     long long ws_stride) {
   __shared__ GemmSmem sm;
+  set_mode(sm, d);
   __shared__ RayShared rs;
   __shared__ float red[NT];
   const WeightOffsets wo = weight_offsets(d);
@@ -102,6 +104,7 @@ __global__ void __launch_bounds__(NT) neus_point_bwd_kernel(
     float* __restrict__ d_t, float* __restrict__ gpart, float* __restrict__ ws_all,
     long long ws_stride) {
   __shared__ GemmSmem sm;
+  set_mode(sm, d);
   __shared__ RayShared rs;
   __shared__ float red[NT];
   const WeightOffsets wo = weight_offsets(d);

@@ -16,7 +16,8 @@
 // What bounds it on this card: f32 FMA throughput of the per-ray GEMMs
 // (64 rows x 256 wide, about 1.3 MFLOP per point forward and 3x that
 // backward) and the shared-memory traffic of the simple tiled GEMM; no
-// tensor cores are used yet (f32 throughout, the tight-oracle mode).
+// tensor cores (f32 throughout): the f32 operand mode, the tight oracle.
+// The bf16 mode runs the tensor-core pair of fused_neus_ray_tc.cu.
 //
 // The per-ray device functions (network passes, alpha chain, reverse
 // passes, partial sums) live in neus_ray.cuh, shared with the point-level
@@ -47,6 +48,7 @@ __global__ void __launch_bounds__(NT) neus_ray_fwd_kernel(
     float* __restrict__ wsum, float* __restrict__ sdf_out, float* __restrict__ g_out,
     float* __restrict__ eik_part, float* __restrict__ ws_all, long long ws_stride) {
   __shared__ GemmSmem sm;
+  set_mode(sm, d);
   __shared__ RayShared rs;
   __shared__ float red[NT];
   const WeightOffsets wo = weight_offsets(d);
@@ -124,6 +126,7 @@ __global__ void __launch_bounds__(NT) neus_ray_bwd_kernel(
     float* __restrict__ d_t, float* __restrict__ gpart, float* __restrict__ ws_all,
     long long ws_stride) {
   __shared__ GemmSmem sm;
+  set_mode(sm, d);
   __shared__ RayShared rs;
   __shared__ float red[NT];
   const WeightOffsets wo = weight_offsets(d);

@@ -18,7 +18,8 @@
 // What bounds it on this card: f32 FMA throughput of the per-block GEMMs
 // (64 rows x 256 wide; 918,016 FLOPs a point forward and 2,754,048 backward
 // at 4 x 256), far above the bytes (about 1 KB a point, the feature). No
-// tensor cores yet (f32 throughout, as B1 / B3).
+// tensor cores yet (bf16-rounded dot operands with f32 sums in the bf16
+// operand mode, f32 throughout in the f32 mode, as B3).
 //
 // Design: B3's SDF half (neus_ray.cuh) with the points read from memory: a
 // block of up to MAXS = 64 points is one GEMM row block, a ragged last block
@@ -51,6 +52,7 @@ __global__ void __launch_bounds__(NT) sdf_fwd_kernel(
     float* __restrict__ sdf_out, float* __restrict__ feat_out, float* __restrict__ g_out,
     float* __restrict__ ws_all, long long ws_stride) {
   __shared__ GemmSmem sm;
+  set_mode(sm, d);
   const WeightOffsets wo = weight_offsets(d);
   const Workspace L = workspace_layout(d, false);
   float* ws = ws_all + (size_t)blockIdx.x * ws_stride;
@@ -63,7 +65,7 @@ __global__ void __launch_bounds__(NT) sdf_fwd_kernel(
     const int S = db.S;
     for (int e = tid; e < S * 3; e += NT) ws[L.pts + e] = pts[row0 * 3 + e];
     __syncthreads();
-    sdf_stack(sm, db, wts, wo, ws, L);
+    sdf_stack(sm, db, wts, wo, ws, L, false, true);  // JAX rounds this sdf row
     sdf_gradient(sm, db, wts, wo, ws, L);
     for (int e = tid; e < S * F1; e += NT) {
       const int r = e / F1, j = e % F1;
@@ -80,6 +82,7 @@ __global__ void __launch_bounds__(NT) sdf_only_kernel(
     Dims d, const float* __restrict__ wts, const float* __restrict__ pts, int P,
     float* __restrict__ sdf_out, float* __restrict__ ws_all, long long ws_stride) {
   __shared__ GemmSmem sm;
+  set_mode(sm, d);
   const WeightOffsets wo = weight_offsets(d);
   const Workspace L = workspace_layout(d, false);
   float* ws = ws_all + (size_t)blockIdx.x * ws_stride;
@@ -104,6 +107,7 @@ __global__ void __launch_bounds__(NT) sdf_bwd_kernel(
     const float* __restrict__ c_grad, float* __restrict__ d_pts, float* __restrict__ gpart,
     float* __restrict__ ws_all, long long ws_stride) {
   __shared__ GemmSmem sm;
+  set_mode(sm, d);
   const WeightOffsets wo = weight_offsets(d);
   const Workspace L = workspace_layout(d, true);
   float* ws = ws_all + (size_t)blockIdx.x * ws_stride;

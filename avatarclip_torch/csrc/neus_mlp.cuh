@@ -1,7 +1,8 @@
 // Shared device code of the NeuS kernel pairs (fused_neus_ray.cu,
 // fused_neus_point.cu, fused_sdf.cu, fused_color.cu): network dimensions,
-// the flat weight layout, the per-CTA workspace layout, one CTA-wide f32
-// GEMM and the fixed-order sum of per-CTA partials.
+// the flat weight layout, the per-CTA workspace layout, one CTA-wide GEMM on
+// the CUDA cores (f32 sums; bf16-rounded operands in the bf16 operand mode)
+// and the fixed-order sum of per-CTA partials.
 //
 // Every 2-D activation is a row-major (rows x width) f32 matrix with one row
 // per sample point of the ray being processed (rows <= MAXS). All weights are
@@ -10,6 +11,7 @@
 // dW += c_z^T @ h read it as stored.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -36,7 +38,14 @@ struct Dims {
   int W;      // rgb width: 3, or 6 with the extra head
   int squeeze;  // sigmoid on the colour head
   float scale;  // SDF input scale
+  int bf16;     // operand mode: 1 = dot operands rounded to bf16 (f32 sums)
 };
+
+// x rounded to bf16 (round to nearest even) and back: a dot operand in the
+// bf16 mode, as the JAX kernels' _dot casts it
+__device__ inline float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // Flat weight buffer: SDF layers l = 0..NH+1 then colour layers l = 0..NHC,
 // each as W (out, in) followed by b (out). The colour head (layer NHC) stacks
@@ -141,7 +150,11 @@ __host__ __device__ inline Workspace workspace_layout(const Dims& d, bool backwa
 struct GemmSmem {
   float a[TK][TM + 4];
   float b[TK][TN + 4];
+  int rnd;  // the operand mode (Dims::bf16), set by every kernel at its start
 };
+
+// every thread of a kernel calls this before its first __syncthreads
+__device__ inline void set_mode(GemmSmem& sm, const Dims& d) { sm.rnd = d.bf16; }
 
 // C[i][j] = (accumulate ? C[i][j] : 0) + sum_k A(i,k) B(k,j) (+ bias[j])
 //   A(i,k) = tA ? A[k*lda + i] : A[i*lda + k]
@@ -149,7 +162,8 @@ struct GemmSmem {
 // All NT threads of the CTA take part; outputs are visible CTA-wide on
 // return. Output tiles of TM x TN, each thread an 8 x 4 register tile
 // (rows ty*8.., columns tx + 32*j), K staged through shared memory in TK
-// slices. Plain f32 FMAs: no tensor cores, no TF32.
+// slices. Plain f32 FMAs: no tensor cores, no TF32. With sm.rnd each staged A
+// and B value is rounded to bf16 first (the bf16 operand mode).
 __device__ inline void gemm(GemmSmem& sm, int M, int N, int K,
                             const float* __restrict__ A, int lda, bool tA,
                             const float* __restrict__ B, int ldb, bool tB,
@@ -157,6 +171,7 @@ __device__ inline void gemm(GemmSmem& sm, int M, int N, int K,
                             const float* __restrict__ bias) {
   const int tid = threadIdx.x;
   const int tx = tid & 31, ty = tid >> 5;
+  const bool rnd = sm.rnd != 0;
   for (int m0 = 0; m0 < M; m0 += TM) {
     for (int n0 = 0; n0 < N; n0 += TN) {
       float acc[8][4];
@@ -171,7 +186,7 @@ __device__ inline void gemm(GemmSmem& sm, int M, int N, int K,
           const int gi = m0 + ii, gk = k0 + kk;
           float v = 0.f;
           if (gi < M && gk < K) v = tA ? A[(size_t)gk * lda + gi] : A[(size_t)gi * lda + gk];
-          sm.a[kk][ii] = v;
+          sm.a[kk][ii] = rnd ? round_bf16(v) : v;
         }
         for (int e = tid; e < TK * TN; e += NT) {
           int kk, jj;
@@ -179,7 +194,7 @@ __device__ inline void gemm(GemmSmem& sm, int M, int N, int K,
           const int gj = n0 + jj, gk = k0 + kk;
           float v = 0.f;
           if (gj < N && gk < K) v = tB ? B[(size_t)gj * ldb + gk] : B[(size_t)gk * ldb + gj];
-          sm.b[kk][jj] = v;
+          sm.b[kk][jj] = rnd ? round_bf16(v) : v;
         }
         __syncthreads();
 #pragma unroll

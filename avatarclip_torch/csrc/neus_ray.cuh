@@ -44,10 +44,13 @@ struct RayShared {
 // derivatives), SDF primal stack: h[i], p[i] = softplus',
 // u = [softplus(z_skip), e] / sqrt(2), p_s, and out = [s_net, feature].
 // value_only (the sdf-only kernel): no embedding derivatives, and the head's
-// sdf row alone, into out's column 0 (row stride 1 + F as before)
+// sdf row alone, into out's column 0 (row stride 1 + F as before).
+// In the bf16 operand mode the head's sdf row is summed from unrounded f32
+// operands unless round_sdf_row (the JAX megakernels and sdf-only kernel
+// take it as an f32 row form; the JAX sdf+gradient kernel's _dot rounds it).
 __device__ void sdf_stack(GemmSmem& sm, const Dims& d, const float* wts,
                           const WeightOffsets& wo, float* ws, const Workspace& L,
-                          bool value_only = false) {
+                          bool value_only = false, bool round_sdf_row = false) {
   const int S = d.S, tid = threadIdx.x;
   for (int e = tid; e < S * d.E; e += NT) {
     const int r = e / d.E, j = e % d.E;
@@ -99,8 +102,23 @@ __device__ void sdf_stack(GemmSmem& sm, const Dims& d, const float* wts,
     }
   }
   __syncthreads();
-  gemm(sm, S, value_only ? 1 : 1 + d.F, d.H, ws + L.u, d.H, false, wts + wo.sw[d.NH + 1], d.H,
-       true, ws + L.out, 1 + d.F, false, wts + wo.sb[d.NH + 1]);
+  const bool f32_row = d.bf16 && !round_sdf_row;
+  if (!(value_only && f32_row))
+    gemm(sm, S, value_only ? 1 : 1 + d.F, d.H, ws + L.u, d.H, false, wts + wo.sw[d.NH + 1], d.H,
+         true, ws + L.out, 1 + d.F, false, wts + wo.sb[d.NH + 1]);
+  if (f32_row) {
+    // four threads a row, fixed order: strided partial sums, then two xor
+    // shuffles within the four consecutive lanes
+    const float* w0 = wts + wo.sw[d.NH + 1];
+    const int r = tid >> 2, q = tid & 3;
+    float acc = 0.f;
+    if (r < S)
+      for (int k = q; k < d.H; k += 4) acc += ws[L.u + r * d.H + k] * w0[k];
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (r < S && q == 0) ws[L.out + r * (1 + d.F)] = acc + wts[wo.sb[d.NH + 1]];
+    __syncthreads();
+  }
 }
 
 // the ray's points o + d z, then sdf_stack
@@ -289,11 +307,32 @@ __device__ void sdf_reverse(GemmSmem& sm, const Dims& d, const float* wts,
   }
   __syncthreads();
   // head: dWfin += cout^T u, row 0 also += sum(udot); dbfin += sum(cout)
-  gemm(sm, F1, H, S, ws + L.cout, F1, true, ws + L.u, H, false, gp + wo.sw[d.NH + 1], H, true,
-       nullptr);
-  colsum_acc(S, H, ws + L.udot, H, gp + wo.sw[d.NH + 1]);
+  if (d.bf16) {
+    // the sdf row (cout's column 0) in f32, as the JAX kernels' row forms;
+    // the feature rows through the rounding gemm
+    gemm(sm, d.F, H, S, ws + L.cout + 1, F1, true, ws + L.u, H, false,
+         gp + wo.sw[d.NH + 1] + H, H, true, nullptr);
+    for (int k = tid; k < H; k += NT) {
+      float acc = 0.f;
+      for (int r = 0; r < S; ++r)
+        acc += ws[L.cs + r] * ws[L.u + r * H + k] + ws[L.udot + r * H + k];
+      gp[wo.sw[d.NH + 1] + k] += acc;
+    }
+    __syncthreads();
+  } else {
+    gemm(sm, F1, H, S, ws + L.cout, F1, true, ws + L.u, H, false, gp + wo.sw[d.NH + 1], H, true,
+         nullptr);
+    colsum_acc(S, H, ws + L.udot, H, gp + wo.sw[d.NH + 1]);
+  }
   colsum_acc(S, F1, ws + L.cout, F1, gp + wo.sb[d.NH + 1]);
-  gemm(sm, S, H, F1, ws + L.cout, F1, false, wfin, H, false, ws + L.cu, H, false, nullptr);
+  if (d.bf16) {
+    gemm(sm, S, H, d.F, ws + L.cout + 1, F1, false, wfin + H, H, false, ws + L.cu, H, false,
+         nullptr);
+    for (int e = tid; e < S * H; e += NT) ws[L.cu + e] += ws[L.cs + e / H] * wfin[e % H];
+    __syncthreads();
+  } else {
+    gemm(sm, S, H, F1, ws + L.cout, F1, false, wfin, H, false, ws + L.cu, H, false, nullptr);
+  }
   // skip layer: primal and tangent cotangents
   for (int e = tid; e < S * SW; e += NT) {
     const int r = e / SW, k = e % SW;

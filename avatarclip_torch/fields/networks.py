@@ -44,6 +44,25 @@ def _torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
+def operand_bf16(cfg) -> bool:
+    """The NeuS kernels' operand mode of a net (ops/fused_neus.py): its
+    ``cfg.dtype`` "bfloat16" (every conf's default) gives bf16 dot operands
+    with f32 sums, "float32" f32 throughout."""
+    return cfg.dtype == "bfloat16"
+
+
+def _operand(x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """A dot operand as the kernels take it: rounded to bf16 in bf16 mode,
+    then computed with in x's own dtype."""
+    return x.to(torch.bfloat16).to(x.dtype) if bf16 else x
+
+
+def _kernel_linear(x, w, b, bf16: bool):
+    """x @ w^T + b at the kernels' rounding points: both dot operands rounded
+    in bf16 mode, the sum and the bias in x's dtype."""
+    return _operand(x, bf16) @ _operand(w.to(x.dtype), bf16).t() + b.to(x.dtype)
+
+
 class WNLinear(nn.Module):
     """Linear layer with optional weight normalisation; (out, in) layout."""
 
@@ -182,6 +201,49 @@ class SDFNetwork(nn.Module):
         return out[..., :1], out[..., 1:], grad
 
 
+def kernel_sdf_forward(sdf: SDFNetwork, pts: torch.Tensor, bf16: bool,
+                       sdf_only: bool = False, round_sdf_row: bool = False) -> torch.Tensor:
+    """(P, 3) -> (P, d_out) = [sdf, feature] (or (P, 1) with ``sdf_only``) as
+    the NeuS kernels compute it, in pts' dtype: in f32 mode the module's
+    forward; in bf16 mode each matmul's
+    operands are rounded to bf16 (the JAX kernels' ``_dot``); activations,
+    biases and the head's sdf row stay in pts' dtype, the sdf row unless
+    ``round_sdf_row`` (the JAX sdf+gradient kernel rounds it, the megakernels
+    and the sdf-only kernel sum it in f32). The head reads [a, e] with its
+    weights scaled by 1/sqrt(2), as the kernels fold the skip's scale. For the
+    kernel family only: the skip concat right before the head."""
+    if not bf16:  # f32: the module's own maths, the tight oracle as it always was
+        out = sdf.forward(pts, sdf_only=sdf_only, dtype=pts.dtype)
+        return out[..., :1] if sdf_only else out
+    cfg = sdf.cfg
+    e = positional_encoding(pts * cfg.scale, cfg.multires)
+    x = e
+    for layer in sdf.layers[:-1]:
+        x = softplus100(_kernel_linear(x, layer.dense(), layer.b, bf16))
+    head = sdf.layers[-1]
+    u = torch.cat([x, e], dim=-1)
+    w = head.dense().to(pts.dtype) / np.sqrt(2.0)
+    b = head.b.to(pts.dtype)
+    s = _kernel_linear(u, w[:1], b[:1], bf16 and round_sdf_row)
+    if sdf_only:
+        return s / cfg.scale
+    feat = _kernel_linear(u, w[1:], b[1:], bf16)
+    return torch.cat([s / cfg.scale, feat], dim=-1)
+
+
+def kernel_sdf_with_gradient(sdf: SDFNetwork, pts: torch.Tensor, bf16: bool,
+                             round_sdf_row: bool = False):
+    """(sdf (P, 1), feature (P, F), gradient (P, 3)) of
+    :func:`kernel_sdf_forward`, the gradient by autograd with
+    create_graph=True. Autograd rounds a cotangent after each reverse dot
+    where the kernels round it before."""
+    with torch.enable_grad():
+        x = pts if pts.requires_grad else pts.detach().requires_grad_(True)
+        out = kernel_sdf_forward(sdf, x, bf16, round_sdf_row=round_sdf_row)
+        (grad,) = torch.autograd.grad(out[..., 0].sum(), x, create_graph=True)
+    return out[..., :1], out[..., 1:], grad
+
+
 # ---------------------------------------------------------------------------
 # Rendering (colour) network
 # ---------------------------------------------------------------------------
@@ -256,6 +318,30 @@ class ColorNetwork(nn.Module):
         if cfg.squeeze_out:
             x = torch.sigmoid(x)
         return x
+
+
+def kernel_color_forward(color: ColorNetwork, points, normals, view_dirs, features,
+                         bf16: bool) -> torch.Tensor:
+    """The colour net as the NeuS kernels compute it, in the points' dtype:
+    each matmul's operands rounded to bf16 in bf16 mode, relu activations,
+    biases and the sigmoid in the points' dtype. -> (P, d_out), or
+    (P, 2 * d_out) [main, extra] with extra_color."""
+    if not bf16:  # f32: the module's own maths
+        return color(points, normals, view_dirs, features, dtype=points.dtype)
+    cfg = color.cfg
+    if cfg.multires_view > 0:
+        view_dirs = positional_encoding(view_dirs, cfg.multires_view)
+    parts = {"idr": (points, view_dirs, normals, features),
+             "no_view_dir": (points, normals, features),
+             "no_normal": (points, view_dirs, features)}[cfg.mode]
+    x = torch.cat(parts, dim=-1)
+    for layer in color.layers[:-1]:
+        x = torch.relu(_kernel_linear(x, layer.dense(), layer.b, bf16))
+    head = color.layers[-1]
+    out = _kernel_linear(x, head.dense(), head.b, bf16)
+    if cfg.extra_color:
+        out = torch.cat([out, _kernel_linear(x, color.extra.dense(), color.extra.b, bf16)], -1)
+    return torch.sigmoid(out) if cfg.squeeze_out else out
 
 
 # ---------------------------------------------------------------------------
@@ -366,13 +452,13 @@ def sdf_value(sdf: SDFNetwork, pts: torch.Tensor) -> torch.Tensor:
     when the hook is on and the gate is open, else the plain module (twin of
     the JAX package's ``sdf_value``).
 
-    Precision: the kernel computes in f32 whatever ``cfg.dtype`` says, while
-    the plain module casts its operands to ``cfg.dtype`` (bf16 at the confs'
-    default ``train.compute_dtype``). So at bf16, turning the hook on moves
-    the sweeps and the marching-cubes grid from bf16 to f32 operands, enough
-    to change an extracted surface's vertex count by a few percent
-    (chip_smoke.py's path h prints the gap); the JAX hook keeps the operand
-    type. At f32 the two ways agree to rounding."""
+    Precision: the hook keeps the operand type, as the JAX hook does: the
+    kernel rounds its dot operands to ``cfg.dtype`` (bf16 at the confs'
+    default ``train.compute_dtype``) and sums in f32. The plain module also
+    rounds its activations to bf16 (the JAX XLA path's rounding points), so
+    at bf16 the two ways still differ by bf16 rounding (chip_smoke.py's path
+    h prints the gap on the marching-cubes grid); at f32 they agree to
+    rounding."""
     cfg = sdf.cfg
     if _SWEEP_KERNEL and cfg.use_pallas and pts.is_cuda:
         from ..ops import fused_sdf

@@ -14,7 +14,9 @@ background is on).
 :func:`color_apply_fused` takes CUDA tensors and launches the kernel pair
 through :class:`ColorFunction`, or raises; on the CPU only the gate in
 fields/networks.py picks the plain module (:func:`color_apply_plain`, in the
-input's dtype). The kernels compute in f32. :func:`dense_weights` resolves
+input's dtype). The kernels and the plain version take the net's operand mode
+(``fields.networks.operand_bf16``): bf16 dot operands with f32 sums at the
+confs' bf16, f32 throughout at f32. :func:`dense_weights` resolves
 weight norm in plain torch and cuts the first layer into per-input slices
 (a zero slice for the input a mode does not read), so the concatenated
 input is never built; the head stacks the main and extra heads.
@@ -31,7 +33,7 @@ from torch.autograd.function import once_differentiable
 from . import _build
 from .fused_neus import Dims, n_cta_for, split_flat
 from .fused_sdf import BLOCK, LANE
-from ..fields.networks import ColorNetwork
+from ..fields.networks import ColorNetwork, kernel_color_forward, operand_bf16
 
 LAUNCHES = {"color_fwd": 0, "color_bwd": 0}
 MAX_LAYERS = 8  # neus_mlp.cuh's MAXNHC
@@ -48,6 +50,7 @@ class FusedColorSpec:
     d_feature: int
     extra_color: bool
     squeeze_out: bool
+    bf16: bool = False  # the operand mode (fields.networks.operand_bf16)
 
     @property
     def rgb_width(self) -> int:
@@ -62,7 +65,7 @@ class FusedColorSpec:
     def dims(self) -> Dims:
         """neus::Dims fields the colour kernels read: F, HC, NHC, W, squeeze."""
         return Dims(BLOCK, 0, 0, 0, 0, 0, self.d_feature, self.d_hidden, self.n_hidden, 0,
-                    self.rgb_width, int(self.squeeze_out), 1.0)
+                    self.rgb_width, int(self.squeeze_out), 1.0, int(self.bf16))
 
 
 def spec_from_config(cfg) -> FusedColorSpec | None:
@@ -78,7 +81,7 @@ def spec_from_config(cfg) -> FusedColorSpec | None:
         return None
     return FusedColorSpec(mode=cfg.mode, d_hidden=cfg.d_hidden, n_hidden=cfg.n_layers,
                           d_feature=cfg.d_feature, extra_color=cfg.extra_color,
-                          squeeze_out=cfg.squeeze_out)
+                          squeeze_out=cfg.squeeze_out, bf16=operand_bf16(cfg))
 
 
 def dense_weights(color: ColorNetwork, spec: FusedColorSpec) -> list[torch.Tensor]:
@@ -104,10 +107,13 @@ def dense_weights(color: ColorNetwork, spec: FusedColorSpec) -> list[torch.Tenso
     return [t.float().contiguous() for t in out]
 
 
-def color_apply_plain(color: ColorNetwork, points, normals, view_dirs, features):
-    """Plain PyTorch version of the kernel pair: the module in the inputs'
-    dtype (f32 like the kernels; f64 gives a reference)."""
-    return color(points, normals, view_dirs, features, dtype=points.dtype)
+def color_apply_plain(color: ColorNetwork, points, normals, view_dirs, features,
+                      bf16: bool | None = None):
+    """Plain PyTorch version of the kernel pair: the net at the kernel's
+    rounding points in the inputs' dtype (f64 gives a reference). ``bf16``:
+    the operand mode, the net's own when None."""
+    bf16 = operand_bf16(color.cfg) if bf16 is None else bf16
+    return kernel_color_forward(color, points, normals, view_dirs, features, bf16)
 
 
 def flops_per_point(spec: FusedColorSpec) -> tuple[float, float]:

@@ -16,12 +16,25 @@ Two pairs, twins of avatarclip_tpu/ops/fused_neus.py:
   validation and extraction renders use it, followed by the compositing
   kernel (ops/fused_composite.py).
 
-On a CUDA tensor :func:`point_eval_ray` / :func:`point_eval` run
-``csrc/fused_neus_ray.cu`` / ``csrc/fused_neus_point.cu`` through
-:class:`NeuSRayFunction` / :class:`NeuSPointFunction` (the backward is the
-second kernel; no fallback); on a CPU tensor they run the plain versions,
-whose backward is autograd through the plain graph (create_graph=True for
-the spatial gradient). The kernels compute in f32 throughout.
+Operand mode: the nets' ``cfg.dtype`` picks it (fields.networks.operand_bf16,
+carried as ``spec.bf16`` and ``Dims::bf16``), where the JAX package fixes
+``fused_sdf._OPERAND_DTYPE`` globally:
+
+* ``"bfloat16"``, every conf's default: both operands of every dot
+  (forward, reverse, tangent, weight gradient) rounded to bf16, f32 sums;
+  biases, activations, the head's sdf row, the alpha chain and the
+  compositing in f32 (the JAX kernels' ``_dot`` / ``_dotT`` / ``_dotB``);
+* ``"float32"`` (the tiny and small scales, the CPU tests): f32 throughout,
+  the tight oracle.
+
+On a CUDA tensor :func:`point_eval_ray` runs, through
+:class:`NeuSRayFunction`, the tensor-core pair ``csrc/fused_neus_ray_tc.cu``
+in the bf16 mode and ``csrc/fused_neus_ray.cu`` in the f32 mode;
+:func:`point_eval` runs ``csrc/fused_neus_point.cu`` (CUDA cores, the mode
+as rounding) through :class:`NeuSPointFunction`. The backward is the second
+kernel; nothing falls back. On a CPU tensor they run the plain versions at
+the kernels' rounding points, whose backward is autograd through the plain
+graph (create_graph=True for the spatial gradient).
 
 Weight norm is resolved to dense (out, in) weights in plain torch before the
 Function (:func:`dense_weights`), so autograd carries the kernel's dense
@@ -38,7 +51,8 @@ import dataclasses
 import torch
 
 from . import _build
-from ..fields.networks import ColorNetwork, SDFNetwork
+from ..fields.networks import (ColorNetwork, SDFNetwork, kernel_color_forward,
+                               kernel_sdf_with_gradient, operand_bf16)
 
 # kernel launches, counted by the wrappers (reset by callers that measure)
 LAUNCHES = {"neus_ray_fwd": 0, "neus_ray_bwd": 0, "neus_point_fwd": 0, "neus_point_bwd": 0}
@@ -50,7 +64,7 @@ class Dims(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in
                 ("S", "L", "E", "H", "NH", "SW", "F", "HC", "NHC", "CW", "W", "squeeze")]
-    _fields_ += [("scale", ctypes.c_float)]
+    _fields_ += [("scale", ctypes.c_float), ("bf16", ctypes.c_int)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +79,7 @@ class NeuSRaySpec:
     extra_color: bool
     squeeze_out: bool
     scale: float
+    bf16: bool = False  # the operand mode (fields.networks.operand_bf16)
 
     @property
     def d_embed(self) -> int:
@@ -79,7 +94,7 @@ class NeuSRaySpec:
         return Dims(self.samples, self.multires, E, self.d_hidden, self.n_hidden,
                     self.d_hidden - E, self.feat_dim, self.c_hidden, self.c_layers,
                     6 + self.feat_dim, self.rgb_width, int(self.squeeze_out),
-                    float(self.scale))
+                    float(self.scale), int(self.bf16))
 
 
 def spec_from_configs(sdf_cfg, color_cfg, samples: int) -> NeuSRaySpec | None:
@@ -102,7 +117,7 @@ def spec_from_configs(sdf_cfg, color_cfg, samples: int) -> NeuSRaySpec | None:
         samples=samples, multires=s.multires, d_hidden=s.d_hidden,
         n_hidden=s.n_layers - 1, feat_dim=s.d_out - 1, c_hidden=c.d_hidden,
         c_layers=c.n_layers, extra_color=c.extra_color, squeeze_out=c.squeeze_out,
-        scale=s.scale,
+        scale=s.scale, bf16=operand_bf16(s),
     )
 
 
@@ -139,15 +154,23 @@ def _alpha(sdf, tc, dists, inv_s, r):
     return alpha, prev_cdf
 
 
+def _fields_plain(sdf, color, pts, dirs, bf16):
+    """(sdf, grad, rgb) of the kernels' network pass at their rounding points
+    in pts' dtype; ``bf16`` None takes the nets' operand mode."""
+    bf16 = operand_bf16(sdf.cfg) if bf16 is None else bf16
+    s, feat, g = kernel_sdf_with_gradient(sdf, pts, bf16)
+    return s, g, kernel_color_forward(color, pts, g, dirs, feat, bf16)
+
+
 def point_eval_ray_plain(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d,
-                         mid_z, dists, inv_s, cos_anneal):
-    """Plain PyTorch version of the kernel pair (same maths), computed in the
-    inputs' dtype (f32 like the kernel; f64 gives a reference)."""
+                         mid_z, dists, inv_s, cos_anneal, bf16: bool | None = None):
+    """Plain PyTorch version of the kernel pair (same maths, the kernels'
+    rounding points in the operand mode ``bf16``, the nets' own when None),
+    computed in the inputs' dtype (f64 gives a reference)."""
     R, S = mid_z.shape
     pts = (rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., None]).reshape(-1, 3)
     dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
-    s, feat, g = sdf.sdf_with_gradient(pts, dtype=mid_z.dtype)
-    rgb = color(pts, g, dirs, feat, dtype=mid_z.dtype)  # (P, 3|6)
+    s, g, rgb = _fields_plain(sdf, color, pts, dirs, bf16)  # rgb (P, 3|6)
     tc = (dirs * g).sum(-1).reshape(R, S)
     alpha, _ = _alpha(s.reshape(R, S), tc, dists, inv_s, cos_anneal)
     trans = torch.cumprod(
@@ -164,15 +187,15 @@ def point_eval_ray_plain(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d,
 
 
 def point_eval_plain(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z, dists,
-                     inv_s, cos_anneal):
-    """Plain PyTorch version of the point-level kernel pair (same maths), in
-    the inputs' dtype. Returns (sdf (P, 1), grad (P, 3), rgb (P, 3|6),
-    alpha (P,), cdf (P,), inside (P,), gradient_error)."""
+                     inv_s, cos_anneal, bf16: bool | None = None):
+    """Plain PyTorch version of the point-level kernel pair (same maths, the
+    operand mode as :func:`point_eval_ray_plain`), in the inputs' dtype.
+    Returns (sdf (P, 1), grad (P, 3), rgb (P, 3|6), alpha (P,), cdf (P,),
+    inside (P,), gradient_error)."""
     R, S = mid_z.shape
     pts = (rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., None]).reshape(-1, 3)
     dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
-    s, feat, g = sdf.sdf_with_gradient(pts, dtype=mid_z.dtype)
-    rgb = color(pts, g, dirs, feat, dtype=mid_z.dtype)
+    s, g, rgb = _fields_plain(sdf, color, pts, dirs, bf16)
     tc = (dirs * g).sum(-1)
     alpha, cdf = _alpha(s[:, 0], tc, dists.reshape(-1), inv_s, cos_anneal)
     r2 = (pts * pts).sum(-1).detach()
@@ -301,36 +324,201 @@ def neus_ray_bwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s, c
     return d_o, d_d, d_z, d_t, d_w[:n_w], d_w[n_w].reshape(())
 
 
+# ---------------------------------------------------------------------------
+# CUDA per-ray pair on the tensor cores (the bf16 operand mode)
+# ---------------------------------------------------------------------------
+
+MAX_NH = 8  # neus_mlp.cuh's MAXNH (= MAXNHC)
+# packed matrix slots of csrc/neus_tc.cuh (Pack::off)
+_FS, _FHEAD, _RS, _RHEAD = 0, MAX_NH + 1, MAX_NH + 2, 2 * MAX_NH + 3
+_FC, _RC, _NMAT = 2 * MAX_NH + 4, 3 * MAX_NH + 5, 4 * MAX_NH + 6
+
+
+class Pack(ctypes.Structure):
+    """Mirror of ``neus::tc::Pack``: each packed matrix's offset in uint2
+    fragments (4 bf16)."""
+
+    _fields_ = [("off", ctypes.c_longlong * _NMAT)]
+
+
+def pack_b(b: torch.Tensor) -> torch.Tensor:
+    """A product's (K, N) right operand as mma.m16n8k16 B-fragments in bf16,
+    zero-padded to (16 KT, 8 NT), k-step major: fragment (kt, nt) of lane
+    4 g + t holds B[16 kt + 2t + {0, 1, 8, 9}][8 nt + g] (csrc/neus_tc.cuh)."""
+    K, N = b.shape
+    KT, NT = -(-K // 16), -(-N // 8)
+    p = b.new_zeros(KT * 16, NT * 8)
+    p[:K, :N] = b
+    # k = 16 kt + 8 kh + 2 t + kk, n = 8 nt + g -> (kt, nt, g, t, kh, kk)
+    p = p.reshape(KT, 2, 4, 2, NT, 8).permute(0, 4, 5, 2, 1, 3)
+    return p.reshape(-1).to(torch.bfloat16)
+
+
+def unpack_b(packed: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """The inverse of :func:`pack_b` (f32, unpadded)."""
+    KT, NT = -(-K // 16), -(-N // 8)
+    p = packed.float().reshape(KT, NT, 8, 4, 2, 2).permute(0, 4, 3, 5, 1, 2)
+    return p.reshape(KT * 16, NT * 8)[:K, :N]
+
+
+def pack_tc(spec: NeuSRaySpec, weights) -> tuple[torch.Tensor, Pack]:
+    """The tensor-core pair's packed bf16 weights from the dense weight list
+    of :func:`dense_weights` (SDF layers, then colour layers, as (W, b)):
+    each SDF and colour matrix in its forward form (W^T) and its reverse
+    form (W); the head's feature rows scaled by 1/sqrt(2), the skip concat's
+    scale (the JAX kernels' pre-scaled ``wf_a`` / ``wf_e``). The head's sdf
+    row and every bias stay in the flat f32 buffer."""
+    NH, NHC = spec.n_hidden, spec.c_layers
+    mats = weights[0::2]
+    sdf_w, col_w = mats[:NH + 2], mats[NH + 2:]
+    feat = sdf_w[NH + 1][1:] / 2.0 ** 0.5
+    slots = {_FHEAD: feat.t(), _RHEAD: feat}
+    for i in range(NH + 1):
+        slots[_FS + i], slots[_RS + i] = sdf_w[i].t(), sdf_w[i]
+    for l in range(NHC + 1):
+        slots[_FC + l], slots[_RC + l] = col_w[l].t(), col_w[l]
+    parts, pack, off = [], Pack(), 0
+    for slot in sorted(slots):
+        part = pack_b(slots[slot].detach().float())
+        pack.off[slot] = off // 4
+        parts.append(part)
+        off += part.numel()
+    return torch.cat(parts), pack
+
+
+def _tc_lib():
+    lib = _build.load("fused_neus_ray_tc", "fused_neus_ray_tc.cu")
+    if not getattr(lib, "_typed", False):
+        P, I, F_, L_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        for fn in (lib.neus_tc_smem_bytes, lib.neus_tc_scratch_bytes):
+            fn.argtypes = [Dims, I]
+            fn.restype = L_
+        lib.neus_tc_weight_count.argtypes = [Dims]
+        lib.neus_tc_weight_count.restype = L_
+        lib.neus_ray_tc_fwd.argtypes = [Dims, Pack] + [P] * 7 + [F_, I] + [P] * 8 + [L_, I, P]
+        lib.neus_ray_tc_fwd.restype = I
+        lib.neus_ray_tc_bwd.argtypes = [Dims, Pack] + [P] * 7 + [F_, I] + [P] * 13 + [L_, I, P]
+        lib.neus_ray_tc_bwd.restype = I
+        lib._typed = True
+    return lib
+
+
+def n_cta_tc(device, R: int) -> int:
+    """Persistent CTAs of the tensor-core pair: one per SM (its shared
+    memory holds one), at most one per ray."""
+    return max(1, min(R, torch.cuda.get_device_properties(device).multi_processor_count))
+
+
+def neus_ray_tc_fwd(spec: NeuSRaySpec, flat, pk, pack, rays_o, rays_d, mid_z, dists, inv_s,
+                    cos_anneal):
+    """Launch the tensor-core forward kernel (bf16 operand mode). Returns
+    what :func:`neus_ray_fwd` returns."""
+    _check_inputs(spec, flat, rays_o, rays_d, mid_z, dists, inv_s)
+    lib = _tc_lib()
+    d = spec.dims()
+    if flat.numel() != lib.neus_tc_weight_count(d):
+        raise ValueError("flat weight buffer does not match the network dims")
+    if pk.dtype != torch.bfloat16 or pk.device != mid_z.device or not pk.is_contiguous():
+        raise ValueError("the packed weights must be a contiguous bf16 tensor on the card")
+    R, S = mid_z.shape
+    dev = mid_z.device
+    n_cta = n_cta_tc(dev, R)
+    stride = int(lib.neus_tc_scratch_bytes(d, 0))
+    scr = torch.empty(n_cta * stride, dtype=torch.uint8, device=dev)
+    eik_part = torch.empty(n_cta * 2, device=dev)
+    col_w = torch.empty(R, spec.rgb_width, device=dev)
+    normals_w = torch.empty(R, 3, device=dev)
+    wsum = torch.empty(R, 1, device=dev)
+    sdf_res = torch.empty(R * S, device=dev)
+    g_res = torch.empty(R * S, 3, device=dev)
+    eik = torch.empty(2, device=dev)
+    p = _build.ptr
+    err = lib.neus_ray_tc_fwd(
+        d, pack, p(flat), p(pk), p(rays_o), p(rays_d), p(mid_z), p(dists), p(inv_s),
+        float(cos_anneal), R, p(col_w), p(normals_w), p(wsum), p(sdf_res), p(g_res), p(eik),
+        p(eik_part), p(scr), stride, n_cta, _build.stream_ptr(dev),
+    )
+    _build.check(err, "neus_ray_tc_fwd launch")
+    _build.count(LAUNCHES, "neus_ray_fwd")
+    return col_w, normals_w, wsum, sdf_res, g_res, eik
+
+
+def neus_ray_tc_bwd(spec: NeuSRaySpec, flat, pk, pack, rays_o, rays_d, mid_z, dists, inv_s,
+                    cos_anneal, sdf_res, g_res, c_col, c_nw, c_ws, c_eik):
+    """Launch the tensor-core backward kernel (+ its partial-sum pass).
+    Returns what :func:`neus_ray_bwd` returns."""
+    _check_inputs(spec, flat, rays_o, rays_d, mid_z, dists, inv_s)
+    lib = _tc_lib()
+    d = spec.dims()
+    R, S = mid_z.shape
+    W = spec.rgb_width
+    _build.check_f32(mid_z.device, (("c_col", c_col, (R, W)), ("c_nw", c_nw, (R, 3)),
+                                    ("c_ws", c_ws, (R, 1)), ("c_eik", c_eik, (2,)),
+                                    ("sdf_res", sdf_res, (R * S,)), ("g_res", g_res, (R * S, 3))))
+    if pk.dtype != torch.bfloat16 or pk.device != mid_z.device or not pk.is_contiguous():
+        raise ValueError("the packed weights must be a contiguous bf16 tensor on the card")
+    dev = mid_z.device
+    n_w = int(lib.neus_tc_weight_count(d))
+    n_cta = n_cta_tc(dev, R)
+    stride = int(lib.neus_tc_scratch_bytes(d, 1))
+    scr = torch.empty(n_cta * stride, dtype=torch.uint8, device=dev)
+    gpart = torch.empty(n_cta * (n_w + 1), device=dev)
+    d_o = torch.empty(R, 3, device=dev)
+    d_d = torch.empty(R, 3, device=dev)
+    d_z = torch.empty(R, S, device=dev)
+    d_t = torch.empty(R, S, device=dev)
+    d_w = torch.empty(n_w + 1, device=dev)
+    p = _build.ptr
+    err = lib.neus_ray_tc_bwd(
+        d, pack, p(flat), p(pk), p(rays_o), p(rays_d), p(mid_z), p(dists), p(inv_s),
+        float(cos_anneal), R, p(sdf_res), p(g_res), p(c_col), p(c_nw), p(c_ws), p(c_eik),
+        p(d_o), p(d_d), p(d_z), p(d_t), p(d_w), p(gpart), p(scr), stride, n_cta,
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, "neus_ray_tc_bwd launch")
+    _build.count(LAUNCHES, "neus_ray_bwd")
+    return d_o, d_d, d_z, d_t, d_w[:n_w], d_w[n_w].reshape(())
+
+
 class NeuSRayFunction(torch.autograd.Function):
     """(rays, mid_z, dists, inv_s, *dense weights) -> (colorW, normals_w,
-    weight_sum, eik (2,)); forward and backward are the CUDA kernels."""
+    weight_sum, eik (2,)); forward and backward are the CUDA kernels: the
+    tensor-core pair in the bf16 operand mode, fused_neus_ray.cu's in f32."""
 
     @staticmethod
     def forward(ctx, spec, cos_anneal, rays_o, rays_d, mid_z, dists, inv_s, *weights):
         flat = torch.cat([w.detach().reshape(-1) for w in weights])
-        col_w, normals_w, wsum, sdf_res, g_res, eik = neus_ray_fwd(
-            spec, flat, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal
-        )
-        ctx.save_for_backward(flat, rays_o, rays_d, mid_z, dists, inv_s, sdf_res, g_res)
+        args = (rays_o, rays_d, mid_z, dists, inv_s, cos_anneal)
+        if spec.bf16:
+            pk, pack = pack_tc(spec, weights)
+            outs = neus_ray_tc_fwd(spec, flat, pk, pack, *args)
+            ctx.pack = pack
+        else:
+            pk = flat.new_empty(0)
+            outs = neus_ray_fwd(spec, flat, *args)
+        col_w, normals_w, wsum, sdf_res, g_res, eik = outs
+        ctx.save_for_backward(flat, pk, rays_o, rays_d, mid_z, dists, inv_s, sdf_res, g_res)
         ctx.spec, ctx.cos_anneal = spec, cos_anneal
         ctx.shapes = [w.shape for w in weights]
         return col_w, normals_w, wsum, eik
 
     @staticmethod
     def backward(ctx, c_col, c_nw, c_ws, c_eik):
-        flat, rays_o, rays_d, mid_z, dists, inv_s, sdf_res, g_res = ctx.saved_tensors
+        flat, pk, rays_o, rays_d, mid_z, dists, inv_s, sdf_res, g_res = ctx.saved_tensors
         R = mid_z.shape[0]
         dev = mid_z.device
 
         def cot(t, shape):
             return torch.zeros(shape, device=dev) if t is None else t.float().contiguous()
 
-        d_o, d_d, d_z, d_t, d_flat, d_inv_s = neus_ray_bwd(
-            ctx.spec, flat, rays_o, rays_d, mid_z, dists, inv_s, ctx.cos_anneal,
-            sdf_res, g_res,
-            cot(c_col, (R, ctx.spec.rgb_width)), cot(c_nw, (R, 3)), cot(c_ws, (R, 1)),
-            cot(c_eik, (2,)),
-        )
+        args = (rays_o, rays_d, mid_z, dists, inv_s, ctx.cos_anneal, sdf_res, g_res,
+                cot(c_col, (R, ctx.spec.rgb_width)), cot(c_nw, (R, 3)), cot(c_ws, (R, 1)),
+                cot(c_eik, (2,)))
+        if ctx.spec.bf16:
+            outs = neus_ray_tc_bwd(ctx.spec, flat, pk, ctx.pack, *args)
+        else:
+            outs = neus_ray_bwd(ctx.spec, flat, *args)
+        d_o, d_d, d_z, d_t, d_flat, d_inv_s = outs
         return (None, None, d_o, d_d, d_z, d_t, d_inv_s, *split_flat(d_flat, ctx.shapes))
 
 

@@ -13,8 +13,10 @@ when the megakernel is declined (the NeRF++ background is on).
 :func:`sdf_with_gradient_fused` takes a CUDA tensor and launches the kernel
 pair through :class:`SDFFunction`, or raises; on the CPU only the gate in
 fields/networks.py picks :func:`sdf_with_gradient_plain`, autograd through
-the plain module with ``create_graph=True`` in the input's dtype. The kernels
-compute in f32 throughout. Weight norm is resolved to dense (out, in) weights
+the plain module's maths with ``create_graph=True`` in the input's dtype.
+The kernels and their plain versions take the net's operand mode
+(``fields.networks.operand_bf16``, ops/fused_neus.py): bf16 dot operands
+with f32 sums at the confs' bf16, f32 throughout at f32. Weight norm is resolved to dense (out, in) weights
 in plain torch before the Function (:func:`dense_weights`), so autograd
 carries the kernel's dense weight gradients on to ``g``, ``v`` and ``b``.
 The Function's backward is itself not differentiable: the eikonal term's
@@ -39,7 +41,8 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 from .fused_neus import Dims, n_cta_for, split_flat
-from ..fields.networks import SDFNetwork
+from ..fields.networks import (SDFNetwork, kernel_sdf_forward, kernel_sdf_with_gradient,
+                               operand_bf16)
 
 LAUNCHES = {"sdf_fwd": 0, "sdf_bwd": 0, "sdf_only_fwd": 0}
 BLOCK = 64  # points per CTA iteration (neus_mlp.cuh's MAXS)
@@ -54,6 +57,7 @@ class FusedSDFSpec:
     n_hidden: int  # hidden linears before the skip-producing layer
     feat_dim: int  # d_out - 1
     scale: float
+    bf16: bool = False  # the operand mode (fields.networks.operand_bf16)
 
     @property
     def d_embed(self) -> int:
@@ -64,7 +68,8 @@ class FusedSDFSpec:
         the slot layout in which the backward reads the feature cotangent."""
         E = self.d_embed
         return Dims(BLOCK, self.multires, E, self.d_hidden, self.n_hidden, self.d_hidden - E,
-                    self.feat_dim, 0, 0, 6 + self.feat_dim, 0, 0, float(self.scale))
+                    self.feat_dim, 0, 0, 6 + self.feat_dim, 0, 0, float(self.scale),
+                    int(self.bf16))
 
 
 def spec_from_config(cfg) -> FusedSDFSpec | None:
@@ -79,7 +84,7 @@ def spec_from_config(cfg) -> FusedSDFSpec | None:
     if cfg.d_hidden <= 3 * (1 + 2 * cfg.multires):
         return None
     return FusedSDFSpec(multires=cfg.multires, d_hidden=cfg.d_hidden, n_hidden=cfg.n_layers - 1,
-                        feat_dim=cfg.d_out - 1, scale=cfg.scale)
+                        feat_dim=cfg.d_out - 1, scale=cfg.scale, bf16=operand_bf16(cfg))
 
 
 def dense_weights(sdf: SDFNetwork) -> list[torch.Tensor]:
@@ -92,17 +97,23 @@ def dense_weights(sdf: SDFNetwork) -> list[torch.Tensor]:
     return [t.float() for t in out]
 
 
-def sdf_with_gradient_plain(sdf: SDFNetwork, pts: torch.Tensor):
-    """Plain PyTorch version of the kernel pair: the module's forward and
-    its spatial gradient by autograd (create_graph=True), computed in the
-    input's dtype (f32 like the kernels; f64 gives a reference)."""
-    return sdf.sdf_with_gradient(pts, dtype=pts.dtype)
+def sdf_with_gradient_plain(sdf: SDFNetwork, pts: torch.Tensor, bf16: bool | None = None):
+    """Plain PyTorch version of the kernel pair: the net's forward at the
+    kernel's rounding points and its spatial gradient by autograd
+    (create_graph=True), computed in the input's dtype (f64 gives a
+    reference). ``bf16``: the operand mode, the net's own when None; the
+    head's sdf row is rounded too, as the JAX pair's ``_dot`` rounds it."""
+    bf16 = operand_bf16(sdf.cfg) if bf16 is None else bf16
+    return kernel_sdf_with_gradient(sdf, pts, bf16, round_sdf_row=True)
 
 
-def sdf_only_plain(sdf: SDFNetwork, pts: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the sdf-only kernel: the module's forward
-    with the head's sdf row alone, in the input's dtype -> (P, 1)."""
-    return sdf.forward(pts, sdf_only=True, dtype=pts.dtype)[:, :1]
+def sdf_only_plain(sdf: SDFNetwork, pts: torch.Tensor, bf16: bool | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the sdf-only kernel: the stack and the head's
+    sdf row alone (summed unrounded, as the JAX kernel's row form), in the
+    input's dtype -> (P, 1). ``bf16``: the operand mode, the net's own when
+    None."""
+    bf16 = operand_bf16(sdf.cfg) if bf16 is None else bf16
+    return kernel_sdf_forward(sdf, pts, bf16, sdf_only=True)
 
 
 def sdf_only_flops_per_point(spec: FusedSDFSpec) -> float:

@@ -7,6 +7,9 @@ Shared by chip_smoke.py and tests/test_torch_cuda.py:
   point chunks so that a float64 reference at a path's full point count
   fits on the card;
 - :func:`rel_errors`: each column's max |got - ref| over max |ref|;
+- :func:`rel_rms` and :func:`bf16_within`: the bf16 operand mode's hold, a
+  kernel's relative RMS error against the f32 function in float64 at most
+  twice its plain bf16 version's plus a floor;
 - :func:`dense_copy`: a net with weight norm resolved, whose parameter
   gradients are the dense weight gradients a kernel computes;
 - :func:`resolve_relu_ties`: the colour net's input cotangents in float64
@@ -76,6 +79,36 @@ def rel_errors(got, ref) -> list[float]:
             continue
         out.append(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12))
     return out
+
+
+BF16_FLOOR = 5e-4  # relative RMS allowed on top of twice the plain bf16 version's own
+# for a single number (the inv_s gradient, the eikonal term): one bf16
+# rounding, 2^-8, since a scalar has no average to hide a plain version's
+# lucky cancellation (seen: 1.6e-5 beside the kernel's 8.4e-4 at 64 rays)
+BF16_SCALAR_FLOOR = 2.0 ** -8
+
+
+def rel_rms(got, ref) -> float:
+    """|got - ref| / |ref| over the whole tensor (inf where got is not
+    finite)."""
+    a, b = got.detach().double(), ref.detach().double().reshape(got.shape)
+    if not torch.isfinite(a).all():
+        return float("inf")
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def bf16_within(got, plain, ref) -> tuple[float, float, bool]:
+    """(the kernel's relative RMS error against ``ref``, the plain bf16
+    version's, whether the first is at most twice the second plus
+    BF16_FLOOR, or BF16_SCALAR_FLOOR for a single number). ``ref`` is the f32 function in float64: the kernel and its
+    plain version round the dots' operands at their own places (the kernel
+    before each reverse dot, autograd after it), so neither is the other's
+    oracle. Relative RMS and not the largest error at one point: at a relu
+    near-tie bf16 rounding takes the unit either way, each side at its own
+    points (many more than f32's, so :func:`resolve_relu_ties`' threshold
+    does not apply), and the RMS weighs such a point as its share."""
+    ek, ep = rel_rms(got, ref), rel_rms(plain, ref)
+    return ek, ep, ek <= 2 * ep + (BF16_FLOOR if got.numel() > 1 else BF16_SCALAR_FLOOR)
 
 
 def dense_copy(net: torch.nn.Module) -> torch.nn.Module:

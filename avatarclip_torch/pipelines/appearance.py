@@ -34,6 +34,7 @@ import functools
 import math
 import os
 import re
+import subprocess
 import threading
 import time
 from typing import Any, Sequence
@@ -977,13 +978,23 @@ class Runner:
         self.update_count = int(ck["update_count"])
 
     def file_backup(self):
-        """Record the conf for reproducibility (main.py:588-599)."""
+        """Record the conf and the code's git revision for reproducibility
+        (main.py:588-599)."""
         import shutil
 
         rec_dir = os.path.join(self.base_exp_dir, "recording")
         os.makedirs(rec_dir, exist_ok=True)
         if self.conf_path and os.path.exists(self.conf_path):
             shutil.copyfile(self.conf_path, os.path.join(rec_dir, "config.conf"))
+        # the code's revision beside the conf; nothing when git fails (not a
+        # checkout, no git)
+        try:
+            rev = subprocess.run(["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+                                 cwd=os.path.dirname(os.path.abspath(__file__)), check=True)
+        except (OSError, subprocess.CalledProcessError):
+            return
+        with open(os.path.join(rec_dir, "git_revision.txt"), "w") as f:
+            f.write(rev.stdout.strip() + "\n")
 
 
 def main(argv=None):
@@ -994,6 +1005,7 @@ def main(argv=None):
     parser.add_argument("--mode", type=str, default="train",
                         choices=("train", "train_clip", "validate_mesh", "render_geometry_cast_light"))
     parser.add_argument("--mcube_threshold", type=float, default=0.0)
+    parser.add_argument("--gpu", type=int, default=0, help="the card's index")
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
                         help="run on the card (default) or, when asked, on the CPU")
     parser.add_argument("--is_continue", default=False, action="store_true")
@@ -1007,8 +1019,9 @@ def main(argv=None):
     for kv in args.set:
         key, _, value = kv.partition("=")
         conf.put(key, config_mod._parse_value(value))
+    device = f"cuda:{args.gpu}" if args.device == "cuda" else "cpu"
     runner = Runner(args.conf, args.mode, args.case, args.is_continue, conf=conf,
-                    device=args.device)
+                    device=device)
     if args.mode == "train":
         runner.train()
     elif args.mode == "train_clip":

@@ -122,6 +122,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -323,14 +324,15 @@ def runner_lookat(eye):
 # ---------------------------------------------------------------------------
 
 
-def neus_problem(width: int, n_rays: int, dev, seed: int = 0):
+def neus_problem(width: int, n_rays: int, dev, seed: int = 0, dtype: str = "float32"):
     """Fields of the conf's shapes (4x256 / 2x256 at 256 wide, 3x128 / 1x128
     at 128 wide, extra colour head) with seeded, perturbed weights, and rays
     through the unit sphere with 64 sorted samples each. The nets are built
     without weight norm, so their parameters are the dense weights whose
     gradients the kernel computes (weight norm's chain rule is plain
     autograd outside the kernel and projects the dense gradient, which
-    magnifies f32 summation-order noise)."""
+    magnifies f32 summation-order noise). ``dtype``: the nets' cfg.dtype, the
+    kernels' operand mode (float32 here, bfloat16 as the confs)."""
     import torch
 
     from avatarclip_torch.fields import networks as nets
@@ -338,14 +340,14 @@ def neus_problem(width: int, n_rays: int, dev, seed: int = 0):
     g = torch.Generator().manual_seed(seed)
     if width == 256:
         s_cfg = nets.SDFConfig(d_out=257, d_hidden=256, n_layers=4, skip_in=(4,), multires=6,
-                               weight_norm=False)
+                               weight_norm=False, dtype=dtype)
         c_cfg = nets.ColorConfig(d_feature=256, d_hidden=256, n_layers=2, extra_color=True,
-                                 weight_norm=False)
+                                 weight_norm=False, dtype=dtype)
     else:
         s_cfg = nets.SDFConfig(d_out=129, d_hidden=128, n_layers=3, skip_in=(3,), multires=6,
-                               weight_norm=False)
+                               weight_norm=False, dtype=dtype)
         c_cfg = nets.ColorConfig(d_feature=128, d_hidden=128, n_layers=1, extra_color=True,
-                                 weight_norm=False)
+                                 weight_norm=False, dtype=dtype)
     fields = nets.NeuSFields(s_cfg, c_cfg, 0.3, g)
     with torch.no_grad():
         for p in fields.parameters():
@@ -444,7 +446,97 @@ def hold_against_f64(tag, kernel_fn, plain_fn, out_names, n_out, probe_idx, dev)
     return worst_f, worst_b
 
 
+def hold_bf16_sets(tag, names, got, plain, ref) -> tuple[float, float]:
+    """The bf16 operand mode's hold (ops/hold.bf16_within): for each tensor,
+    the kernel's relative RMS error against the float64 reference of the f32
+    function at most twice the plain bf16 version's own plus BF16_FLOOR.
+    Returns (the worst kernel relative RMS, the worst ratio to the plain
+    version's)."""
+    from avatarclip_torch.ops import hold
+
+    worst = worst_ratio = 0.0
+    rows = []
+    for nm, k, p, r in zip(names, got, plain, ref):
+        ek, ep, ok = hold.bf16_within(k, p, r)
+        if not ok:
+            fail(f"{tag} bf16 {nm}: kernel rel RMS err {ek:.3e} > 2 x plain bf16 {ep:.3e} + "
+                 f"{hold.BF16_FLOOR}")
+        worst, worst_ratio = max(worst, ek), max(worst_ratio, ek / max(ep, 1e-30))
+        rows.append(f"{nm} {ek:.2e}/{ep:.2e}")
+    print(f"[{tag}] bf16 operands vs the f32 function in f64 (relative RMS, kernel/plain bf16): "
+          + ", ".join(rows))
+    return worst, worst_ratio
+
+
+def hold_neus_bf16(tag, kernel_fn, plain_fn, out_names, n_out, probe_idx, dev) -> float:
+    """B1 / B3 in the bf16 operand mode at 256 and 128 wide on 2,048 rays x
+    64 samples (hold_bf16_sets); the worst kernel relative RMS error."""
+    import functools
+
+    import torch
+
+    worst = 0.0
+    for width in (256, 128):
+        fields, inputs, probes, point_probes = neus_problem(width, 2048, dev, dtype="bfloat16")
+        probes = probes if probe_idx == "ray" else point_probes
+        outs_k, grads_k = neus_grads(kernel_fn, fields, inputs, probes, n_out)
+        outs_p, grads_p = neus_grads(plain_fn, fields, inputs, probes, n_out)
+        f64 = copy.deepcopy(fields).double()
+        outs_r, grads_r = neus_grads(functools.partial(plain_fn, bf16=False), f64,
+                                     [t.double() for t in inputs], [p.double() for p in probes], n_out)
+        torch.cuda.synchronize()
+        names = list(out_names) + ["d " + n for n, _ in fields.named_parameters()] + [
+            "d rays_o", "d rays_d", "d mid_z", "d dists"]
+        w, ratio = hold_bf16_sets(f"{tag} {width}-wide", names, list(outs_k) + list(grads_k),
+                                  list(outs_p) + list(grads_p), list(outs_r) + list(grads_r))
+        print(f"[{tag}] {width}-wide bf16: worst kernel rel RMS {w:.3e}, at most {ratio:.2f}x the "
+              f"plain bf16 version's")
+        worst = max(worst, w)
+        del f64, outs_r, grads_r
+        torch.cuda.empty_cache()
+    return worst
+
+
+def hold_net_bf16(tag, fused, plain, net, ins, cots, in_names, out_names) -> float:
+    """B6 / B7 / #12 through their entries in the bf16 operand mode against
+    the plain version in f64 at f32 operands, beside the plain bf16 version
+    (hold_bf16_sets); the worst kernel relative RMS error."""
+    import functools
+
+    import torch
+
+    from avatarclip_torch.ops import hold
+
+    ok, gk = hold.net_grads(fused, net, ins, cots)
+    op, gp = hold.net_grads(plain, net, ins, cots, chunk=REF_CHUNK)
+    ref = copy.deepcopy(net).double()
+    orf, grf = hold.net_grads(functools.partial(plain, bf16=False), ref, [t.double() for t in ins],
+                              [c.double() for c in cots], chunk=REF_CHUNK)
+    names = list(out_names) + ["d " + n for n, _ in net.named_parameters()] + [
+        "d " + n for n in in_names]
+    worst, _ = hold_bf16_sets(tag, names, ok + gk, op + gp, orf + grf)
+    del ref, orf, grf, ok, gk, op, gp
+    torch.cuda.empty_cache()
+    return worst
+
+
+def bound_tc(flops: float, nbytes: float) -> dict:
+    """bound() for a kernel whose GEMMs run on the bf16 tensor cores:
+    max(FLOPs / bf16 peak, bytes / HBM rate), with the f32 CUDA-core bound
+    beside it."""
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "bound_ms_f32": max(flops / PEAK_F32 * 1e3, t_bytes)}
+
+
 def check_neus_ray(dev):
+    """B1: the f32 mode (fused_neus_ray.cu) held in f64 to OUT_TOL / GRAD_TOL,
+    the bf16 mode (the tensor-core pair, fused_neus_ray_tc.cu) held as
+    hold_bf16_sets says, both at 256 and 128 wide; both timed at the training
+    step's 12,544 rays x 64 beside their plain versions in the same mode. The
+    kernels line carries the bf16 mode (the main path's: every conf is bf16)
+    and its f32 numbers beside."""
     import torch
 
     from avatarclip_torch.ops import fused_neus as fn
@@ -452,44 +544,64 @@ def check_neus_ray(dev):
     worst_f, worst_b = hold_against_f64(
         "B1", fn.point_eval_ray, fn.point_eval_ray_plain,
         ("colorW", "normals_w", "weight_sum", "gradient_error"), (0, 1, 2, 3), "ray", dev)
+    worst_bf16 = hold_neus_bf16("B1", fn.point_eval_ray, fn.point_eval_ray_plain,
+                                ("colorW", "normals_w", "weight_sum", "gradient_error"),
+                                (0, 1, 2, 3), "ray", dev)
 
     # time at the main path's shapes: 12,544 rays x 64 samples, 4x256 / 2x256
     R = 12544
-    fields, inputs, probes, _ = neus_problem(256, R, dev, seed=1)
     times = {}
-    for name, f in (("kernel", fn.point_eval_ray), ("plain", fn.point_eval_ray_plain)):
-        fwd_ms = cuda_ms(lambda: neus_grads_loss(f, fields, inputs, probes), reps=3)
-        bwd_total = 0.0
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(3):
-            ins = [t.clone().requires_grad_(True) for t in inputs]
-            loss = neus_grads_loss(f, fields, ins, probes)
-            torch.cuda.synchronize()
-            bwd_total += cuda_ms_once(lambda: torch.autograd.grad(loss, list(fields.parameters()) + ins))
-        times[name] = (fwd_ms, bwd_total / 3, torch.cuda.max_memory_allocated() / 2**30)
-        del ins, loss
+    for mode in ("bfloat16", "float32"):
+        fields, inputs, probes, _ = neus_problem(256, R, dev, seed=1, dtype=mode)
+        for name, f in (("kernel", fn.point_eval_ray), ("plain", fn.point_eval_ray_plain)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fwd_ms = cuda_ms(lambda: neus_grads_loss(f, fields, inputs, probes), reps=3)
+            bwd_total = 0.0
+            for _ in range(3):
+                ins = [t.clone().requires_grad_(True) for t in inputs]
+                loss = neus_grads_loss(f, fields, ins, probes)
+                torch.cuda.synchronize()
+                bwd_total += cuda_ms_once(
+                    lambda: torch.autograd.grad(loss, list(fields.parameters()) + ins))
+            times[mode, name] = (fwd_ms, bwd_total / 3, torch.cuda.max_memory_allocated() / 2**30)
+            del ins, loss
+        spec = fn.spec_from_configs(fields.sdf.cfg, fields.color.cfg, 64)
+        n_w = sum(t.numel() for t in fn.dense_weights(fields.sdf, fields.color))
+        del fields, inputs, probes
         torch.cuda.empty_cache()
-    spec = fn.spec_from_configs(fields.sdf.cfg, fields.color.cfg, 64)
-    P, n_w = R * 64, sum(t.numel() for t in fn.dense_weights(fields.sdf, fields.color))
+    P = R * 64
     fl_f, fl_b = neus_gemm_flops(spec)
     Wd = spec.rgb_width
-    b_f = bound(fl_f * P, 4 * (n_w + 6 * R + 2 * P + (Wd + 4) * R + 4 * P + 2))
-    b_b = bound(fl_b * P, 4 * (n_w + 6 * R + 2 * P + 4 * P + (Wd + 4) * R + 2
-                               + 6 * R + 2 * P + n_w + 1))
-    print(f"[B1] {R} rays x 64 samples, 4x256/2x256: forward kernel {times['kernel'][0]:.3f} ms "
-          f"(plain {times['plain'][0]:.3f} ms, bound {b_f['bound_ms']:.3f} ms {b_f['bound_by']}, "
-          f"bf16 tensor-core bound {b_f['bound_ms_bf16_tc']:.3f} ms); backward kernel "
-          f"{times['kernel'][1]:.3f} ms (plain {times['plain'][1]:.3f} ms, bound "
-          f"{b_b['bound_ms']:.3f} ms {b_b['bound_by']}, bf16 {b_b['bound_ms_bf16_tc']:.3f} ms); "
-          f"{fl_f:.0f} / {fl_b:.0f} GEMM FLOPs per point; peak memory kernel "
-          f"{times['kernel'][2]:.2f} GiB, plain {times['plain'][2]:.2f} GiB")
-    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_neus_ray.cu",
-              "library_ms": None}
+    by_f = 4 * (n_w + 6 * R + 2 * P + (Wd + 4) * R + 4 * P + 2)
+    by_b = 4 * (n_w + 6 * R + 2 * P + 4 * P + (Wd + 4) * R + 2 + 6 * R + 2 * P + n_w + 1)
+    b_f, b_b = bound_tc(fl_f * P, by_f), bound_tc(fl_b * P, by_b)
+    kf, kb = times["bfloat16", "kernel"][:2]
+    for mode in ("bfloat16", "float32"):
+        (kf_, kb_, km), (pf, pb, pm) = times[mode, "kernel"], times[mode, "plain"]
+        print(f"[B1] {R} rays x 64 samples, 4x256/2x256, {mode} mode: forward kernel {kf_:.3f} ms "
+              f"(plain {pf:.3f} ms), backward kernel {kb_:.3f} ms (plain {pb:.3f} ms); peak memory "
+              f"kernel {km:.2f} GiB, plain {pm:.2f} GiB")
+    print(f"[B1] bounds: forward {b_f['bound_ms']:.3f} ms at the bf16 tensor-core peak "
+          f"({b_f['bound_by']}), {b_f['bound_ms_f32']:.3f} ms at the f32 CUDA-core peak; backward "
+          f"{b_b['bound_ms']:.3f} / {b_b['bound_ms_f32']:.3f} ms; {fl_f:.0f} / {fl_b:.0f} GEMM FLOPs "
+          f"per point; the bf16 pair achieves {fl_f * P / kf * 1e-9:.1f} / {fl_b * P / kb * 1e-9:.1f} "
+          f"TFLOP/s, {b_f['bound_ms'] / kf:.3f} / {b_b['bound_ms'] / kb:.3f} of its bound")
+    # a reading: below the f32 CUDA-core bound, no f32 kernel could be this fast
+    for tag, ms_, b_ in (("forward", kf, b_f), ("backward", kb, b_b)):
+        print(f"[B1] bf16 {tag} {ms_:.3f} ms is {'below' if ms_ < b_['bound_ms_f32'] else 'NOT below'} "
+              f"the f32 CUDA-core bound {b_['bound_ms_f32']:.3f} ms")
+    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_neus_ray_tc.cu",
+              "source_f32": "avatarclip_torch/csrc/fused_neus_ray.cu", "library_ms": None}
     return [
         {"name": "neus_ray_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_neus.py:403",
-         "max_abs_err": worst_f, "ms": times["kernel"][0], "plain_ms": times["plain"][0], **b_f},
+         "max_abs_err": worst_f, "bf16_rel_rms_err": worst_bf16, "ms": kf,
+         "plain_ms": times["bfloat16", "plain"][0], "ms_f32": times["float32", "kernel"][0],
+         "plain_ms_f32": times["float32", "plain"][0], **b_f},
         {"name": "neus_ray_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_neus.py:620",
-         "max_abs_err": worst_b, "ms": times["kernel"][1], "plain_ms": times["plain"][1], **b_b},
+         "max_abs_err": worst_b, "bf16_rel_rms_err": worst_bf16, "ms": kb,
+         "plain_ms": times["bfloat16", "plain"][1], "ms_f32": times["float32", "kernel"][1],
+         "plain_ms_f32": times["float32", "plain"][1], **b_b},
     ]
 
 
@@ -550,6 +662,9 @@ def check_neus_point(dev):
     worst_f, worst_b = hold_against_f64(
         "B3", fn.point_eval, fn.point_eval_plain,
         ("sdf", "grad", "rgb", "alpha", "cdf", "gradient_error"), (0, 1, 2, 3, 4, 6), "point", dev)
+    worst_bf16 = hold_neus_bf16("B3", fn.point_eval, fn.point_eval_plain,
+                                ("sdf", "grad", "rgb", "alpha", "cdf", "gradient_error"),
+                                (0, 1, 2, 3, 4, 6), "point", dev)
 
     R = VAL_CHUNK
     fields, inputs, _, probes = neus_problem(256, R, dev, seed=2)
@@ -572,6 +687,10 @@ def check_neus_point(dev):
     torch.cuda.reset_peak_memory_stats()
     ms_f, ms_b = cuda_ms(fwd, reps=5), cuda_ms(bwd, reps=3)
     mem_k = torch.cuda.max_memory_allocated() / 2**30
+    spec_b = dataclasses.replace(spec, bf16=True)  # the bf16 operand mode, same inputs
+    ms_f_b = cuda_ms(lambda: fn.neus_point_fwd(spec_b, flat, ro, rd, mid, dists, inv_s, 0.4), reps=5)
+    ms_b_b = cuda_ms(lambda: fn.neus_point_bwd(spec_b, flat, ro, rd, mid, dists, inv_s, 0.4, sdf_o,
+                                               grad, *cots), reps=3)
     del sdf_o, grad
     with torch.no_grad():
         plain_f = cuda_ms(lambda: fn.point_eval_plain(fields.sdf, fields.color, ro, rd, mid, dists,
@@ -600,14 +719,14 @@ def check_neus_point(dev):
           f"bound {b_f['bound_ms_bf16_tc']:.3f} ms); backward kernel {ms_b:.3f} ms (plain "
           f"{plain_b:.3f} ms, bound {b_b['bound_ms']:.3f} ms {b_b['bound_by']}, bf16 "
           f"{b_b['bound_ms_bf16_tc']:.3f} ms); peak memory kernel {mem_k:.2f} GiB, plain "
-          f"{mem_p:.2f} GiB")
+          f"{mem_p:.2f} GiB; bf16 operand mode: forward {ms_f_b:.3f} ms, backward {ms_b_b:.3f} ms")
     common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_neus_point.cu",
-              "library_ms": None}
+              "library_ms": None, "bf16_rel_rms_err": worst_bf16}
     return [
         {"name": "neus_point_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_neus.py:258",
-         "max_abs_err": worst_f, "ms": ms_f, "plain_ms": plain_f, **b_f},
+         "max_abs_err": worst_f, "ms": ms_f, "ms_bf16": ms_f_b, "plain_ms": plain_f, **b_f},
         {"name": "neus_point_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_neus.py:534",
-         "max_abs_err": worst_b, "ms": ms_b, "plain_ms": plain_b, **b_b},
+         "max_abs_err": worst_b, "ms": ms_b, "ms_bf16": ms_b_b, "plain_ms": plain_b, **b_b},
     ]
 
 
@@ -1126,6 +1245,16 @@ def check_sdf(dev):
                           fs.sdf_with_gradient_plain, sdf, [pts[:P].contiguous()], cots,
                           ("points",), ("sdf", "feature", "gradient"))
         worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
+    worst_bf16 = 0.0
+    for width in (256, 128):
+        fields, inputs, _, _ = neus_problem(width, 2048, dev, seed=4, dtype="bfloat16")
+        pts, _ = ray_points(inputs)
+        P = pts.shape[0] - 1  # ragged
+        F = fields.sdf.cfg.d_out - 1
+        cots = [(0.5 + torch.rand(P, k, generator=g)).to(dev) for k in (1, F, 3)]
+        worst_bf16 = max(worst_bf16, hold_net_bf16(
+            f"B6 {width}-wide, {P} points", fs.sdf_with_gradient_fused, fs.sdf_with_gradient_plain,
+            fields.sdf, [pts[:P].contiguous()], cots, ("points",), ("sdf", "feature", "gradient")))
 
     # time at path (e)'s points: 12,544 rays x 64 samples
     fields, inputs, _, _ = neus_problem(256, PATH_E_RAYS, dev, seed=6)
@@ -1139,6 +1268,9 @@ def check_sdf(dev):
     ms_f = cuda_ms(lambda: fs.sdf_fwd(spec, flat, pts), reps=3)
     ms_b = cuda_ms(lambda: fs.sdf_bwd(spec, flat, pts, *cots), reps=3)
     mem_k = torch.cuda.max_memory_allocated() / 2**30
+    spec_b = dataclasses.replace(spec, bf16=True)
+    ms_f_b = cuda_ms(lambda: fs.sdf_fwd(spec_b, flat, pts), reps=3)
+    ms_b_b = cuda_ms(lambda: fs.sdf_bwd(spec_b, flat, pts, *cots), reps=3)
     torch.cuda.reset_peak_memory_stats()
     plain_f, plain_b = time_plain(lambda x: fs.sdf_with_gradient_plain(sdf, x), [pts],
                                   list(sdf.parameters()), cots)
@@ -1152,27 +1284,31 @@ def check_sdf(dev):
           f"bound {b_f['bound_ms_bf16_tc']:.3f} ms); backward kernel {ms_b:.3f} ms (plain "
           f"{plain_b:.3f} ms, bound {b_b['bound_ms']:.3f} ms {b_b['bound_by']}, bf16 "
           f"{b_b['bound_ms_bf16_tc']:.3f} ms); {fl_f:.0f} / {fl_b:.0f} GEMM FLOPs per point; peak "
-          f"memory kernel {mem_k:.2f} GiB, plain {mem_p:.2f} GiB")
-    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_sdf.cu", "library_ms": None}
+          f"memory kernel {mem_k:.2f} GiB, plain {mem_p:.2f} GiB; bf16 operand mode: forward "
+          f"{ms_f_b:.3f} ms, backward {ms_b_b:.3f} ms")
+    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_sdf.cu", "library_ms": None,
+              "bf16_rel_rms_err": worst_bf16}
     return [
         {"name": "sdf_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_sdf.py:261",
-         "max_abs_err": worst_f, "ms": ms_f, "plain_ms": plain_f, **b_f},
+         "max_abs_err": worst_f, "ms": ms_f, "ms_bf16": ms_f_b, "plain_ms": plain_f, **b_f},
         {"name": "sdf_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_sdf.py:403",
-         "max_abs_err": worst_b, "ms": ms_b, "plain_ms": plain_b, **b_b},
+         "max_abs_err": worst_b, "ms": ms_b, "ms_bf16": ms_b_b, "plain_ms": plain_b, **b_b},
     ]
 
 
-def colour_net(mode: str, extra: bool, dev, seed: int):
-    """A 2x256 colour net (no weight norm, so its parameters are the dense
-    weights the kernel differentiates) with seeded, perturbed weights."""
+def colour_net(mode: str, extra: bool, dev, seed: int, dtype: str = "float32", width: int = 256):
+    """A 2x256 (or 1x128) colour net (no weight norm, so its parameters are
+    the dense weights the kernel differentiates) with seeded, perturbed
+    weights, in the operand mode ``dtype``."""
     import torch
 
     from avatarclip_torch.fields import networks as nets
 
     g = torch.Generator().manual_seed(seed)
-    net = nets.ColorNetwork(nets.ColorConfig(mode=mode, d_in=9 if mode == "idr" else 6, d_feature=256,
-                                             d_hidden=256, n_layers=2, extra_color=extra,
-                                             weight_norm=False), g)
+    net = nets.ColorNetwork(nets.ColorConfig(mode=mode, d_in=9 if mode == "idr" else 6,
+                                             d_feature=width, d_hidden=width,
+                                             n_layers=2 if width == 256 else 1, extra_color=extra,
+                                             weight_norm=False, dtype=dtype), g)
     with torch.no_grad():
         for p in net.parameters():
             p.add_(0.02 * torch.randn(p.shape, generator=g))
@@ -1210,6 +1346,18 @@ def check_colour(dev):
                               ("points", "normals", "view_dirs", "features"), ("rgb",),
                               relu_ties=True)
             worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
+    worst_bf16 = 0.0
+    for width in (256, 128):
+        fields, inputs, _, _ = neus_problem(width, 2048, dev, seed=7, dtype="bfloat16")
+        ins = colour_inputs(fields, inputs)
+        for mode, extra in (("no_view_dir", True), ("idr", False)):
+            net = colour_net(mode, extra, dev, seed=9, dtype="bfloat16", width=width)
+            P = ins[0].shape[0] - 1  # ragged
+            cots = [(0.5 + torch.rand(P, 6 if extra else 3, generator=g)).to(dev)]
+            worst_bf16 = max(worst_bf16, hold_net_bf16(
+                f"B7 {width}-wide {mode}{' + extra head' if extra else ''}, {P} points",
+                fc.color_apply_fused, fc.color_apply_plain, net, [t[:P].contiguous() for t in ins],
+                cots, ("points", "normals", "view_dirs", "features"), ("rgb",)))
 
     # time at path (e)'s points, in the path's mode (no_view_dir, extra head)
     fields, inputs, _, _ = neus_problem(256, PATH_E_RAYS, dev, seed=10)
@@ -1224,6 +1372,9 @@ def check_colour(dev):
     ms_f = cuda_ms(lambda: fc.color_fwd(spec, flat, *ins), reps=3)
     ms_b = cuda_ms(lambda: fc.color_bwd(spec, flat, *ins, cot), reps=3)
     mem_k = torch.cuda.max_memory_allocated() / 2**30
+    spec_b = dataclasses.replace(spec, bf16=True)
+    ms_f_b = cuda_ms(lambda: fc.color_fwd(spec_b, flat, *ins), reps=3)
+    ms_b_b = cuda_ms(lambda: fc.color_bwd(spec_b, flat, *ins, cot), reps=3)
     plain_f, plain_b = time_plain(lambda *xs: fc.color_apply_plain(net, *xs), ins,
                                   list(net.parameters()), [cot])
     fl_f, fl_b = fc.flops_per_point(spec)
@@ -1236,13 +1387,15 @@ def check_colour(dev):
           f"{b_f['bound_by']}, bf16 tensor-core bound {b_f['bound_ms_bf16_tc']:.3f} ms); backward "
           f"kernel {ms_b:.3f} ms (plain {plain_b:.3f} ms, bound {b_b['bound_ms']:.3f} ms "
           f"{b_b['bound_by']}, bf16 {b_b['bound_ms_bf16_tc']:.3f} ms); {fl_f:.0f} / {fl_b:.0f} GEMM "
-          f"FLOPs per point; peak memory kernel {mem_k:.2f} GiB")
-    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_color.cu", "library_ms": None}
+          f"FLOPs per point; peak memory kernel {mem_k:.2f} GiB; bf16 operand mode: forward "
+          f"{ms_f_b:.3f} ms, backward {ms_b_b:.3f} ms")
+    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_color.cu", "library_ms": None,
+              "bf16_rel_rms_err": worst_bf16}
     return [
         {"name": "color_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_color.py:230",
-         "max_abs_err": worst_f, "ms": ms_f, "plain_ms": plain_f, **b_f},
+         "max_abs_err": worst_f, "ms": ms_f, "ms_bf16": ms_f_b, "plain_ms": plain_f, **b_f},
         {"name": "color_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_color.py:244",
-         "max_abs_err": worst_b, "ms": ms_b, "plain_ms": plain_b, **b_b},
+         "max_abs_err": worst_b, "ms": ms_b, "ms_bf16": ms_b_b, "plain_ms": plain_b, **b_b},
     ]
 
 
@@ -1284,6 +1437,14 @@ def check_sdf_only(dev):
             f_, b_ = hold_net(f"#12 {'4x256' if width == 256 else '3x128'}, {P} points", fs.sdf_value_fused,
                               fs.sdf_only_plain, fields.sdf, [pts], cots, ("points",), ("sdf",))
             worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
+    worst_bf16 = 0.0
+    for width in (256, 128):
+        fields, inputs, _, _ = neus_problem(width, 2048, dev, seed=12, dtype="bfloat16")
+        pts = sweep_points(inputs)[:-1].contiguous()  # ragged
+        cots = [(0.5 + torch.rand(pts.shape[0], 1, generator=g)).to(dev)]
+        worst_bf16 = max(worst_bf16, hold_net_bf16(
+            f"#12 {'4x256' if width == 256 else '3x128'}, {pts.shape[0]} points", fs.sdf_value_fused,
+            fs.sdf_only_plain, fields.sdf, [pts], cots, ("points",), ("sdf",)))
 
     fields, inputs, _, _ = neus_problem(256, PATH_E_RAYS, dev, seed=14)
     sdf = fields.sdf
@@ -1295,6 +1456,9 @@ def check_sdf_only(dev):
     flat = torch.cat([w.detach().reshape(-1) for w in fs.dense_weights(sdf)])
     grid = ((torch.rand(GRID_CHUNK, 3, generator=g) * 2 - 1) * 1.01).to(dev)
     times = {}
+    spec_b = dataclasses.replace(spec, bf16=True)
+    with torch.no_grad():
+        ms_bf16 = cuda_ms(lambda: fs.sdf_only_fwd(spec_b, flat, pts), reps=5)
     for tag, x in (("step", pts), ("grid", grid)):
         n = x.shape[0]
         with torch.no_grad():
@@ -1306,11 +1470,13 @@ def check_sdf_only(dev):
           f"{P} points (a train_clip step's sweeps) kernel {ms:.3f} ms (plain, no grad, {plain_ms:.3f} ms; "
           f"bound {b['bound_ms']:.3f} ms {b['bound_by']}, bf16 tensor-core {b['bound_ms_bf16_tc']:.3f} ms); "
           f"{GRID_CHUNK}-point grid chunk kernel {ms_g:.3f} ms (plain {plain_g:.3f} ms, bound "
-          f"{b_g['bound_ms']:.3f} ms); the VJP (autograd of the plain version) max abs err {worst_b:.3e}")
+          f"{b_g['bound_ms']:.3f} ms); the VJP (autograd of the plain version) max abs err {worst_b:.3e}; "
+          f"bf16 operand mode {ms_bf16:.3f} ms on the step's points")
     del fields, inputs
     torch.cuda.empty_cache()
     return {"name": "sdf_only_fwd", "route": "cuda", "source": "avatarclip_torch/csrc/fused_sdf.cu",
             "replaces": "avatarclip_tpu/ops/fused_sdf.py:626", "max_abs_err": worst_f, "ms": ms,
+            "ms_bf16": ms_bf16, "bf16_rel_rms_err": worst_bf16,
             "plain_ms": plain_ms, "library_ms": None, **b, "ms_grid_chunk": ms_g,
             "plain_ms_grid_chunk": plain_g, "bound_ms_grid_chunk": b_g["bound_ms"]}
 
@@ -1488,6 +1654,8 @@ def run_main_path(tmp: str, pretrain: str):
           f"{6 * nv256} bake rays; {chunks_a} chunks of <= {VAL_CHUNK} rays")
     del runner
     torch.cuda.empty_cache()
+    extra = megakernel_against_gate_shut(conf_path, sets)
+    launches_a = {k: launches_a[k] + extra[k] for k in launches_a}
 
     # b. the validate_mesh CLI mode: 512^3 extraction, baking, cast light
     zero_counts()
@@ -1546,6 +1714,80 @@ def run_main_path(tmp: str, pretrain: str):
     del runner
     torch.cuda.empty_cache()
     return {k: launches_a[k] + launches_b[k] + launches_i[k] for k in launches_a}, (conf_path, sets)
+
+
+STEP_BF16_TOL = 1e-2  # relative, a step's loss: the megakernel path against the per-sample branch
+
+
+def megakernel_against_gate_shut(conf_path: str, sets) -> dict:
+    """Two train_clip steps from (a)'s step-8 checkpoint at the conf's own
+    compute dtype (bf16), twice from the same seed and draws: through the
+    per-ray megakernel (B1's tensor-core pair) and with neus._FORCE_MEGA =
+    False (the per-sample branch: B6 and B7 at their bf16 operands, then the
+    plain alpha and compositing). The first step's losses within
+    STEP_BF16_TOL: both paths round the dots' operands at the JAX kernels'
+    points, in another order and with other f32 sums. Prints both step times
+    (the second step: the first of a runner pays one-time costs) and
+    profiles three more megakernel steps (device busy share, time by
+    kernel). Returns the launches of the counted steps."""
+    import torch
+
+    from avatarclip_torch.pipelines import appearance
+    from avatarclip_torch.render import neus
+
+    out, total = {}, want_counts()
+    try:
+        for force in (None, False):
+            neus._FORCE_MEGA = force
+            r = appearance.Runner(conf_path, "gate", conf=resumed_conf(conf_path, sets),
+                                  is_continue=True)
+            dtype = r.conf.get_string("train.compute_dtype", "bfloat16")
+            r.init_clip()
+            r.init_smpl()
+            zero_counts()
+            losses, secs = [], []
+            for _ in range(2):
+                cam, S = r.sample_iteration_camera(r.iter_step)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _ = r.clip_loss(S, cam, r.draw_clip(S), r.iter_step)
+                r._update(loss)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(loss.detach()))
+                r.iter_step += 1
+            counts = read_counts()
+            for k, v in counts.items():
+                total[k] += v
+            out[force] = (losses, secs, counts, S)
+            if force is None:  # the step's device busy share and kernels (uncounted)
+
+                def step(r=r):
+                    cam, S_ = r.sample_iteration_camera(r.iter_step)
+                    loss, _ = r.clip_loss(S_, cam, r.draw_clip(S_), r.iter_step)
+                    r._update(loss)
+                    r.iter_step += 1
+
+                profile_steps("main a, train_clip at the conf's dtype", step, n=3)
+            del r
+            torch.cuda.empty_cache()
+    finally:
+        neus._FORCE_MEGA = None
+    (lk, tk, ck, S), (lg, tg, cg, _) = out[None], out[False]
+    if ck["neus_ray_fwd"] != 2 or ck["neus_ray_bwd"] != 2 or cg["neus_ray_fwd"] != 0:
+        fail(f"path a, megakernel against the gate shut: launches {ck} / {cg}")
+    if cg["sdf_fwd"] != 2 or cg["sdf_bwd"] != 2 or cg["color_fwd"] != 2 or cg["color_bwd"] != 2:
+        fail(f"path a, gate shut: B6 / B7 launches {cg}")
+    rel = abs(lk[0] - lg[0]) / abs(lg[0])
+    if not rel <= STEP_BF16_TOL:
+        fail(f"path a at {dtype}: loss through the megakernel {lk[0]} vs the gate shut {lg[0]} "
+             f"(rel {rel:.2e} > {STEP_BF16_TOL})")
+    print(f"[main a] one train_clip step at the conf's {dtype} from the step-{N_STEPS} checkpoint "
+          f"({S}^2 bucket), same seed and draws: loss through the per-ray megakernel {lk[0]:.7f}, "
+          f"with the gate shut (B6 / B7 per sample) {lg[0]:.7f} (rel {rel:.2e}, tolerance "
+          f"{STEP_BF16_TOL}); second step {tk[1] * 1e3:.3f} ms megakernel, {tg[1] * 1e3:.3f} ms gate "
+          f"shut (first {tk[0] * 1e3:.3f} / {tg[0] * 1e3:.3f} ms)")
+    return total
 
 
 def resumed_conf(conf_path: str, sets):
@@ -1702,10 +1944,14 @@ def hold_recorded(rec) -> dict:
     recorded inputs: the step's 802,816 points forward and backward with the
     step's own cotangents, and a 16,384-ray render chunk's 1,048,576 points
     forward. The nets are dense copies (weight norm resolved), so the weight
-    columns are the dense gradients the kernels compute. The max abs errors
-    by kernel name."""
+    columns are the dense gradients the kernels compute. At the conf's bf16
+    operand mode the holds are hold_bf16_sets'. The max abs errors by kernel
+    name (of the f32 holds)."""
+    import functools
+
     import torch
 
+    from avatarclip_torch.fields import networks as nets
     from avatarclip_torch.ops import fused_color as fc
     from avatarclip_torch.ops import fused_sdf as fs
     from avatarclip_torch.ops import hold
@@ -1724,16 +1970,30 @@ def hold_recorded(rec) -> dict:
              "color_fwd", "color_bwd")):
         r = rec[(tag, "step")]
         net = hold.dense_copy(r["net"])
+        bf16 = nets.operand_bf16(net.cfg)  # the conf's mode: bf16 at every conf's default
         cots = [torch.zeros(s, device=r["ins"][0].device) if c is None else c
                 for c, s in zip(r["cots"], r["shapes"])]
-        errs[fwd], errs[bwd] = hold_net(f"{tag} path e step, {PATH_E_POINTS} points", fused, plain, net,
-                                        r["ins"], cots, in_names, out_names, relu_ties=tag == "B7")
+        name = f"{tag} path e step, {PATH_E_POINTS} points"
+        if bf16:
+            hold_net_bf16(name, fused, plain, net, r["ins"], cots, in_names, out_names)
+        else:
+            errs[fwd], errs[bwd] = hold_net(name, fused, plain, net, r["ins"], cots, in_names,
+                                            out_names, relu_ties=tag == "B7")
         del net, cots, rec[(tag, "step")]
         r = rec[(tag, "render")]
-        f_ = hold_forward(f"{tag} path e render chunk, {VAL_CHUNK * 64} points", fused, plain,
-                          hold.dense_copy(r["net"]), r["ins"], out_names)
-        errs[fwd] = max(errs[fwd], f_)
-        del rec[(tag, "render")]
+        name, net = f"{tag} path e render chunk, {VAL_CHUNK * 64} points", hold.dense_copy(r["net"])
+        if bf16:
+            with torch.no_grad():
+                got = fused(net, *r["ins"])
+            got = list(got) if isinstance(got, tuple) else [got]
+            ref = hold.net_outputs(functools.partial(plain, bf16=False), copy.deepcopy(net).double(),
+                                   [t.double() for t in r["ins"]], chunk=REF_CHUNK)
+            hold_bf16_sets(name, out_names, got, hold.net_outputs(plain, net, r["ins"],
+                                                                  chunk=REF_CHUNK), ref)
+            del got, ref
+        else:
+            errs[fwd] = max(errs[fwd], hold_forward(name, fused, plain, net, r["ins"], out_names))
+        del net, rec[(tag, "render")]
         torch.cuda.empty_cache()
     return errs
 
@@ -2143,13 +2403,14 @@ def run_sweep_hook_path(conf_path: str, sets) -> dict:
     """networks._SWEEP_KERNEL on against off on (a)'s step-8 checkpoint: the
     validate_mesh mode's 512^3 extraction (its grid query through
     networks.sdf_value) and one train_clip step at the same seed. The
-    runners of the holds compute in float32 (train.compute_dtype): #12
-    computes in f32 whatever the conf says, and the confs' default, bf16
-    operands in the plain module (the JAX package's operand type), would set
-    the precision gap against it rather than hold the kernel. That gap, what
-    a user at the conf's own dtype sees on turning the hook on, is printed as
-    a reading: one more hook-off extraction at the conf's dtype against the
-    hook-on grid. The launches of all."""
+    runners of the holds compute in float32 (train.compute_dtype): there #12
+    and the plain module agree to f32 rounding. At the confs' bf16 the
+    kernel takes bf16 dot operands as the JAX hook does, while the plain
+    module also keeps its activations in bf16 (the JAX XLA path's rounding
+    points), so the two differ by more than rounding: what a user at the
+    conf's own dtype sees on turning the hook on is printed as a reading,
+    one more hook-off and hook-on extraction at the conf's dtype. The
+    launches of all."""
     import numpy as np
     import torch
 
@@ -2200,7 +2461,10 @@ def run_sweep_hook_path(conf_path: str, sets) -> dict:
         del runner
         runner = resumed(f32=False)
         conf_dtype = runner.conf.get_string("train.compute_dtype", "bfloat16")
-        grid["conf"] = extract(runner)
+        for hook in (False, True):
+            nets._SWEEP_KERNEL = hook
+            grid["conf", hook] = extract(runner)
+        nets._SWEEP_KERNEL = False
         del runner
         for hook in (False, True):
             r = resumed()
@@ -2230,10 +2494,11 @@ def run_sweep_hook_path(conf_path: str, sets) -> dict:
         fail(f"path h grid: launches hook off {k0}, hook on {k1} for {c1} chunks")
     if not rel <= 1e-5 or not abs(nv1 - nv0) <= 1e-3 * nv0:
         fail(f"path h grid: hook on vs off rel err {rel:.2e}, vertices {nv1} vs {nv0}")
-    u_c, nv_c, c_c, k_c, w_c = grid["conf"]
-    if k_c != want_counts():
-        fail(f"path h grid at the conf's dtype, hook off: launches {k_c}")
-    rel_c = float(np.abs(u1 - u_c).max()) / max(float(np.abs(u_c).max()), 1e-12)
+    u_c, nv_c, c_c, k_c, w_c = grid["conf", False]
+    u_cb, nv_cb, c_cb, k_cb, w_cb = grid["conf", True]
+    if k_c != want_counts() or k_cb != want_counts(sdf_only_fwd=c_cb):
+        fail(f"path h grid at the conf's dtype: launches hook off {k_c}, hook on {k_cb}")
+    rel_c = float(np.abs(u_cb - u_c).max()) / max(float(np.abs(u_c).max()), 1e-12)
     (l0, s0, t_0, S), (l1, s1, t_1, _) = step[False], step[True]
     if s0["sdf_only_fwd"] != 0 or s1 != {**s0, "sdf_only_fwd": sweeps}:
         fail(f"path h step: launches hook off {s0}, hook on {s1}")
@@ -2243,8 +2508,9 @@ def run_sweep_hook_path(conf_path: str, sets) -> dict:
           f"{w0:.3f} s ({c0} chunks), on {w1:.3f} s ({c1} chunks, #12 launched {k1['sdf_only_fwd']} "
           f"times); grid rel err {rel:.3e}, marching-cubes vertices {nv1} vs {nv0}")
     print(f"[main h] reading, not a hold: at the conf's compute_dtype ({conf_dtype}) the hook-off grid "
-          f"({w_c:.3f} s, {c_c} chunks) is {rel_c:.3e} relative from the hook-on (f32 kernel) grid, "
-          f"marching-cubes vertices {nv_c} off vs {nv1} on ({(nv1 - nv_c) / nv_c * 100:+.3f}%)")
+          f"({w_c:.3f} s, {c_c} chunks) is {rel_c:.3e} relative from the hook-on grid (#12 at its bf16 "
+          f"operands, {w_cb:.3f} s), marching-cubes vertices {nv_c} off vs {nv_cb} on "
+          f"({(nv_cb - nv_c) / nv_c * 100:+.3f}%)")
     print(f"[main h] one train_clip step from the step-{N_STEPS} checkpoint ({S}^2 bucket): loss hook off "
           f"{l0:.7f}, on {l1:.7f} (rel {abs(l1 - l0) / abs(l0):.2e}); {t_0 * 1e3:.3f} / {t_1 * 1e3:.3f} ms "
           f"(first step of a runner); #12 launches {s1['sdf_only_fwd']}; launches hook on {s1}")
@@ -2276,7 +2542,7 @@ def main() -> None:
     libs = [("raster_zbuffer", "raster_zbuffer.cu"), ("fused_neus_ray", "fused_neus_ray.cu"),
             ("fused_neus_point", "fused_neus_point.cu"), ("fused_composite", "fused_composite.cu"),
             ("fused_soft", "fused_soft.cu"), ("fused_sdf", "fused_sdf.cu"),
-            ("fused_color", "fused_color.cu")]
+            ("fused_color", "fused_color.cu"), ("fused_neus_ray_tc", "fused_neus_ray_tc.cu")]
     _build.load_all(libs)
     _build.load_host("marching_cubes", "marching_cubes.cpp")
     _build.load_host("mesh_ops", "mesh_ops.cpp")

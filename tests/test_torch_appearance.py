@@ -192,7 +192,7 @@ def test_cli_train_clip_writes_logs_and_checkpoint(tmp_path):
     conf_path = tmp_path / "tiny.conf"
     conf_path.write_text(synthetic.make_conf_text(str(tmp_path / "exp"), data, "tiny"))
     base = ["--mode", "train_clip", "--conf", str(conf_path), "--set", "train.save_freq=2",
-            "--device", "cpu"]
+            "--device", "cpu", "--gpu", "0"]
     r = tapp.main(base + ["--set", "train.end_iter=2"])
     assert r.iter_step == 2 and len(r.step_seconds) == 2
     recs = [json.loads(x) for x in (tmp_path / "exp" / "logs" / "metrics.jsonl").read_text().splitlines()]
@@ -223,4 +223,56 @@ def test_runner_and_cli_use_cuda_unless_asked_for_the_cpu(tmp_path):
         tapp.Runner(None, mode="none", conf=conf)
     with pytest.raises(RuntimeError, match="CUDA"):
         tapp.main(["--mode", "train", "--conf", str(conf_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tapp.main(["--mode", "train", "--conf", str(conf_path), "--gpu", "1"])
+
+
+def test_cli_gpu_selects_the_card(tmp_path, monkeypatch):
+    """``--gpu N`` names the card ``cuda:N``; ``--device cpu`` ignores it."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_runner(*args, device=None, **kw):
+        seen.append(str(device))
+        raise Stop
+
+    monkeypatch.setattr(tapp, "Runner", fake_runner)
+    conf_path = tmp_path / "tiny.conf"
+    conf_path.write_text(jsyn.make_conf_text(str(tmp_path / "exp"), str(tmp_path), "tiny"))
+    for argv in (["--gpu", "3"], [], ["--gpu", "2", "--device", "cpu"]):
+        with pytest.raises(Stop):
+            tapp.main(["--mode", "train", "--conf", str(conf_path)] + argv)
+    assert seen == ["cuda:3", "cuda:0", "cpu"]
+
+
+@pytest.mark.parametrize("git_works", [True, False])
+def test_file_backup_records_git_revision(tmp_path, monkeypatch, git_works):
+    """recording/ holds the conf and, when git answers, git_revision.txt
+    (as the JAX Runner's file_backup); nothing of the revision when git
+    fails."""
+    import subprocess
+
+    calls = []
+
+    def fake_run(argv, **kw):
+        calls.append(argv)
+        if not git_works:
+            raise subprocess.CalledProcessError(128, argv)
+        return subprocess.CompletedProcess(argv, 0, stdout="0123abcd\n", stderr="")
+
+    monkeypatch.setattr(tapp.subprocess, "run", fake_run)
+    conf_path = tmp_path / "a.conf"
+    conf_path.write_text("general { }\n")
+    runner = tapp.Runner.__new__(tapp.Runner)
+    runner.base_exp_dir, runner.conf_path = str(tmp_path / "exp"), str(conf_path)
+    runner.file_backup()
+    rec = tmp_path / "exp" / "recording"
+    assert (rec / "config.conf").read_text() == "general { }\n"
+    assert calls and calls[0][:2] == ["git", "rev-parse"]
+    if git_works:
+        assert (rec / "git_revision.txt").read_text() == "0123abcd\n"
+    else:
+        assert not (rec / "git_revision.txt").exists()
 

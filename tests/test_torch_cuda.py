@@ -309,3 +309,87 @@ def test_color_kernel_pair_matches_plain(dev, mode, extra):
     n_p = len(grf) - 4
     grf[n_p:], _ = hold.resolve_relu_ties(ref, ins64, cots[0].double(), gk[n_p:], grf[n_p:])
     assert max(hold.rel_errors(gk, grf)) <= 1e-3
+
+
+def _bf16_nets(dev, seed=0):
+    """3x128 / 1x128 nets (extra head, no weight norm) at the confs' bf16
+    operand mode, and 64 rays x 32 samples."""
+    from avatarclip_torch.fields import networks as nets
+
+    g = torch.Generator().manual_seed(seed)
+    fields = nets.NeuSFields(
+        nets.SDFConfig(d_out=129, d_hidden=128, n_layers=3, skip_in=(3,), weight_norm=False,
+                       dtype="bfloat16"),
+        nets.ColorConfig(d_feature=128, d_hidden=128, n_layers=1, extra_color=True,
+                         weight_norm=False, dtype="bfloat16"), 0.3, g)
+    with torch.no_grad():
+        for p in fields.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    R, S = 64, 32
+    ro = torch.tensor([[0.0, 0.0, -2.2]]).expand(R, 3) + 0.1 * torch.randn(R, 3, generator=g)
+    rd = torch.tensor([[0.0, 0.0, 1.0]]) + 0.05 * torch.randn(R, 3, generator=g)
+    rd = rd / rd.norm(dim=-1, keepdim=True)
+    z = torch.sort(torch.linspace(1.2, 3.2, S)[None] + 0.01 * torch.rand(R, S, generator=g))[0]
+    dt = torch.cat([z[:, 1:] - z[:, :-1], torch.full((R, 1), 2.0 / S)], -1)
+    return fields.to(dev), [t.to(dev) for t in (ro, rd, z + dt * 0.5, dt)]
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B3", "B6", "B7", "sdf_only"])
+def test_bf16_operand_mode_holds_against_the_f32_function(dev, kernel):
+    """Each NeuS kernel at the bf16 operand mode (B1: the tensor-core pair)
+    against its plain bf16 version, both held to the f32 function in
+    float64: outputs and every gradient within ops/hold.bf16_within (twice
+    the plain version's relative RMS error plus a floor)."""
+    import copy
+    import functools
+
+    from avatarclip_torch.ops import fused_color as fc
+    from avatarclip_torch.ops import fused_neus as fn
+    from avatarclip_torch.ops import fused_sdf as fs
+    from avatarclip_torch.ops import hold
+
+    fields, ins = _bf16_nets(dev)
+    f64 = copy.deepcopy(fields).double()
+    if kernel in ("B1", "B3"):
+        kernel_fn, plain_fn = ((fn.point_eval_ray, fn.point_eval_ray_plain) if kernel == "B1"
+                               else (fn.point_eval, fn.point_eval_plain))
+        used = (0, 1, 2, 3) if kernel == "B1" else (0, 1, 2, 3, 4, 6)
+
+        def run(f, flds, xs_in):
+            xs = [t.clone().requires_grad_(True) for t in xs_in]
+            outs = f(flds.sdf, flds.color, *xs, flds.variance.inv_s(), 0.4)
+            outs = [outs[i] for i in used]
+            loss = sum(((o * o).sum() if o.dim() else o) for o in outs)
+            return outs + list(torch.autograd.grad(loss, list(flds.parameters()) + xs))
+
+        launches = fn.LAUNCHES["neus_ray_fwd" if kernel == "B1" else "neus_point_fwd"]
+        got = run(kernel_fn, fields, ins)
+        assert fn.LAUNCHES["neus_ray_fwd" if kernel == "B1" else "neus_point_fwd"] == launches + 1
+        plain = run(plain_fn, fields, ins)
+        ref = run(functools.partial(plain_fn, bf16=False), f64, [t.double() for t in ins])
+    else:
+        ro, rd, mid, _ = ins
+        pts = (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3).contiguous()
+        g = torch.Generator().manual_seed(3)
+        if kernel == "B7":
+            with torch.no_grad():
+                _, feat, grad = fields.sdf.sdf_with_gradient(pts)
+            net, fused, plain_fn = fields.color, fc.color_apply_fused, fc.color_apply_plain
+            n = grad / (grad.norm(dim=-1, keepdim=True) + 1e-6)
+            dirs = rd[:, None].expand(-1, mid.shape[1], -1).reshape(-1, 3).contiguous()
+            xs, cots = [pts, n.contiguous(), dirs, feat.contiguous()], [torch.rand(len(pts), 6, generator=g)]
+        else:
+            net = fields.sdf
+            fused, plain_fn = ((fs.sdf_with_gradient_fused, fs.sdf_with_gradient_plain) if kernel == "B6"
+                               else (fs.sdf_value_fused, fs.sdf_only_plain))
+            widths = (1, 128, 3) if kernel == "B6" else (1,)
+            xs, cots = [pts], [torch.rand(len(pts), k, generator=g) for k in widths]
+        cots = [c.to(dev) for c in cots]
+        ok, gk = hold.net_grads(fused, net, xs, cots)
+        op, gp = hold.net_grads(plain_fn, net, xs, cots)
+        orf, grf = hold.net_grads(functools.partial(plain_fn, bf16=False), copy.deepcopy(net).double(),
+                                  [t.double() for t in xs], [c.double() for c in cots])
+        got, plain, ref = ok + gk, op + gp, orf + grf
+    for i, (a, p, r) in enumerate(zip(got, plain, ref)):
+        ek, ep, ok_ = hold.bf16_within(a, p, r)
+        assert ok_, (kernel, i, ek, ep)
