@@ -18,37 +18,43 @@
 // What bounds it on this card: the GEMMs, 1,186,304 FLOPs a point forward
 // and 3,558,912 backward at 4x256 / 2x256 (0.96 / 2.89 ms at 12,544 x 64 at
 // the 989 TFLOP/s bf16 tensor-core peak); f32 FMAs on the CUDA cores could
-// not go below 14.2 / 42.6 ms. Beside them the kernels move the per-tile
-// states: the backward's scratch (about 1.2 MB a ray, written once and read
-// once, past L2 for 132 CTAs) and the weight-gradient partials (1.6 MB,
-// read and written once a ray). Measured (PERF.md), the forward is far from
-// both: its product loop is bound by moving the operands through shared
-// memory (mma.sync reads them through the register file, and every warp
-// re-reads the 64-row A tile), not by the tensor cores.
+// not go below 14.2 / 42.6 ms. Measured (PERF.md, tools/profile_b1.py's
+// phase counts), both kernels are far from it: the product loops run at a
+// fraction of the tensor cores' rate (mma.sync's operands through shared
+// memory and the register file, a barrier every two k-steps), and the
+// epilogues (activations, the 16-bit scratch states) take as long again.
 //
 // Design (neus_tc.cuh):
 // - one ray (64 rows) per tile, persistent CTAs (one per SM, 512 threads,
-//   210-230 KB of dynamic shared memory at 256 wide) walking the rays;
+//   210-227 KB of dynamic shared memory at 256 wide) walking the rays;
 // - every product on mma.sync.m16n8k16 (bf16 x bf16 -> f32), warps in a
 //   2 x 8 grid of 32-row x 32-column tiles. Activations stay in shared
 //   memory (bf16, padded stride: conflict-free ldmatrix); the weights,
 //   pre-packed as B-fragments, stream from L2 through a cp.async ring of
-//   two-k-step stages (three in the forward, two in the backward: its
-//   shared memory is fuller); warps without columns in a product skip its
-//   fragment loads;
-// - epilogues read their inputs (biases, residuals) for a 16-row slab at
-//   once, then apply bias and activation and write the next layer's bf16
-//   operand; the gradient sweep's sigmoid factors stay in f32 in a per-CTA
-//   global scratch (about 200 KB a CTA at 4x256, L2-resident: recomputing
-//   them would cost a GEMM a layer, forward tangents three);
-// - the backward keeps every layer's states in that scratch (bf16 where
-//   they only feed products, f32 where they enter elementwise maths),
-//   ping-pongs the current activations and tangents in shared memory, and
-//   forms each weight gradient per tile as a tensor-core product over the
-//   tile's 64 rows (gemm_wgrad, ldmatrix.trans fragments), added to the
-//   CTA's f32 partial (asked into L2 by prefetch a phase ahead of its
-//   read-modify-write); a fixed-order second pass (reduce_partials) sums
-//   the partials: no atomics, deterministic;
+//   two-k-step stages (three deep); warps without columns in a product skip
+//   its fragment loads;
+// - epilogues read their inputs for a 16-row slab (or an n-tile) at once,
+//   then apply bias and activation and write the next layer's bf16 operand;
+// - the states the later sweeps read (sigmoid factors, tangent
+//   pre-activations, a_s) go to a per-CTA global scratch in 16 bits: a
+//   sigmoid factor as the smaller of p and 1 - p in f16 with a side bit
+//   (sig_load: both to 2^-11 of themselves), tangent pre-activations in
+//   bf16, so that the 132 resident CTAs' scratch (~0.3 MB each at 4x256)
+//   stays in L2. These roundings are not JAX's: the bf16 holds bound them;
+// - the backward runs the rays in chunks (8 a CTA). Its per-ray kernel
+//   writes the bf16 operands of every weight gradient (each layer's input
+//   and input tangent, the cotangents on its outputs) once into a log, and
+//   wgrad_kernel forms each dW = sum over the chunk's points of X^T Y as a
+//   tensor-core GEMM split over the points (128 x 128 tiles, 32-row stages
+//   by cp.async, ldmatrix.trans fragments); every split has its own f32
+//   partial rows, summed by reduce_partials in a fixed order: no atomics,
+//   the same sums every run. The per-ray kernel keeps only the bias, sdf-row
+//   and inv_s sums in its own partial row;
+// - the reverse products fuse the elementwise step that follows them into
+//   their epilogue (gemm_fused): the relu masks of the colour net, the skip
+//   and hidden layers' forward-over-reverse cotangents, with the bias sums
+//   as fixed-order column sums; an SDF layer's two reverse products (the
+//   cotangent and its tangent) share one weight stream (DUAL);
 // - compositing and its VJP on one warp as scans over the ray's samples
 //   (a product scan for the transmittance, an affine suffix scan for the
 //   VJP's running term) instead of a serial loop on one thread.
@@ -67,6 +73,7 @@ constexpr int RB = 8;  // rows read ahead of their stores in the column passes
 // gets the two halves' sums in a fixed order. Ends with __syncthreads.
 template <class Body>
 __device__ __forceinline__ void column_pass(int ncol, float* red, float* bias_grad, Body body) {
+  phase_mark(PH_OTHER);
   const int half = threadIdx.x / (TNT / 2), cc = threadIdx.x % (TNT / 2);
   for (int c0 = 0; c0 < ncol; c0 += TNT / 2) {
     const int c = c0 + cc;
@@ -75,6 +82,7 @@ __device__ __forceinline__ void column_pass(int ncol, float* red, float* bias_gr
     if (half == 0 && c < ncol) bias_grad[c] += red[threadIdx.x] + red[threadIdx.x + TNT / 2];
     __syncthreads();
   }
+  phase_mark(PH_COLPASS);
 }
 
 // fixed-order CTA sum of one value per thread (result valid in thread 0)
@@ -91,10 +99,28 @@ __device__ float cta_sum_tc(float v, float* red) {
   return s;
 }
 
-// the ray's points (zero past S) and their encoding: ef, de (, dde) in f32,
-// eb = bf16(ef) with its padding columns zero
+// encoding column j of a point p (3 floats): its value, and its first and
+// second derivatives in the scaled coordinate
+__device__ __forceinline__ void pe_eval(const Dims& d, const float* p, int j, float& val, float& dv,
+                                        float& ddv) {
+  int c, kind;
+  float f;
+  pe_column(j, c, f, kind);
+  const float xs = p[c] * d.scale;
+  if (kind == 0) {
+    val = xs; dv = 1.f; ddv = 0.f;
+  } else {
+    const float sn = sinf(f * xs), cs = cosf(f * xs);
+    if (kind == 1) { val = sn; dv = f * cs; ddv = -f * f * sn; }
+    else { val = cs; dv = -f * sn; ddv = -f * f * cs; }
+  }
+}
+
+// the ray's points (zero past S) and their encoding: eb = bf16 values with
+// its padding columns zero; the forward also keeps the f32 values ef and
+// derivatives de (the backward recomputes them where it needs them)
 __device__ __forceinline__ void ray_points(const Dims& d, const Layout& L, unsigned char* sm, const float* ray,
-                           const float* z, bool second) {
+                           const float* z, bool keep_f32) {
   const int tid = threadIdx.x;
   float* pts = (float*)(sm + L.pts);
   for (int e = tid; e < ROWS * 3; e += TNT) {
@@ -104,26 +130,16 @@ __device__ __forceinline__ void ray_points(const Dims& d, const Layout& L, unsig
   __syncthreads();
   float* ef = (float*)(sm + L.ef);
   float* de = (float*)(sm + L.de);
-  float* dde = second ? (float*)(sm + L.dde) : nullptr;
   bf16* eb = (bf16*)(sm + L.eb);
   for (int e = tid; e < ROWS * L.ldE; e += TNT) {
     const int r = e / L.ldE, j = e % L.ldE;
     if (j >= d.E) { eb[e] = to_bf(0.f); continue; }
-    int c, kind;
-    float f;
-    pe_column(j, c, f, kind);
-    const float xs = pts[r * 3 + c] * d.scale;
     float val, dv, ddv;
-    if (kind == 0) {
-      val = xs; dv = 1.f; ddv = 0.f;
-    } else {
-      const float sn = sinf(f * xs), cs = cosf(f * xs);
-      if (kind == 1) { val = sn; dv = f * cs; ddv = -f * f * sn; }
-      else { val = cs; dv = -f * sn; ddv = -f * f * cs; }
+    pe_eval(d, pts + r * 3, j, val, dv, ddv);
+    if (keep_f32) {
+      ef[r * d.E + j] = val;
+      de[r * d.E + j] = dv;
     }
-    ef[r * d.E + j] = val;
-    de[r * d.E + j] = dv;
-    if (dde) dde[r * d.E + j] = ddv;
     eb[e] = to_bf(val);
   }
   __syncthreads();
@@ -135,48 +151,61 @@ __device__ inline const uint2* mat(const uint2* pk, const Pack& pp, int i) { ret
 // factors to P), the skip-producing layer (u[:, :SW] = bf16(a_s), f32 a_s
 // to AS, sigmoid to PS when given; ts = bf16(wsa * p_s) when given), the
 // embedding half of u, then the head's feature rows into cin[:, 6:].
-// xcopy (when given): every hidden output also to xcopy + i * 64 * ldX.
-template <int NS, class Hout>
+// xlog(i, ptr, ld) true: hidden output i (i < NH), and u (i = -1), are also
+// copied to the log at ptr (stride ld).
+struct NoLog {
+  __device__ bool operator()(int, bf16*&, int&) const { return false; }
+};
+
+__device__ inline void put(float* p, float v) { *p = v; }
+__device__ inline void put(f16* p, float v) { *p = __float2half_rn(v); }
+
+template <int NS, class Hout, class ASt, class XLog = NoLog>
 __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, unsigned char* sm, const float* wts,
-                              const WeightOffsets& wo, const uint2* pk, const Pack& pp, float* P,
-                              float* AS, float* PS, bf16* ts, Hout hout, bf16* xcopy = nullptr) {
+                              const WeightOffsets& wo, const uint2* pk, const Pack& pp, f16* P,
+                              ASt* AS, f16* PS, bf16* ts, Hout hout, XLog xlog = NoLog()) {
   const int H = d.H, SW = d.SW, ldX = L.ldX;
   uint2* ring = (uint2*)(sm + L.ring);
   const bf16* in = (const bf16*)(sm + L.eb);
   int ld_in = L.ldE;
   for (int i = 0; i < d.NH; ++i) {
     const float* bias = wts + wo.sb[i];
-    float* Pi = P + (size_t)i * ROWS * H;
+    f16* Pi = P + (size_t)i * ROWS * H;
     bf16* out = hout(i);
-    bf16* xc = xcopy ? xcopy + (size_t)i * ROWS * ldX : nullptr;
+    phase_tag(0);
     gemm_rows_pre<NS>(in, ld_in, sdf_in(d, i), mat(pk, pp, FS + i), H, ring,
                   [&](int, int c) { return c < H ? bias[c] : 0.f; },
                   [&](int r, int c, float v, float b) {
       float sp, sg;  // computed for every column, stored for c < H: no branch
-      sp_sig_fast(v + b, sp, sg);
+      f16 sk;
+      sp_sig_fast(v + b, sp, sg, sk);
       if (c < H) {
         out[r * ldX + c] = to_bf(sp);
-        if (xc) xc[r * ldX + c] = to_bf(sp);
-        Pi[r * H + c] = sg;
+        Pi[r * H + c] = sk;
       }
     });
+    bf16* lp;
+    int lld;
+    if (xlog(i, lp, lld)) log_put(lp, lld, out, ldX, H);
     in = out;
     ld_in = ldX;
   }
   bf16* u = (bf16*)(sm + L.u);
   const float* bs = wts + wo.sb[d.NH];
   const float* w0 = wts + wo.sw[d.NH + 1];  // the head's sdf row
+  phase_tag(1);
   gemm_rows_pre<NS>(in, ldX, H, mat(pk, pp, FS + d.NH), SW, ring,
                 [&](int, int c) { return c < SW ? make_float2(bs[c], w0[c]) : make_float2(0.f, 0.f); },
                 [&](int r, int c, float v, float2 bw) {
     float sp, sg;
-    sp_sig_fast(v + bw.x, sp, sg);
+    f16 sk;
+    sp_sig_fast(v + bw.x, sp, sg, sk);
     const bool in = c < SW;
     if (ts) ts[r * ldX + c] = to_bf(in ? bw.y * RSQRT2 * sg : 0.f);
     if (in) {
       u[r * ldX + c] = to_bf(sp);
-      AS[r * SW + c] = sp;
-      if (PS) PS[r * SW + c] = sg;
+      put(AS + r * SW + c, sp);
+      if (PS) PS[r * SW + c] = sk;
     }
   });
   const bf16* eb = (const bf16*)(sm + L.eb);
@@ -185,8 +214,14 @@ __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, un
     u[r * ldX + SW + j] = eb[r * L.ldE + j];
   }
   __syncthreads();
+  {
+    bf16* lp;
+    int lld;
+    if (xlog(-1, lp, lld)) log_put(lp, lld, u, ldX, H);
+  }
   bf16* cin = (bf16*)(sm + L.cin);
   const float* bf = wts + wo.sb[d.NH + 1] + 1;
+  phase_tag(2);
   gemm_rows_pre<NS>(u, ldX, H, mat(pk, pp, FHEAD), d.F, ring,
                 [&](int, int c) { return c < d.F ? bf[c] : 0.f; },
                 [&](int r, int c, float v, float b) {
@@ -194,12 +229,12 @@ __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, un
                 });
 }
 
-// colour primal: relu layers (outputs to aout(l), and to acopy + l * 64 *
-// ldX when given), the raw head into head
-template <int NS, class Aout>
+// colour primal: relu layers (outputs to aout(l), and to the log when
+// alog(l, ptr, ld)), the raw head into head
+template <int NS, class Aout, class ALog = NoLog>
 __device__ __forceinline__ void colour_primal_tc(const Dims& d, const Layout& L, unsigned char* sm,
                                  const float* wts, const WeightOffsets& wo, const uint2* pk,
-                                 const Pack& pp, Aout aout, bf16* acopy = nullptr) {
+                                 const Pack& pp, Aout aout, ALog alog = NoLog()) {
   uint2* ring = (uint2*)(sm + L.ring);
   const bf16* x = (const bf16*)(sm + L.cin);
   int ldx = L.ldC;
@@ -207,21 +242,21 @@ __device__ __forceinline__ void colour_primal_tc(const Dims& d, const Layout& L,
     const float* bias = wts + wo.cb[l];
     bf16* a = aout(l);
     const int ldX = L.ldX, HC = d.HC;
-    bf16* ac = acopy ? acopy + (size_t)l * ROWS * ldX : nullptr;
+    phase_tag(3);
     gemm_rows_pre<NS>(x, ldx, col_in(d, l), mat(pk, pp, FC + l), HC, ring,
                   [&](int, int c) { return c < HC ? bias[c] : 0.f; },
                   [&](int r, int c, float v, float b) {
-      const bf16 h = to_bf(fmaxf(v + b, 0.f));
-      if (c < HC) {
-        a[r * ldX + c] = h;
-        if (ac) ac[r * ldX + c] = h;
-      }
+      if (c < HC) a[r * ldX + c] = to_bf(fmaxf(v + b, 0.f));
     });
+    bf16* lp;
+    int lld;
+    if (alog(l, lp, lld)) log_put(lp, lld, a, ldX, HC);
     x = a;
     ldx = L.ldX;
   }
   float* head = (float*)(sm + L.head);
   const float* bh = wts + wo.cb[d.NHC];
+  phase_tag(3);
   gemm_rows_pre<NS>(x, ldx, d.HC, mat(pk, pp, FC + d.NHC), d.W, ring,
                 [&](int, int c) { return c < d.W ? bh[c] : 0.f; },
                 [&](int r, int c, float v, float b) {
@@ -241,11 +276,12 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_fwd_kernel(
   const Layout L = tc_layout(d, false);
   const WeightOffsets wo = weight_offsets(d);
   unsigned char* scr = scr_all + (size_t)blockIdx.x * scr_stride;
-  float* P = (float*)(scr + L.P);
+  f16* P = (f16*)(scr + L.P);
   float* AS = (float*)(scr + L.AS);
   const int S = d.S, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int H = d.H, SW = d.SW, E = d.E, ldX = L.ldX;
   const float inv_s = *inv_s_ptr;
+  phase_start();
   float* ray = (float*)(sm + L.ray);
   float* pts = (float*)(sm + L.pts);
   float* g = (float*)(sm + L.g);
@@ -266,12 +302,12 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_fwd_kernel(
       ray[3 + tid] = rays_d[rid * 3 + tid];
     }
     __syncthreads();
-    ray_points(d, L, sm, ray, mid_z + (size_t)rid * S, false);
+    ray_points(d, L, sm, ray, mid_z + (size_t)rid * S, true);
     // hidden layers alternate ha / hb; ts (the sweep's first operand) takes
     // the buffer the skip layer does not read
     bf16* skip_in = (d.NH % 2) ? ha : hb;
     bf16* ts = skip_in == ha ? hb : ha;
-    sdf_primal_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, P, AS, nullptr, ts,
+    sdf_primal_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, P, AS, (f16*)nullptr, ts,
                   [&](int i) { return (i % 2) ? hb : ha; });
     // the head's sdf row in f32: four threads a row, fixed order
     if (tid < 4 * ROWS) {
@@ -294,17 +330,23 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_fwd_kernel(
       for (int i = d.NH; i >= 0; --i) {
         const int K = i == d.NH ? SW : H, N = i == 0 ? E : H;
         if (i > 0) {
-          const float* Pm = P + (size_t)(i - 1) * ROWS * H;
+          const f16* Pm = P + (size_t)(i - 1) * ROWS * H;
           bf16* o = nxt;
+          phase_tag(11);
           gemm_rows_pre<NSTAGE_FWD>(
               cur, ldX, K, mat(pk, pp, RS + i), N, ring,
-              [&](int r, int c) { return c < N ? Pm[r * H + c] : 0.f; },
+              [&](int r, int c) {
+                float p = 0.f, q;
+                if (c < N) sig_load(Pm[r * H + c], p, q);
+                return p;
+              },
               [&](int r, int c, float v, float p) {
                 if (c < N) o[r * ldX + c] = to_bf(v * p);
               });
           nxt = (bf16*)cur;
           cur = o;
         } else {
+          phase_tag(11);
           gemm_rows<NSTAGE_FWD>(cur, ldX, K, mat(pk, pp, RS + 0), N, ring, [&](int r, int c, float v) {
             if (c < N) qe[r * E + c] = v;
           });
@@ -379,6 +421,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_fwd_kernel(
     eik_part[blockIdx.x * 2 + 0] = num;
     eik_part[blockIdx.x * 2 + 1] = den;
   }
+  phase_end(0);
 }
 
 __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
@@ -390,7 +433,8 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
     const float* __restrict__ c_nw, const float* __restrict__ c_ws,
     const float* __restrict__ c_eik, float* __restrict__ d_o, float* __restrict__ d_d,
     float* __restrict__ d_z, float* __restrict__ d_t, float* __restrict__ gpart,
-    unsigned char* __restrict__ scr_all, long long scr_stride) {
+    unsigned char* __restrict__ scr_all, long long scr_stride, WLog lg, bf16* __restrict__ log,
+    long long log_rows, int ray0, int ray1) {
   extern __shared__ __align__(16) unsigned char sm[];
   const Layout L = tc_layout(d, true);
   const WeightOffsets wo = weight_offsets(d);
@@ -399,15 +443,12 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
   const int S = d.S, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int H = d.H, SW = d.SW, E = d.E, F = d.F, HC = d.HC, CW = d.CW, W = d.W;
   const int ldX = L.ldX, ldE = L.ldE, ldC = L.ldC, ldF = L.ldF;
-  const size_t act = (size_t)ROWS * ldX;  // bf16 elements of one activation buffer
   const float inv_s = *inv_s_ptr;
   const float c_num = c_eik[0];
+  phase_start();
   float* ray = (float*)(sm + L.ray);
   float* pts = (float*)(sm + L.pts);
   float* g = (float*)(sm + L.g);
-  const float* ef = (const float*)(sm + L.ef);
-  const float* de = (const float*)(sm + L.de);
-  const float* dde = (const float*)(sm + L.dde);
   const bf16* eb = (const bf16*)(sm + L.eb);
   bf16* tb0 = (bf16*)(sm + L.tb0);
   bf16* u = (bf16*)(sm + L.u);
@@ -426,40 +467,48 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
   float* cdir = (float*)(sm + L.cdir);
   float* dx = (float*)(sm + L.dx);
   float* cs = (float*)(sm + L.cs);
-  float* P = (float*)(scr + L.P);
-  float* AS = (float*)(scr + L.AS);
-  bf16* X = (bf16*)(scr + L.X);
-  bf16* TI = (bf16*)(scr + L.TI);
-  float* ZD = (float*)(scr + L.ZD);
-  float* PS = (float*)(scr + L.PS);
-  float* ZDS = (float*)(scr + L.ZDS);
-  bf16* ACT = (bf16*)(scr + L.ACT);
-  float* CA = (float*)(scr + L.CA);
-  float* CCIN = (float*)(scr + L.CCIN);
-  float* CU = (float*)(scr + L.CU);
+  f16* P = (f16*)(scr + L.P);
+  f16* AS = (f16*)(scr + L.AS);
+  bf16* ZD = (bf16*)(scr + L.ZD);
+  f16* PS = (f16*)(scr + L.PS);
+  bf16* ZDS = (bf16*)(scr + L.ZDS);
   float* CH = (float*)(scr + L.CH);
   float* CHD = (float*)(scr + L.CHD);
+  float* ccin6 = (float*)(sm + L.ccin6);
+  float* cue = (float*)(sm + L.cue);
   const float* wfin = wts + wo.sw[d.NH + 1];
   uint2* ring = (uint2*)(sm + L.ring);
   float* red = (float*)(sm + L.red);
-  for (size_t e = tid; e < wo.total + 1; e += TNT) gp[e] = 0.f;
+  // gp: zero from the caller, summed over the chunks
   for (size_t e = tid; e < L.smem / 4; e += TNT) ((float*)sm)[e] = 0.f;
-  for (size_t e = tid; e < L.scratch / 4; e += TNT) ((float*)scr)[e] = 0.f;
   __syncthreads();
   float civ = 0.f;
-  for (int rid = blockIdx.x; rid < R; rid += gridDim.x) {
+  for (int rid = ray0 + blockIdx.x; rid < ray1; rid += gridDim.x) {
+    // this ray's rows of log region m, and its stride
+    const long long q0 = (long long)(rid - ray0) * ROWS;
+    auto lp = [&](int m) { return log_at(log, lg, log_rows, m, q0); };
+    auto lput = [&](int m, const bf16* src, int lds, int ncols) { log_put(lp(m), lg.ld[m], src, lds, ncols); };
+    auto to_log = [&](int base) {
+      return [&, base](int i, bf16*& p, int& ld) {
+        const int m = i < 0 ? LG_U : base + i;
+        p = lp(m);
+        ld = lg.ld[m];
+        return true;
+      };
+    };
     if (tid < 3) {
       ray[tid] = rays_o[rid * 3 + tid];
       ray[3 + tid] = rays_d[rid * 3 + tid];
     }
     __syncthreads();
     const float* z = mid_z + (size_t)rid * S;
-    ray_points(d, L, sm, ray, z, true);
+    ray_points(d, L, sm, ray, z, false);
+    lput(LG_EB, eb, ldE, E);
     // ---- primal stacks (the gradient and sdf are the forward's residuals);
     // the hidden and colour activations ping-pong in shared memory, with a
-    // copy in scratch for the weight gradients
+    // copy in the log for the weight gradients
     sdf_primal_tc<NSTAGE_BWD>(d, L, sm, wts, wo, pk, pp, P, AS, PS, nullptr,
-                  [&](int i) { return (i % 2) ? czd : cz; }, X);
+                  [&](int i) { return (i % 2) ? czd : cz; }, to_log(LG_X));
     for (int e = tid; e < ROWS * 3; e += TNT) {
       const int r = e / 3;
       g[e] = r < S ? g_res[(size_t)rid * S * 3 + e] : 0.f;
@@ -476,10 +525,13 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
                              cos_r).alpha;
     }
     __syncthreads();
-    colour_primal_tc<NSTAGE_BWD>(d, L, sm, wts, wo, pk, pp, [&](int l) { return (l % 2) ? czd : cz; }, ACT);
+    lput(LG_CIN, cin, ldC, CW);
+    colour_primal_tc<NSTAGE_BWD>(d, L, sm, wts, wo, pk, pp, [&](int l) { return (l % 2) ? czd : cz; },
+                                 to_log(LG_ACT));
     // ---- compositing VJP on warp 0: L = sum_k w_k u_k, w_k = alpha_k T_k,
     // dL/dalpha_k = T_k (u_k - B_k) with B_{k-1} = u_k alpha_k + x_k B_k
     // (an affine suffix scan), lane k holding samples k and k + 32
+    phase_mark(PH_OTHER);
     if (warp == 0) {
       float x[2], a[2], uu[2], T[2], M[2], C[2];
       for (int h = 0; h < 2; ++h) {
@@ -567,227 +619,215 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
       }
     }
     __syncthreads();
-    // ---- colour reverse: head, then the relu layers; czc in cz, the
-    // layer input staged from scratch into czd
+    phase_mark(PH_COMPOSITE);
+    // ---- colour reverse: each reverse product's epilogue forms the next
+    // layer's cotangent in cz (the relu mask from that layer's activations
+    // in the log) and sums it into its bias gradient; layer 0's product
+    // gives the colour input's cotangents: points and normals to ccin6, the
+    // features as the head reverse's bf16 operand CF (in cin's room) with
+    // their sums into the head's feature biases
+    bf16* CF = cin;
     {
-      const size_t act_bytes = act * sizeof(bf16);
-      // the weight-gradient partials go to L2 ahead of each read-modify-write
-      prefetch_l2(gp + wo.cw[d.NHC], (size_t)W * HC * sizeof(float));
-      stage_copy(czd, ACT + (size_t)(d.NHC - 1) * act, act_bytes);
-      gemm_wgrad(gp + wo.cw[d.NHC], HC, W, HC, 1.f, cheadb, ldHd, czd, ldX, nullptr, 0, nullptr, 0);
+      lput(LG_CHEAD, cheadb, ldHd, W);
       for (int c = tid; c < W; c += TNT) {
         float s = 0.f;
         for (int r = 0; r < ROWS; ++r) s += chead[r * 8 + c];
         gp[wo.cb[d.NHC] + c] += s;
       }
-      gemm_rows<NSTAGE_BWD>(cheadb, ldHd, W, mat(pk, pp, RC + d.NHC), HC, ring, [&](int r, int c, float v) {
-        if (c < HC) CA[r * HC + c] = v;
-      });
-      for (int l = d.NHC - 1; l >= 0; --l) {
-        const bf16* al = ACT + (size_t)l * act;
-        prefetch_l2(gp + wo.cw[l], (size_t)HC * col_in(d, l) * sizeof(float));
-        column_pass(HC, red, gp + wo.cb[l], [&](int c, int rb) {
-          float s = 0.f;
-          for (int r0 = rb; r0 < rb + ROWS / 2; r0 += RB) {
-            float a[RB], ca[RB];
-#pragma unroll
-            for (int q = 0; q < RB; ++q) {
-              a[q] = __bfloat162float(al[(r0 + q) * ldX + c]);
-              ca[q] = CA[(r0 + q) * HC + c];
-            }
-#pragma unroll
-            for (int q = 0; q < RB; ++q) {
-              const float v = a[q] > 0.f ? ca[q] : 0.f;
-              cz[(r0 + q) * ldX + c] = to_bf(v);
-              s += v;
-            }
-          }
-          return s;
-        });
-        const int nin = col_in(d, l);
-        if (l > 0) stage_copy(czd, ACT + (size_t)(l - 1) * act, act_bytes);
-        const bf16* xin = l == 0 ? cin : czd;
-        gemm_wgrad(gp + wo.cw[l], nin, HC, nin, 1.f, cz, ldX, xin, l == 0 ? ldC : ldX, nullptr,
-                   0, nullptr, 0);
-        float* dst = l == 0 ? CCIN : CA;
-        const int ldd = l == 0 ? CW : HC;
-        gemm_rows<NSTAGE_BWD>(cz, ldX, HC, mat(pk, pp, RC + l), nin, ring, [&](int r, int c, float v) {
-          if (c < nin) dst[r * ldd + c] = v;
-        });
+      const bf16* A = cheadb;
+      int lda = ldHd, K = W;
+      for (int l = d.NHC; l >= 1; --l) {
+        const bf16* al = lp(LG_ACT + l - 1);
+        const int ldal = lg.ld[LG_ACT + l - 1];
+        phase_tag(4);
+        gemm_fused<NSTAGE_BWD, false>(
+            A, nullptr, lda, K, mat(pk, pp, RC + l), HC, ring, red, gp + wo.cb[l - 1], 0, HC,
+            [&](int r, int c) { return c < HC ? __bfloat162float(al[r * ldal + c]) : 0.f; },
+            [&](int r, int c, float v, float, float a) {
+              const float zc = c < HC && a > 0.f ? v : 0.f;
+              if (c < HC) cz[r * ldX + c] = to_bf(zc);
+              return zc;
+            });
+        lput(LG_CZC + l - 1, cz, ldX, HC);
+        A = cz;
+        lda = ldX;
+        K = HC;
       }
+      for (int e = tid; e < ROWS * (ldF - F); e += TNT)
+        CF[(e / (ldF - F)) * ldF + F + e % (ldF - F)] = to_bf(0.f);
+      phase_tag(5);
+      gemm_fused<NSTAGE_BWD, false>(A, nullptr, lda, K, mat(pk, pp, RC + 0), CW, ring, red,
+                                    gp + wo.sb[d.NH + 1] + 1, 6, CW, NoPre(),
+                                    [&](int r, int c, float v, float, float) {
+                                      if (c < 6) ccin6[r * 6 + c] = v;
+                                      else if (c < CW) CF[r * ldF + c - 6] = to_bf(v);
+                                      return c >= 6 && c < CW ? v : 0.f;
+                                    });
     }
     // ---- SDF reverse: forward-over-reverse, tangent direction v = cg
     for (int e = tid; e < ROWS * 3; e += TNT) {
       const int r = e / 3, c = e % 3;
-      cg[e] += CCIN[r * CW + 3 + c];
+      cg[e] += ccin6[r * 6 + 3 + c];
     }
     __syncthreads();
     for (int e = tid; e < ROWS * E; e += TNT) {
       const int r = e / E, j = e % E;
-      tb0[r * ldE + j] = to_bf(de[e] * cg[r * 3 + (j % 3)]);
+      float val, dv, ddv;
+      pe_eval(d, pts + r * 3, j, val, dv, ddv);
+      tb0[r * ldE + j] = to_bf(dv * cg[r * 3 + (j % 3)]);
     }
     __syncthreads();
+    lput(LG_TB0, tb0, ldE, E);
     {
-      // tangents ping-pong in cz / czd, with a copy in scratch (TI)
+      // tangents ping-pong in cz / czd, with a copy in the log
       const bf16* tin = tb0;
       int ld_in = ldE;
       for (int i = 0; i < d.NH; ++i) {
-        const float* Pi = P + (size_t)i * ROWS * H;
-        float* ZDi = ZD + (size_t)i * ROWS * H;
+        const f16* Pi = P + (size_t)i * ROWS * H;
+        bf16* ZDi = ZD + (size_t)i * ROWS * H;
         bf16* to = (i % 2) ? czd : cz;
-        bf16* tc = TI + (size_t)i * act;
+        phase_tag(6);
         gemm_rows_pre<NSTAGE_BWD>(
             tin, ld_in, sdf_in(d, i), mat(pk, pp, FS + i), H, ring,
-            [&](int r, int c) { return c < H ? Pi[r * H + c] : 0.f; },
+            [&](int r, int c) {
+              float p = 0.f, q;
+              if (c < H) sig_load(Pi[r * H + c], p, q);
+              return p;
+            },
             [&](int r, int c, float v, float p) {
-              const bf16 tv = to_bf(p * v);
               if (c < H) {
-                ZDi[r * H + c] = v;
-                to[r * ldX + c] = tv;
-                tc[r * ldX + c] = tv;
+                ZDi[r * H + c] = to_bf(v);
+                to[r * ldX + c] = to_bf(p * v);
               }
             });
+        lput(LG_TI + i, to, ldX, H);
         tin = to;
         ld_in = ldX;
       }
+      phase_tag(7);
       gemm_rows<NSTAGE_BWD>(tin, ldX, H, mat(pk, pp, FS + d.NH), SW, ring, [&](int r, int c, float v) {
-        if (c < SW) ZDS[r * SW + c] = v;
+        if (c < SW) ZDS[r * SW + c] = to_bf(v);
       });
     }
-    // head: feature cotangents (bf16 operand, in cin's room), weight and
-    // bias gradients
-    prefetch_l2(gp + wo.sw[d.NH + 1], (size_t)(1 + F) * H * sizeof(float));
-    bf16* CF = cin;
-    for (int e0 = tid; e0 < ROWS * ldF; e0 += TNT * RB) {
-      float v[RB];
-#pragma unroll
-      for (int q = 0; q < RB; ++q) {
-        const int e = e0 + q * TNT, r = e / ldF, j = e % ldF;
-        v[q] = e < ROWS * ldF && j < F ? CCIN[r * CW + 6 + j] : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < RB; ++q)
-        if (e0 + q * TNT < ROWS * ldF) CF[e0 + q * TNT] = to_bf(v[q]);
-    }
-    __syncthreads();
-    gemm_wgrad(gp + wo.sw[d.NH + 1] + H, H, F, H, RSQRT2, CF, ldF, u, ldX, nullptr, 0, nullptr, 0);
+    lput(LG_CF, CF, ldF, F);
     // the sdf row's weights in f32: sum_r cs u + udot, u = [a_s, e], udot = [p_s zd_s, t0]
     column_pass(H, red, gp + wo.sw[d.NH + 1], [&](int k, int rb) {
       float acc = 0.f;
-      for (int r = rb; r < rb + ROWS / 2; ++r) {
-        if (k < SW) {
-          acc += cs[r] * AS[r * SW + k] + PS[r * SW + k] * ZDS[r * SW + k];
-        } else {
-          const int j = k - SW;
-          acc += cs[r] * ef[r * E + j] + de[r * E + j] * cg[r * 3 + (j % 3)];
+      if (k < SW) {
+        for (int r0 = rb; r0 < rb + ROWS / 2; r0 += RB) {
+          f16 ps[RB], as[RB];
+          bf16 zd[RB];
+#pragma unroll
+          for (int q = 0; q < RB; ++q) {
+            ps[q] = PS[(r0 + q) * SW + k];
+            as[q] = AS[(r0 + q) * SW + k];
+            zd[q] = ZDS[(r0 + q) * SW + k];
+          }
+#pragma unroll
+          for (int q = 0; q < RB; ++q) {
+            float p, pq;
+            sig_load(ps[q], p, pq);
+            acc += cs[r0 + q] * __half2float(as[q]) + p * __bfloat162float(zd[q]);
+          }
+        }
+      } else {
+        const int j = k - SW;
+        for (int r = rb; r < rb + ROWS / 2; ++r) {
+          float val, dv, ddv;
+          pe_eval(d, pts + r * 3, j, val, dv, ddv);
+          acc += cs[r] * val + dv * cg[r * 3 + (j % 3)];
         }
       }
       return acc * RSQRT2;
     });
-    column_pass(1 + F, red, gp + wo.sb[d.NH + 1], [&](int j, int rb) {
-      float s = 0.f;
-      for (int r = rb; r < rb + ROWS / 2; ++r) s += j == 0 ? cs[r] : CCIN[r * CW + 6 + j - 1];
-      return s;
-    });
-    gemm_rows_pre<NSTAGE_BWD>(CF, ldF, F, mat(pk, pp, RHEAD), H, ring,
-                  [&](int r, int c) { return c < H ? cs[r] * wfin[c] * RSQRT2 : 0.f; },
-                  [&](int r, int c, float v, float sdf_row) {
-                    if (c < H) CU[r * H + c] = v + sdf_row;
-                  });
-    // skip-producing layer
-    prefetch_l2(gp + wo.sw[d.NH], (size_t)SW * H * sizeof(float));
-    column_pass(SW, red, gp + wo.sb[d.NH], [&](int k, int rb) {
-      const float cad = wfin[k] * RSQRT2;
-      float s = 0.f;
-      for (int r0 = rb; r0 < rb + ROWS / 2; r0 += RB) {
-        float ps[RB], cu[RB], zd[RB];
-#pragma unroll
-        for (int q = 0; q < RB; ++q) {
-          ps[q] = PS[(r0 + q) * SW + k];
-          cu[q] = CU[(r0 + q) * H + k];
-          zd[q] = ZDS[(r0 + q) * SW + k];
-        }
-#pragma unroll
-        for (int q = 0; q < RB; ++q) {
-          const float zc = cu[q] * ps[q] + cad * zd[q] * 100.f * ps[q] * (1.f - ps[q]);
-          cz[(r0 + q) * ldX + k] = to_bf(zc);
-          czd[(r0 + q) * ldX + k] = to_bf(cad * ps[q]);
-          s += zc;
-        }
-      }
-      return s;
-    });
-    for (int e = tid; e < ROWS * (pad16(SW) - SW); e += TNT) {
-      const int r = e / (pad16(SW) - SW), k = SW + e % (pad16(SW) - SW);
-      cz[r * ldX + k] = czd[r * ldX + k] = to_bf(0.f);
+    if (warp == 0) {  // the sdf row's bias
+      const float v = warp_sum(cs[lane] + cs[lane + 32]);
+      if (lane == 0) gp[wo.sb[d.NH + 1]] += v;
     }
-    __syncthreads();
-    // a layer's inputs and input tangents staged from scratch into u / cin
-    // (free now) for its weight gradient
-    const size_t act_bytes = act * sizeof(bf16);
-    bf16* xs = u;
-    bf16* ts = cin;
-    stage_copy(xs, X + (size_t)(d.NH - 1) * act, act_bytes);
-    stage_copy(ts, TI + (size_t)(d.NH - 1) * act, act_bytes);
-    gemm_wgrad(gp + wo.sw[d.NH], H, SW, H, 1.f, cz, ldX, xs, ldX, czd, ldX, ts, ldX);
-    gemm_rows<NSTAGE_BWD>(cz, ldX, SW, mat(pk, pp, RS + d.NH), H, ring, [&](int r, int c, float v) {
-      if (c < H) CH[r * H + c] = v;
-    });
-    gemm_rows<NSTAGE_BWD>(czd, ldX, SW, mat(pk, pp, RS + d.NH), H, ring, [&](int r, int c, float v) {
-      if (c < H) CHD[r * H + c] = v;
-    });
+    // the head's reverse product (the feature cotangents, plus the sdf row's
+    // share cs w0 / sqrt2) with the skip layer's cotangents in its epilogue:
+    // cu = v + cs cad, zc = cu p_s + cad zd_s 100 p_s (1 - p_s), zcd = cad
+    // p_s (cad = w0 / sqrt2), summed into the skip bias; the embedding half
+    // of cu to cue
+    phase_tag(8);
+    gemm_fused<NSTAGE_BWD, false>(
+        CF, nullptr, ldF, F, mat(pk, pp, RHEAD), H, ring, red, gp + wo.sb[d.NH], 0, SW,
+        [&](int r, int c) {
+          float p = 0.f, q = 0.f, zd = 0.f;
+          if (c < SW) {
+            sig_load(PS[r * SW + c], p, q);
+            zd = __bfloat162float(ZDS[r * SW + c]);
+          }
+          return make_float3(p, q, zd);
+        },
+        [&](int r, int c, float v, float, float3 s3) {
+          if (c >= H) return 0.f;
+          const float cad = wfin[c] * RSQRT2;
+          const float cu = v + cs[r] * cad;
+          if (c >= SW) {
+            cue[r * E + c - SW] = cu;
+            if (c < pad16(SW)) cz[r * ldX + c] = czd[r * ldX + c] = to_bf(0.f);
+            return 0.f;
+          }
+          const float zc = cu * s3.x + cad * s3.z * 100.f * s3.x * s3.y;
+          cz[r * ldX + c] = to_bf(zc);
+          czd[r * ldX + c] = to_bf(cad * s3.x);
+          return zc;
+        });
+    lput(LG_CZ + d.NH, cz, ldX, SW);
+    lput(LG_CZD + d.NH, czd, ldX, SW);
+    // hidden layers: layer i + 1's two reverse products (cotangent and its
+    // tangent) in one weight stream, whose epilogue forms layer i's
+    // cotangents in place, zc = ch p + chd zd 100 p (1 - p) and zcd = chd p,
+    // and sums zc into its bias gradient
     for (int i = d.NH - 1; i >= 0; --i) {
-      const float* Pi = P + (size_t)i * ROWS * H;
-      const float* ZDi = ZD + (size_t)i * ROWS * H;
-      prefetch_l2(gp + wo.sw[i], (size_t)H * sdf_in(d, i) * sizeof(float));
-      column_pass(H, red, gp + wo.sb[i], [&](int c, int rb) {
-        float s = 0.f;
-        for (int r0 = rb; r0 < rb + ROWS / 2; r0 += RB) {
-          float p[RB], chd[RB], ch[RB], zd[RB];
-#pragma unroll
-          for (int q = 0; q < RB; ++q) {
-            p[q] = Pi[(r0 + q) * H + c];
-            chd[q] = CHD[(r0 + q) * H + c];
-            ch[q] = CH[(r0 + q) * H + c];
-            zd[q] = ZDi[(r0 + q) * H + c];
-          }
-#pragma unroll
-          for (int q = 0; q < RB; ++q) {
-            const float zc = ch[q] * p[q] + chd[q] * zd[q] * 100.f * p[q] * (1.f - p[q]);
-            cz[(r0 + q) * ldX + c] = to_bf(zc);
-            czd[(r0 + q) * ldX + c] = to_bf(chd[q] * p[q]);
-            s += zc;
-          }
-        }
-        return s;
-      });
-      const int in = sdf_in(d, i);
-      if (i > 0) {
-        stage_copy(xs, X + (size_t)(i - 1) * act, act_bytes);
-        stage_copy(ts, TI + (size_t)(i - 1) * act, act_bytes);
-      }
-      const bf16* xi = i == 0 ? eb : xs;
-      const bf16* ti = i == 0 ? tb0 : ts;
-      const int ldi = i == 0 ? ldE : ldX;
-      gemm_wgrad(gp + wo.sw[i], in, H, in, 1.f, cz, ldX, xi, ldi, czd, ldX, ti, ldi);
-      gemm_rows<NSTAGE_BWD>(cz, ldX, H, mat(pk, pp, RS + i), in, ring, [&](int r, int c, float v) {
-        if (c < in) CH[r * H + c] = v;
-      });
-      gemm_rows<NSTAGE_BWD>(czd, ldX, H, mat(pk, pp, RS + i), in, ring, [&](int r, int c, float v) {
-        if (c < in) CHD[r * H + c] = v;
-      });
+      const f16* Pi = P + (size_t)i * ROWS * H;
+      const bf16* ZDi = ZD + (size_t)i * ROWS * H;
+      phase_tag(9);
+      gemm_fused<NSTAGE_BWD, true>(
+          cz, czd, ldX, i + 1 == d.NH ? SW : H, mat(pk, pp, RS + i + 1), H, ring, red, gp + wo.sb[i],
+          0, H,
+          [&](int r, int c) {
+            float p = 0.f, q = 0.f, zd = 0.f;
+            if (c < H) {
+              sig_load(Pi[r * H + c], p, q);
+              zd = __bfloat162float(ZDi[r * H + c]);
+            }
+            return make_float3(p, q, zd);
+          },
+          [&](int r, int c, float ch, float chd, float3 s3) {
+            if (c >= H) return 0.f;
+            const float zc = ch * s3.x + chd * s3.z * 100.f * s3.x * s3.y;
+            cz[r * ldX + c] = to_bf(zc);
+            czd[r * ldX + c] = to_bf(chd * s3.x);
+            return zc;
+          });
+      lput(LG_CZ + i, cz, ldX, H);
+      lput(LG_CZD + i, czd, ldX, H);
     }
+    // layer 0's reverse products: the embedding cotangents
+    phase_tag(10);
+    gemm_fused<NSTAGE_BWD, true>(cz, czd, ldX, H, mat(pk, pp, RS + 0), E, ring, red, nullptr, 0, 0,
+                                 NoPre(), [&](int r, int c, float ch, float chd, float) {
+                                   if (c < E) {
+                                     CH[r * E + c] = ch;
+                                     CHD[r * E + c] = chd;
+                                   }
+                                   return 0.f;
+                                 });
     // embedding cotangents -> raw point cotangent
     for (int e = tid; e < ROWS * 3; e += TNT) {
       const int r = e / 3, c = e % 3;
       const float v = cg[e];
       float acc = 0.f;
       for (int j = c; j < E; j += 3) {
-        const float ce = CH[r * H + j] + CU[r * H + SW + j];
-        const float ced = CHD[r * H + j] + wfin[SW + j] * RSQRT2;
-        acc += ce * de[r * E + j] + ced * v * dde[r * E + j];
+        float val, dv, ddv;
+        pe_eval(d, pts + r * 3, j, val, dv, ddv);
+        const float ce = CH[r * E + j] + cue[r * E + j];
+        const float ced = CHD[r * E + j] + wfin[SW + j] * RSQRT2;
+        acc += ce * dv + ced * v * ddv;
       }
-      dx[e] = acc * d.scale + CCIN[r * CW + c];
+      dx[e] = acc * d.scale + ccin6[r * 6 + c];
     }
     __syncthreads();
     for (int r = tid; r < S; r += TNT) {
@@ -807,7 +847,110 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
     __syncthreads();
   }
   const float civ_sum = cta_sum_tc(civ, red);
-  if (tid == 0) gp[wo.total] = civ_sum;
+  if (tid == 0) gp[wo.total] += civ_sum;
+  phase_end(1);
+}
+
+// Weight gradients of one chunk: CTA (item, split) takes one WG_TM x WG_TN tile
+// of one problem's D (wgrad_problems) and the split's share of the chunk's
+// rows (whole rays), forms X^T Y over them on the tensor cores, and adds it
+// (times the problem's scale) to its own partial sums: part_base + (part *
+// n_split + split) rows of the (weight_count + 1)-float partial layout. Each
+// element has one writer a chunk and the chunks run in order: no atomics,
+// the same sums every run.
+__global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WLog lg, WProbs ps,
+                                                           const bf16* __restrict__ log,
+                                                           long long rows, int n_split,
+                                                           float* __restrict__ part_base,
+                                                           long long part_stride) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  bf16* st = (bf16*)sm;
+  phase_start();
+  // which problem and tile
+  int item = blockIdx.x, pi = 0;
+  while (pi < ps.n && item >= wgrad_tiles(ps.p[pi])) item -= wgrad_tiles(ps.p[pi++]);
+  if (pi >= ps.n) return;
+  const WProb pb = ps.p[pi];
+  const int ntn = (pb.N + WG_TN - 1) / WG_TN;
+  const int m0 = (item / ntn) * WG_TM, n0 = (item % ntn) * WG_TN;
+  const long long n_ray = rows / ROWS;
+  const long long k0 = (long long)blockIdx.y * n_ray / n_split * ROWS;
+  const long long k1 = (long long)(blockIdx.y + 1) * n_ray / n_split * ROWS;
+  const int nkb = (int)((k1 - k0) / WG_BK);
+  const bf16* X = log + lg.off[pb.x] * rows;
+  const bf16* Y = log + lg.off[pb.y] * rows;
+  const int ldx = lg.ld[pb.x], ldy = lg.ld[pb.y];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int wm = warp / WG_WN, wn = warp % WG_WN;  // warps of 64 x 32
+  const int lr = lane & 7, blk = lane >> 3;
+  // stage kb: rows k0 + 32 kb .. of X[:, m0 .. m0 + WG_TM) and Y[:, n0 ..
+  // n0 + WG_TN), columns past the region's stride zero-filled
+  auto issue = [&](int kb) {
+    if (kb < nkb) {
+      bf16* dst = st + (kb % WG_NSTG) * WG_STAGE;
+      const long long r0 = k0 + (long long)kb * WG_BK;
+      constexpr int NX = WG_BK * (WG_TM / 8), NY = WG_BK * (WG_TN / 8);
+      for (int e = tid; e < NX + NY; e += WG_THREADS) {
+        const int which = e >= NX, rem = which ? e - NX : e, w8 = (which ? WG_TN : WG_TM) / 8;
+        const int r = rem / w8, c = (rem % w8) * 8;
+        bf16* d = dst + (which ? WG_BK * WG_LDX + r * WG_LDY : r * WG_LDX) + c;
+        const int col = (which ? n0 : m0) + c, ld = which ? ldy : ldx;
+        if (col < ld) cp_async16(d, (which ? Y : X) + (r0 + r) * ld + col);
+        else *(uint4*)d = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    cp_async_commit();
+  };
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int s = 0; s < WG_NSTG - 1; ++s) issue(s);
+  for (int kb = 0; kb < nkb; ++kb) {
+    cp_async_wait<WG_NSTG - 2>();
+    __syncthreads();  // stage kb landed for all; stage kb - 1 is free
+    issue(kb + WG_NSTG - 1);
+    const bf16* xs = st + (kb % WG_NSTG) * WG_STAGE;
+    const bf16* ys = xs + WG_BK * WG_LDX;
+#pragma unroll
+    for (int kk = 0; kk < WG_BK; kk += 16) {
+      // A = X^T: a0 (m +0, k +0), a1 (m +8, k +0), a2 (m +0, k +8), a3 (m +8, k +8)
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldsm_x4_t(a[i], xs + (kk + lr + (blk >> 1) * 8) * WG_LDX + wm * 64 + i * 16 + (blk & 1) * 8);
+      // B = Y: b[j] = (k +0, n +8j), (k +8, n +8j), two n-tiles an ldmatrix
+      uint2 b[4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t r[4];
+        ldsm_x4_t(r, ys + (kk + lr + (blk & 1) * 8) * WG_LDY + wn * 32 + jj * 16 + (blk >> 1) * 8);
+        b[2 * jj] = make_uint2(r[0], r[1]);
+        b[2 * jj + 1] = make_uint2(r[2], r[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma(acc[i][j], a[i], b[j]);
+    }
+  }
+  cp_async_wait<0>();
+  float* D = part_base + (size_t)(pb.part * n_split + blockIdx.y) * part_stride + pb.doff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int mm = m0 + wm * 64 + i * 16 + g + (e >> 1) * 8;
+        const int nn = n0 + wn * 32 + j * 8 + 2 * t + (e & 1);
+        if (mm < pb.M && nn < pb.N) D[(size_t)mm * pb.ldd + nn] += pb.scale * acc[i][j][e];
+      }
+  phase_mark(PH_WGRAD);
+  phase_end(2);
 }
 
 }  // namespace
@@ -822,6 +965,15 @@ long long neus_tc_scratch_bytes(Dims d, int backward) {
   return (long long)tc_layout(d, backward != 0).scratch;
 }
 long long neus_tc_weight_count(Dims d) { return (long long)weight_offsets(d).total; }
+
+#ifdef NEUS_TC_PROF
+// the profiling build's per-CTA phase cycles of a kernel (0 forward, 1
+// backward, 2 weight gradients): n_cta x PH_N into out (host memory)
+int neus_tc_phases(int kernel, long long* out, int n_cta) {
+  return (int)cudaMemcpyFromSymbol(out, g_phase, sizeof(long long) * n_cta * PH_N,
+                                   sizeof(long long) * PH_MAXCTA * PH_N * kernel);
+}
+#endif
 
 // Forward: as neus_ray_fwd (fused_neus_ray.cu), with the packed bf16 weights
 // pk (offsets pp) beside the flat f32 ones; scr an (n_cta, scr_stride)-byte
@@ -842,24 +994,53 @@ int neus_ray_tc_fwd(Dims d, Pack pp, const float* wts, const void* pk, const flo
   return reduce_partials(eik_part, n_cta, 2, eik, st);
 }
 
+// elements a row of the backward's weight-gradient log; CTAs of one
+// weight-gradient pass (times its splits)
+long long neus_tc_log_row(Dims d) { return wlog_layout(d).row; }
+int neus_tc_wgrad_tiles(Dims d) {
+  const WProbs ps = wgrad_problems(d);
+  int n = 0;
+  for (int i = 0; i < ps.n; ++i) n += wgrad_tiles(ps.p[i]);
+  return n;
+}
+
 // Backward: as neus_ray_bwd, d_w has weight_count + 1 floats (the inv_s
-// gradient last); gpart an (n_cta, weight_count + 1) scratch.
+// gradient last). The rays run in chunks of `chunk`: the per-ray kernel
+// (n_cta CTAs; scr an (n_cta, scr_stride)-byte scratch) writes the chunk's
+// weight-gradient operands into log (chunk * 64 rows of neus_tc_log_row
+// elements), then wgrad_kernel forms the weight gradients with n_split
+// splits of the points. gpart: (n_cta + 2 n_split) partial rows of
+// weight_count + 1 floats, zero on entry (the per-ray kernel's biases,
+// sdf-row weights and inv_s, then the weight-gradient splits), summed in a
+// fixed order into d_w.
 int neus_ray_tc_bwd(Dims d, Pack pp, const float* wts, const void* pk, const float* rays_o,
                     const float* rays_d, const float* mid_z, const float* dists,
                     const float* inv_s, float cos_r, int R, const float* sdf_res,
                     const float* g_res, const float* c_col, const float* c_nw, const float* c_ws,
                     const float* c_eik, float* d_o, float* d_d, float* d_z, float* d_t,
                     float* d_w, float* gpart, void* scr, long long scr_stride, int n_cta,
-                    void* stream) {
+                    void* log, int chunk, int n_split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int smem = (int)tc_layout(d, true).smem;
   int err = (int)cudaFuncSetAttribute(neus_ray_tc_bwd_kernel,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
-  neus_ray_tc_bwd_kernel<<<n_cta, TNT, smem, st>>>(d, pp, wts, (const uint2*)pk, rays_o, rays_d, mid_z, dists, inv_s, cos_r, R, sdf_res, g_res, c_col, c_nw, c_ws, c_eik, d_o, d_d, d_z, d_t, gpart, (unsigned char*)scr, scr_stride);
-  err = (int)cudaGetLastError();
+  err = (int)cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
   if (err) return err;
-  return reduce_partials(gpart, n_cta, (long long)weight_offsets(d).total + 1, d_w, st);
+  const WLog lg = wlog_layout(d);
+  const WProbs ps = wgrad_problems(d);
+  const long long stride = (long long)weight_offsets(d).total + 1;
+  const dim3 wgrid(neus_tc_wgrad_tiles(d), n_split);
+  for (int ray0 = 0; ray0 < R; ray0 += chunk) {
+    const int ray1 = ray0 + chunk < R ? ray0 + chunk : R;
+    neus_ray_tc_bwd_kernel<<<n_cta, TNT, smem, st>>>(d, pp, wts, (const uint2*)pk, rays_o, rays_d, mid_z, dists, inv_s, cos_r, R, sdf_res, g_res, c_col, c_nw, c_ws, c_eik, d_o, d_d, d_z, d_t, gpart, (unsigned char*)scr, scr_stride, lg, (bf16*)log, (long long)(ray1 - ray0) * ROWS, ray0, ray1);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    wgrad_kernel<<<wgrid, WG_THREADS, WG_SMEM, st>>>(lg, ps, (const bf16*)log, (long long)(ray1 - ray0) * ROWS, n_split, gpart + (size_t)n_cta * stride, stride);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return reduce_partials(gpart, n_cta + 2 * n_split, stride, d_w, st);
 }
 
 }  // extern "C"

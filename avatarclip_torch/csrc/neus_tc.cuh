@@ -1,7 +1,9 @@
 // Tensor-core building blocks of the bf16 per-ray NeuS pair
-// (fused_neus_ray_tc.cu): the packed bf16 weight layout, the two warp-level
-// GEMM forms on mma.sync.m16n8k16 (bf16 operands, f32 accumulators), and the
-// shared-memory / scratch layouts of the two kernels.
+// (fused_neus_ray_tc.cu): the packed bf16 weight layout, the CTA-level GEMM
+// forms on mma.sync.m16n8k16 (bf16 operands, f32 accumulators: gemm_rows_pre
+// and gemm_fused over a tile, wgrad_kernel's tiles over the points), the
+// backward's weight-gradient log, and the shared-memory / scratch layouts of
+// the kernels.
 //
 // A tile is one ray: 64 GEMM rows (samples; rows >= S are zero-padded
 // points whose results are never read and whose cotangents are zero). An
@@ -20,6 +22,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "neus_ray.cuh"
@@ -28,6 +31,53 @@ namespace neus {
 namespace tc {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
+
+// Per-phase cycle counts, compiled in only with -DNEUS_TC_PROF (the
+// profiling build of avatarclip_torch/tools/profile_b1.py): thread 0 of each
+// CTA adds the clock64 cycles since its previous mark to a phase, and the
+// kernel's end stores the CTA's sums in g_phase[kernel][cta]. A product's
+// epilogue time also goes to slot PH_TAGS + the tag phase_tag last set.
+enum { PH_OTHER = 0, PH_GEMM, PH_WGRAD, PH_COLPASS = 4, PH_COMPOSITE, PH_EPI, PH_LOG,
+       PH_TAGS = 8, PH_N = 24, PH_MAXCTA = 1024 };
+#if defined(NEUS_TC_PROF) && defined(__CUDACC__)
+__device__ long long g_phase[3][PH_MAXCTA][PH_N];
+__device__ inline long long* phase_slots() {
+  __shared__ long long s[PH_N + 2];  // the sums, the last stamp, the tag
+  return s;
+}
+__device__ inline void phase_tag(int tag) {
+  if (threadIdx.x == 0) phase_slots()[PH_N + 1] = tag;
+}
+__device__ inline void phase_start() {
+  if (threadIdx.x == 0) {
+    long long* s = phase_slots();
+    for (int i = 0; i < PH_N; ++i) s[i] = 0;
+    s[PH_N] = clock64();
+    s[PH_N + 1] = 0;
+  }
+}
+__device__ inline void phase_mark(int ph) {
+  if (threadIdx.x == 0) {
+    long long* s = phase_slots();
+    const long long t = clock64();
+    s[ph] += t - s[PH_N];
+    if (ph == PH_EPI) s[PH_TAGS + s[PH_N + 1]] += t - s[PH_N];
+    s[PH_N] = t;
+  }
+}
+__device__ inline void phase_end(int kernel) {
+  phase_mark(PH_OTHER);
+  const unsigned b = blockIdx.x + blockIdx.y * gridDim.x;
+  if (threadIdx.x == 0 && b < PH_MAXCTA)
+    for (int i = 0; i < PH_N; ++i) g_phase[kernel][b][i] = phase_slots()[i];
+}
+#else
+__host__ __device__ inline void phase_start() {}
+__host__ __device__ inline void phase_tag(int) {}
+__host__ __device__ inline void phase_mark(int) {}
+__host__ __device__ inline void phase_end(int) {}
+#endif
 
 constexpr int ROWS = 64;         // GEMM rows of a tile: one ray of S <= 64 samples
 constexpr int TNT = 512;         // threads a CTA: 16 warps to hide the latencies
@@ -41,7 +91,7 @@ constexpr int NPW = 4;           // n-tiles a warp holds per pass
 constexpr int NTP = NWN * NPW;   // n-tiles a pass
 constexpr int KS = 2;            // k-steps a ring stage holds (one __syncthreads each)
 constexpr int NSTAGE_FWD = 3;    // ring stages (the cp.async ring): the forward has the room
-constexpr int NSTAGE_BWD = 2;    // for a deeper ring than the backward
+constexpr int NSTAGE_BWD = 3;    // the backward recomputes its encoding derivatives to make room
 constexpr int STAGE = KS * NTP * 32;  // uint2 fragments of a stage of one pass (16 KB)
 
 __host__ __device__ inline int pad16(int k) { return (k + 15) / 16 * 16; }
@@ -111,38 +161,33 @@ void ldsm_x4(uint32_t* r, const void* row);
 void ldsm_x4_t(uint32_t* r, const void* row);
 #endif
 
-// ask L2 for n_bytes of global memory at p ahead of their use, by the whole
-// CTA (one 128-byte line a thread per round; no registers, nothing waits)
-__device__ inline void prefetch_l2(const void* p, size_t n_bytes) {
-  for (size_t off = (size_t)threadIdx.x * 128; off < n_bytes; off += (size_t)TNT * 128) {
-#ifdef __CUDACC__
-    asm volatile("prefetch.global.L2 [%0];\n" ::"l"((const char*)p + off));
-#endif
-  }
-}
 
 // softplus(100 z) / 100 and sigmoid(100 z) with the fast intrinsics (the
-// values feed bf16 operands: their few-ulp error is far below bf16's)
-__device__ inline void sp_sig_fast(float z, float& sp, float& sig) {
+// values feed bf16 operands: their few-ulp error is far below bf16's); sk
+// is the sigmoid as sig_load reads it
+__device__ inline void sp_sig_fast(float z, float& sp, float& sig, f16& sk) {
   const float a = 100.f * z;
   const float t = __expf(-fabsf(a));
   const float inv = __fdividef(1.f, 1.f + t);
   sp = (fmaxf(a, 0.f) + __logf(1.f + t)) * 0.01f;
   sig = a >= 0.f ? inv : t * inv;
+  // the smaller of sig and 1 - sig is t / (1 + t): kept to f16's 2^-11
+  // relative, with the sign bit saying which of the two it is
+  sk = __float2half_rn(a >= 0.f ? -(t * inv) : t * inv);
+}
+
+// a sigmoid factor kept in 16 bits (sp_sig_fast): p and 1 - p, each to
+// 2^-11 of itself, so that p (1 - p) keeps its precision at p near 1
+__device__ inline bool f16_sign(f16 h);
+__device__ inline void sig_load(f16 h, float& p, float& q) {
+  const float v = __half2float(h), m = fabsf(v);
+  const bool upper = f16_sign(h);
+  p = upper ? 1.f - m : m;
+  q = upper ? m : 1.f - m;
 }
 
 __device__ inline bf16 to_bf(float x) { return __float2bfloat16_rn(x); }
-
-// n_bytes (a multiple of 16) from global src to shared dst by the whole CTA;
-// ends with __syncthreads
-__device__ inline void stage_copy(void* dst, const void* src, size_t n_bytes) {
-  for (size_t e = threadIdx.x; e < n_bytes / 16; e += TNT)
-    cp_async16((char*)dst + 16 * e, (const char*)src + 16 * e);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
+__device__ inline bool f16_sign(f16 h) { return (__half_as_ushort(h) & 0x8000u) != 0; }
 
 // gemm_rows_pre: out(64 x N) = A(64 x K) . B: A bf16 row-major with stride ld (columns K ..
 // pad16(K) finite: the packed rows there are zero), B packed. Calls
@@ -182,6 +227,7 @@ __device__ __forceinline__ void issue_stage(uint2* ring, const uint2* __restrict
 template <int NSTAGE, class Pre, class Epi>
 __device__ __forceinline__ void gemm_rows_pre(const bf16* A, int ld, int K, const uint2* __restrict__ B,
                                               int N, uint2* ring, Pre pre, Epi epi) {
+  phase_mark(PH_OTHER);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int wm = warp / NWN, wn = warp % NWN, row0 = wm * MTW * 16;
   const int KT = (K + 15) / 16, NTl = (N + 7) / 8, NSt = (KT + KS - 1) / KS;
@@ -224,6 +270,7 @@ __device__ __forceinline__ void gemm_rows_pre(const bf16* A, int ld, int K, cons
     }
     cp_async_wait<0>();
     __syncthreads();  // the ring is free for the next pass or product
+    phase_mark(PH_GEMM);
     using PV = decltype(pre(0, 0));
 #pragma unroll
     for (int mt = 0; mt < MTW; ++mt) {  // a 16-row slab's inputs at once, then its stores
@@ -245,6 +292,7 @@ __device__ __forceinline__ void gemm_rows_pre(const bf16* A, int ld, int K, cons
     }
   }
   __syncthreads();
+  phase_mark(PH_EPI);
 }
 
 // out(64 x N) = A . B with a store-only epilogue epi(r, c, v)
@@ -255,83 +303,217 @@ __device__ __forceinline__ void gemm_rows(const bf16* A, int ld, int K, const ui
                         [&](int r, int c, float v, float) { epi(r, c, v); });
 }
 
-// Weight gradient: D(M x N, f32 row-major, stride ldd) += scale * sum over the
-// 64 rows r of X1[r][m] Y1[r][n] (+ X2[r][m] Y2[r][n] when X2): the tile's
-// contribution to a dense (out, in) weight's gradient, X the cotangents on
-// the layer's outputs and Y its inputs (bf16 row-major in shared memory,
-// strides ldx / ldy multiples of 8). Both operands are read down their
-// columns, so the fragments come from ldmatrix.trans. Warp tiles of 32 x 32
-// go round the 8 warps; a tile's ragged edge reads past M / N into columns
-// whose products land only in the masked-out part of D. Each element of D
-// is read and written by one thread, once, so the sum over tiles has a
-// fixed order. Ends with __syncthreads.
-__device__ __forceinline__ void gemm_wgrad(float* D, int ldd, int M, int N, float scale, const bf16* X1,
-                           int ldx1, const bf16* Y1, int ldy1, const bf16* X2, int ldx2,
-                           const bf16* Y2, int ldy2) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int n_mt = (M + 31) / 32, n_nt = (N + 31) / 32;
-  // this lane's row of its 8 x 8 block: blocks 0-3 = (k +0, c +0), (k +0,
-  // c +8)... ordered as the fragment registers want them
-  const int lr = lane & 7, blk = lane >> 3;
-  for (int tile = warp; tile < n_mt * n_nt; tile += NWARP) {
-    const int m0 = (tile / n_nt) * 32, n0 = (tile % n_nt) * 32;
-    float acc[2][4][4];
+// A product (two when DUAL: out0 = A0 . B and out1 = A1 . B over one
+// weight stream; A0, A1 bf16 64 x K, stride ld) whose epilogue may write
+// over its operands and sums its columns. The k-loop of each pass ends with
+// a barrier, so epi may overwrite A0 / A1 when N <= NTP * 8 (one pass).
+// epi(r, c, v0, v1, pre(r, c)) stores (v1 = 0 unless DUAL) and returns the
+// element's share of column c's sum; colsum[c - cs0] += the sum over the 64
+// rows for cs0 <= c < cs1, in a fixed order (lanes by a butterfly, then the
+// two row halves through red, 2 x NTP * 8 floats); no sums when colsum is
+// null. Ends with __syncthreads.
+template <int NSTAGE, bool DUAL, class Pre, class Epi>
+__device__ __forceinline__ void gemm_fused(const bf16* A0, const bf16* A1, int ld, int K,
+                                           const uint2* __restrict__ B, int N, uint2* ring,
+                                           float* red, float* colsum, int cs0, int cs1, Pre pre,
+                                           Epi epi) {
+  phase_mark(PH_OTHER);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int wm = warp / NWN, wn = warp % NWN, row0 = wm * MTW * 16;
+  const int KT = (K + 15) / 16, NTl = (N + 7) / 8, NSt = (KT + KS - 1) / KS;
+  for (int nb0 = 0; nb0 < NTl; nb0 += NTP) {
+    const int nb = nb0 + wn * NPW;
+    for (int s = 0; s < NSTAGE - 1; ++s) issue_stage<NSTAGE>(ring, B, K, N, nb0, s);
+    float acc0[MTW][NPW][4], acc1[MTW][NPW][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MTW; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < NPW; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    // read the tile's partial sums first: their latency overlaps the products
-    float dv[2][4][4];
+        for (int e = 0; e < 4; ++e) acc0[i][j][e] = acc1[i][j][e] = 0.f;
+    for (int st = 0; st < NSt; ++st) {
+      cp_async_wait<NSTAGE - 2>();
+      __syncthreads();
+      issue_stage<NSTAGE>(ring, B, K, N, nb0, st + NSTAGE - 1);
+      if (nb >= NTl) continue;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int q = 0; q < KS; ++q) {
+        const int kt = KS * st + q;
+        if (kt >= KT) break;
+        const uint2* sp = ring + (st % NSTAGE) * STAGE + q * NTP * 32 + wn * NPW * 32 + lane;
+        uint2 b[NPW];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < NPW; ++j) b[j] = nb + j < NTl ? sp[j * 32] : make_uint2(0u, 0u);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int mm = m0 + i * 16 + g + (e >> 1) * 8, nn = n0 + j * 8 + 2 * t + (e & 1);
-          dv[i][j][e] = mm < M && nn < N ? D[(size_t)mm * ldd + nn] : 0.f;
+        for (int mt = 0; mt < MTW; ++mt) {
+          const size_t off = (size_t)(row0 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                             kt * 16 + (lane >> 4) * 8;
+          uint32_t a0[4];
+          ldsm_x4(a0, A0 + off);
+#pragma unroll
+          for (int j = 0; j < NPW; ++j) mma(acc0[mt][j], a0, b[j]);
+          if (DUAL) {
+            uint32_t a1[4];
+            ldsm_x4(a1, A1 + off);
+#pragma unroll
+            for (int j = 0; j < NPW; ++j) mma(acc1[mt][j], a1, b[j]);
+          }
         }
-    for (int pair = 0; pair < 2; ++pair) {
-      const bf16* X = pair ? X2 : X1;
-      const bf16* Y = pair ? Y2 : Y1;
-      const int ldx = pair ? ldx2 : ldx1, ldy = pair ? ldy2 : ldy1;
-      if (X == nullptr) break;
-      for (int k0 = 0; k0 < ROWS; k0 += 16) {
-        // A = X^T: a0 (m +0, k +0), a1 (m +8, k +0), a2 (m +0, k +8), a3 (m +8, k +8)
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          ldsm_x4_t(a[i], X + (size_t)(k0 + lr + (blk >> 1) * 8) * ldx + m0 + i * 16 + (blk & 1) * 8);
-        // B = Y: b[j] = (k +0, n +8j), (k +8, n +8j), two n-tiles an ldmatrix
-        uint32_t b[4][2];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          uint32_t r[4];
-          ldsm_x4_t(r, Y + (size_t)(k0 + lr + (blk & 1) * 8) * ldy + n0 + jj * 16 + (blk >> 1) * 8);
-          b[2 * jj][0] = r[0];
-          b[2 * jj][1] = r[1];
-          b[2 * jj + 1][0] = r[2];
-          b[2 * jj + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) mma(acc[i][j], a[i], make_uint2(b[j][0], b[j][1]));
       }
     }
+    cp_async_wait<0>();
+    __syncthreads();  // A0 / A1 and the ring are free
+    phase_mark(PH_GEMM);
+    float cs[NPW][2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < NPW; ++j) cs[j][0] = cs[j][1] = 0.f;
+    using PV = decltype(pre(0, 0));
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+    for (int mt = 0; mt < MTW; ++mt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int mm = m0 + i * 16 + g + (e >> 1) * 8, nn = n0 + j * 8 + 2 * t + (e & 1);
-          if (mm < M && nn < N) D[(size_t)mm * ldd + nn] = dv[i][j][e] + scale * acc[i][j][e];
+      for (int j = 0; j < NPW; ++j) {
+        if (nb + j >= NTl) continue;
+        // an n-tile's inputs at once, then its stores (few registers: the
+        // accumulators of both products are live here)
+        PV pv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pv[e] = pre(row0 + mt * 16 + g + (e >> 1) * 8, (nb + j) * 8 + 2 * t + (e & 1));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cs[j][e & 1] += epi(row0 + mt * 16 + g + (e >> 1) * 8, (nb + j) * 8 + 2 * t + (e & 1),
+                              acc0[mt][j][e], DUAL ? acc1[mt][j][e] : 0.f, pv[e]);
+      }
+    if (colsum) {
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float v = cs[j][k];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0 && nb + j < NTl) red[wm * NTP * 8 + (wn * NPW + j) * 8 + 2 * t + k] = v;
         }
+      __syncthreads();
+      for (int c = nb0 * 8 + tid; c < N && c < (nb0 + NTP) * 8; c += TNT)
+        if (c >= cs0 && c < cs1) colsum[c - cs0] += red[c - nb0 * 8] + red[NTP * 8 + c - nb0 * 8];
+    }
+    __syncthreads();
+    phase_mark(PH_EPI);
   }
-  __syncthreads();
+}
+
+// ---- the backward's weight gradients
+//
+// The backward runs the rays in chunks. Its per-ray kernel writes, once, the
+// bf16 operands of every weight gradient (the cotangents on a layer's
+// outputs and the layer's inputs) into a log; a second kernel
+// (wgrad_kernel) then forms each weight's gradient as a tensor-core product
+// over the chunk's points, D += scale * X^T Y, split over the points into
+// n_split partial sums. A log region holds one matrix, row = point (ray slot
+// q of the chunk, sample r: 64 q + r), stride ld = pad8(width) elements;
+// rows >= S carry zero cotangents.
+enum { LG_EB = 0, LG_TB0, LG_X, LG_TI = LG_X + MAXNH, LG_U = LG_TI + MAXNH, LG_CIN, LG_ACT,
+       LG_CZ = LG_ACT + MAXNHC, LG_CZD = LG_CZ + MAXNH + 1, LG_CF = LG_CZD + MAXNH + 1, LG_CZC,
+       LG_CHEAD = LG_CZC + MAXNHC, LG_N };
+
+struct WLog {
+  long long off[LG_N];  // elements a row before region m (region m starts at off[m] * rows)
+  int ld[LG_N];         // region m's row stride (0: unused)
+  long long row;        // elements a row over all regions
+};
+
+__host__ __device__ inline int pad8(int k) { return (k + 7) / 8 * 8; }
+
+__host__ __device__ inline WLog wlog_layout(const Dims& d) {
+  WLog lg;
+  int w[LG_N];
+  for (int m = 0; m < LG_N; ++m) w[m] = 0;
+  w[LG_EB] = w[LG_TB0] = d.E;
+  for (int i = 0; i < d.NH; ++i) w[LG_X + i] = w[LG_TI + i] = d.H;
+  w[LG_U] = d.H;
+  w[LG_CIN] = d.CW;
+  for (int l = 0; l < d.NHC; ++l) w[LG_ACT + l] = w[LG_CZC + l] = d.HC;
+  for (int i = 0; i <= d.NH; ++i) w[LG_CZ + i] = w[LG_CZD + i] = i < d.NH ? d.H : d.SW;
+  w[LG_CF] = d.F;
+  w[LG_CHEAD] = d.W;
+  long long off = 0;
+  for (int m = 0; m < LG_N; ++m) {
+    lg.off[m] = off;
+    lg.ld[m] = pad8(w[m]);
+    off += lg.ld[m];
+  }
+  lg.row = off;
+  return lg;
+}
+
+// one weight-gradient product: D(M x N) += scale * sum over rows X^T Y,
+// X = log region x (M wide), Y = region y (N wide); D at doff in the flat
+// weight layout with row stride ldd; part 0 / 1 picks the partial-sum set
+// (an SDF weight takes two products: the cotangent with the input, and the
+// tangent cotangent with the input tangent)
+struct WProb {
+  int x, y, M, N, ldd, part;
+  long long doff;
+  float scale;
+};
+constexpr int MAXPROB = 2 * (MAXNH + 1) + MAXNHC + 2;
+struct WProbs {
+  WProb p[MAXPROB];
+  int n;
+};
+
+__host__ __device__ inline WProbs wgrad_problems(const Dims& d) {
+  const WeightOffsets wo = weight_offsets(d);
+  WProbs ps;
+  int n = 0;
+  for (int i = 0; i <= d.NH; ++i) {
+    const int in = sdf_in(d, i), out = sdf_out(d, i);
+    const int x0 = i == 0 ? LG_EB : LG_X + i - 1, t0 = i == 0 ? LG_TB0 : LG_TI + i - 1;
+    ps.p[n++] = WProb{LG_CZ + i, x0, out, in, in, 0, (long long)wo.sw[i], 1.f};
+    ps.p[n++] = WProb{LG_CZD + i, t0, out, in, in, 1, (long long)wo.sw[i], 1.f};
+  }
+  ps.p[n++] = WProb{LG_CF, LG_U, d.F, d.H, d.H, 0, (long long)wo.sw[d.NH + 1] + d.H, RSQRT2};
+  for (int l = 0; l <= d.NHC; ++l) {
+    const int in = col_in(d, l);
+    const int x = l < d.NHC ? LG_CZC + l : LG_CHEAD, y = l == 0 ? LG_CIN : LG_ACT + l - 1;
+    ps.p[n++] = WProb{x, y, col_out(d, l), in, in, 0, (long long)wo.cw[l], 1.f};
+  }
+  ps.n = n;
+  return ps;
+}
+
+// wgrad_kernel's tiles: WG_TM x WG_TN of D a CTA, 8 warps of 64 x 32, the
+// points in stages of 32 rows through a 4-deep cp.async ring (two CTAs an
+// SM; a 256-row tile with 16 warps, one CTA an SM, took 6.9 ms against 4.9)
+constexpr int WG_TM = 128, WG_TN = 128, WG_BK = 32, WG_NSTG = 4;
+constexpr int WG_WN = WG_TN / 32, WG_THREADS = 32 * (WG_TM / 64) * WG_WN;
+constexpr int WG_LDX = WG_TM + 8, WG_LDY = WG_TN + 8;  // padded smem strides
+constexpr int WG_STAGE = WG_BK * (WG_LDX + WG_LDY);   // bf16 elements of a stage (X and Y)
+constexpr int WG_SMEM = WG_NSTG * WG_STAGE * 2;
+
+__host__ __device__ inline int wgrad_tiles(const WProb& p) {
+  return ((p.M + WG_TM - 1) / WG_TM) * ((p.N + WG_TN - 1) / WG_TN);
+}
+
+// bf16 region m of a log chunk of `rows` rows, from row r0
+__device__ inline bf16* log_at(bf16* log, const WLog& lg, long long rows, int m, long long r0) {
+  return log + lg.off[m] * rows + r0 * lg.ld[m];
+}
+
+// the 64 rows x ncols of a bf16 shared-memory operand (stride lds) to a log
+// region (stride ldd), 16 bytes a thread at a time, by the whole CTA. No
+// barrier: the next writer of src in the kernels is always a product's
+// epilogue, which runs after the product's own barriers.
+__device__ inline void log_put(bf16* dst, int ldd, const bf16* src, int lds, int ncols) {
+  phase_mark(PH_OTHER);
+  const int n8 = (ncols + 7) / 8;
+  for (int e = threadIdx.x; e < ROWS * n8; e += TNT) {
+    const int r = e / n8, c = (e % n8) * 8;
+    *(uint4*)(dst + (size_t)r * ldd + c) = *(const uint4*)(src + (size_t)r * lds + c);
+  }
+  phase_mark(PH_LOG);
 }
 
 __device__ inline float warp_sum(float v) {
@@ -353,19 +535,19 @@ __device__ inline float warp_prod_scan(float v) {
 
 // Byte offsets of a kernel's dynamic shared memory and of its per-CTA global
 // scratch. Forward: activations and the colour input in shared memory, the
-// hidden layers' sigmoid factors (the gradient sweep's residuals, f32) and
-// the skip layer's f32 activations in scratch. Backward: the operands of the
-// current layer in shared memory, every layer's states (bf16 inputs and
-// tangents for the weight gradients, f32 sigmoid factors and tangent
-// pre-activations for the elementwise reverse, f32 cotangents) in scratch.
+// hidden layers' sigmoid factors (the gradient sweep's residuals) and the
+// skip layer's f32 activations in scratch. Backward: the operands of the
+// current layer in shared memory; the states the later sweeps read (sigmoid
+// factors, a_s, tangent pre-activations: 16 bits each) and the embedding
+// cotangents in scratch.
 struct Layout {
   int E, H, SW, F, HC, CW, W, NH, NHC;
   int ldE, ldX, ldC, ldF;
   // shared memory
   size_t pts, g, ef, de, dde, qe, eb, tb0, ha, hb, u, cin, head, srow, sres, cg, cdir, dx, cs,
-      chead, cheadb, ray, alpha, w, tr, calpha, red, ring, smem;
+      chead, cheadb, ray, alpha, w, tr, calpha, ccin6, cue, red, ring, smem;
   // scratch
-  size_t P, AS, X, TI, ZD, PS, ZDS, ACT, CA, CCIN, CU, CH, CHD, scratch;
+  size_t P, AS, ZD, PS, ZDS, CH, CHD, scratch;
 };
 
 __host__ __device__ inline size_t take(size_t& off, size_t bytes) {
@@ -386,8 +568,8 @@ __host__ __device__ inline Layout tc_layout(const Dims& d, bool backward) {
   size_t o = 0;
   L.pts = take(o, R * 3 * f4);
   L.g = take(o, R * 3 * f4);
-  L.ef = take(o, R * d.E * f4);
-  L.de = take(o, R * d.E * f4);
+  L.ef = backward ? 0 : take(o, R * d.E * f4);
+  L.de = backward ? 0 : take(o, R * d.E * f4);
   L.eb = take(o, R * L.ldE * b2);
   L.u = take(o, R * L.ldX * b2);
   L.cin = take(o, R * imax(L.ldC, L.ldX) * b2);  // the backward stages ldX-wide operands here
@@ -395,7 +577,7 @@ __host__ __device__ inline Layout tc_layout(const Dims& d, bool backward) {
   L.ray = take(o, 8 * f4);
   L.alpha = take(o, R * f4);
   L.w = take(o, R * f4);
-  L.red = take(o, TNT * f4);
+  L.red = take(o, imax(TNT, 2 * NTP * 8) * f4);  // cta sums; gemm_fused's column sums
   L.ring = take(o, (size_t)(backward ? NSTAGE_BWD : NSTAGE_FWD) * STAGE * 8);
   if (!backward) {
     L.qe = take(o, R * d.E * f4);
@@ -403,9 +585,9 @@ __host__ __device__ inline Layout tc_layout(const Dims& d, bool backward) {
     L.hb = take(o, R * L.ldX * b2);
     L.srow = take(o, R * f4);
     L.dde = L.tb0 = L.sres = L.cg = L.cdir = L.dx = L.cs = L.chead = L.cheadb = L.tr =
-        L.calpha = 0;
+        L.calpha = L.ccin6 = L.cue = 0;
   } else {
-    L.dde = take(o, R * d.E * f4);
+    L.dde = 0;
     L.tb0 = take(o, R * L.ldE * b2);
     L.ha = take(o, R * L.ldX * b2);  // the cotangent operands cz
     L.hb = take(o, R * L.ldX * b2);  // and czd
@@ -418,27 +600,25 @@ __host__ __device__ inline Layout tc_layout(const Dims& d, bool backward) {
     L.cheadb = take(o, R * ld_of(8) * b2);
     L.tr = take(o, R * f4);
     L.calpha = take(o, R * f4);
+    L.ccin6 = take(o, R * 6 * f4);   // the colour input's point and normal cotangents
+    L.cue = take(o, R * d.E * f4);   // the head reverse's embedding half
     L.qe = L.srow = 0;
   }
   L.smem = o;
+  // scratch: 16-bit states, so that the resident CTAs' scratch stays in L2
+  // (sigmoid factors as sig_load reads them, tangent pre-activations bf16;
+  // the forward keeps a_s in f32 for the head's f32 sdf row)
   size_t s = 0;
-  const size_t act = R * L.ldX * b2;
-  L.P = take(s, (size_t)d.NH * R * d.H * f4);
-  L.AS = take(s, R * d.SW * f4);
+  L.P = take(s, (size_t)d.NH * R * d.H * b2);
+  L.AS = take(s, R * d.SW * (backward ? b2 : f4));
   if (!backward) {
-    L.X = L.TI = L.ZD = L.PS = L.ZDS = L.ACT = L.CA = L.CCIN = L.CU = L.CH = L.CHD = 0;
+    L.ZD = L.PS = L.ZDS = L.CH = L.CHD = 0;
   } else {
-    L.X = take(s, (size_t)d.NH * act);   // X[i] = h_{i+1}, i < NH
-    L.TI = take(s, (size_t)d.NH * act);  // TI[i] = t_{i+1}
-    L.ZD = take(s, (size_t)d.NH * R * d.H * f4);
-    L.PS = take(s, R * d.SW * f4);
-    L.ZDS = take(s, R * d.SW * f4);
-    L.ACT = take(s, (size_t)d.NHC * act);
-    L.CA = take(s, R * imax(d.HC, d.CW) * f4);
-    L.CCIN = take(s, R * d.CW * f4);
-    L.CU = take(s, R * d.H * f4);
-    L.CH = take(s, R * d.H * f4);
-    L.CHD = take(s, R * d.H * f4);
+    L.ZD = take(s, (size_t)d.NH * R * d.H * b2);
+    L.PS = take(s, R * d.SW * b2);
+    L.ZDS = take(s, R * d.SW * b2);
+    L.CH = take(s, R * d.E * f4);
+    L.CHD = take(s, R * d.E * f4);
   }
   L.scratch = s;
   return L;

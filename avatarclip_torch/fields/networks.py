@@ -201,17 +201,18 @@ class SDFNetwork(nn.Module):
         return out[..., :1], out[..., 1:], grad
 
 
-def kernel_sdf_forward(sdf: SDFNetwork, pts: torch.Tensor, bf16: bool,
-                       sdf_only: bool = False, round_sdf_row: bool = False) -> torch.Tensor:
+def kernel_sdf_forward(sdf: SDFNetwork, pts: torch.Tensor, sdf_only: bool = False,
+                       round_sdf_row: bool = False) -> torch.Tensor:
     """(P, 3) -> (P, d_out) = [sdf, feature] (or (P, 1) with ``sdf_only``) as
-    the NeuS kernels compute it, in pts' dtype: in f32 mode the module's
-    forward; in bf16 mode each matmul's
+    the NeuS kernels compute it, in pts' dtype, at the net's operand mode
+    (:func:`operand_bf16`): in f32 mode the module's forward; in bf16 mode each matmul's
     operands are rounded to bf16 (the JAX kernels' ``_dot``); activations,
     biases and the head's sdf row stay in pts' dtype, the sdf row unless
     ``round_sdf_row`` (the JAX sdf+gradient kernel rounds it, the megakernels
     and the sdf-only kernel sum it in f32). The head reads [a, e] with its
     weights scaled by 1/sqrt(2), as the kernels fold the skip's scale. For the
     kernel family only: the skip concat right before the head."""
+    bf16 = operand_bf16(sdf.cfg)
     if not bf16:  # f32: the module's own maths, the tight oracle as it always was
         out = sdf.forward(pts, sdf_only=sdf_only, dtype=pts.dtype)
         return out[..., :1] if sdf_only else out
@@ -231,15 +232,14 @@ def kernel_sdf_forward(sdf: SDFNetwork, pts: torch.Tensor, bf16: bool,
     return torch.cat([s / cfg.scale, feat], dim=-1)
 
 
-def kernel_sdf_with_gradient(sdf: SDFNetwork, pts: torch.Tensor, bf16: bool,
-                             round_sdf_row: bool = False):
+def kernel_sdf_with_gradient(sdf: SDFNetwork, pts: torch.Tensor, round_sdf_row: bool = False):
     """(sdf (P, 1), feature (P, F), gradient (P, 3)) of
     :func:`kernel_sdf_forward`, the gradient by autograd with
     create_graph=True. Autograd rounds a cotangent after each reverse dot
     where the kernels round it before."""
     with torch.enable_grad():
         x = pts if pts.requires_grad else pts.detach().requires_grad_(True)
-        out = kernel_sdf_forward(sdf, x, bf16, round_sdf_row=round_sdf_row)
+        out = kernel_sdf_forward(sdf, x, round_sdf_row=round_sdf_row)
         (grad,) = torch.autograd.grad(out[..., 0].sum(), x, create_graph=True)
     return out[..., :1], out[..., 1:], grad
 
@@ -320,12 +320,13 @@ class ColorNetwork(nn.Module):
         return x
 
 
-def kernel_color_forward(color: ColorNetwork, points, normals, view_dirs, features,
-                         bf16: bool) -> torch.Tensor:
-    """The colour net as the NeuS kernels compute it, in the points' dtype:
-    each matmul's operands rounded to bf16 in bf16 mode, relu activations,
-    biases and the sigmoid in the points' dtype. -> (P, d_out), or
-    (P, 2 * d_out) [main, extra] with extra_color."""
+def kernel_color_forward(color: ColorNetwork, points, normals, view_dirs,
+                         features) -> torch.Tensor:
+    """The colour net as the NeuS kernels compute it, in the points' dtype, at
+    the net's operand mode: each matmul's operands rounded to bf16 in bf16
+    mode, relu activations, biases and the sigmoid in the points' dtype. ->
+    (P, d_out), or (P, 2 * d_out) [main, extra] with extra_color."""
+    bf16 = operand_bf16(color.cfg)
     if not bf16:  # f32: the module's own maths
         return color(points, normals, view_dirs, features, dtype=points.dtype)
     cfg = color.cfg

@@ -80,16 +80,17 @@ def load_all(pairs: list[tuple[str, str]]) -> dict[str, ctypes.CDLL]:
         return _load_all(pairs)
 
 
-def _load_all(pairs):
+def _load_all(pairs, defines: tuple[str, ...] = ()):
     headers = sorted(CSRC.glob("*.cu*"))
+    flags = FLAGS + [f"-D{d}" for d in defines]
     jobs, paths = [], {}
     for name, source in pairs:
         if name in _loaded:
             continue
-        so = _so_path(name, FLAGS, headers)
+        so = _so_path(name, flags, headers)
         paths[name] = so
         if not so.exists():
-            jobs.append((name, [_nvcc(), *FLAGS, "-I", str(CSRC), str(CSRC / source)], so))
+            jobs.append((name, [_nvcc(), *flags, "-I", str(CSRC), str(CSRC / source)], so))
     if jobs:
         _build(jobs)
     for name, so in paths.items():
@@ -101,6 +102,13 @@ def load(name: str, source: str) -> ctypes.CDLL:
     """Compile ``csrc/{source}`` (once per content hash) and load it."""
     lib = _loaded.get(name)  # the launch path: no lock, no file system
     return lib if lib is not None else load_all([(name, source)])[name]
+
+
+def load_variant(name: str, source: str, defines: tuple[str, ...]) -> ctypes.CDLL:
+    """Compile ``csrc/{source}`` with the macros ``defines`` set (a build of
+    its own, e.g. the profiling one) and load it as ``name``."""
+    with _lock:
+        return _load_all([(name, source)], defines)[name]
 
 
 def load_host(name: str, source: str) -> ctypes.CDLL:

@@ -107,13 +107,11 @@ def dense_weights(color: ColorNetwork, spec: FusedColorSpec) -> list[torch.Tenso
     return [t.float().contiguous() for t in out]
 
 
-def color_apply_plain(color: ColorNetwork, points, normals, view_dirs, features,
-                      bf16: bool | None = None):
+def color_apply_plain(color: ColorNetwork, points, normals, view_dirs, features):
     """Plain PyTorch version of the kernel pair: the net at the kernel's
-    rounding points in the inputs' dtype (f64 gives a reference). ``bf16``:
-    the operand mode, the net's own when None."""
-    bf16 = operand_bf16(color.cfg) if bf16 is None else bf16
-    return kernel_color_forward(color, points, normals, view_dirs, features, bf16)
+    rounding points (the net's operand mode) in the inputs' dtype (f64 gives
+    a reference)."""
+    return kernel_color_forward(color, points, normals, view_dirs, features)
 
 
 def flops_per_point(spec: FusedColorSpec) -> tuple[float, float]:

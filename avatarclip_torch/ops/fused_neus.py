@@ -154,23 +154,23 @@ def _alpha(sdf, tc, dists, inv_s, r):
     return alpha, prev_cdf
 
 
-def _fields_plain(sdf, color, pts, dirs, bf16):
+def _fields_plain(sdf, color, pts, dirs):
     """(sdf, grad, rgb) of the kernels' network pass at their rounding points
-    in pts' dtype; ``bf16`` None takes the nets' operand mode."""
-    bf16 = operand_bf16(sdf.cfg) if bf16 is None else bf16
-    s, feat, g = kernel_sdf_with_gradient(sdf, pts, bf16)
-    return s, g, kernel_color_forward(color, pts, g, dirs, feat, bf16)
+    (the nets' operand mode) in pts' dtype."""
+    s, feat, g = kernel_sdf_with_gradient(sdf, pts)
+    return s, g, kernel_color_forward(color, pts, g, dirs, feat)
 
 
 def point_eval_ray_plain(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d,
-                         mid_z, dists, inv_s, cos_anneal, bf16: bool | None = None):
+                         mid_z, dists, inv_s, cos_anneal):
     """Plain PyTorch version of the kernel pair (same maths, the kernels'
-    rounding points in the operand mode ``bf16``, the nets' own when None),
-    computed in the inputs' dtype (f64 gives a reference)."""
+    rounding points at the nets' operand mode), computed in the inputs' dtype
+    (f64 on an f32 copy of the nets, ops/hold.f32_reference, gives a
+    reference)."""
     R, S = mid_z.shape
     pts = (rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., None]).reshape(-1, 3)
     dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
-    s, g, rgb = _fields_plain(sdf, color, pts, dirs, bf16)  # rgb (P, 3|6)
+    s, g, rgb = _fields_plain(sdf, color, pts, dirs)  # rgb (P, 3|6)
     tc = (dirs * g).sum(-1).reshape(R, S)
     alpha, _ = _alpha(s.reshape(R, S), tc, dists, inv_s, cos_anneal)
     trans = torch.cumprod(
@@ -187,7 +187,7 @@ def point_eval_ray_plain(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d,
 
 
 def point_eval_plain(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z, dists,
-                     inv_s, cos_anneal, bf16: bool | None = None):
+                     inv_s, cos_anneal):
     """Plain PyTorch version of the point-level kernel pair (same maths, the
     operand mode as :func:`point_eval_ray_plain`), in the inputs' dtype.
     Returns (sdf (P, 1), grad (P, 3), rgb (P, 3|6), alpha (P,), cdf (P,),
@@ -195,7 +195,7 @@ def point_eval_plain(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z
     R, S = mid_z.shape
     pts = (rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., None]).reshape(-1, 3)
     dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
-    s, g, rgb = _fields_plain(sdf, color, pts, dirs, bf16)
+    s, g, rgb = _fields_plain(sdf, color, pts, dirs)
     tc = (dirs * g).sum(-1)
     alpha, cdf = _alpha(s[:, 0], tc, dists.reshape(-1), inv_s, cos_anneal)
     r2 = (pts * pts).sum(-1).detach()
@@ -387,7 +387,11 @@ def pack_tc(spec: NeuSRaySpec, weights) -> tuple[torch.Tensor, Pack]:
 
 
 def _tc_lib():
-    lib = _build.load("fused_neus_ray_tc", "fused_neus_ray_tc.cu")
+    return type_tc(_build.load("fused_neus_ray_tc", "fused_neus_ray_tc.cu"))
+
+
+def type_tc(lib):
+    """Set the ctypes signatures of a build of fused_neus_ray_tc.cu."""
     if not getattr(lib, "_typed", False):
         P, I, F_, L_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         for fn in (lib.neus_tc_smem_bytes, lib.neus_tc_scratch_bytes):
@@ -397,8 +401,12 @@ def _tc_lib():
         lib.neus_tc_weight_count.restype = L_
         lib.neus_ray_tc_fwd.argtypes = [Dims, Pack] + [P] * 7 + [F_, I] + [P] * 8 + [L_, I, P]
         lib.neus_ray_tc_fwd.restype = I
-        lib.neus_ray_tc_bwd.argtypes = [Dims, Pack] + [P] * 7 + [F_, I] + [P] * 13 + [L_, I, P]
+        lib.neus_ray_tc_bwd.argtypes = [Dims, Pack] + [P] * 7 + [F_, I] + [P] * 13 + [L_, I, P, I, I, P]
         lib.neus_ray_tc_bwd.restype = I
+        lib.neus_tc_log_row.argtypes = [Dims]
+        lib.neus_tc_log_row.restype = L_
+        lib.neus_tc_wgrad_tiles.argtypes = [Dims]
+        lib.neus_tc_wgrad_tiles.restype = I
         lib._typed = True
     return lib
 
@@ -407,6 +415,19 @@ def n_cta_tc(device, R: int) -> int:
     """Persistent CTAs of the tensor-core pair: one per SM (its shared
     memory holds one), at most one per ray."""
     return max(1, min(R, torch.cuda.get_device_properties(device).multi_processor_count))
+
+
+RAYS_PER_CTA_CHUNK = 8  # the backward's chunk: this many rays a CTA (its log: ~0.7 MB a ray at 256 wide)
+
+
+def tc_bwd_chunking(device, lib, d, R: int) -> tuple[int, int, int]:
+    """(CTAs, rays a chunk, point splits of the weight-gradient pass) of the
+    tensor-core backward: the pass's CTAs (one an SM) fill about two waves."""
+    n_cta = n_cta_tc(device, R)
+    chunk = min(R, n_cta * RAYS_PER_CTA_CHUNK)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = int(lib.neus_tc_wgrad_tiles(d))
+    return n_cta, chunk, max(1, min(chunk, 2 * sms // tiles))
 
 
 def neus_ray_tc_fwd(spec: NeuSRaySpec, flat, pk, pack, rays_o, rays_d, mid_z, dists, inv_s,
@@ -459,10 +480,12 @@ def neus_ray_tc_bwd(spec: NeuSRaySpec, flat, pk, pack, rays_o, rays_d, mid_z, di
         raise ValueError("the packed weights must be a contiguous bf16 tensor on the card")
     dev = mid_z.device
     n_w = int(lib.neus_tc_weight_count(d))
-    n_cta = n_cta_tc(dev, R)
+    n_cta, chunk, n_split = tc_bwd_chunking(dev, lib, d, R)
     stride = int(lib.neus_tc_scratch_bytes(d, 1))
     scr = torch.empty(n_cta * stride, dtype=torch.uint8, device=dev)
-    gpart = torch.empty(n_cta * (n_w + 1), device=dev)
+    gpart = torch.zeros((n_cta + 2 * n_split) * (n_w + 1), device=dev)
+    log = torch.empty(chunk * MAX_SAMPLES * int(lib.neus_tc_log_row(d)), dtype=torch.bfloat16,
+                      device=dev)
     d_o = torch.empty(R, 3, device=dev)
     d_d = torch.empty(R, 3, device=dev)
     d_z = torch.empty(R, S, device=dev)
@@ -472,8 +495,8 @@ def neus_ray_tc_bwd(spec: NeuSRaySpec, flat, pk, pack, rays_o, rays_d, mid_z, di
     err = lib.neus_ray_tc_bwd(
         d, pack, p(flat), p(pk), p(rays_o), p(rays_d), p(mid_z), p(dists), p(inv_s),
         float(cos_anneal), R, p(sdf_res), p(g_res), p(c_col), p(c_nw), p(c_ws), p(c_eik),
-        p(d_o), p(d_d), p(d_z), p(d_t), p(d_w), p(gpart), p(scr), stride, n_cta,
-        _build.stream_ptr(dev),
+        p(d_o), p(d_d), p(d_z), p(d_t), p(d_w), p(gpart), p(scr), stride, n_cta, p(log), chunk,
+        n_split, _build.stream_ptr(dev),
     )
     _build.check(err, "neus_ray_tc_bwd launch")
     _build.count(LAUNCHES, "neus_ray_bwd")

@@ -97,23 +97,20 @@ def dense_weights(sdf: SDFNetwork) -> list[torch.Tensor]:
     return [t.float() for t in out]
 
 
-def sdf_with_gradient_plain(sdf: SDFNetwork, pts: torch.Tensor, bf16: bool | None = None):
+def sdf_with_gradient_plain(sdf: SDFNetwork, pts: torch.Tensor):
     """Plain PyTorch version of the kernel pair: the net's forward at the
-    kernel's rounding points and its spatial gradient by autograd
-    (create_graph=True), computed in the input's dtype (f64 gives a
-    reference). ``bf16``: the operand mode, the net's own when None; the
-    head's sdf row is rounded too, as the JAX pair's ``_dot`` rounds it."""
-    bf16 = operand_bf16(sdf.cfg) if bf16 is None else bf16
-    return kernel_sdf_with_gradient(sdf, pts, bf16, round_sdf_row=True)
+    kernel's rounding points (the net's operand mode) and its spatial
+    gradient by autograd (create_graph=True), computed in the input's dtype
+    (f64 gives a reference); in bf16 mode the head's sdf row is rounded too,
+    as the JAX pair's ``_dot`` rounds it."""
+    return kernel_sdf_with_gradient(sdf, pts, round_sdf_row=True)
 
 
-def sdf_only_plain(sdf: SDFNetwork, pts: torch.Tensor, bf16: bool | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the sdf-only kernel: the stack and the head's
-    sdf row alone (summed unrounded, as the JAX kernel's row form), in the
-    input's dtype -> (P, 1). ``bf16``: the operand mode, the net's own when
-    None."""
-    bf16 = operand_bf16(sdf.cfg) if bf16 is None else bf16
-    return kernel_sdf_forward(sdf, pts, bf16, sdf_only=True)
+def sdf_only_plain(sdf: SDFNetwork, pts: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the sdf-only kernel: the stack at the net's
+    operand mode and the head's sdf row alone (summed unrounded, as the JAX
+    kernel's row form), in the input's dtype -> (P, 1)."""
+    return kernel_sdf_forward(sdf, pts, sdf_only=True)
 
 
 def sdf_only_flops_per_point(spec: FusedSDFSpec) -> float:

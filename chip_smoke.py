@@ -29,8 +29,13 @@ kernel's plain version):
        the plain version evaluated in float64, outputs to 1e-4 and gradients
        to 1e-3 of their largest magnitude; B3's forward also under no_grad
        at the validation chunk of 16,384 rays x 64 and at a ragged 16,347
-       (4x256 / 2x256 nets); B1 timed at the training step's 12,544 rays x
-       64, B3 at 16,384 rays x 64;
+       (4x256 / 2x256 nets); in the bf16 operand mode (B1: the tensor-core
+       pair) each is held against the plain version in float64 of the f32
+       function beside its plain bf16 version (relative RMS), and B1 again
+       at the training step's 12,544 rays x 64 with its float64 reference in
+       1,024-ray chunks, by relative RMS and by its worst ray; B1's kernels
+       timed there (the median of 5 calls; the bf16 forward must be below
+       its f32 CUDA-core bound), B3 at 16,384 rays x 64;
      - B4, the compositing pair: rgb width 6 and 3 on 2,048 rays x 64 against
        float64, same tolerances, and its forward under no_grad at 16,384 and
        16,347 rays; timed at 16,384 rays x 64;
@@ -70,7 +75,11 @@ kernel's plain version):
      a. ``appearance.main --mode train_clip`` for 8 steps with val_freq =
         val_mesh_freq = save_freq = 8 (asynchronous validation on, as in the
         confs): step 8 validates an image (camera 58), extracts and bakes a
-        256^3 mesh and saves a checkpoint;
+        256^3 mesh and saves a checkpoint; then, outside the counts, B1 held
+        on one step's own 12,544 rays, nets and cotangents as in phase 3,
+        and one step from the checkpoint through the megakernel against the
+        gate shut (B6 / B7 per sample) at the conf's bf16: the losses, the
+        parameter gradients and the Adam updates held together;
      b. ``appearance.main --mode validate_mesh --is_continue``: the 512^3
         extraction with its colour baking, then the cast-light head render;
      a'. ``Runner.interpolate_view(0, 30)`` on a Runner resumed from (a)'s
@@ -471,9 +480,9 @@ def hold_bf16_sets(tag, names, got, plain, ref) -> tuple[float, float]:
 def hold_neus_bf16(tag, kernel_fn, plain_fn, out_names, n_out, probe_idx, dev) -> float:
     """B1 / B3 in the bf16 operand mode at 256 and 128 wide on 2,048 rays x
     64 samples (hold_bf16_sets); the worst kernel relative RMS error."""
-    import functools
-
     import torch
+
+    from avatarclip_torch.ops import hold
 
     worst = 0.0
     for width in (256, 128):
@@ -481,9 +490,9 @@ def hold_neus_bf16(tag, kernel_fn, plain_fn, out_names, n_out, probe_idx, dev) -
         probes = probes if probe_idx == "ray" else point_probes
         outs_k, grads_k = neus_grads(kernel_fn, fields, inputs, probes, n_out)
         outs_p, grads_p = neus_grads(plain_fn, fields, inputs, probes, n_out)
-        f64 = copy.deepcopy(fields).double()
-        outs_r, grads_r = neus_grads(functools.partial(plain_fn, bf16=False), f64,
-                                     [t.double() for t in inputs], [p.double() for p in probes], n_out)
+        f64 = hold.f32_copy(fields).double()
+        outs_r, grads_r = neus_grads(plain_fn, f64, [t.double() for t in inputs],
+                                     [p.double() for p in probes], n_out)
         torch.cuda.synchronize()
         names = list(out_names) + ["d " + n for n, _ in fields.named_parameters()] + [
             "d rays_o", "d rays_d", "d mid_z", "d dists"]
@@ -501,17 +510,15 @@ def hold_net_bf16(tag, fused, plain, net, ins, cots, in_names, out_names) -> flo
     """B6 / B7 / #12 through their entries in the bf16 operand mode against
     the plain version in f64 at f32 operands, beside the plain bf16 version
     (hold_bf16_sets); the worst kernel relative RMS error."""
-    import functools
-
     import torch
 
     from avatarclip_torch.ops import hold
 
     ok, gk = hold.net_grads(fused, net, ins, cots)
     op, gp = hold.net_grads(plain, net, ins, cots, chunk=REF_CHUNK)
-    ref = copy.deepcopy(net).double()
-    orf, grf = hold.net_grads(functools.partial(plain, bf16=False), ref, [t.double() for t in ins],
-                              [c.double() for c in cots], chunk=REF_CHUNK)
+    ref = hold.f32_copy(net).double()
+    orf, grf = hold.net_grads(plain, ref, [t.double() for t in ins], [c.double() for c in cots],
+                              chunk=REF_CHUNK)
     names = list(out_names) + ["d " + n for n, _ in net.named_parameters()] + [
         "d " + n for n in in_names]
     worst, _ = hold_bf16_sets(tag, names, ok + gk, op + gp, orf + grf)
@@ -530,13 +537,95 @@ def bound_tc(flops: float, nbytes: float) -> dict:
             "flops": flops, "bytes": nbytes, "bound_ms_f32": max(flops / PEAK_F32 * 1e3, t_bytes)}
 
 
+B1_REPS = 5  # timed calls of each B1 kernel; the median is the time
+B1_RAYS = 112 * 112  # the train_clip step's rays
+B1_REF_RAYS = 1024  # rays a chunk of B1's plain and float64 references at B1_RAYS
+
+
+def time_b1_kernels(fields, inputs, probes) -> dict:
+    """B1's two kernels alone (the wrappers fused_neus.neus_ray_tc_fwd /
+    _bwd in the nets' bf16 mode, neus_ray_fwd / _bwd in f32; weights packed
+    once): the median, least and most ms of B1_REPS CUDA-event-timed calls
+    each."""
+    import torch
+
+    from avatarclip_torch.ops import fused_neus as fn
+
+    spec = fn.spec_from_configs(fields.sdf.cfg, fields.color.cfg, inputs[2].shape[1])
+    with torch.no_grad():
+        weights = fn.dense_weights(fields.sdf, fields.color)
+        flat = torch.cat([w.reshape(-1) for w in weights])
+        inv_s = fields.variance.inv_s().reshape(()).float().contiguous()
+        lead = (spec, flat) + (fn.pack_tc(spec, weights) if spec.bf16 else ())
+    args = (*inputs, inv_s, 0.4)
+    fwd_k, bwd_k = ((fn.neus_ray_tc_fwd, fn.neus_ray_tc_bwd) if spec.bf16
+                    else (fn.neus_ray_fwd, fn.neus_ray_bwd))
+    cots = (probes[0].contiguous(), probes[1].contiguous(), probes[2].contiguous(),
+            torch.tensor([0.5, 0.0], device=flat.device))
+    res = fwd_k(*lead, *args)
+    out = {}
+    for name, f in (("fwd", lambda: fwd_k(*lead, *args)),
+                    ("bwd", lambda: bwd_k(*lead, *args, res[3], res[4], *cots))):
+        f()
+        times = []
+        for _ in range(B1_REPS):
+            times.append(cuda_ms_once(f))
+        out[name] = (statistics.median(times), min(times), max(times))
+    return out
+
+
+def hold_b1_full(tag, fields, inputs, probes, cos_anneal=0.4) -> float:
+    """B1 in the bf16 mode at the path's size (B1_RAYS x 64 at 4x256 /
+    2x256): the kernel on all the rays at once, its plain bf16 version and
+    the f32 function in float64 (ops/hold.f32_copy) B1_REF_RAYS rays at a
+    time (ops/hold.ray_grads). Held by hold_bf16_sets (relative RMS) and,
+    for each per-ray tensor (the three per-ray outputs and the four ray
+    inputs' gradients), by its worst ray (ops/hold.per_ray_within). Returns
+    the worst kernel relative RMS error."""
+    import torch
+
+    from avatarclip_torch.ops import fused_neus as fn
+    from avatarclip_torch.ops import hold
+
+    got = hold.ray_grads(fn.point_eval_ray, fields, inputs, probes, cos_anneal)
+    plain = hold.ray_grads(fn.point_eval_ray_plain, fields, inputs, probes, cos_anneal,
+                           chunk=B1_REF_RAYS)
+    ref64 = hold.f32_copy(fields).double()
+    ref = hold.ray_grads(fn.point_eval_ray_plain, ref64, [t.double() for t in inputs],
+                         [p.double() for p in probes], cos_anneal, chunk=B1_REF_RAYS)
+    torch.cuda.synchronize()
+    names = ["colorW", "normals_w", "weight_sum", "gradient_error"] + [
+        "d " + n for n, _ in fields.named_parameters()] + ["d rays_o", "d rays_d", "d mid_z", "d dists"]
+    flat = lambda x: list(x[0]) + list(x[1])
+    worst, ratio = hold_bf16_sets(tag, names, flat(got), flat(plain), flat(ref))
+    n_par = len(list(fields.parameters()))
+    rows, worst_ray = [], 0.0
+    for i in (0, 1, 2, 4 + n_par, 5 + n_par, 6 + n_par, 7 + n_par):
+        ek, ep, ok = hold.per_ray_within(flat(got)[i], flat(plain)[i], flat(ref)[i])
+        if not ok:
+            fail(f"{tag} bf16 {names[i]}: worst ray's relative error {ek:.3e} > {hold.PER_RAY_K} x "
+                 f"the plain bf16 version's {ep:.3e} + {hold.BF16_FLOOR}")
+        worst_ray = max(worst_ray, ek / max(ep, 1e-30))
+        rows.append(f"{names[i]} {ek:.2e}/{ep:.2e}")
+    print(f"[{tag}] worst ray's relative error, kernel/plain bf16 (at most {hold.PER_RAY_K}x + "
+          f"{hold.BF16_FLOOR}): " + ", ".join(rows) + f"; relative RMS at most {ratio:.2f}x, "
+          f"worst ray at most {worst_ray:.2f}x the plain version's")
+    del got, plain, ref, ref64
+    torch.cuda.empty_cache()
+    return worst
+
+
 def check_neus_ray(dev):
     """B1: the f32 mode (fused_neus_ray.cu) held in f64 to OUT_TOL / GRAD_TOL,
     the bf16 mode (the tensor-core pair, fused_neus_ray_tc.cu) held as
-    hold_bf16_sets says, both at 256 and 128 wide; both timed at the training
-    step's 12,544 rays x 64 beside their plain versions in the same mode. The
-    kernels line carries the bf16 mode (the main path's: every conf is bf16)
-    and its f32 numbers beside."""
+    hold_bf16_sets says, both at 256 and 128 wide on 2,048 rays, and the
+    bf16 mode again at the training step's 12,544 rays x 64 (hold_b1_full).
+    Both modes' kernels timed there (time_b1_kernels) and their entries
+    beside their plain versions in the same mode. The bf16 forward must be
+    faster than its f32 CUDA-core bound (no f32 kernel could be); the
+    backward's comparison with its bound is printed. The kernels line
+    carries the bf16 mode (the main path's: every conf is bf16) and its f32
+    numbers beside."""
     import torch
 
     from avatarclip_torch.ops import fused_neus as fn
@@ -548,11 +637,18 @@ def check_neus_ray(dev):
                                 ("colorW", "normals_w", "weight_sum", "gradient_error"),
                                 (0, 1, 2, 3), "ray", dev)
 
-    # time at the main path's shapes: 12,544 rays x 64 samples, 4x256 / 2x256
-    R = 12544
-    times = {}
+    # at the main path's shapes: 12,544 rays x 64 samples, 4x256 / 2x256
+    R = B1_RAYS
+    times, kern = {}, {}
     for mode in ("bfloat16", "float32"):
         fields, inputs, probes, _ = neus_problem(256, R, dev, seed=1, dtype=mode)
+        if mode == "bfloat16":
+            worst_bf16 = max(worst_bf16, hold_b1_full(f"B1 {R} rays x 64, 256-wide", fields, inputs,
+                                                      probes))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kern[mode] = time_b1_kernels(fields, inputs, probes)
+        peak_k = torch.cuda.max_memory_allocated() / 2**30
         for name, f in (("kernel", fn.point_eval_ray), ("plain", fn.point_eval_ray_plain)):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -564,7 +660,8 @@ def check_neus_ray(dev):
                 torch.cuda.synchronize()
                 bwd_total += cuda_ms_once(
                     lambda: torch.autograd.grad(loss, list(fields.parameters()) + ins))
-            times[mode, name] = (fwd_ms, bwd_total / 3, torch.cuda.max_memory_allocated() / 2**30)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            times[mode, name] = (fwd_ms, bwd_total / 3, max(peak, peak_k) if name == "kernel" else peak)
             del ins, loss
         spec = fn.spec_from_configs(fields.sdf.cfg, fields.color.cfg, 64)
         n_w = sum(t.numel() for t in fn.dense_weights(fields.sdf, fields.color))
@@ -576,31 +673,38 @@ def check_neus_ray(dev):
     by_f = 4 * (n_w + 6 * R + 2 * P + (Wd + 4) * R + 4 * P + 2)
     by_b = 4 * (n_w + 6 * R + 2 * P + 4 * P + (Wd + 4) * R + 2 + 6 * R + 2 * P + n_w + 1)
     b_f, b_b = bound_tc(fl_f * P, by_f), bound_tc(fl_b * P, by_b)
-    kf, kb = times["bfloat16", "kernel"][:2]
+    kf, kb = kern["bfloat16"]["fwd"][0], kern["bfloat16"]["bwd"][0]
     for mode in ("bfloat16", "float32"):
-        (kf_, kb_, km), (pf, pb, pm) = times[mode, "kernel"], times[mode, "plain"]
-        print(f"[B1] {R} rays x 64 samples, 4x256/2x256, {mode} mode: forward kernel {kf_:.3f} ms "
-              f"(plain {pf:.3f} ms), backward kernel {kb_:.3f} ms (plain {pb:.3f} ms); peak memory "
-              f"kernel {km:.2f} GiB, plain {pm:.2f} GiB")
+        (ef, eb, km), (pf, pb, pm) = times[mode, "kernel"], times[mode, "plain"]
+        (f_med, f_lo, f_hi), (b_med, b_lo, b_hi) = kern[mode]["fwd"], kern[mode]["bwd"]
+        print(f"[B1] {R} rays x 64 samples, 4x256/2x256, {mode} mode: forward kernel {f_med:.3f} ms "
+              f"(median of {B1_REPS}, {f_lo:.3f}-{f_hi:.3f}; entry with the weight packing "
+              f"{ef:.3f} ms; plain {pf:.3f} ms), backward kernel {b_med:.3f} ms ({b_lo:.3f}-{b_hi:.3f}; "
+              f"through autograd {eb:.3f} ms; plain {pb:.3f} ms); peak memory kernel {km:.2f} GiB, "
+              f"plain {pm:.2f} GiB")
     print(f"[B1] bounds: forward {b_f['bound_ms']:.3f} ms at the bf16 tensor-core peak "
           f"({b_f['bound_by']}), {b_f['bound_ms_f32']:.3f} ms at the f32 CUDA-core peak; backward "
           f"{b_b['bound_ms']:.3f} / {b_b['bound_ms_f32']:.3f} ms; {fl_f:.0f} / {fl_b:.0f} GEMM FLOPs "
           f"per point; the bf16 pair achieves {fl_f * P / kf * 1e-9:.1f} / {fl_b * P / kb * 1e-9:.1f} "
           f"TFLOP/s, {b_f['bound_ms'] / kf:.3f} / {b_b['bound_ms'] / kb:.3f} of its bound")
-    # a reading: below the f32 CUDA-core bound, no f32 kernel could be this fast
-    for tag, ms_, b_ in (("forward", kf, b_f), ("backward", kb, b_b)):
-        print(f"[B1] bf16 {tag} {ms_:.3f} ms is {'below' if ms_ < b_['bound_ms_f32'] else 'NOT below'} "
-              f"the f32 CUDA-core bound {b_['bound_ms_f32']:.3f} ms")
+    # below the f32 CUDA-core bound, no f32 kernel could be this fast
+    if not kf < b_f["bound_ms_f32"]:
+        fail(f"B1 bf16 forward {kf:.3f} ms (median of {B1_REPS}) is not below the f32 CUDA-core "
+             f"bound {b_f['bound_ms_f32']:.3f} ms")
+    print(f"[B1] bf16 forward {kf:.3f} ms (median of {B1_REPS}) is below the f32 CUDA-core bound "
+          f"{b_f['bound_ms_f32']:.3f} ms; bf16 backward {kb:.3f} ms is "
+          f"{'below' if kb < b_b['bound_ms_f32'] else 'NOT below'} its f32 CUDA-core bound "
+          f"{b_b['bound_ms_f32']:.3f} ms (a reading, not a check)")
     common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_neus_ray_tc.cu",
               "source_f32": "avatarclip_torch/csrc/fused_neus_ray.cu", "library_ms": None}
     return [
         {"name": "neus_ray_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_neus.py:403",
          "max_abs_err": worst_f, "bf16_rel_rms_err": worst_bf16, "ms": kf,
-         "plain_ms": times["bfloat16", "plain"][0], "ms_f32": times["float32", "kernel"][0],
+         "plain_ms": times["bfloat16", "plain"][0], "ms_f32": kern["float32"]["fwd"][0],
          "plain_ms_f32": times["float32", "plain"][0], **b_f},
         {"name": "neus_ray_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_neus.py:620",
          "max_abs_err": worst_b, "bf16_rel_rms_err": worst_bf16, "ms": kb,
-         "plain_ms": times["bfloat16", "plain"][1], "ms_f32": times["float32", "kernel"][1],
+         "plain_ms": times["bfloat16", "plain"][1], "ms_f32": kern["float32"]["bwd"][0],
          "plain_ms_f32": times["float32", "plain"][1], **b_b},
     ]
 
@@ -1603,8 +1707,9 @@ def run_main_path(tmp: str, pretrain: str):
     # a. train_clip with the step-8 validations
     zero_counts()
     t0 = time.perf_counter()
-    runner = appearance.main(["--mode", "train_clip"] + argv)
-    torch.cuda.synchronize()
+    with record_b1() as rec_b1:
+        runner = appearance.main(["--mode", "train_clip"] + argv)
+        torch.cuda.synchronize()
     wall_a = time.perf_counter() - t0
     launches_a = read_counts()
     if runner.iter_step != N_STEPS:
@@ -1654,6 +1759,7 @@ def run_main_path(tmp: str, pretrain: str):
           f"{6 * nv256} bake rays; {chunks_a} chunks of <= {VAL_CHUNK} rays")
     del runner
     torch.cuda.empty_cache()
+    hold_b1_recorded(rec_b1)
     extra = megakernel_against_gate_shut(conf_path, sets)
     launches_a = {k: launches_a[k] + extra[k] for k in launches_a}
 
@@ -1716,7 +1822,79 @@ def run_main_path(tmp: str, pretrain: str):
     return {k: launches_a[k] + launches_b[k] + launches_i[k] for k in launches_a}, (conf_path, sets)
 
 
-STEP_BF16_TOL = 1e-2  # relative, a step's loss: the megakernel path against the per-sample branch
+# path (a) at bf16, the megakernel path against the per-sample branch, from
+# the same checkpoint, seed and draws (readings of the final run before
+# these were set, NVIDIA H100 80GB HBM3: the loss 3.1e-5 apart)
+STEP_BF16_TOL = 1e-3  # relative, the first step's loss
+STEP_GRAD_TOL = 5e-2  # relative RMS, the first step's parameter gradients (two bf16 roundings)
+STEP_UPDATE_TOL = 1e-2  # relative RMS, the first step's Adam update (resumed moments)
+
+
+@contextlib.contextmanager
+def record_b1():
+    """Within the block, B1's entry (fused_neus.point_eval_ray) records its
+    largest call with grad: copies of the nets and of the inputs, inv_s,
+    cos_anneal, and the cotangents its outputs receive in the backward."""
+    import torch
+
+    from avatarclip_torch.ops import fused_neus as fn
+
+    rec = {}
+    entry = fn.point_eval_ray
+
+    def call(sdf, color, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal):
+        outs = entry(sdf, color, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal)
+        if torch.is_grad_enabled() and mid_z.shape[0] > rec.get("rays", 0):
+            rec.clear()
+            rec.update(rays=mid_z.shape[0], sdf=copy.deepcopy(sdf), color=copy.deepcopy(color),
+                       inv_s=inv_s.detach().float().reshape(()).clone(), cos=float(cos_anneal),
+                       ins=[t.detach().float().contiguous().clone() for t in (rays_o, rays_d, mid_z, dists)],
+                       cots=[None] * 4, shapes=[o.shape for o in outs])
+            for i, o in enumerate(outs):
+                if o.requires_grad:
+                    o.register_hook(lambda g, i=i: rec["cots"].__setitem__(i, g.detach().float().clone()))
+        return outs
+
+    fn.point_eval_ray = call
+    try:
+        yield rec
+    finally:
+        fn.point_eval_ray = entry
+
+
+def hold_b1_recorded(rec) -> None:
+    """B1 held (hold_b1_full) on path (a)'s own largest step: its rays,
+    samples, nets (dense copies: the weight columns are the dense gradients
+    the kernel computes), inv_s (a leaf here), cos_anneal and the cotangents
+    the step gave its outputs."""
+    import torch
+
+    from avatarclip_torch.fields import networks as nets
+    from avatarclip_torch.ops import hold
+
+    if rec.get("rays") != B1_RAYS:
+        fail(f"path a: B1's largest step took {rec.get('rays')} rays, expected {B1_RAYS}")
+
+    class InvS(torch.nn.Module):
+        def __init__(self, v):
+            super().__init__()
+            self.v = torch.nn.Parameter(v)
+
+        def inv_s(self):
+            return self.v
+
+    fields = torch.nn.Module()
+    fields.sdf, fields.color = hold.dense_copy(rec["sdf"]), hold.dense_copy(rec["color"])
+    fields.variance = InvS(rec["inv_s"])
+    if not nets.operand_bf16(fields.sdf.cfg):
+        fail("path a: the conf's nets are not in the bf16 operand mode")
+    dev = rec["ins"][0].device
+    cots = [torch.zeros(s, device=dev) if c is None else c.reshape(s)
+            for c, s in zip(rec["cots"], rec["shapes"])]
+    hold_b1_full(f"B1 path a step, {B1_RAYS} rays x {rec['ins'][2].shape[1]}", fields, rec["ins"],
+                 cots, rec["cos"])
+    rec.clear()
+    torch.cuda.empty_cache()
 
 
 def megakernel_against_gate_shut(conf_path: str, sets) -> dict:
@@ -1725,8 +1903,10 @@ def megakernel_against_gate_shut(conf_path: str, sets) -> dict:
     per-ray megakernel (B1's tensor-core pair) and with neus._FORCE_MEGA =
     False (the per-sample branch: B6 and B7 at their bf16 operands, then the
     plain alpha and compositing). The first step's losses within
-    STEP_BF16_TOL: both paths round the dots' operands at the JAX kernels'
-    points, in another order and with other f32 sums. Prints both step times
+    STEP_BF16_TOL, its parameter gradients within STEP_GRAD_TOL and its Adam
+    update within STEP_UPDATE_TOL (relative RMS over every parameter): both
+    paths round the dots' operands at the JAX kernels' points, in another
+    order and with other f32 sums. Prints both step times
     (the second step: the first of a runner pays one-time costs) and
     profiles three more megakernel steps (device busy share, time by
     kernel). Returns the launches of the counted steps."""
@@ -1746,8 +1926,11 @@ def megakernel_against_gate_shut(conf_path: str, sets) -> dict:
             r.init_smpl()
             zero_counts()
             losses, secs = [], []
-            for _ in range(2):
+            params = [p for grp in r.optimizer.param_groups for p in grp["params"]]
+            flat = lambda ts: torch.cat([t.detach().float().reshape(-1).cpu() for t in ts])
+            for step_i in range(2):
                 cam, S = r.sample_iteration_camera(r.iter_step)
+                before = flat(params) if step_i == 0 else None
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 loss, _ = r.clip_loss(S, cam, r.draw_clip(S), r.iter_step)
@@ -1755,11 +1938,14 @@ def megakernel_against_gate_shut(conf_path: str, sets) -> dict:
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
                 losses.append(float(loss.detach()))
+                if step_i == 0:
+                    grads = flat([torch.zeros_like(p) if p.grad is None else p.grad for p in params])
+                    update = flat(params) - before
                 r.iter_step += 1
             counts = read_counts()
             for k, v in counts.items():
                 total[k] += v
-            out[force] = (losses, secs, counts, S)
+            out[force] = (losses, secs, counts, S, grads, update)
             if force is None:  # the step's device busy share and kernels (uncounted)
 
                 def step(r=r):
@@ -1773,7 +1959,7 @@ def megakernel_against_gate_shut(conf_path: str, sets) -> dict:
             torch.cuda.empty_cache()
     finally:
         neus._FORCE_MEGA = None
-    (lk, tk, ck, S), (lg, tg, cg, _) = out[None], out[False]
+    (lk, tk, ck, S, gk, uk), (lg, tg, cg, _, gg, ug) = out[None], out[False]
     if ck["neus_ray_fwd"] != 2 or ck["neus_ray_bwd"] != 2 or cg["neus_ray_fwd"] != 0:
         fail(f"path a, megakernel against the gate shut: launches {ck} / {cg}")
     if cg["sdf_fwd"] != 2 or cg["sdf_bwd"] != 2 or cg["color_fwd"] != 2 or cg["color_bwd"] != 2:
@@ -1782,6 +1968,14 @@ def megakernel_against_gate_shut(conf_path: str, sets) -> dict:
     if not rel <= STEP_BF16_TOL:
         fail(f"path a at {dtype}: loss through the megakernel {lk[0]} vs the gate shut {lg[0]} "
              f"(rel {rel:.2e} > {STEP_BF16_TOL})")
+    rel_g = float((gk - gg).norm() / gg.norm())
+    rel_u = float((uk - ug).norm() / ug.norm())
+    if not (rel_g <= STEP_GRAD_TOL and rel_u <= STEP_UPDATE_TOL):
+        fail(f"path a at {dtype}: the first step's parameter gradients {rel_g:.2e} apart (tolerance "
+             f"{STEP_GRAD_TOL}), its Adam updates {rel_u:.2e} (tolerance {STEP_UPDATE_TOL})")
+    print(f"[main a] the first step through the megakernel against the gate shut: parameter "
+          f"gradients {rel_g:.3e} apart, Adam updates {rel_u:.3e} (relative RMS over "
+          f"{gk.numel()} parameters)")
     print(f"[main a] one train_clip step at the conf's {dtype} from the step-{N_STEPS} checkpoint "
           f"({S}^2 bucket), same seed and draws: loss through the per-ray megakernel {lk[0]:.7f}, "
           f"with the gate shut (B6 / B7 per sample) {lg[0]:.7f} (rel {rel:.2e}, tolerance "
@@ -1947,8 +2141,6 @@ def hold_recorded(rec) -> dict:
     columns are the dense gradients the kernels compute. At the conf's bf16
     operand mode the holds are hold_bf16_sets'. The max abs errors by kernel
     name (of the f32 holds)."""
-    import functools
-
     import torch
 
     from avatarclip_torch.fields import networks as nets
@@ -1986,7 +2178,7 @@ def hold_recorded(rec) -> dict:
             with torch.no_grad():
                 got = fused(net, *r["ins"])
             got = list(got) if isinstance(got, tuple) else [got]
-            ref = hold.net_outputs(functools.partial(plain, bf16=False), copy.deepcopy(net).double(),
+            ref = hold.net_outputs(plain, hold.f32_copy(net).double(),
                                    [t.double() for t in r["ins"]], chunk=REF_CHUNK)
             hold_bf16_sets(name, out_names, got, hold.net_outputs(plain, net, r["ins"],
                                                                   chunk=REF_CHUNK), ref)

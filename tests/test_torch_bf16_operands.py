@@ -44,6 +44,7 @@ from avatarclip_torch.fields import networks as tnets
 from avatarclip_torch.ops import fused_color as tfc
 from avatarclip_torch.ops import fused_neus as tfn
 from avatarclip_torch.ops import fused_sdf as tfs
+from avatarclip_torch.ops import hold as thold
 from avatarclip_torch.utils.convert import params_from_jax
 
 OUT_TOL, GRAD_TOL = 1e-3, 2e-2
@@ -145,6 +146,42 @@ def test_b1_plain_matches_pallas_per_ray_kernel_at_bf16(one_device, monkeypatch)
                                    *map(jnp.asarray, arrays), jnp.exp(jnp.asarray(3.0)), 0.3)
     cat = lambda ts: np.concatenate([np.asarray(t, np.float64).reshape(-1) for t in ts])
     assert np.linalg.norm(cat(port) - cat(j16)) < 0.5 * np.linalg.norm(cat(j32) - cat(j16))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_b1_scalars_at_bf16_scatter_as_the_jax_kernel_does(one_device, seed):
+    """B1's single numbers at bf16 operands, the inv_s gradient and the
+    eikonal term (16 rays x 32 samples, loss sum(out^2)): each one draw of
+    the rounding, widely spread against the f32 function in float64 (the
+    readings behind ops/hold.BF16_SCALAR_FLOOR; printed under -s). The
+    plain version draws as the JAX kernel does: each within twice the
+    other's relative error plus that floor."""
+    jcfgs, params, fields, arrays = _neus_setup(seed, R=16, S=32)
+    cos_r = 0.3
+    inv_s = jnp.exp(jnp.asarray(0.3) * 10.0)
+
+    def jloss(p, inv, *xs):
+        outs = jfn.point_eval_fused_ray(p["sdf"], jcfgs.sdf, p["color"], jcfgs.color, *xs, inv, cos_r)
+        return sum(((o * o).sum() if o.ndim else o) for o in outs[:4]), outs[3]
+
+    (_, jge), (jg,) = jax.value_and_grad(jloss, argnums=(1,), has_aux=True)(
+        {"sdf": params["sdf"], "color": params["color"]}, inv_s, *map(jnp.asarray, arrays))
+
+    def port(flds, dt):
+        ins = [torch.from_numpy(a).to(dt) for a in arrays]
+        inv = torch.tensor(float(inv_s), dtype=dt, requires_grad=True)
+        outs = tfn.point_eval_ray_plain(flds.sdf, flds.color, *ins, inv, cos_r)
+        loss = sum(((o * o).sum() if o.dim() else o) for o in outs[:4])
+        (g,) = torch.autograd.grad(loss, [inv])
+        return float(outs[3].detach()), float(g)
+
+    pge, pg = port(fields, torch.float32)
+    rge, rg = port(thold.f32_copy(fields).double(), torch.float64)
+    floor = thold.BF16_SCALAR_FLOOR
+    for name, j, p, r in (("inv_s gradient", float(jg), pg, rg), ("eikonal", float(jge), pge, rge)):
+        ej, ep = abs(j - r) / abs(r), abs(p - r) / abs(r)
+        print(f"seed {seed} {name}: relative error JAX {ej:.2e}, plain {ep:.2e}")
+        assert ep <= 2 * ej + floor and ej <= 2 * ep + floor, (name, ej, ep)
 
 
 def test_b3_plain_matches_pallas_point_kernel_at_bf16(one_device):
@@ -313,8 +350,9 @@ def test_operand_mode_follows_cfg_dtype():
 
 def test_plain_versions_round_only_in_bf16_mode():
     """At f32 the plain versions are the module's f32 maths; at bf16 they
-    round the dot operands (and so differ at bf16 level), while an explicit
-    bf16=False gives back the f32 function."""
+    round the dot operands (and so differ at bf16 level), while an f32 copy
+    of the bf16 net (ops/hold.f32_copy, the reference of the card's bf16
+    holds) gives back the f32 function."""
     g = torch.Generator().manual_seed(1)
     sdf16 = tnets.SDFNetwork(tnets.SDFConfig(**SKW, dtype="bfloat16"), g)
     sdf32 = tnets.SDFNetwork(tnets.SDFConfig(**SKW))
@@ -323,7 +361,7 @@ def test_plain_versions_round_only_in_bf16_mode():
     with torch.no_grad():
         ref = sdf32(pts)
         f32 = torch.cat(tfs.sdf_with_gradient_plain(sdf32, pts)[:2], -1)
-        off = torch.cat(tfs.sdf_with_gradient_plain(sdf16, pts, bf16=False)[:2], -1)
+        off = torch.cat(tfs.sdf_with_gradient_plain(thold.f32_copy(sdf16), pts)[:2], -1)
         b16 = torch.cat(tfs.sdf_with_gradient_plain(sdf16, pts)[:2], -1)
     torch.testing.assert_close(f32, ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(off, ref, rtol=1e-5, atol=1e-5)

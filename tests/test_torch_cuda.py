@@ -340,16 +340,13 @@ def test_bf16_operand_mode_holds_against_the_f32_function(dev, kernel):
     against its plain bf16 version, both held to the f32 function in
     float64: outputs and every gradient within ops/hold.bf16_within (twice
     the plain version's relative RMS error plus a floor)."""
-    import copy
-    import functools
-
     from avatarclip_torch.ops import fused_color as fc
     from avatarclip_torch.ops import fused_neus as fn
     from avatarclip_torch.ops import fused_sdf as fs
     from avatarclip_torch.ops import hold
 
     fields, ins = _bf16_nets(dev)
-    f64 = copy.deepcopy(fields).double()
+    f64 = hold.f32_copy(fields).double()
     if kernel in ("B1", "B3"):
         kernel_fn, plain_fn = ((fn.point_eval_ray, fn.point_eval_ray_plain) if kernel == "B1"
                                else (fn.point_eval, fn.point_eval_plain))
@@ -366,7 +363,7 @@ def test_bf16_operand_mode_holds_against_the_f32_function(dev, kernel):
         got = run(kernel_fn, fields, ins)
         assert fn.LAUNCHES["neus_ray_fwd" if kernel == "B1" else "neus_point_fwd"] == launches + 1
         plain = run(plain_fn, fields, ins)
-        ref = run(functools.partial(plain_fn, bf16=False), f64, [t.double() for t in ins])
+        ref = run(plain_fn, f64, [t.double() for t in ins])
     else:
         ro, rd, mid, _ = ins
         pts = (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3).contiguous()
@@ -387,8 +384,8 @@ def test_bf16_operand_mode_holds_against_the_f32_function(dev, kernel):
         cots = [c.to(dev) for c in cots]
         ok, gk = hold.net_grads(fused, net, xs, cots)
         op, gp = hold.net_grads(plain_fn, net, xs, cots)
-        orf, grf = hold.net_grads(functools.partial(plain_fn, bf16=False), copy.deepcopy(net).double(),
-                                  [t.double() for t in xs], [c.double() for c in cots])
+        orf, grf = hold.net_grads(plain_fn, hold.f32_copy(net).double(), [t.double() for t in xs],
+                                  [c.double() for c in cots])
         got, plain, ref = ok + gk, op + gp, orf + grf
     for i, (a, p, r) in enumerate(zip(got, plain, ref)):
         ek, ep, ok_ = hold.bf16_within(a, p, r)

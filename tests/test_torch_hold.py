@@ -76,3 +76,72 @@ def test_resolve_relu_ties_explains_a_flipped_unit(mode):
     got[0][20] += 0.01 * ref[0].abs().max()
     resolved, _ = hold.resolve_relu_ties(net, ins, cot, got, ref)
     assert hold.rel_errors(got, resolved)[0] >= 0.009
+
+
+def _fields(dtype: str = "float32"):
+    g = torch.Generator().manual_seed(2)
+    s_cfg = nets.SDFConfig(d_out=17, d_hidden=32, n_layers=3, skip_in=(3,), multires=2,
+                           weight_norm=False, dtype=dtype)
+    c_cfg = nets.ColorConfig(d_feature=16, d_hidden=32, n_layers=1, extra_color=True,
+                             weight_norm=False, dtype=dtype)
+    return nets.NeuSFields(s_cfg, c_cfg, 0.3, g), g
+
+
+def test_ray_grads_chunked_equal_one_pass():
+    """The chunked per-ray reference (the eikonal mean weighted by each
+    chunk's points in the relaxed sphere) sums to one pass's outputs and
+    gradients."""
+    from avatarclip_torch.ops import fused_neus as fn
+
+    fields, g = _fields()
+    fields = fields.double()
+    R, S = 11, 8
+    rays_o = torch.tensor([0.0, 0.1, 1.6], dtype=torch.float64).expand(R, 3).clone()
+    rays_d = torch.nn.functional.normalize(0.3 * torch.randn(R, 3, generator=g, dtype=torch.float64)
+                                           - rays_o, dim=-1)
+    mid = torch.sort(0.8 + 1.6 * torch.rand(R, S, generator=g, dtype=torch.float64), -1)[0]
+    dists = torch.full((R, S), 0.2, dtype=torch.float64)
+    probes = [0.5 + torch.rand(R, k, generator=g, dtype=torch.float64) for k in (6, 3, 1)]
+    probes.append(torch.tensor(0.7, dtype=torch.float64))
+    ins = [rays_o, rays_d, mid, dists]
+    o1, g1 = hold.ray_grads(fn.point_eval_ray_plain, fields, ins, probes)
+    o2, g2 = hold.ray_grads(fn.point_eval_ray_plain, fields, ins, probes, chunk=4)
+    assert len(g1) == len(list(fields.parameters())) + 4
+    assert 0.0 < float(o1[3]) and float(g1[-2].abs().max()) > 0.0
+    assert max(hold.rel_errors(o2, o1) + hold.rel_errors(g2, g1)) <= 1e-12
+
+
+def test_per_ray_hold_catches_one_wrong_ray():
+    """Noise at the plain version's level passes the worst-ray hold; the same
+    with one ray's values off by 30% fails it, while the relative RMS over
+    the 12,544 rays barely moves."""
+    g = torch.Generator().manual_seed(3)
+    ref = torch.rand(12544, 6, generator=g, dtype=torch.float64)
+    plain = ref * (1 + 4e-3 * torch.randn(ref.shape, generator=g, dtype=torch.float64))
+    got = ref * (1 + 4e-3 * torch.randn(ref.shape, generator=g, dtype=torch.float64))
+    assert hold.per_ray_within(got, plain, ref)[2]
+    bad = got.clone()
+    bad[777] *= 1.3
+    ek, ep, ok = hold.per_ray_within(bad, plain, ref)
+    assert not ok and ek > 0.25 > 4 * ep
+    assert hold.bf16_within(bad, plain, ref)[2]  # the RMS alone would pass it
+
+
+def test_f32_copy_computes_the_f32_function():
+    """An f32 copy of bf16 nets: the copy's configs say float32, the
+    original's are untouched, and its plain pass is the f32 nets' pass."""
+    from avatarclip_torch.ops import fused_neus as fn
+
+    f16, _ = _fields("bfloat16")
+    f32, _ = _fields("float32")
+    copy32 = hold.f32_copy(f16)
+    assert copy32.sdf.cfg.dtype == "float32" and copy32.color.cfg.dtype == "float32"
+    assert f16.sdf.cfg.dtype == "bfloat16" and nets.operand_bf16(f16.color.cfg)
+    pts = 0.5 * torch.randn(40, 3, generator=torch.Generator().manual_seed(4))
+    dirs = torch.nn.functional.normalize(torch.randn(40, 3), dim=-1)
+    with torch.no_grad():
+        a = torch.cat(fn._fields_plain(copy32.sdf, copy32.color, pts, dirs), -1)
+        b = torch.cat(fn._fields_plain(f32.sdf, f32.color, pts, dirs), -1)
+        c = torch.cat(fn._fields_plain(f16.sdf, f16.color, pts, dirs), -1)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert float((c - b).abs().max()) > 1e-5  # the bf16 nets round their operands
