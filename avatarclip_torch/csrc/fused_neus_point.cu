@@ -17,10 +17,11 @@
 // What bounds it on this card: f32 FMA throughput of the per-ray GEMMs
 // (64 rows x 256 wide; about 1.37 MFLOP per point forward at 4x256 / 2x256,
 // about 3.4 MFLOP backward) and the shared-memory traffic of the simple
-// tiled GEMM of neus_mlp.cuh; no tensor cores yet (bf16-rounded operands in
-// the bf16 operand mode, f32 sums; f32 throughout in the f32 mode). The
-// per-point outputs are 48 bytes a point (rgb 6 wide), small beside the
-// arithmetic.
+// tiled GEMM of neus_mlp.cuh, on the CUDA cores (f32 throughout in the f32
+// mode; the backward's bf16 operand mode rounds the staged operands, f32
+// sums). The bf16 mode's forward is the tensor-core kernel of
+// fused_neus_ray_tc.cu; this forward serves the f32 mode. The per-point
+// outputs are 48 bytes a point (rgb 6 wide), small beside the arithmetic.
 //
 // Design: as the per-ray pair (the device functions are neus_ray.cuh's):
 // one ray is one GEMM row block, per-layer states live in the CTA's slice

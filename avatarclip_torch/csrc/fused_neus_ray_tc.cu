@@ -1,7 +1,8 @@
-// Per-ray NeuS pair for Hopper (sm_90a) on the tensor cores: the bf16 operand
-// mode of B1, forward and backward.
+// The NeuS kernels for Hopper (sm_90a) on the tensor cores, in the bf16
+// operand mode: B1's per-ray pair, forward and backward, B3's point-level
+// forward and B6's backward (each below).
 //
-// Replaces the Pallas kernels avatarclip_tpu/ops/fused_neus.py
+// B1 replaces the Pallas kernels avatarclip_tpu/ops/fused_neus.py
 // `_fwd_kernel_ray` (:403) and `_bwd_kernel_ray` (:620) at their default
 // operand type (fused_sdf._OPERAND_DTYPE = bf16: every dot's operands
 // rounded to bf16, f32 accumulation). It computes what fused_neus_ray.cu
@@ -58,6 +59,25 @@
 // - compositing and its VJP on one warp as scans over the ray's samples
 //   (a product scan for the transmittance, an affine suffix scan for the
 //   VJP's running term) instead of a serial loop on one thread.
+//
+// B3's forward in the bf16 mode (neus_point_tc_fwd) replaces
+// avatarclip_tpu/ops/fused_neus.py `_fwd_kernel` (:258, launched by
+// `_run_fwd` :882): B1's forward kernel body (neus_tc_fwd_kernel<true>)
+// with a per-point epilogue in place of the compositing. Every sample's
+// sdf, alpha, prev-CDF, inside flag, gradient and rgb go to device memory
+// (48 B a point at rgb width 6, beside 1,186,304 GEMM FLOPs: bound by the
+// products, 1.26 ms at 16,384 x 64 at the bf16 peak); alpha and the CDF from
+// the f32 sdf row and gradient, as the CUDA-core kernel's.
+//
+// B6's backward in the bf16 mode (sdf_tc_bwd) replaces
+// avatarclip_tpu/ops/fused_sdf.py `_bwd_kernel` (:403, launched by
+// `_run_bwd` :530): the SDF half of B1's backward (sdf_reverse_tc, shared)
+// with the points read from memory in tiles of 64 (a ragged last tile
+// zero-padded, with zero cotangents) and the per-point cotangents on sdf,
+// feature and gradient seeding the reverse; its weight gradients go through
+// the same log and wgrad_kernel (2,754,048 GEMM FLOPs a point: 2.24 ms at
+// 802,816 points at the bf16 peak). The primal stack skips the head's
+// feature rows, which the backward does not read.
 #include "neus_tc.cuh"
 
 using namespace neus;
@@ -116,18 +136,13 @@ __device__ __forceinline__ void pe_eval(const Dims& d, const float* p, int j, fl
   }
 }
 
-// the ray's points (zero past S) and their encoding: eb = bf16 values with
-// its padding columns zero; the forward also keeps the f32 values ef and
+// the encoding of the tile's points (in pts): eb = bf16 values with its
+// padding columns zero; the forward also keeps the f32 values ef and
 // derivatives de (the backward recomputes them where it needs them)
-__device__ __forceinline__ void ray_points(const Dims& d, const Layout& L, unsigned char* sm, const float* ray,
-                           const float* z, bool keep_f32) {
+__device__ __forceinline__ void encode_points(const Dims& d, const Layout& L, unsigned char* sm,
+                                              bool keep_f32) {
   const int tid = threadIdx.x;
-  float* pts = (float*)(sm + L.pts);
-  for (int e = tid; e < ROWS * 3; e += TNT) {
-    const int r = e / 3, c = e % 3;
-    pts[e] = r < d.S ? ray[c] + ray[3 + c] * z[r] : 0.f;
-  }
-  __syncthreads();
+  const float* pts = (const float*)(sm + L.pts);
   float* ef = (float*)(sm + L.ef);
   float* de = (float*)(sm + L.de);
   bf16* eb = (bf16*)(sm + L.eb);
@@ -145,14 +160,26 @@ __device__ __forceinline__ void ray_points(const Dims& d, const Layout& L, unsig
   __syncthreads();
 }
 
+// the ray's points (zero past S), then their encoding
+__device__ __forceinline__ void ray_points(const Dims& d, const Layout& L, unsigned char* sm, const float* ray,
+                           const float* z, bool keep_f32) {
+  float* pts = (float*)(sm + L.pts);
+  for (int e = threadIdx.x; e < ROWS * 3; e += TNT) {
+    const int r = e / 3, c = e % 3;
+    pts[e] = r < d.S ? ray[c] + ray[3 + c] * z[r] : 0.f;
+  }
+  __syncthreads();
+  encode_points(d, L, sm, keep_f32);
+}
+
 __device__ inline const uint2* mat(const uint2* pk, const Pack& pp, int i) { return pk + pp.off[i]; }
 
 // SDF primal stack of the tile: hidden layers (outputs to hout(i), sigmoid
 // factors to P), the skip-producing layer (u[:, :SW] = bf16(a_s), f32 a_s
 // to AS, sigmoid to PS when given; ts = bf16(wsa * p_s) when given), the
-// embedding half of u, then the head's feature rows into cin[:, 6:].
-// xlog(i, ptr, ld) true: hidden output i (i < NH), and u (i = -1), are also
-// copied to the log at ptr (stride ld).
+// embedding half of u, then (when feat) the head's feature rows into
+// cin[:, 6:]. xlog(i, ptr, ld) true: hidden output i (i < NH), and u
+// (i = -1), are also copied to the log at ptr (stride ld).
 struct NoLog {
   __device__ bool operator()(int, bf16*&, int&) const { return false; }
 };
@@ -163,7 +190,8 @@ __device__ inline void put(f16* p, float v) { *p = __float2half_rn(v); }
 template <int NS, class Hout, class ASt, class XLog = NoLog>
 __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, unsigned char* sm, const float* wts,
                               const WeightOffsets& wo, const uint2* pk, const Pack& pp, f16* P,
-                              ASt* AS, f16* PS, bf16* ts, Hout hout, XLog xlog = NoLog()) {
+                              ASt* AS, f16* PS, bf16* ts, Hout hout, XLog xlog = NoLog(),
+                              bool feat = true) {
   const int H = d.H, SW = d.SW, ldX = L.ldX;
   uint2* ring = (uint2*)(sm + L.ring);
   const bf16* in = (const bf16*)(sm + L.eb);
@@ -219,6 +247,7 @@ __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, un
     int lld;
     if (xlog(-1, lp, lld)) log_put(lp, lld, u, ldX, H);
   }
+  if (!feat) return;
   bf16* cin = (bf16*)(sm + L.cin);
   const float* bf = wts + wo.sb[d.NH + 1] + 1;
   phase_tag(2);
@@ -264,14 +293,23 @@ __device__ __forceinline__ void colour_primal_tc(const Dims& d, const Layout& L,
                 });
 }
 
-__global__ void __launch_bounds__(TNT, 1) neus_ray_tc_fwd_kernel(
+// the forward's outputs: sdf and gradient per point (B1's residuals, B3's
+// outputs), then B1's per-ray compositing or B3's per-point quantities
+struct FwdOut {
+  float *sdf, *g;
+  float *col_w, *normals_w, *wsum;   // B1
+  float *alpha, *cdf, *inside, *rgb;  // B3
+};
+
+// The forward of B1 (POINT false: the compositing) and of B3 (POINT true:
+// every sample's quantities to device memory), one body.
+template <bool POINT>
+__global__ void __launch_bounds__(TNT, 1) neus_tc_fwd_kernel(
     Dims d, Pack pp, const float* __restrict__ wts, const uint2* __restrict__ pk,
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ mid_z, const float* __restrict__ dists,
-    const float* __restrict__ inv_s_ptr, float cos_r, int R, float* __restrict__ col_w,
-    float* __restrict__ normals_w, float* __restrict__ wsum, float* __restrict__ sdf_out,
-    float* __restrict__ g_out, float* __restrict__ eik_part, unsigned char* __restrict__ scr_all,
-    long long scr_stride) {
+    const float* __restrict__ inv_s_ptr, float cos_r, int R, FwdOut out,
+    float* __restrict__ eik_part, unsigned char* __restrict__ scr_all, long long scr_stride) {
   extern __shared__ __align__(16) unsigned char sm[];
   const Layout L = tc_layout(d, false);
   const WeightOffsets wo = weight_offsets(d);
@@ -368,21 +406,37 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_fwd_kernel(
       __syncthreads();
     }
     colour_primal_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, [&](int l) { return (l % 2) ? hb : ha; });
+    phase_mark(PH_OTHER);
     for (int r = tid; r < S; r += TNT) {
       const float* gr = g + r * 3;
       const float* p = pts + r * 3;
       const float s = srow[r] / d.scale;
       const float tc = ray[3] * gr[0] + ray[4] * gr[1] + ray[5] * gr[2];
-      alpha[r] = alpha_chain(s, tc, dists[(size_t)rid * S + r], inv_s, cos_r).alpha;
-      const float relax = (p[0] * p[0] + p[1] * p[1] + p[2] * p[2]) < 1.44f ? 1.f : 0.f;
+      const Chain c = alpha_chain(s, tc, dists[(size_t)rid * S + r], inv_s, cos_r);
+      alpha[r] = c.alpha;
+      const float r2 = p[0] * p[0] + p[1] * p[1] + p[2] * p[2];
+      const float relax = r2 < 1.44f ? 1.f : 0.f;
       const float n = sqrtf(gr[0] * gr[0] + gr[1] * gr[1] + gr[2] * gr[2] + 1e-12f);
       eik_num += relax * (n - 1.f) * (n - 1.f);
       eik_den += relax;
       const size_t pt = (size_t)rid * S + r;
-      sdf_out[pt] = s;
-      g_out[pt * 3 + 0] = gr[0];
-      g_out[pt * 3 + 1] = gr[1];
-      g_out[pt * 3 + 2] = gr[2];
+      out.sdf[pt] = s;
+      out.g[pt * 3 + 0] = gr[0];
+      out.g[pt * 3 + 1] = gr[1];
+      out.g[pt * 3 + 2] = gr[2];
+      if (POINT) {
+        out.alpha[pt] = c.alpha;
+        out.cdf[pt] = c.P;
+        out.inside[pt] = r2 < 1.f ? 1.f : 0.f;
+      }
+    }
+    if (POINT) {
+      const int W = d.W;
+      float* rgb = out.rgb + (size_t)rid * S * W;
+      for (int e = tid; e < S * W; e += TNT) rgb[e] = rgb_of(d, head[(e / W) * 8 + e % W]);
+      __syncthreads();
+      phase_mark(PH_COMPOSITE);
+      continue;
     }
     __syncthreads();
     if (warp == 0) {
@@ -406,13 +460,14 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_fwd_kernel(
         };
         const float v = warp_sum(w0 * val(k0) + w1 * val(k1));
         if (lane == 0) {
-          if (ch < d.W) col_w[(size_t)rid * d.W + ch] = v;
-          else if (ch < d.W + 3) normals_w[(size_t)rid * 3 + ch - d.W] = v;
-          else wsum[rid] = v;
+          if (ch < d.W) out.col_w[(size_t)rid * d.W + ch] = v;
+          else if (ch < d.W + 3) out.normals_w[(size_t)rid * 3 + ch - d.W] = v;
+          else out.wsum[rid] = v;
         }
       }
     }
     __syncthreads();
+    phase_mark(PH_COMPOSITE);
   }
   float* red = (float*)(sm + L.red);
   const float num = cta_sum_tc(eik_num, red);
@@ -421,7 +476,203 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_fwd_kernel(
     eik_part[blockIdx.x * 2 + 0] = num;
     eik_part[blockIdx.x * 2 + 1] = den;
   }
-  phase_end(0);
+  phase_end(POINT ? PK_POINT_FWD : PK_RAY_FWD);
+}
+
+// Forward-over-reverse through the SDF stack of one tile, shared by B1's
+// backward (after its colour reverse) and B6's. Reads from shared memory
+// the tile's points (pts), the cotangents on the spatial gradient (cg: the
+// tangent direction), on the sdf in net units (cs) and on the feature (CF,
+// the bf16 operand in cin's room, stride ldF), and from scratch the primal
+// states (P, AS, PS); the tangent stack along cg (into ZD, ZDS), the sdf
+// row's weight gradients in f32, the head reverse, the hidden layers'
+// reverse pairs, then the embedding cotangents into dx, the cotangent on
+// the raw points (plus ccin6's point columns when given). Every
+// weight-gradient operand goes to the log through lput(m, src, ld, ncols);
+// the biases and the sdf row to gp. Rows with zero cotangents add nothing.
+// Ends with __syncthreads.
+template <class LPut>
+__device__ __forceinline__ void sdf_reverse_tc(const Dims& d, const Layout& L, unsigned char* sm,
+                                               const float* wts, const WeightOffsets& wo,
+                                               const uint2* pk, const Pack& pp, const f16* P,
+                                               const f16* AS, bf16* ZD, const f16* PS, bf16* ZDS,
+                                               float* CH, float* CHD, float* gp, LPut lput,
+                                               const float* ccin6) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = d.H, SW = d.SW, E = d.E, F = d.F;
+  const int ldX = L.ldX, ldE = L.ldE, ldF = L.ldF;
+  const float* pts = (const float*)(sm + L.pts);
+  bf16* tb0 = (bf16*)(sm + L.tb0);
+  bf16* cz = (bf16*)(sm + L.ha);
+  bf16* czd = (bf16*)(sm + L.hb);
+  const bf16* CF = (const bf16*)(sm + L.cin);
+  const float* cg = (const float*)(sm + L.cg);
+  const float* cs = (const float*)(sm + L.cs);
+  float* dx = (float*)(sm + L.dx);
+  float* cue = (float*)(sm + L.cue);
+  const float* wfin = wts + wo.sw[d.NH + 1];
+  uint2* ring = (uint2*)(sm + L.ring);
+  float* red = (float*)(sm + L.red);
+  for (int e = tid; e < ROWS * E; e += TNT) {
+    const int r = e / E, j = e % E;
+    float val, dv, ddv;
+    pe_eval(d, pts + r * 3, j, val, dv, ddv);
+    tb0[r * ldE + j] = to_bf(dv * cg[r * 3 + (j % 3)]);
+  }
+  __syncthreads();
+  lput(LG_TB0, tb0, ldE, E);
+  {
+    // tangents ping-pong in cz / czd, with a copy in the log
+    const bf16* tin = tb0;
+    int ld_in = ldE;
+    for (int i = 0; i < d.NH; ++i) {
+      const f16* Pi = P + (size_t)i * ROWS * H;
+      bf16* ZDi = ZD + (size_t)i * ROWS * H;
+      bf16* to = (i % 2) ? czd : cz;
+      phase_tag(6);
+      gemm_rows_pre<NSTAGE_BWD>(
+          tin, ld_in, sdf_in(d, i), mat(pk, pp, FS + i), H, ring,
+          [&](int r, int c) {
+            float p = 0.f, q;
+            if (c < H) sig_load(Pi[r * H + c], p, q);
+            return p;
+          },
+          [&](int r, int c, float v, float p) {
+            if (c < H) {
+              ZDi[r * H + c] = to_bf(v);
+              to[r * ldX + c] = to_bf(p * v);
+            }
+          });
+      lput(LG_TI + i, to, ldX, H);
+      tin = to;
+      ld_in = ldX;
+    }
+    phase_tag(7);
+    gemm_rows<NSTAGE_BWD>(tin, ldX, H, mat(pk, pp, FS + d.NH), SW, ring, [&](int r, int c, float v) {
+      if (c < SW) ZDS[r * SW + c] = to_bf(v);
+    });
+  }
+  lput(LG_CF, CF, ldF, F);
+  // the sdf row's weights in f32: sum_r cs u + udot, u = [a_s, e], udot = [p_s zd_s, t0]
+  column_pass(H, red, gp + wo.sw[d.NH + 1], [&](int k, int rb) {
+    float acc = 0.f;
+    if (k < SW) {
+      for (int r0 = rb; r0 < rb + ROWS / 2; r0 += RB) {
+        f16 ps[RB], as[RB];
+        bf16 zd[RB];
+#pragma unroll
+        for (int q = 0; q < RB; ++q) {
+          ps[q] = PS[(r0 + q) * SW + k];
+          as[q] = AS[(r0 + q) * SW + k];
+          zd[q] = ZDS[(r0 + q) * SW + k];
+        }
+#pragma unroll
+        for (int q = 0; q < RB; ++q) {
+          float p, pq;
+          sig_load(ps[q], p, pq);
+          acc += cs[r0 + q] * __half2float(as[q]) + p * __bfloat162float(zd[q]);
+        }
+      }
+    } else {
+      const int j = k - SW;
+      for (int r = rb; r < rb + ROWS / 2; ++r) {
+        float val, dv, ddv;
+        pe_eval(d, pts + r * 3, j, val, dv, ddv);
+        acc += cs[r] * val + dv * cg[r * 3 + (j % 3)];
+      }
+    }
+    return acc * RSQRT2;
+  });
+  if (warp == 0) {  // the sdf row's bias
+    const float v = warp_sum(cs[lane] + cs[lane + 32]);
+    if (lane == 0) gp[wo.sb[d.NH + 1]] += v;
+  }
+  // the head's reverse product (the feature cotangents, plus the sdf row's
+  // share cs w0 / sqrt2) with the skip layer's cotangents in its epilogue:
+  // cu = v + cs cad, zc = cu p_s + cad zd_s 100 p_s (1 - p_s), zcd = cad
+  // p_s (cad = w0 / sqrt2), summed into the skip bias; the embedding half
+  // of cu to cue
+  phase_tag(8);
+  gemm_fused<NSTAGE_BWD, false>(
+      CF, nullptr, ldF, F, mat(pk, pp, RHEAD), H, ring, red, gp + wo.sb[d.NH], 0, SW,
+      [&](int r, int c) {
+        float p = 0.f, q = 0.f, zd = 0.f;
+        if (c < SW) {
+          sig_load(PS[r * SW + c], p, q);
+          zd = __bfloat162float(ZDS[r * SW + c]);
+        }
+        return make_float3(p, q, zd);
+      },
+      [&](int r, int c, float v, float, float3 s3) {
+        if (c >= H) return 0.f;
+        const float cad = wfin[c] * RSQRT2;
+        const float cu = v + cs[r] * cad;
+        if (c >= SW) {
+          cue[r * E + c - SW] = cu;
+          if (c < pad16(SW)) cz[r * ldX + c] = czd[r * ldX + c] = to_bf(0.f);
+          return 0.f;
+        }
+        const float zc = cu * s3.x + cad * s3.z * 100.f * s3.x * s3.y;
+        cz[r * ldX + c] = to_bf(zc);
+        czd[r * ldX + c] = to_bf(cad * s3.x);
+        return zc;
+      });
+  lput(LG_CZ + d.NH, cz, ldX, SW);
+  lput(LG_CZD + d.NH, czd, ldX, SW);
+  // hidden layers: layer i + 1's two reverse products (cotangent and its
+  // tangent) in one weight stream, whose epilogue forms layer i's
+  // cotangents in place, zc = ch p + chd zd 100 p (1 - p) and zcd = chd p,
+  // and sums zc into its bias gradient
+  for (int i = d.NH - 1; i >= 0; --i) {
+    const f16* Pi = P + (size_t)i * ROWS * H;
+    const bf16* ZDi = ZD + (size_t)i * ROWS * H;
+    phase_tag(9);
+    gemm_fused<NSTAGE_BWD, true>(
+        cz, czd, ldX, i + 1 == d.NH ? SW : H, mat(pk, pp, RS + i + 1), H, ring, red, gp + wo.sb[i],
+        0, H,
+        [&](int r, int c) {
+          float p = 0.f, q = 0.f, zd = 0.f;
+          if (c < H) {
+            sig_load(Pi[r * H + c], p, q);
+            zd = __bfloat162float(ZDi[r * H + c]);
+          }
+          return make_float3(p, q, zd);
+        },
+        [&](int r, int c, float ch, float chd, float3 s3) {
+          if (c >= H) return 0.f;
+          const float zc = ch * s3.x + chd * s3.z * 100.f * s3.x * s3.y;
+          cz[r * ldX + c] = to_bf(zc);
+          czd[r * ldX + c] = to_bf(chd * s3.x);
+          return zc;
+        });
+    lput(LG_CZ + i, cz, ldX, H);
+    lput(LG_CZD + i, czd, ldX, H);
+  }
+  // layer 0's reverse products: the embedding cotangents
+  phase_tag(10);
+  gemm_fused<NSTAGE_BWD, true>(cz, czd, ldX, H, mat(pk, pp, RS + 0), E, ring, red, nullptr, 0, 0,
+                               NoPre(), [&](int r, int c, float ch, float chd, float) {
+                                 if (c < E) {
+                                   CH[r * E + c] = ch;
+                                   CHD[r * E + c] = chd;
+                                 }
+                                 return 0.f;
+                               });
+  // embedding cotangents -> raw point cotangent
+  for (int e = tid; e < ROWS * 3; e += TNT) {
+    const int r = e / 3, c = e % 3;
+    const float v = cg[e];
+    float acc = 0.f;
+    for (int j = c; j < E; j += 3) {
+      float val, dv, ddv;
+      pe_eval(d, pts + r * 3, j, val, dv, ddv);
+      const float ce = CH[r * E + j] + cue[r * E + j];
+      const float ced = CHD[r * E + j] + wfin[SW + j] * RSQRT2;
+      acc += ce * dv + ced * v * ddv;
+    }
+    dx[e] = acc * d.scale + (ccin6 ? ccin6[r * 6 + c] : 0.f);
+  }
+  __syncthreads();
 }
 
 __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
@@ -441,7 +692,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
   unsigned char* scr = scr_all + (size_t)blockIdx.x * scr_stride;
   float* gp = gpart + (size_t)blockIdx.x * (wo.total + 1);
   const int S = d.S, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int H = d.H, SW = d.SW, E = d.E, F = d.F, HC = d.HC, CW = d.CW, W = d.W;
+  const int E = d.E, F = d.F, HC = d.HC, CW = d.CW, W = d.W;
   const int ldX = L.ldX, ldE = L.ldE, ldC = L.ldC, ldF = L.ldF;
   const float inv_s = *inv_s_ptr;
   const float c_num = c_eik[0];
@@ -450,8 +701,6 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
   float* pts = (float*)(sm + L.pts);
   float* g = (float*)(sm + L.g);
   const bf16* eb = (const bf16*)(sm + L.eb);
-  bf16* tb0 = (bf16*)(sm + L.tb0);
-  bf16* u = (bf16*)(sm + L.u);
   bf16* cin = (bf16*)(sm + L.cin);
   bf16* cz = (bf16*)(sm + L.ha);
   bf16* czd = (bf16*)(sm + L.hb);
@@ -475,8 +724,6 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
   float* CH = (float*)(scr + L.CH);
   float* CHD = (float*)(scr + L.CHD);
   float* ccin6 = (float*)(sm + L.ccin6);
-  float* cue = (float*)(sm + L.cue);
-  const float* wfin = wts + wo.sw[d.NH + 1];
   uint2* ring = (uint2*)(sm + L.ring);
   float* red = (float*)(sm + L.red);
   // gp: zero from the caller, summed over the chunks
@@ -670,166 +917,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
       cg[e] += ccin6[r * 6 + 3 + c];
     }
     __syncthreads();
-    for (int e = tid; e < ROWS * E; e += TNT) {
-      const int r = e / E, j = e % E;
-      float val, dv, ddv;
-      pe_eval(d, pts + r * 3, j, val, dv, ddv);
-      tb0[r * ldE + j] = to_bf(dv * cg[r * 3 + (j % 3)]);
-    }
-    __syncthreads();
-    lput(LG_TB0, tb0, ldE, E);
-    {
-      // tangents ping-pong in cz / czd, with a copy in the log
-      const bf16* tin = tb0;
-      int ld_in = ldE;
-      for (int i = 0; i < d.NH; ++i) {
-        const f16* Pi = P + (size_t)i * ROWS * H;
-        bf16* ZDi = ZD + (size_t)i * ROWS * H;
-        bf16* to = (i % 2) ? czd : cz;
-        phase_tag(6);
-        gemm_rows_pre<NSTAGE_BWD>(
-            tin, ld_in, sdf_in(d, i), mat(pk, pp, FS + i), H, ring,
-            [&](int r, int c) {
-              float p = 0.f, q;
-              if (c < H) sig_load(Pi[r * H + c], p, q);
-              return p;
-            },
-            [&](int r, int c, float v, float p) {
-              if (c < H) {
-                ZDi[r * H + c] = to_bf(v);
-                to[r * ldX + c] = to_bf(p * v);
-              }
-            });
-        lput(LG_TI + i, to, ldX, H);
-        tin = to;
-        ld_in = ldX;
-      }
-      phase_tag(7);
-      gemm_rows<NSTAGE_BWD>(tin, ldX, H, mat(pk, pp, FS + d.NH), SW, ring, [&](int r, int c, float v) {
-        if (c < SW) ZDS[r * SW + c] = to_bf(v);
-      });
-    }
-    lput(LG_CF, CF, ldF, F);
-    // the sdf row's weights in f32: sum_r cs u + udot, u = [a_s, e], udot = [p_s zd_s, t0]
-    column_pass(H, red, gp + wo.sw[d.NH + 1], [&](int k, int rb) {
-      float acc = 0.f;
-      if (k < SW) {
-        for (int r0 = rb; r0 < rb + ROWS / 2; r0 += RB) {
-          f16 ps[RB], as[RB];
-          bf16 zd[RB];
-#pragma unroll
-          for (int q = 0; q < RB; ++q) {
-            ps[q] = PS[(r0 + q) * SW + k];
-            as[q] = AS[(r0 + q) * SW + k];
-            zd[q] = ZDS[(r0 + q) * SW + k];
-          }
-#pragma unroll
-          for (int q = 0; q < RB; ++q) {
-            float p, pq;
-            sig_load(ps[q], p, pq);
-            acc += cs[r0 + q] * __half2float(as[q]) + p * __bfloat162float(zd[q]);
-          }
-        }
-      } else {
-        const int j = k - SW;
-        for (int r = rb; r < rb + ROWS / 2; ++r) {
-          float val, dv, ddv;
-          pe_eval(d, pts + r * 3, j, val, dv, ddv);
-          acc += cs[r] * val + dv * cg[r * 3 + (j % 3)];
-        }
-      }
-      return acc * RSQRT2;
-    });
-    if (warp == 0) {  // the sdf row's bias
-      const float v = warp_sum(cs[lane] + cs[lane + 32]);
-      if (lane == 0) gp[wo.sb[d.NH + 1]] += v;
-    }
-    // the head's reverse product (the feature cotangents, plus the sdf row's
-    // share cs w0 / sqrt2) with the skip layer's cotangents in its epilogue:
-    // cu = v + cs cad, zc = cu p_s + cad zd_s 100 p_s (1 - p_s), zcd = cad
-    // p_s (cad = w0 / sqrt2), summed into the skip bias; the embedding half
-    // of cu to cue
-    phase_tag(8);
-    gemm_fused<NSTAGE_BWD, false>(
-        CF, nullptr, ldF, F, mat(pk, pp, RHEAD), H, ring, red, gp + wo.sb[d.NH], 0, SW,
-        [&](int r, int c) {
-          float p = 0.f, q = 0.f, zd = 0.f;
-          if (c < SW) {
-            sig_load(PS[r * SW + c], p, q);
-            zd = __bfloat162float(ZDS[r * SW + c]);
-          }
-          return make_float3(p, q, zd);
-        },
-        [&](int r, int c, float v, float, float3 s3) {
-          if (c >= H) return 0.f;
-          const float cad = wfin[c] * RSQRT2;
-          const float cu = v + cs[r] * cad;
-          if (c >= SW) {
-            cue[r * E + c - SW] = cu;
-            if (c < pad16(SW)) cz[r * ldX + c] = czd[r * ldX + c] = to_bf(0.f);
-            return 0.f;
-          }
-          const float zc = cu * s3.x + cad * s3.z * 100.f * s3.x * s3.y;
-          cz[r * ldX + c] = to_bf(zc);
-          czd[r * ldX + c] = to_bf(cad * s3.x);
-          return zc;
-        });
-    lput(LG_CZ + d.NH, cz, ldX, SW);
-    lput(LG_CZD + d.NH, czd, ldX, SW);
-    // hidden layers: layer i + 1's two reverse products (cotangent and its
-    // tangent) in one weight stream, whose epilogue forms layer i's
-    // cotangents in place, zc = ch p + chd zd 100 p (1 - p) and zcd = chd p,
-    // and sums zc into its bias gradient
-    for (int i = d.NH - 1; i >= 0; --i) {
-      const f16* Pi = P + (size_t)i * ROWS * H;
-      const bf16* ZDi = ZD + (size_t)i * ROWS * H;
-      phase_tag(9);
-      gemm_fused<NSTAGE_BWD, true>(
-          cz, czd, ldX, i + 1 == d.NH ? SW : H, mat(pk, pp, RS + i + 1), H, ring, red, gp + wo.sb[i],
-          0, H,
-          [&](int r, int c) {
-            float p = 0.f, q = 0.f, zd = 0.f;
-            if (c < H) {
-              sig_load(Pi[r * H + c], p, q);
-              zd = __bfloat162float(ZDi[r * H + c]);
-            }
-            return make_float3(p, q, zd);
-          },
-          [&](int r, int c, float ch, float chd, float3 s3) {
-            if (c >= H) return 0.f;
-            const float zc = ch * s3.x + chd * s3.z * 100.f * s3.x * s3.y;
-            cz[r * ldX + c] = to_bf(zc);
-            czd[r * ldX + c] = to_bf(chd * s3.x);
-            return zc;
-          });
-      lput(LG_CZ + i, cz, ldX, H);
-      lput(LG_CZD + i, czd, ldX, H);
-    }
-    // layer 0's reverse products: the embedding cotangents
-    phase_tag(10);
-    gemm_fused<NSTAGE_BWD, true>(cz, czd, ldX, H, mat(pk, pp, RS + 0), E, ring, red, nullptr, 0, 0,
-                                 NoPre(), [&](int r, int c, float ch, float chd, float) {
-                                   if (c < E) {
-                                     CH[r * E + c] = ch;
-                                     CHD[r * E + c] = chd;
-                                   }
-                                   return 0.f;
-                                 });
-    // embedding cotangents -> raw point cotangent
-    for (int e = tid; e < ROWS * 3; e += TNT) {
-      const int r = e / 3, c = e % 3;
-      const float v = cg[e];
-      float acc = 0.f;
-      for (int j = c; j < E; j += 3) {
-        float val, dv, ddv;
-        pe_eval(d, pts + r * 3, j, val, dv, ddv);
-        const float ce = CH[r * E + j] + cue[r * E + j];
-        const float ced = CHD[r * E + j] + wfin[SW + j] * RSQRT2;
-        acc += ce * dv + ced * v * ddv;
-      }
-      dx[e] = acc * d.scale + ccin6[r * 6 + c];
-    }
-    __syncthreads();
+    sdf_reverse_tc(d, L, sm, wts, wo, pk, pp, P, AS, ZD, PS, ZDS, CH, CHD, gp, lput, ccin6);
     for (int r = tid; r < S; r += TNT) {
       const float* dxr = dx + r * 3;
       d_z[(size_t)rid * S + r] = dxr[0] * ray[3] + dxr[1] * ray[4] + dxr[2] * ray[5];
@@ -848,7 +936,94 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
   }
   const float civ_sum = cta_sum_tc(civ, red);
   if (tid == 0) gp[wo.total] += civ_sum;
-  phase_end(1);
+  phase_end(PK_RAY_BWD);
+}
+
+// B6's backward: tiles blk0 .. blk1 of 64 points (the chunk's), each CTA
+// walking them. A tile's rows past the last point are zero points with zero
+// cotangents. Seeds of the reverse: the gradient cotangent is the tangent
+// direction, the sdf cotangent in net units, the feature cotangent the head
+// reverse's operand (its f32 column sums the feature biases' gradients).
+// gp: this CTA's partial row of weight_count floats, zero from the caller.
+__global__ void __launch_bounds__(TNT, 1) sdf_tc_bwd_kernel(
+    Dims d, Pack pp, const float* __restrict__ wts, const uint2* __restrict__ pk,
+    const float* __restrict__ pts_in, int n_pts, const float* __restrict__ c_sdf,
+    const float* __restrict__ c_feat, const float* __restrict__ c_grad,
+    float* __restrict__ d_pts, float* __restrict__ gpart, unsigned char* __restrict__ scr_all,
+    long long scr_stride, WLog lg, bf16* __restrict__ log, long long log_rows, int blk0,
+    int blk1) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const Layout L = tc_layout(d, true);
+  const WeightOffsets wo = weight_offsets(d);
+  unsigned char* scr = scr_all + (size_t)blockIdx.x * scr_stride;
+  float* gp = gpart + (size_t)blockIdx.x * wo.total;
+  const int tid = threadIdx.x, E = d.E, F = d.F, ldE = L.ldE, ldF = L.ldF;
+  phase_start();
+  float* pts = (float*)(sm + L.pts);
+  float* cg = (float*)(sm + L.cg);
+  float* cs = (float*)(sm + L.cs);
+  const float* dx = (const float*)(sm + L.dx);
+  const bf16* eb = (const bf16*)(sm + L.eb);
+  bf16* cz = (bf16*)(sm + L.ha);
+  bf16* czd = (bf16*)(sm + L.hb);
+  bf16* CF = (bf16*)(sm + L.cin);
+  f16* P = (f16*)(scr + L.P);
+  f16* AS = (f16*)(scr + L.AS);
+  bf16* ZD = (bf16*)(scr + L.ZD);
+  f16* PS = (f16*)(scr + L.PS);
+  bf16* ZDS = (bf16*)(scr + L.ZDS);
+  float* CH = (float*)(scr + L.CH);
+  float* CHD = (float*)(scr + L.CHD);
+  float* red = (float*)(sm + L.red);
+  // every bf16 operand buffer starts zero: padding columns are never written
+  for (size_t e = tid; e < L.smem / 4; e += TNT) ((float*)sm)[e] = 0.f;
+  __syncthreads();
+  for (int blk = blk0 + blockIdx.x; blk < blk1; blk += gridDim.x) {
+    const long long row0 = (long long)blk * ROWS;
+    const int n = n_pts - row0 < ROWS ? (int)(n_pts - row0) : ROWS;
+    const long long q0 = (long long)(blk - blk0) * ROWS;
+    auto lp = [&](int m) { return log_at(log, lg, log_rows, m, q0); };
+    auto lput = [&](int m, const bf16* src, int lds, int ncols) { log_put(lp(m), lg.ld[m], src, lds, ncols); };
+    for (int e = tid; e < ROWS * 3; e += TNT) {
+      const bool ok = e < n * 3;
+      pts[e] = ok ? pts_in[row0 * 3 + e] : 0.f;
+      cg[e] = ok ? c_grad[row0 * 3 + e] : 0.f;
+    }
+    for (int r = tid; r < ROWS; r += TNT) cs[r] = r < n ? c_sdf[row0 + r] / d.scale : 0.f;
+    __syncthreads();
+    encode_points(d, L, sm, false);
+    lput(LG_EB, eb, ldE, E);
+    sdf_primal_tc<NSTAGE_BWD>(d, L, sm, wts, wo, pk, pp, P, AS, PS, nullptr,
+                              [&](int i) { return (i % 2) ? czd : cz; },
+                              [&](int i, bf16*& p, int& ld) {
+                                const int m = i < 0 ? LG_U : LG_X + i;
+                                p = lp(m);
+                                ld = lg.ld[m];
+                                return true;
+                              },
+                              false);
+    // the feature cotangents: the head reverse's bf16 operand CF, and their
+    // f32 sums into the feature biases' gradients
+    column_pass(F, red, gp + wo.sb[d.NH + 1] + 1, [&](int c, int rb) {
+      float acc = 0.f;
+      for (int r0 = rb; r0 < rb + ROWS / 2; r0 += RB) {
+        float v[RB];
+#pragma unroll
+        for (int q = 0; q < RB; ++q) v[q] = r0 + q < n ? c_feat[(row0 + r0 + q) * F + c] : 0.f;
+#pragma unroll
+        for (int q = 0; q < RB; ++q) {
+          CF[(r0 + q) * ldF + c] = to_bf(v[q]);
+          acc += v[q];
+        }
+      }
+      return acc;
+    });
+    sdf_reverse_tc(d, L, sm, wts, wo, pk, pp, P, AS, ZD, PS, ZDS, CH, CHD, gp, lput,
+                   (const float*)nullptr);
+    for (int e = tid; e < n * 3; e += TNT) d_pts[row0 * 3 + e] = dx[e];
+    __syncthreads();
+  }
+  phase_end(PK_SDF_BWD);
 }
 
 // Weight gradients of one chunk: CTA (item, split) takes one WG_TM x WG_TN tile
@@ -950,7 +1125,7 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WLog lg, WProbs ps,
         if (mm < pb.M && nn < pb.N) D[(size_t)mm * pb.ldd + nn] += pb.scale * acc[i][j][e];
       }
   phase_mark(PH_WGRAD);
-  phase_end(2);
+  phase_end(PK_WGRAD);
 }
 
 }  // namespace
@@ -967,8 +1142,9 @@ long long neus_tc_scratch_bytes(Dims d, int backward) {
 long long neus_tc_weight_count(Dims d) { return (long long)weight_offsets(d).total; }
 
 #ifdef NEUS_TC_PROF
-// the profiling build's per-CTA phase cycles of a kernel (0 forward, 1
-// backward, 2 weight gradients): n_cta x PH_N into out (host memory)
+// the profiling build's per-CTA phase cycles of a kernel (neus_tc.cuh's
+// PK_*: 0 B1 forward, 1 B1 backward, 2 weight gradients, 3 B3 forward, 4
+// B6 backward): n_cta x PH_N into out (host memory)
 int neus_tc_phases(int kernel, long long* out, int n_cta) {
   return (int)cudaMemcpyFromSymbol(out, g_phase, sizeof(long long) * n_cta * PH_N,
                                    sizeof(long long) * PH_MAXCTA * PH_N * kernel);
@@ -985,10 +1161,31 @@ int neus_ray_tc_fwd(Dims d, Pack pp, const float* wts, const void* pk, const flo
                     void* scr, long long scr_stride, int n_cta, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int smem = (int)tc_layout(d, false).smem;
-  int err = (int)cudaFuncSetAttribute(neus_ray_tc_fwd_kernel,
+  int err = (int)cudaFuncSetAttribute(neus_tc_fwd_kernel<false>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
-  neus_ray_tc_fwd_kernel<<<n_cta, TNT, smem, st>>>(d, pp, wts, (const uint2*)pk, rays_o, rays_d, mid_z, dists, inv_s, cos_r, R, col_w, normals_w, wsum, sdf_out, g_out, eik_part, (unsigned char*)scr, scr_stride);
+  const FwdOut out{sdf_out, g_out, col_w, normals_w, wsum, nullptr, nullptr, nullptr, nullptr};
+  neus_tc_fwd_kernel<false><<<n_cta, TNT, smem, st>>>(d, pp, wts, (const uint2*)pk, rays_o, rays_d, mid_z, dists, inv_s, cos_r, R, out, eik_part, (unsigned char*)scr, scr_stride);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return reduce_partials(eik_part, n_cta, 2, eik, st);
+}
+
+// B3's forward: as neus_point_fwd (fused_neus_point.cu), with the packed
+// bf16 weights pk (offsets pp) beside the flat f32 ones; scr an (n_cta,
+// scr_stride)-byte scratch (neus_tc_scratch_bytes(d, 0)).
+int neus_point_tc_fwd(Dims d, Pack pp, const float* wts, const void* pk, const float* rays_o,
+                      const float* rays_d, const float* mid_z, const float* dists,
+                      const float* inv_s, float cos_r, int R, float* sdf, float* alpha, float* cdf,
+                      float* grad, float* inside, float* rgb, float* eik, float* eik_part,
+                      void* scr, long long scr_stride, int n_cta, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int smem = (int)tc_layout(d, false).smem;
+  int err = (int)cudaFuncSetAttribute(neus_tc_fwd_kernel<true>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  const FwdOut out{sdf, grad, nullptr, nullptr, nullptr, alpha, cdf, inside, rgb};
+  neus_tc_fwd_kernel<true><<<n_cta, TNT, smem, st>>>(d, pp, wts, (const uint2*)pk, rays_o, rays_d, mid_z, dists, inv_s, cos_r, R, out, eik_part, (unsigned char*)scr, scr_stride);
   err = (int)cudaGetLastError();
   if (err) return err;
   return reduce_partials(eik_part, n_cta, 2, eik, st);
@@ -1037,6 +1234,44 @@ int neus_ray_tc_bwd(Dims d, Pack pp, const float* wts, const void* pk, const flo
     err = (int)cudaGetLastError();
     if (err) return err;
     wgrad_kernel<<<wgrid, WG_THREADS, WG_SMEM, st>>>(lg, ps, (const bf16*)log, (long long)(ray1 - ray0) * ROWS, n_split, gpart + (size_t)n_cta * stride, stride);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return reduce_partials(gpart, n_cta + 2 * n_split, stride, d_w, st);
+}
+
+// B6's backward: as sdf_bwd (fused_sdf.cu), with the packed bf16 SDF
+// weights pk (offsets pp) beside the flat f32 ones (Dims with no colour
+// net: HC = NHC = W = 0). The n_pts points run in chunks of `chunk` tiles
+// of 64: the per-tile kernel (n_cta CTAs; scr an (n_cta, scr_stride)-byte
+// scratch, neus_tc_scratch_bytes(d, 1)) writes the chunk's weight-gradient
+// operands into log (chunk * 64 rows of neus_tc_log_row elements), then
+// wgrad_kernel forms the weight gradients with n_split splits of the
+// points. gpart: (n_cta + 2 n_split) partial rows of weight_count floats,
+// zero on entry, summed in a fixed order into d_w.
+int sdf_tc_bwd(Dims d, Pack pp, const float* wts, const void* pk, const float* pts, int n_pts,
+               const float* c_sdf, const float* c_feat, const float* c_grad, float* d_pts,
+               float* d_w, float* gpart, void* scr, long long scr_stride, int n_cta, void* log,
+               int chunk, int n_split, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int smem = (int)tc_layout(d, true).smem;
+  int err = (int)cudaFuncSetAttribute(sdf_tc_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      smem);
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err) return err;
+  const WLog lg = wlog_layout(d);
+  const WProbs ps = wgrad_problems(d);
+  const long long stride = (long long)weight_offsets(d).total;
+  const dim3 wgrid(neus_tc_wgrad_tiles(d), n_split);
+  const int n_blk = (n_pts + ROWS - 1) / ROWS;
+  for (int blk0 = 0; blk0 < n_blk; blk0 += chunk) {
+    const int blk1 = blk0 + chunk < n_blk ? blk0 + chunk : n_blk;
+    const long long rows = (long long)(blk1 - blk0) * ROWS;
+    sdf_tc_bwd_kernel<<<n_cta, TNT, smem, st>>>(d, pp, wts, (const uint2*)pk, pts, n_pts, c_sdf, c_feat, c_grad, d_pts, gpart, (unsigned char*)scr, scr_stride, lg, (bf16*)log, rows, blk0, blk1);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    wgrad_kernel<<<wgrid, WG_THREADS, WG_SMEM, st>>>(lg, ps, (const bf16*)log, rows, n_split, gpart + (size_t)n_cta * stride, stride);
     err = (int)cudaGetLastError();
     if (err) return err;
   }

@@ -1,12 +1,13 @@
-// Tensor-core building blocks of the bf16 per-ray NeuS pair
-// (fused_neus_ray_tc.cu): the packed bf16 weight layout, the CTA-level GEMM
-// forms on mma.sync.m16n8k16 (bf16 operands, f32 accumulators: gemm_rows_pre
-// and gemm_fused over a tile, wgrad_kernel's tiles over the points), the
-// backward's weight-gradient log, and the shared-memory / scratch layouts of
-// the kernels.
+// Tensor-core building blocks of the bf16 NeuS kernels (fused_neus_ray_tc.cu:
+// B1's per-ray pair, B3's point-level forward, B6's backward): the packed
+// bf16 weight layout, the CTA-level GEMM forms on mma.sync.m16n8k16 (bf16
+// operands, f32 accumulators: gemm_rows_pre and gemm_fused over a tile,
+// wgrad_kernel's tiles over the points), the backward's weight-gradient log,
+// and the shared-memory / scratch layouts of the kernels.
 //
-// A tile is one ray: 64 GEMM rows (samples; rows >= S are zero-padded
-// points whose results are never read and whose cotangents are zero). An
+// A tile is 64 GEMM rows: one ray's samples (B1, B3) or 64 points (B6).
+// Rows past the ray's S samples or the last points are zero-padded points
+// whose results are never read and whose cotangents are zero. An
 // activation that feeds a product is a bf16 row-major (64 x ld) matrix with
 // ld = pad16(K) + 8: the 8 extra columns make the row stride 4 words mod 8,
 // so the 32 lanes' 32-bit fragment loads hit 32 different banks.
@@ -17,8 +18,9 @@
 // B[16 kt + 2t (+1)][8 nt + g] and B[16 kt + 2t + 8 (+1)][8 nt + g]: one
 // k-step of all columns is one contiguous run, copied into shared memory by
 // cp.async a few k-steps ahead of its use (gemm_rows). ops/fused_neus.py builds the
-// pack per call from the flat f32 weights (pack_tc); the flat f32 buffer
-// stays the interface and carries the biases and the head's f32 sdf row.
+// pack per call from the flat f32 weights (pack_tc; B6's holds the SDF
+// layers alone); the flat f32 buffer stays the interface and carries the
+// biases and the head's f32 sdf row.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,12 +38,14 @@ typedef __half f16;
 // Per-phase cycle counts, compiled in only with -DNEUS_TC_PROF (the
 // profiling build of avatarclip_torch/tools/profile_b1.py): thread 0 of each
 // CTA adds the clock64 cycles since its previous mark to a phase, and the
-// kernel's end stores the CTA's sums in g_phase[kernel][cta]. A product's
-// epilogue time also goes to slot PH_TAGS + the tag phase_tag last set.
+// kernel's end stores the CTA's sums in g_phase[kernel][cta] (kernel: PK_*).
+// A product's epilogue time also goes to slot PH_TAGS + the tag phase_tag
+// last set. PH_COMPOSITE is B1's compositing and B3's per-point stores.
 enum { PH_OTHER = 0, PH_GEMM, PH_WGRAD, PH_COLPASS = 4, PH_COMPOSITE, PH_EPI, PH_LOG,
        PH_TAGS = 8, PH_N = 24, PH_MAXCTA = 1024 };
+enum { PK_RAY_FWD = 0, PK_RAY_BWD, PK_WGRAD, PK_POINT_FWD, PK_SDF_BWD, PK_N };
 #if defined(NEUS_TC_PROF) && defined(__CUDACC__)
-__device__ long long g_phase[3][PH_MAXCTA][PH_N];
+__device__ long long g_phase[PK_N][PH_MAXCTA][PH_N];
 __device__ inline long long* phase_slots() {
   __shared__ long long s[PH_N + 2];  // the sums, the last stamp, the tag
   return s;
@@ -79,7 +83,7 @@ __host__ __device__ inline void phase_mark(int) {}
 __host__ __device__ inline void phase_end(int) {}
 #endif
 
-constexpr int ROWS = 64;         // GEMM rows of a tile: one ray of S <= 64 samples
+constexpr int ROWS = 64;         // GEMM rows of a tile: one ray of S <= 64 samples, or 64 points
 constexpr int TNT = 512;         // threads a CTA: 16 warps to hide the latencies
 constexpr int NWARP = TNT / 32;
 // gemm_rows' warp grid: 2 x 8 warps, each 32 rows (2 m-tiles) x 4 n-tiles;
@@ -406,14 +410,15 @@ __device__ __forceinline__ void gemm_fused(const bf16* A0, const bf16* A1, int l
 
 // ---- the backward's weight gradients
 //
-// The backward runs the rays in chunks. Its per-ray kernel writes, once, the
-// bf16 operands of every weight gradient (the cotangents on a layer's
+// A backward runs its tiles in chunks. Its per-tile kernel writes, once,
+// the bf16 operands of every weight gradient (the cotangents on a layer's
 // outputs and the layer's inputs) into a log; a second kernel
 // (wgrad_kernel) then forms each weight's gradient as a tensor-core product
 // over the chunk's points, D += scale * X^T Y, split over the points into
-// n_split partial sums. A log region holds one matrix, row = point (ray slot
-// q of the chunk, sample r: 64 q + r), stride ld = pad8(width) elements;
-// rows >= S carry zero cotangents.
+// n_split partial sums. A log region holds one matrix, row = point (tile
+// slot q of the chunk, row r: 64 q + r), stride ld = pad8(width) elements;
+// padded rows carry zero cotangents. Without a colour net (Dims::NHC = 0,
+// B6) the colour regions are empty and the colour problems absent.
 enum { LG_EB = 0, LG_TB0, LG_X, LG_TI = LG_X + MAXNH, LG_U = LG_TI + MAXNH, LG_CIN, LG_ACT,
        LG_CZ = LG_ACT + MAXNHC, LG_CZD = LG_CZ + MAXNH + 1, LG_CF = LG_CZD + MAXNH + 1, LG_CZC,
        LG_CHEAD = LG_CZC + MAXNHC, LG_N };
@@ -433,11 +438,13 @@ __host__ __device__ inline WLog wlog_layout(const Dims& d) {
   w[LG_EB] = w[LG_TB0] = d.E;
   for (int i = 0; i < d.NH; ++i) w[LG_X + i] = w[LG_TI + i] = d.H;
   w[LG_U] = d.H;
-  w[LG_CIN] = d.CW;
-  for (int l = 0; l < d.NHC; ++l) w[LG_ACT + l] = w[LG_CZC + l] = d.HC;
+  if (d.NHC > 0) {
+    w[LG_CIN] = d.CW;
+    for (int l = 0; l < d.NHC; ++l) w[LG_ACT + l] = w[LG_CZC + l] = d.HC;
+    w[LG_CHEAD] = d.W;
+  }
   for (int i = 0; i <= d.NH; ++i) w[LG_CZ + i] = w[LG_CZD + i] = i < d.NH ? d.H : d.SW;
   w[LG_CF] = d.F;
-  w[LG_CHEAD] = d.W;
   long long off = 0;
   for (int m = 0; m < LG_N; ++m) {
     lg.off[m] = off;
@@ -475,7 +482,7 @@ __host__ __device__ inline WProbs wgrad_problems(const Dims& d) {
     ps.p[n++] = WProb{LG_CZD + i, t0, out, in, in, 1, (long long)wo.sw[i], 1.f};
   }
   ps.p[n++] = WProb{LG_CF, LG_U, d.F, d.H, d.H, 0, (long long)wo.sw[d.NH + 1] + d.H, RSQRT2};
-  for (int l = 0; l <= d.NHC; ++l) {
+  for (int l = 0; d.NHC > 0 && l <= d.NHC; ++l) {
     const int in = col_in(d, l);
     const int x = l < d.NHC ? LG_CZC + l : LG_CHEAD, y = l == 0 ? LG_CIN : LG_ACT + l - 1;
     ps.p[n++] = WProb{x, y, col_out(d, l), in, in, 0, (long long)wo.cw[l], 1.f};

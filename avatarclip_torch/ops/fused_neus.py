@@ -30,11 +30,14 @@ carried as ``spec.bf16`` and ``Dims::bf16``), where the JAX package fixes
 On a CUDA tensor :func:`point_eval_ray` runs, through
 :class:`NeuSRayFunction`, the tensor-core pair ``csrc/fused_neus_ray_tc.cu``
 in the bf16 mode and ``csrc/fused_neus_ray.cu`` in the f32 mode;
-:func:`point_eval` runs ``csrc/fused_neus_point.cu`` (CUDA cores, the mode
-as rounding) through :class:`NeuSPointFunction`. The backward is the second
-kernel; nothing falls back. On a CPU tensor they run the plain versions at
-the kernels' rounding points, whose backward is autograd through the plain
-graph (create_graph=True for the spatial gradient).
+:func:`point_eval` runs, through :class:`NeuSPointFunction`, the
+tensor-core forward of ``csrc/fused_neus_ray_tc.cu`` in the bf16 mode and
+``csrc/fused_neus_point.cu``'s in the f32 mode, and the backward of
+``csrc/fused_neus_point.cu`` (CUDA cores, the bf16 mode as rounding) in
+both. The backward is the second kernel; nothing falls back. On a CPU
+tensor they run the plain versions at the kernels' rounding points, whose
+backward is autograd through the plain graph (create_graph=True for the
+spatial gradient).
 
 Weight norm is resolved to dense (out, in) weights in plain torch before the
 Function (:func:`dense_weights`), so autograd carries the kernel's dense
@@ -361,22 +364,24 @@ def unpack_b(packed: torch.Tensor, K: int, N: int) -> torch.Tensor:
     return p.reshape(KT * 16, NT * 8)[:K, :N]
 
 
-def pack_tc(spec: NeuSRaySpec, weights) -> tuple[torch.Tensor, Pack]:
-    """The tensor-core pair's packed bf16 weights from the dense weight list
-    of :func:`dense_weights` (SDF layers, then colour layers, as (W, b)):
-    each SDF and colour matrix in its forward form (W^T) and its reverse
-    form (W); the head's feature rows scaled by 1/sqrt(2), the skip concat's
-    scale (the JAX kernels' pre-scaled ``wf_a`` / ``wf_e``). The head's sdf
-    row and every bias stay in the flat f32 buffer."""
-    NH, NHC = spec.n_hidden, spec.c_layers
+def pack_tc(spec, weights) -> tuple[torch.Tensor, Pack]:
+    """The tensor-core kernels' packed bf16 weights from a dense weight list
+    as (W, b): :func:`dense_weights`' (SDF layers, then colour layers) for a
+    :class:`NeuSRaySpec`, or fused_sdf.dense_weights' (the SDF layers alone,
+    B6's flat buffer) for a ``FusedSDFSpec``. Each matrix in its forward
+    form (W^T) and its reverse form (W); the head's feature rows scaled by
+    1/sqrt(2), the skip concat's scale (the JAX kernels' pre-scaled ``wf_a``
+    / ``wf_e``). The head's sdf row and every bias stay in the flat f32
+    buffer; without a colour net its slots stay empty."""
+    NH = spec.n_hidden
     mats = weights[0::2]
     sdf_w, col_w = mats[:NH + 2], mats[NH + 2:]
     feat = sdf_w[NH + 1][1:] / 2.0 ** 0.5
     slots = {_FHEAD: feat.t(), _RHEAD: feat}
     for i in range(NH + 1):
         slots[_FS + i], slots[_RS + i] = sdf_w[i].t(), sdf_w[i]
-    for l in range(NHC + 1):
-        slots[_FC + l], slots[_RC + l] = col_w[l].t(), col_w[l]
+    for l, w in enumerate(col_w):
+        slots[_FC + l], slots[_RC + l] = w.t(), w
     parts, pack, off = [], Pack(), 0
     for slot in sorted(slots):
         part = pack_b(slots[slot].detach().float())
@@ -384,6 +389,29 @@ def pack_tc(spec: NeuSRaySpec, weights) -> tuple[torch.Tensor, Pack]:
         parts.append(part)
         off += part.numel()
     return torch.cat(parts), pack
+
+
+def flat_shapes(d: Dims) -> list[torch.Size]:
+    """The (W, b) shapes of the flat weight layout (csrc/neus_mlp.cuh's
+    weight_offsets): the SDF layers, then the colour layers when d has any."""
+    shapes = []
+    for l in range(d.NH + 2):
+        n_out = d.H if l < d.NH else (d.SW if l == d.NH else 1 + d.F)
+        shapes += [(n_out, d.E if l == 0 else d.H), (n_out,)]
+    for l in range(d.NHC + 1) if d.NHC else ():
+        n_out = d.HC if l < d.NHC else d.W
+        shapes += [(n_out, d.CW if l == 0 else d.HC), (n_out,)]
+    return [torch.Size(t) for t in shapes]
+
+
+def pack_flat(spec, flat) -> tuple[torch.Tensor, Pack]:
+    """:func:`pack_tc` of a flat f32 weight buffer."""
+    return pack_tc(spec, split_flat(flat, flat_shapes(spec.dims())))
+
+
+def check_packed(pk, device):
+    if pk.dtype != torch.bfloat16 or pk.device != device or not pk.is_contiguous():
+        raise ValueError("the packed weights must be a contiguous bf16 tensor on the card")
 
 
 def _tc_lib():
@@ -403,6 +431,10 @@ def type_tc(lib):
         lib.neus_ray_tc_fwd.restype = I
         lib.neus_ray_tc_bwd.argtypes = [Dims, Pack] + [P] * 7 + [F_, I] + [P] * 13 + [L_, I, P, I, I, P]
         lib.neus_ray_tc_bwd.restype = I
+        lib.neus_point_tc_fwd.argtypes = [Dims, Pack] + [P] * 7 + [F_, I] + [P] * 9 + [L_, I, P]
+        lib.neus_point_tc_fwd.restype = I
+        lib.sdf_tc_bwd.argtypes = [Dims, Pack, P, P, P, I] + [P] * 7 + [L_, I, P, I, I, P]
+        lib.sdf_tc_bwd.restype = I
         lib.neus_tc_log_row.argtypes = [Dims]
         lib.neus_tc_log_row.restype = L_
         lib.neus_tc_wgrad_tiles.argtypes = [Dims]
@@ -421,8 +453,9 @@ RAYS_PER_CTA_CHUNK = 8  # the backward's chunk: this many rays a CTA (its log: ~
 
 
 def tc_bwd_chunking(device, lib, d, R: int) -> tuple[int, int, int]:
-    """(CTAs, rays a chunk, point splits of the weight-gradient pass) of the
-    tensor-core backward: the pass's CTAs (one an SM) fill about two waves."""
+    """(CTAs, tiles a chunk, point splits of the weight-gradient pass) of a
+    tensor-core backward over R tiles of 64 rows (B1's rays, B6's blocks of
+    points): the pass's CTAs (one an SM) fill about two waves."""
     n_cta = n_cta_tc(device, R)
     chunk = min(R, n_cta * RAYS_PER_CTA_CHUNK)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -439,8 +472,7 @@ def neus_ray_tc_fwd(spec: NeuSRaySpec, flat, pk, pack, rays_o, rays_d, mid_z, di
     d = spec.dims()
     if flat.numel() != lib.neus_tc_weight_count(d):
         raise ValueError("flat weight buffer does not match the network dims")
-    if pk.dtype != torch.bfloat16 or pk.device != mid_z.device or not pk.is_contiguous():
-        raise ValueError("the packed weights must be a contiguous bf16 tensor on the card")
+    check_packed(pk, mid_z.device)
     R, S = mid_z.shape
     dev = mid_z.device
     n_cta = n_cta_tc(dev, R)
@@ -476,8 +508,7 @@ def neus_ray_tc_bwd(spec: NeuSRaySpec, flat, pk, pack, rays_o, rays_d, mid_z, di
     _build.check_f32(mid_z.device, (("c_col", c_col, (R, W)), ("c_nw", c_nw, (R, 3)),
                                     ("c_ws", c_ws, (R, 1)), ("c_eik", c_eik, (2,)),
                                     ("sdf_res", sdf_res, (R * S,)), ("g_res", g_res, (R * S, 3))))
-    if pk.dtype != torch.bfloat16 or pk.device != mid_z.device or not pk.is_contiguous():
-        raise ValueError("the packed weights must be a contiguous bf16 tensor on the card")
+    check_packed(pk, mid_z.device)
     dev = mid_z.device
     n_w = int(lib.neus_tc_weight_count(d))
     n_cta, chunk, n_split = tc_bwd_chunking(dev, lib, d, R)
@@ -585,30 +616,48 @@ def _point_lib():
     return lib
 
 
-def neus_point_fwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal):
-    """Launch the point-level forward kernel. Returns (sdf (P,), alpha (P,),
-    cdf (P,), grad (P, 3), inside (P,), rgb (P, W), eik (2,) = [num, den])."""
+def neus_point_fwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal,
+                   packed=None):
+    """Launch the point-level forward kernel: in the bf16 mode the
+    tensor-core one (fused_neus_ray_tc.cu; ``packed`` = :func:`pack_tc`'s
+    (pk, pack), packed from ``flat`` when None), in f32 fused_neus_point.cu's.
+    Returns (sdf (P,), alpha (P,), cdf (P,), grad (P, 3), inside (P,),
+    rgb (P, W), eik (2,) = [num, den])."""
+    lib = _tc_lib() if spec.bf16 else _point_lib()
     _check_inputs(spec, flat, rays_o, rays_d, mid_z, dists, inv_s)
-    lib = _point_lib()
     d = spec.dims()
-    if flat.numel() != lib.neus_point_weight_count(d):
+    count = lib.neus_tc_weight_count(d) if spec.bf16 else lib.neus_point_weight_count(d)
+    if flat.numel() != count:
         raise ValueError("flat weight buffer does not match the network dims")
     R, S = mid_z.shape
     dev = mid_z.device
-    n_cta = n_cta_for(dev, R)
-    stride = int(lib.neus_point_workspace_floats(d, 0))
-    ws = torch.empty(n_cta * stride, device=dev)
-    eik_part = torch.empty(n_cta * 2, device=dev)
     sdf_o, alpha, cdf, inside = (torch.empty(R * S, device=dev) for _ in range(4))
     grad = torch.empty(R * S, 3, device=dev)
     rgb = torch.empty(R * S, spec.rgb_width, device=dev)
     eik = torch.empty(2, device=dev)
     p = _build.ptr
-    err = lib.neus_point_fwd(
-        d, p(flat), p(rays_o), p(rays_d), p(mid_z), p(dists), p(inv_s), float(cos_anneal), R,
-        p(sdf_o), p(alpha), p(cdf), p(grad), p(inside), p(rgb), p(eik), p(eik_part), p(ws),
-        stride, n_cta, _build.stream_ptr(dev),
-    )
+    if spec.bf16:
+        pk, pack = pack_flat(spec, flat) if packed is None else packed
+        check_packed(pk, dev)
+        n_cta = n_cta_tc(dev, R)
+        stride = int(lib.neus_tc_scratch_bytes(d, 0))
+        scr = torch.empty(n_cta * stride, dtype=torch.uint8, device=dev)
+        eik_part = torch.empty(n_cta * 2, device=dev)
+        err = lib.neus_point_tc_fwd(
+            d, pack, p(flat), p(pk), p(rays_o), p(rays_d), p(mid_z), p(dists), p(inv_s),
+            float(cos_anneal), R, p(sdf_o), p(alpha), p(cdf), p(grad), p(inside), p(rgb), p(eik),
+            p(eik_part), p(scr), stride, n_cta, _build.stream_ptr(dev),
+        )
+    else:
+        n_cta = n_cta_for(dev, R)
+        stride = int(lib.neus_point_workspace_floats(d, 0))
+        ws = torch.empty(n_cta * stride, device=dev)
+        eik_part = torch.empty(n_cta * 2, device=dev)
+        err = lib.neus_point_fwd(
+            d, p(flat), p(rays_o), p(rays_d), p(mid_z), p(dists), p(inv_s), float(cos_anneal), R,
+            p(sdf_o), p(alpha), p(cdf), p(grad), p(inside), p(rgb), p(eik), p(eik_part), p(ws),
+            stride, n_cta, _build.stream_ptr(dev),
+        )
     _build.check(err, "neus_point_fwd launch")
     _build.count(LAUNCHES, "neus_point_fwd")
     return sdf_o, alpha, cdf, grad, inside, rgb, eik
@@ -617,9 +666,10 @@ def neus_point_fwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s,
 def neus_point_bwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal,
                    sdf_res, g_res, c_sdf, c_alpha, c_cdf, c_grad, c_rgb, c_eik):
     """Launch the point-level backward kernel (+ its partial-sum pass).
-    Returns (d_o, d_d, d_z, d_t, d_flat, d_inv_s)."""
-    _check_inputs(spec, flat, rays_o, rays_d, mid_z, dists, inv_s)
+    Returns (d_o, d_d, d_z, d_t, d_flat, d_inv_s). Both operand modes run
+    these CUDA-core kernels (the bf16 one rounding each staged operand)."""
     lib = _point_lib()
+    _check_inputs(spec, flat, rays_o, rays_d, mid_z, dists, inv_s)
     d = spec.dims()
     R, S = mid_z.shape
     P = R * S
@@ -653,9 +703,11 @@ def neus_point_bwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s,
 class NeuSPointFunction(torch.autograd.Function):
     """(spec, cos_anneal, keep, rays, mid_z, dists, inv_s, *dense weights) ->
     (sdf (P, 1), grad, rgb, alpha, cdf, inside, eik (2,)); forward and
-    backward are the CUDA kernels. ``inside`` is not differentiable.
-    Residuals are kept only when ``keep`` (the caller's grad mode), so the
-    validation renders under no_grad hold none."""
+    backward are the CUDA kernels: the tensor-core forward in the bf16
+    operand mode, fused_neus_point.cu's in f32, and fused_neus_point.cu's
+    backward in both. ``inside`` is not differentiable. Residuals are kept
+    only when ``keep`` (the caller's grad mode), so the validation renders
+    under no_grad hold none."""
 
     @staticmethod
     def forward(ctx, spec, cos_anneal, keep, rays_o, rays_d, mid_z, dists, inv_s, *weights):

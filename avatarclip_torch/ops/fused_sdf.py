@@ -11,8 +11,10 @@ per-sample branch reaches it through ``fields.networks.sdf_with_gradient``
 when the megakernel is declined (the NeRF++ background is on).
 
 :func:`sdf_with_gradient_fused` takes a CUDA tensor and launches the kernel
-pair through :class:`SDFFunction`, or raises; on the CPU only the gate in
-fields/networks.py picks :func:`sdf_with_gradient_plain`, autograd through
+pair through :class:`SDFFunction` (the backward on the tensor cores in the
+bf16 operand mode: csrc/fused_neus_ray_tc.cu's ``sdf_tc_bwd``, whose weights
+``fused_neus.pack_tc`` packs from the SDF layers alone), or raises; on the
+CPU only the gate in fields/networks.py picks :func:`sdf_with_gradient_plain`, autograd through
 the plain module's maths with ``create_graph=True`` in the input's dtype.
 The kernels and their plain versions take the net's operand mode
 (``fields.networks.operand_bf16``, ops/fused_neus.py): bf16 dot operands
@@ -40,6 +42,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from . import fused_neus
 from .fused_neus import Dims, n_cta_for, split_flat
 from ..fields.networks import (SDFNetwork, kernel_sdf_forward, kernel_sdf_with_gradient,
                                operand_bf16)
@@ -157,11 +160,12 @@ def _lib():
     return lib
 
 
-def _check(spec: FusedSDFSpec, lib, flat, pts):
+def _check(spec: FusedSDFSpec, lib, flat, pts, tc: bool = False):
     if not pts.is_cuda or flat.device != pts.device:
         raise ValueError("the SDF kernel takes points and weights on one CUDA device")
     _build.check_f32(pts.device, (("pts", pts, (pts.shape[0], 3)), ("flat", flat, (flat.numel(),))))
-    if flat.numel() != lib.sdf_weight_count(spec.dims()):
+    count = lib.neus_tc_weight_count if tc else lib.sdf_weight_count
+    if flat.numel() != count(spec.dims()):
         raise ValueError("flat weight buffer does not match the network dims")
     if pts.shape[0] >= 2**31:
         raise ValueError("the SDF kernel takes fewer than 2^31 points")
@@ -205,14 +209,18 @@ def sdf_only_fwd(spec: FusedSDFSpec, flat, pts):
     return sdf
 
 
-def sdf_bwd(spec: FusedSDFSpec, flat, pts, c_sdf, c_feat, c_grad):
-    """Launch the backward kernel (+ its partial-sum pass). Returns
-    (d_pts (P, 3), d_flat)."""
-    lib = _lib()
-    _check(spec, lib, flat, pts)
+def sdf_bwd(spec: FusedSDFSpec, flat, pts, c_sdf, c_feat, c_grad, packed=None):
+    """Launch the backward kernel (+ its partial-sum pass): in the bf16 mode
+    the tensor-core one (``packed`` = fused_neus.pack_tc's (pk, pack) of the
+    SDF layers, packed from ``flat`` when None), in f32 fused_sdf.cu's.
+    Returns (d_pts (P, 3), d_flat)."""
+    lib = fused_neus._tc_lib() if spec.bf16 else _lib()
+    _check(spec, lib, flat, pts, tc=spec.bf16)
     d, dev, P = spec.dims(), pts.device, pts.shape[0]
     _build.check_f32(dev, (("c_sdf", c_sdf, (P, 1)), ("c_feat", c_feat, (P, spec.feat_dim)),
                            ("c_grad", c_grad, (P, 3))))
+    if spec.bf16:
+        return _sdf_tc_bwd(spec, lib, flat, pts, c_sdf, c_feat, c_grad, packed)
     n_w = flat.numel()
     n_cta = n_cta_for(dev, -(-P // BLOCK))
     stride = int(lib.sdf_workspace_floats(d, 1))
@@ -228,10 +236,34 @@ def sdf_bwd(spec: FusedSDFSpec, flat, pts, c_sdf, c_feat, c_grad):
     return d_pts, d_w
 
 
+def _sdf_tc_bwd(spec, lib, flat, pts, c_sdf, c_feat, c_grad, packed):
+    """sdf_bwd's tensor-core kernel: the points in chunks of 64-point tiles
+    (fused_neus.tc_bwd_chunking), each chunk's weight-gradient operands
+    logged in bf16 and formed by the weight-gradient GEMM over the points."""
+    d, dev, P = spec.dims(), pts.device, pts.shape[0]
+    pk, pack = fused_neus.pack_flat(spec, flat) if packed is None else packed
+    fused_neus.check_packed(pk, dev)
+    n_w = flat.numel()
+    d_pts = torch.empty(P, 3, device=dev)
+    d_w = torch.empty(n_w, device=dev)
+    n_cta, chunk, n_split = fused_neus.tc_bwd_chunking(dev, lib, d, -(-P // BLOCK))
+    stride = int(lib.neus_tc_scratch_bytes(d, 1))
+    scr = torch.empty(n_cta * stride, dtype=torch.uint8, device=dev)
+    gpart = torch.zeros((n_cta + 2 * n_split) * n_w, device=dev)
+    log = torch.empty(chunk * BLOCK * int(lib.neus_tc_log_row(d)), dtype=torch.bfloat16, device=dev)
+    p = _build.ptr
+    err = lib.sdf_tc_bwd(d, pack, p(flat), p(pk), p(pts), P, p(c_sdf), p(c_feat), p(c_grad),
+                         p(d_pts), p(d_w), p(gpart), p(scr), stride, n_cta, p(log), chunk, n_split,
+                         _build.stream_ptr(dev))
+    _build.check(err, "sdf_tc_bwd launch")
+    _build.count(LAUNCHES, "sdf_bwd")
+    return d_pts, d_w
+
+
 class SDFFunction(torch.autograd.Function):
     """(spec, pts, *dense weights) -> (sdf, feature, gradient); forward and
-    backward are the CUDA kernels, and the backward is not differentiated
-    again."""
+    backward are the CUDA kernels (the backward on the tensor cores in the
+    bf16 mode), and the backward is not differentiated again."""
 
     @staticmethod
     def forward(ctx, spec, pts, *weights):

@@ -1,17 +1,21 @@
-"""Time B1's tensor-core pair (the bf16 operand mode) at the train_clip
-step's shapes and split each of its kernels' time into phases.
+"""Time the tensor-core NeuS kernels (the bf16 operand mode) at the main
+path's shapes and split each kernel's time into phases: B1's pair at the
+train_clip step's rays, B3's forward at the validation chunk, B6's backward
+at the background step's points.
 
-    python -m avatarclip_torch.tools.profile_b1 [--rays 12544] [--reps 7]
+    python -m avatarclip_torch.tools.profile_b1 [--kernel all|b1|b3|b6] [--reps 7]
 
 Run from the root of a checkout on a CUDA card. It builds the 4x256 / 2x256
-nets of chip_smoke.neus_problem at bf16 (seed 1), then:
+nets of chip_smoke.neus_problem at bf16, then, for each kernel asked for:
 
-* times the forward and backward entry points of the pair
-  (``fused_neus.neus_ray_tc_fwd`` / ``neus_ray_tc_bwd``, weights packed
-  once) with CUDA events and prints the median and the range over ``--reps``
-  calls;
+* times its entry point (``fused_neus.neus_ray_tc_fwd`` / ``neus_ray_tc_bwd``
+  at ``--rays`` x 64, ``neus_point_fwd`` at 16,384 x 64, ``fused_sdf.sdf_bwd``
+  at 802,816 points; weights packed once) with CUDA events and prints the
+  median and the range over ``--reps`` calls; the backwards' device time by
+  kernel (the per-tile kernel, the weight-gradient GEMM, the partial sums)
+  by torch.profiler;
 * loads a second build of ``csrc/fused_neus_ray_tc.cu`` with
-  ``-DNEUS_TC_PROF``, runs each kernel once, and prints its cycles by phase
+  ``-DNEUS_TC_PROF``, runs the kernel once, and prints its cycles by phase
   (``neus_tc.cuh``: thread 0 of every CTA stamps clock64 at each phase
   boundary, so a phase's share is of the CTAs' summed cycles; the
   milliseconds beside it are that share of the median time);
@@ -27,12 +31,15 @@ import statistics
 import subprocess
 import sys
 
-PHASES = ("other", "product k-loops", "weight grads", "stage copies", "column passes", "compositing",
-          "product epilogues", "log stores")
+PHASES = ("other", "product k-loops", "weight grads", "stage copies", "column passes",
+          "compositing / per-point stores", "product epilogues", "log stores")
 N_PHASE = 24  # neus_tc.cuh's PH_N: PHASES, then the epilogues by tag
 TAGS = ("sdf primal hidden", "skip primal", "head primal", "colour primal", "colour reverse",
         "colour input reverse", "tangent hidden", "tangent skip", "head reverse", "sdf reverse pairs",
         "embedding reverse", "gradient sweep")
+PK_RAY_FWD, PK_RAY_BWD, PK_WGRAD, PK_POINT_FWD, PK_SDF_BWD = range(5)  # neus_tc.cuh's PK_*
+B3_RAYS = 16384  # the validation chunk
+B6_RAYS = 112 * 112  # the background step's rays: 802,816 points
 
 
 def median_ms(fn, reps: int) -> tuple[float, float, float]:
@@ -51,8 +58,9 @@ def median_ms(fn, reps: int) -> tuple[float, float, float]:
     return statistics.median(times), min(times), max(times)
 
 
-def kernel_times(fn, reps: int = 3) -> None:
-    """Device milliseconds a call of fn by kernel (torch.profiler)."""
+def kernel_times(tag: str, fn, reps: int = 3) -> dict:
+    """Device milliseconds a call of fn by kernel (torch.profiler), printed
+    and returned by kernel name."""
     import torch
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -65,8 +73,9 @@ def kernel_times(fn, reps: int = 3) -> None:
         if ms > 0.01:
             rows.append((ms, ev.key[:60], ev.count // reps))
     rows.sort(reverse=True)
-    print("[profile_b1] backward by kernel (device ms a call, launches): "
+    print(f"[profile] {tag} by kernel (device ms a call, launches): "
           + "; ".join(f"{k} {ms:.3f} x{n}" for ms, k, n in rows[:8]))
+    return {k: ms for ms, k, _ in rows}
 
 
 def print_build(name: str) -> None:
@@ -77,20 +86,23 @@ def print_build(name: str) -> None:
     if log.exists():
         info = [ln.split("ptxas info    :")[-1].strip() for ln in log.read_text().splitlines()
                 if "registers" in ln or "spill" in ln]
-        print(f"[profile_b1] build {name}: " + " | ".join(info))
+        print(f"[profile] build {name}: " + " | ".join(info))
 
 
-def problem(n_rays: int, dev):
-    """The pair's inputs, packed weights and cotangents at 256 wide, bf16."""
-    import torch
-
+def _nets(n_rays: int, dev, seed: int):
     sys.path.insert(0, os.getcwd())
     from chip_smoke import neus_problem
 
+    return neus_problem(256, n_rays, dev, seed=seed, dtype="bfloat16")
+
+
+def b1_problem(n_rays: int, dev) -> dict:
+    """B1's pair: (name, PK slot, call) of its forward and backward."""
+    import torch
+
     from avatarclip_torch.ops import fused_neus as fn
 
-    fields, (rays_o, rays_d, mid, dists), probes, _ = neus_problem(
-        256, n_rays, dev, seed=1, dtype="bfloat16")
+    fields, (rays_o, rays_d, mid, dists), probes, _ = _nets(n_rays, dev, 1)
     spec = fn.spec_from_configs(fields.sdf.cfg, fields.color.cfg, mid.shape[1])
     with torch.no_grad():
         weights = fn.dense_weights(fields.sdf, fields.color)
@@ -100,18 +112,76 @@ def problem(n_rays: int, dev):
     args = (flat, pk, pack, rays_o, rays_d, mid, dists, inv_s, 0.4)
     cots = (probes[0].contiguous(), probes[1].contiguous(), probes[2].contiguous(),
             torch.tensor([0.5, 0.0], device=dev))
-    return spec, args, cots
+    res = fn.neus_ray_tc_fwd(spec, *args)
+    return {"shape": f"{n_rays} rays x 64", "ctas": fn.n_cta_tc(dev, n_rays), "calls": [
+        ("B1 forward", PK_RAY_FWD, lambda: fn.neus_ray_tc_fwd(spec, *args)),
+        ("B1 backward (per-ray kernel, last chunk)", PK_RAY_BWD,
+         lambda: fn.neus_ray_tc_bwd(spec, *args, res[3], res[4], *cots))]}
+
+
+def b3_problem(dev) -> dict:
+    import torch
+
+    from avatarclip_torch.ops import fused_neus as fn
+
+    fields, (rays_o, rays_d, mid, dists), _, _ = _nets(B3_RAYS, dev, 2)
+    spec = fn.spec_from_configs(fields.sdf.cfg, fields.color.cfg, mid.shape[1])
+    with torch.no_grad():
+        weights = fn.dense_weights(fields.sdf, fields.color)
+        flat = torch.cat([w.reshape(-1) for w in weights])
+        packed = fn.pack_tc(spec, weights)
+        inv_s = fields.variance.inv_s().reshape(()).float().contiguous()
+    return {"shape": f"{B3_RAYS} rays x 64", "ctas": fn.n_cta_tc(dev, B3_RAYS), "calls": [
+        ("B3 forward", PK_POINT_FWD,
+         lambda: fn.neus_point_fwd(spec, flat, rays_o, rays_d, mid, dists, inv_s, 0.4, packed))]}
+
+
+def b6_problem(dev) -> dict:
+    import torch
+
+    from avatarclip_torch.ops import fused_neus as fn
+    from avatarclip_torch.ops import fused_sdf as fs
+
+    fields, (ro, rd, mid, _), _, _ = _nets(B6_RAYS, dev, 6)
+    pts = (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3).contiguous()
+    P = pts.shape[0]
+    spec = fs.spec_from_config(fields.sdf.cfg)
+    with torch.no_grad():
+        weights = fs.dense_weights(fields.sdf)
+        flat = torch.cat([w.reshape(-1) for w in weights])
+        packed = fn.pack_tc(spec, weights)
+    g = torch.Generator().manual_seed(5)
+    cots = [(0.5 + torch.rand(P, k, generator=g)).to(dev) for k in (1, spec.feat_dim, 3)]
+    return {"shape": f"{P} points", "ctas": fn.n_cta_tc(dev, -(-P // fs.BLOCK)), "calls": [
+        ("B6 backward (per-tile kernel, last chunk)", PK_SDF_BWD,
+         lambda: fs.sdf_bwd(spec, flat, pts, *cots, packed=packed))]}
+
+
+def phases(lib, name: str, k: int, n_cta: int, ms: float) -> None:
+    from avatarclip_torch.ops import _build
+
+    buf = (ctypes.c_longlong * (n_cta * N_PHASE))()
+    _build.check(lib.neus_tc_phases(k, buf, n_cta), "neus_tc_phases")
+    tot = [sum(buf[c * N_PHASE + i] for c in range(n_cta)) for i in range(N_PHASE)]
+    all_ = max(sum(tot[:len(PHASES)]), 1)
+    rows = [f"{PHASES[i]} {tot[i] / all_:.1%} ({tot[i] / all_ * ms:.2f} ms)"
+            for i in range(len(PHASES)) if tot[i]]
+    print(f"[profile] {name} phases (profiling build, shares of {all_ / n_cta:.4g} cycles a CTA): "
+          + ", ".join(rows))
+    rows = [f"{TAGS[i]} {tot[8 + i] / all_ * ms:.2f} ms" for i in range(len(TAGS)) if tot[8 + i]]
+    print(f"[profile] {name} epilogues by product: " + ", ".join(rows))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rays", type=int, default=112 * 112)
+    ap.add_argument("--kernel", choices=("all", "b1", "b3", "b6"), default="all")
+    ap.add_argument("--rays", type=int, default=112 * 112, help="B1's rays")
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--define", action="append", default=[],
-                    help="a macro for both builds of the pair (a variant under test)")
+                    help="a macro for both builds of the kernels (a variant under test)")
     ap.add_argument("--no-phases", action="store_true", help="time only: no profiling build")
     ap.add_argument("--chunk", type=int, default=0,
-                    help="the backward's rays a CTA a chunk (fused_neus.RAYS_PER_CTA_CHUNK)")
+                    help="the backwards' tiles a CTA a chunk (fused_neus.RAYS_PER_CTA_CHUNK)")
     a = ap.parse_args()
     defs = tuple(a.define)
     import torch
@@ -124,31 +194,29 @@ def main() -> None:
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    spec, args, cots = problem(a.rays, dev)
     if a.chunk:
         fn.RAYS_PER_CTA_CHUNK = a.chunk
     tag = "".join(f"_{d.lower()}" for d in defs)
     if defs:
         timed = fn.type_tc(_build.load_variant("fused_neus_ray_tc" + tag, "fused_neus_ray_tc.cu", defs))
         fn._tc_lib = lambda: timed
-
-    def fwd():
-        return fn.neus_ray_tc_fwd(spec, *args)
-
-    res = fwd()
-
-    def bwd():
-        return fn.neus_ray_tc_bwd(spec, *args, res[3], res[4], *cots)
-
-    times = {"forward": median_ms(fwd, a.reps), "backward": median_ms(bwd, a.reps)}
-    for k, (med, lo, hi) in times.items():
-        print(f"[profile_b1] {a.rays} rays x 64, 4x256 / 2x256, bf16{' ' + ','.join(defs) if defs else ''}"
-              f"{f' chunk {a.chunk}' if a.chunk else ''}: {k} median {med:.3f} ms "
-              f"over {a.reps} calls (range {lo:.3f}-{hi:.3f})")
-    kernel_times(bwd)
+    want = ("b1", "b3", "b6") if a.kernel == "all" else (a.kernel,)
+    problems = []
+    for k in want:
+        prob = b1_problem(a.rays, dev) if k == "b1" else b3_problem(dev) if k == "b3" else b6_problem(dev)
+        for i, (name, slot, call) in enumerate(prob["calls"]):
+            med, lo, hi = median_ms(call, a.reps)
+            print(f"[profile] {name}, {prob['shape']}, 4x256 / 2x256, bf16"
+                  f"{' ' + ','.join(defs) if defs else ''}{f' chunk {a.chunk}' if a.chunk else ''}: "
+                  f"median {med:.3f} ms over {a.reps} calls (range {lo:.3f}-{hi:.3f})")
+            if "backward" in name:  # the phases split the per-tile kernel's device time
+                by_kernel = kernel_times(name.split(" (")[0], call)
+                med = sum(ms for k, ms in by_kernel.items() if "bwd_kernel" in k) or med
+            prob["calls"][i] = (name, slot, call, med)
+        problems.append(prob)
     if a.no_phases:
         print_build("fused_neus_ray_tc" + tag)
-        print(f"[profile_b1] device {smi}")
+        print(f"[profile] device {smi}")
         return
     lib = fn.type_tc(_build.load_variant("fused_neus_ray_tc_prof" + tag, "fused_neus_ray_tc.cu",
                                          ("NEUS_TC_PROF",) + defs))
@@ -158,26 +226,14 @@ def main() -> None:
     base = fn._tc_lib
     fn._tc_lib = lambda: lib
     try:
-        fwd()
-        bwd()
-        torch.cuda.synchronize()
+        for prob in problems:
+            for name, slot, call, med in prob["calls"]:
+                call()
+                torch.cuda.synchronize()
+                phases(lib, name, slot, prob["ctas"], med)
     finally:
         fn._tc_lib = base
-    n_cta = fn.n_cta_tc(dev, a.rays)
-    kernels = [("forward", 0, times["forward"][0]), ("backward (per-ray kernel, last chunk)", 1,
-                                                      times["backward"][0])]
-    for name, k, ms in kernels:
-        buf = (ctypes.c_longlong * (n_cta * N_PHASE))()
-        _build.check(lib.neus_tc_phases(k, buf, n_cta), "neus_tc_phases")
-        tot = [sum(buf[c * N_PHASE + i] for c in range(n_cta)) for i in range(N_PHASE)]
-        all_ = max(sum(tot[:len(PHASES)]), 1)
-        rows = [f"{PHASES[i]} {tot[i] / all_:.1%} ({tot[i] / all_ * ms:.2f} ms)"
-                for i in range(len(PHASES)) if tot[i]]
-        print(f"[profile_b1] {name} phases (profiling build, shares of {all_ / n_cta:.4g} "
-              f"cycles a CTA): " + ", ".join(rows))
-        rows = [f"{TAGS[i]} {tot[8 + i] / all_ * ms:.2f} ms" for i in range(len(TAGS)) if tot[8 + i]]
-        print(f"[profile_b1] {name} epilogues by product: " + ", ".join(rows))
-    print(f"[profile_b1] device {smi}")
+    print(f"[profile] device {smi}")
 
 
 if __name__ == "__main__":

@@ -30,12 +30,15 @@ kernel's plain version):
        to 1e-3 of their largest magnitude; B3's forward also under no_grad
        at the validation chunk of 16,384 rays x 64 and at a ragged 16,347
        (4x256 / 2x256 nets); in the bf16 operand mode (B1: the tensor-core
-       pair) each is held against the plain version in float64 of the f32
-       function beside its plain bf16 version (relative RMS), and B1 again
-       at the training step's 12,544 rays x 64 with its float64 reference in
-       1,024-ray chunks, by relative RMS and by its worst ray; B1's kernels
-       timed there (the median of 5 calls; the bf16 forward must be below
-       its f32 CUDA-core bound), B3 at 16,384 rays x 64;
+       pair; B3: the tensor-core forward, the CUDA-core backward) each is
+       held against the plain version in float64 of the f32 function beside
+       its plain bf16 version (relative RMS), B3's forward again under
+       no_grad at 16,384 and 16,347 rays, and B1 again at the training
+       step's 12,544 rays x 64 with its float64 reference in 1,024-ray
+       chunks, by relative RMS and by its worst ray; B1's kernels timed there
+       (the median of 5 calls; the bf16 forward must be below its f32
+       CUDA-core bound), B3 at 16,384 rays x 64 in both modes (its bf16
+       forward's comparison with that bound printed, not checked);
      - B4, the compositing pair: rgb width 6 and 3 on 2,048 rays x 64 against
        float64, same tolerances, and its forward under no_grad at 16,384 and
        16,347 rays; timed at 16,384 rays x 64;
@@ -55,8 +58,10 @@ kernel's plain version):
        (d(points) or d(inputs), and each weight) to 1e-3 of its own largest
        magnitude, at every point (at B7's relu near-ties the f64 input
        cotangents take the masks the kernel took, ops/hold.py); B7 in
-       no_view_dir with the extra head and in idr without it; both timed at
-       path (e)'s 802,816 points a step (and held there in path e);
+       no_view_dir with the extra head and in idr without it; in the bf16
+       mode (B6's backward: the tensor-core kernel) held as B1 is, at 256
+       and 128 wide on the ragged count; both timed at path (e)'s 802,816
+       points a step in both modes (and held there in path e);
      - #12, the sdf-only forward, through its entry (backward: autograd of
        the plain version) against the plain version in float64 at 4x256
        and 3x128 on 2,048 rays x 56 sweep points and on a ragged 131,071
@@ -758,7 +763,69 @@ def hold_point_fwd_at_chunk(fields, inputs) -> float:
     return worst
 
 
+B3_REF_RAYS = 4096  # rays a chunk of B3's plain and float64 references at the validation chunk
+
+
+def hold_point_fwd_bf16_at_chunk(fields, inputs) -> float:
+    """B3's forward in the bf16 operand mode (the tensor-core kernel) through
+    its wrapper under no_grad, as validation runs it, at the validation chunk
+    (16,384 rays x 64) and at a ragged 16,347: each output against the f32
+    function in f64 beside the plain bf16 version (hold_bf16_sets), the
+    references B3_REF_RAYS rays at a time. The worst kernel relative RMS."""
+    import torch
+
+    from avatarclip_torch.ops import fused_neus as fn
+    from avatarclip_torch.ops import hold
+
+    f64 = hold.f32_copy(fields).double()
+    names = ("sdf", "grad", "rgb", "alpha", "cdf", "gradient_error")
+    worst = 0.0
+
+    def chunked(flds, ins):
+        parts = [[] for _ in range(6)]
+        for a in range(0, ins[0].shape[0], B3_REF_RAYS):
+            out = fn.point_eval_plain(flds.sdf, flds.color, *[t[a:a + B3_REF_RAYS] for t in ins],
+                                      flds.variance.inv_s(), 0.4)
+            for acc, t in zip(parts, out[:6]):
+                acc.append(t.detach())
+        parts = [torch.cat(p) for p in parts]
+        ro, rd, mid, _ = ins
+        r2 = ((ro[:, None] + rd[:, None] * mid[..., None]) ** 2).sum(-1).reshape(-1)
+        relax = (r2 < 1.44).to(r2.dtype)
+        ge = (torch.sqrt((parts[1] ** 2).sum(-1) + 1e-12) - 1.0) ** 2
+        return parts[:5] + [(relax * ge).sum() / (relax.sum() + 1e-5)], parts[5]
+
+    for R in (VAL_CHUNK, VAL_CHUNK - 37):
+        ins = [t[:R].contiguous() for t in inputs]
+        with torch.no_grad():
+            got = fn.point_eval(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4)
+            plain, _ = chunked(fields, ins)
+            ref, inside = chunked(f64, [t.double() for t in ins])
+        torch.cuda.synchronize()
+        w, ratio = hold_bf16_sets(f"B3 bf16 forward under no_grad, {R} rays x 64", names,
+                                  [got[i] for i in (0, 1, 2, 3, 4, 6)], plain, ref)
+        flips = int((got[5] != inside.float()).sum())
+        print(f"[B3] bf16 forward at {R} rays x 64: worst kernel rel RMS {w:.3e}, at most "
+              f"{ratio:.2f}x the plain bf16 version's; inside flags differing from f64: {flips}")
+        if flips > R * 64 * 1e-5:
+            fail(f"B3 bf16 forward at {R} rays: {flips} inside flags differ from f64")
+        worst = max(worst, w)
+        del got, plain, ref, inside
+    del f64
+    torch.cuda.empty_cache()
+    return worst
+
+
 def check_neus_point(dev):
+    """B3: the f32 mode (fused_neus_point.cu's pair) held in f64 to OUT_TOL /
+    GRAD_TOL, the bf16 mode (the tensor-core forward of fused_neus_ray_tc.cu,
+    the CUDA-core backward rounding its operands) by hold_bf16_sets, at 256
+    and 128 wide on 2,048 rays; the forward under no_grad in both modes at
+    the validation chunk and a ragged one. Timed at the validation chunk in
+    both modes: the bf16 forward beside its f32 CUDA-core bound (a reading,
+    not a check), its bf16 tensor-core bound, its plain version and the f32
+    CUDA-core kernel, the design that served both modes before. The
+    kernels line carries the bf16 mode (every conf's) and f32 beside."""
     import torch
 
     from avatarclip_torch.ops import fused_neus as fn
@@ -771,30 +838,35 @@ def check_neus_point(dev):
                                 (0, 1, 2, 3, 4, 6), "point", dev)
 
     R = VAL_CHUNK
-    fields, inputs, _, probes = neus_problem(256, R, dev, seed=2)
+    fields, inputs, _, _ = neus_problem(256, R, dev, seed=2)
     worst_f = max(worst_f, hold_point_fwd_at_chunk(fields, inputs))
+    del fields
+    # the same nets and rays at the confs' bf16
+    fields, inputs, _, probes = neus_problem(256, R, dev, seed=2, dtype="bfloat16")
+    worst_bf16 = max(worst_bf16, hold_point_fwd_bf16_at_chunk(fields, inputs))
 
     # time at the validation chunk: 16,384 rays x 64 samples, 4x256 / 2x256;
-    # the kernels through their wrappers, the plain version forward under
-    # no_grad (as validation runs) and its backward through autograd
+    # the kernels through their wrappers (the bf16 forward's weights packed
+    # once), the plain version forward under no_grad (as validation runs)
+    # and its backward through autograd, at bf16
     spec = fn.spec_from_configs(fields.sdf.cfg, fields.color.cfg, 64)
+    spec_f = dataclasses.replace(spec, bf16=False)  # the f32 mode, same inputs
     weights = [w.detach().contiguous() for w in fn.dense_weights(fields.sdf, fields.color)]
     flat = torch.cat([w.reshape(-1) for w in weights])
+    packed = fn.pack_tc(spec, weights)
     inv_s = fields.variance.inv_s().detach().reshape(()).contiguous()
     ro, rd, mid, dists = [t.contiguous() for t in inputs]
-    fwd = lambda: fn.neus_point_fwd(spec, flat, ro, rd, mid, dists, inv_s, 0.4)
+    fwd = lambda: fn.neus_point_fwd(spec, flat, ro, rd, mid, dists, inv_s, 0.4, packed)
+    fwd_f = lambda: fn.neus_point_fwd(spec_f, flat, ro, rd, mid, dists, inv_s, 0.4)
     sdf_o, _, _, grad, _, _, _ = fwd()
     P = R * 64
     cots = [probes[0].reshape(P), probes[3], probes[4], probes[1], probes[2],
             torch.stack([probes[5], torch.zeros((), device=dev)])]
-    bwd = lambda: fn.neus_point_bwd(spec, flat, ro, rd, mid, dists, inv_s, 0.4, sdf_o, grad, *cots)
+    bwd = lambda sp: fn.neus_point_bwd(sp, flat, ro, rd, mid, dists, inv_s, 0.4, sdf_o, grad, *cots)
     torch.cuda.reset_peak_memory_stats()
-    ms_f, ms_b = cuda_ms(fwd, reps=5), cuda_ms(bwd, reps=3)
+    ms_f, ms_f_f, ms_f2 = cuda_ms(fwd, reps=5), cuda_ms(fwd_f, reps=3), cuda_ms(fwd, reps=5)
+    ms_b, ms_b_f = cuda_ms(lambda: bwd(spec), reps=3), cuda_ms(lambda: bwd(spec_f), reps=3)
     mem_k = torch.cuda.max_memory_allocated() / 2**30
-    spec_b = dataclasses.replace(spec, bf16=True)  # the bf16 operand mode, same inputs
-    ms_f_b = cuda_ms(lambda: fn.neus_point_fwd(spec_b, flat, ro, rd, mid, dists, inv_s, 0.4), reps=5)
-    ms_b_b = cuda_ms(lambda: fn.neus_point_bwd(spec_b, flat, ro, rd, mid, dists, inv_s, 0.4, sdf_o,
-                                               grad, *cots), reps=3)
     del sdf_o, grad
     with torch.no_grad():
         plain_f = cuda_ms(lambda: fn.point_eval_plain(fields.sdf, fields.color, ro, rd, mid, dists,
@@ -815,22 +887,29 @@ def check_neus_point(dev):
     torch.cuda.empty_cache()
     n_w, Wd = flat.numel(), spec.rgb_width
     fl_f, fl_b = neus_gemm_flops(spec)
-    b_f = bound(fl_f * P, 4 * (n_w + 6 * R + 2 * P + (7 + Wd) * P + 2))
+    b_f = bound_tc(fl_f * P, 4 * (n_w + 6 * R + 2 * P + (7 + Wd) * P + 2))
     b_b = bound(fl_b * P, 4 * (n_w + 6 * R + 2 * P + 4 * P + (6 + Wd) * P + 2
                                + 6 * R + 2 * P + n_w + 1))
-    print(f"[B3] {R} rays x 64 samples, 4x256/2x256: forward kernel {ms_f:.3f} ms (plain "
-          f"{plain_f:.3f} ms, bound {b_f['bound_ms']:.3f} ms {b_f['bound_by']}, bf16 tensor-core "
-          f"bound {b_f['bound_ms_bf16_tc']:.3f} ms); backward kernel {ms_b:.3f} ms (plain "
-          f"{plain_b:.3f} ms, bound {b_b['bound_ms']:.3f} ms {b_b['bound_by']}, bf16 "
-          f"{b_b['bound_ms_bf16_tc']:.3f} ms); peak memory kernel {mem_k:.2f} GiB, plain "
-          f"{mem_p:.2f} GiB; bf16 operand mode: forward {ms_f_b:.3f} ms, backward {ms_b_b:.3f} ms")
-    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_neus_point.cu",
-              "library_ms": None, "bf16_rel_rms_err": worst_bf16}
+    ms_f = statistics.median([ms_f, ms_f2])
+    print(f"[B3] {R} rays x 64 samples, 4x256/2x256, bf16 mode: forward kernel (tensor cores) "
+          f"{ms_f:.3f} ms, {fl_f * P / ms_f * 1e-9:.1f} TFLOP/s; f32 CUDA-core bound "
+          f"{b_f['bound_ms_f32']:.3f} ms ({'below' if ms_f < b_f['bound_ms_f32'] else 'NOT below'} "
+          f"it: a reading, not a check), bf16 tensor-core bound {b_f['bound_ms']:.3f} ms "
+          f"({b_f['bound_by']}); plain {plain_f:.3f} ms; the f32 CUDA-core kernel (the design "
+          f"both modes ran before) {ms_f_f:.3f} ms")
+    print(f"[B3] backward kernel (CUDA cores, on no path): bf16 {ms_b:.3f} ms, f32 {ms_b_f:.3f} ms "
+          f"(plain {plain_b:.3f} ms, bound {b_b['bound_ms']:.3f} ms {b_b['bound_by']}, bf16 "
+          f"{b_b['bound_ms_bf16_tc']:.3f} ms); peak memory kernels {mem_k:.2f} GiB, plain "
+          f"{mem_p:.2f} GiB")
+    common = {"route": "cuda", "library_ms": None, "bf16_rel_rms_err": worst_bf16}
     return [
-        {"name": "neus_point_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_neus.py:258",
-         "max_abs_err": worst_f, "ms": ms_f, "ms_bf16": ms_f_b, "plain_ms": plain_f, **b_f},
-        {"name": "neus_point_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_neus.py:534",
-         "max_abs_err": worst_b, "ms": ms_b, "ms_bf16": ms_b_b, "plain_ms": plain_b, **b_b},
+        {"name": "neus_point_fwd", **common, "source": "avatarclip_torch/csrc/fused_neus_ray_tc.cu",
+         "source_f32": "avatarclip_torch/csrc/fused_neus_point.cu",
+         "replaces": "avatarclip_tpu/ops/fused_neus.py:258", "max_abs_err": worst_f, "ms": ms_f,
+         "ms_f32": ms_f_f, "plain_ms": plain_f, **b_f},
+        {"name": "neus_point_bwd", **common, "source": "avatarclip_torch/csrc/fused_neus_point.cu",
+         "replaces": "avatarclip_tpu/ops/fused_neus.py:534", "max_abs_err": worst_b, "ms": ms_b,
+         "ms_f32": ms_b_f, "plain_ms": plain_b, **b_b},
     ]
 
 
@@ -1334,8 +1413,16 @@ def time_plain(fn, args, params, cots, reps=2) -> tuple[float, float]:
 
 
 def check_sdf(dev):
+    """B6: the f32 mode (fused_sdf.cu's pair) held in f64 to OUT_TOL /
+    GRAD_TOL on 131,072 points and a ragged 131,071, the bf16 mode (the
+    CUDA-core forward rounding its operands, the tensor-core backward of
+    fused_neus_ray_tc.cu) by hold_bf16_sets at 256 and 128 wide on the
+    ragged count. Timed at path (e)'s 802,816 points in both modes: the bf16
+    backward beside its plain version and its f32 CUDA-core bound (readings,
+    not checks), its bf16 tensor-core bound and the f32 CUDA-core kernel."""
     import torch
 
+    from avatarclip_torch.ops import fused_neus as fn
     from avatarclip_torch.ops import fused_sdf as fs
 
     worst_f = worst_b = 0.0
@@ -1360,21 +1447,26 @@ def check_sdf(dev):
             f"B6 {width}-wide, {P} points", fs.sdf_with_gradient_fused, fs.sdf_with_gradient_plain,
             fields.sdf, [pts[:P].contiguous()], cots, ("points",), ("sdf", "feature", "gradient")))
 
-    # time at path (e)'s points: 12,544 rays x 64 samples
-    fields, inputs, _, _ = neus_problem(256, PATH_E_RAYS, dev, seed=6)
+    # time at path (e)'s points: 12,544 rays x 64 samples, at the confs' bf16
+    # (the backward's weights packed once) and in the f32 mode
+    fields, inputs, _, _ = neus_problem(256, PATH_E_RAYS, dev, seed=6, dtype="bfloat16")
     sdf = fields.sdf
     pts, _ = ray_points(inputs)
     P = pts.shape[0]
     spec = fs.spec_from_config(sdf.cfg)
-    flat = torch.cat([w.detach().reshape(-1) for w in fs.dense_weights(sdf)])
+    spec_f = dataclasses.replace(spec, bf16=False)
+    weights = [w.detach().contiguous() for w in fs.dense_weights(sdf)]
+    flat = torch.cat([w.reshape(-1) for w in weights])
+    packed = fn.pack_tc(spec, weights)
     cots = [(0.5 + torch.rand(P, k, generator=g)).to(dev) for k in (1, 256, 3)]
+    ms_f, ms_f_f = cuda_ms(lambda: fs.sdf_fwd(spec, flat, pts), reps=3), cuda_ms(
+        lambda: fs.sdf_fwd(spec_f, flat, pts), reps=3)
     torch.cuda.reset_peak_memory_stats()
-    ms_f = cuda_ms(lambda: fs.sdf_fwd(spec, flat, pts), reps=3)
-    ms_b = cuda_ms(lambda: fs.sdf_bwd(spec, flat, pts, *cots), reps=3)
+    ms_b = cuda_ms(lambda: fs.sdf_bwd(spec, flat, pts, *cots, packed=packed), reps=5)
     mem_k = torch.cuda.max_memory_allocated() / 2**30
-    spec_b = dataclasses.replace(spec, bf16=True)
-    ms_f_b = cuda_ms(lambda: fs.sdf_fwd(spec_b, flat, pts), reps=3)
-    ms_b_b = cuda_ms(lambda: fs.sdf_bwd(spec_b, flat, pts, *cots), reps=3)
+    ms_b_f = cuda_ms(lambda: fs.sdf_bwd(spec_f, flat, pts, *cots), reps=3)
+    ms_b = statistics.median([ms_b, cuda_ms(lambda: fs.sdf_bwd(spec, flat, pts, *cots, packed=packed),
+                                            reps=5)])
     torch.cuda.reset_peak_memory_stats()
     plain_f, plain_b = time_plain(lambda x: fs.sdf_with_gradient_plain(sdf, x), [pts],
                                   list(sdf.parameters()), cots)
@@ -1382,21 +1474,26 @@ def check_sdf(dev):
     fl_f, fl_b = fs.flops_per_point(spec)
     n_w, F = flat.numel(), spec.feat_dim
     b_f = bound(fl_f * P, 4 * (n_w + 3 * P + (1 + F + 3) * P))
-    b_b = bound(fl_b * P, 4 * (n_w + 3 * P + (1 + F + 3) * P + 3 * P + n_w))
-    print(f"[B6] {P} points (path e's step), 4x256: forward kernel {ms_f:.3f} ms (plain "
+    b_b = bound_tc(fl_b * P, 4 * (n_w + 3 * P + (1 + F + 3) * P + 3 * P + n_w))
+    print(f"[B6] {P} points (path e's step), 4x256, bf16 mode: backward kernel (tensor cores) "
+          f"{ms_b:.3f} ms, {fl_b * P / ms_b * 1e-9:.1f} TFLOP/s; plain {plain_b:.3f} ms "
+          f"({'under' if ms_b < plain_b else 'NOT under'} it); f32 CUDA-core bound "
+          f"{b_b['bound_ms_f32']:.3f} ms ({ms_b / b_b['bound_ms_f32']:.2f}x it: a reading, not a "
+          f"check), bf16 tensor-core bound {b_b['bound_ms']:.3f} ms ({b_b['bound_by']}); the f32 "
+          f"CUDA-core kernel (the design both modes ran before) {ms_b_f:.3f} ms; peak memory "
+          f"{mem_k:.2f} GiB (plain {mem_p:.2f} GiB)")
+    print(f"[B6] forward kernel (CUDA cores): bf16 {ms_f:.3f} ms, f32 {ms_f_f:.3f} ms (plain "
           f"{plain_f:.3f} ms, bound {b_f['bound_ms']:.3f} ms {b_f['bound_by']}, bf16 tensor-core "
-          f"bound {b_f['bound_ms_bf16_tc']:.3f} ms); backward kernel {ms_b:.3f} ms (plain "
-          f"{plain_b:.3f} ms, bound {b_b['bound_ms']:.3f} ms {b_b['bound_by']}, bf16 "
-          f"{b_b['bound_ms_bf16_tc']:.3f} ms); {fl_f:.0f} / {fl_b:.0f} GEMM FLOPs per point; peak "
-          f"memory kernel {mem_k:.2f} GiB, plain {mem_p:.2f} GiB; bf16 operand mode: forward "
-          f"{ms_f_b:.3f} ms, backward {ms_b_b:.3f} ms")
-    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_sdf.cu", "library_ms": None,
-              "bf16_rel_rms_err": worst_bf16}
+          f"bound {b_f['bound_ms_bf16_tc']:.3f} ms); {fl_f:.0f} / {fl_b:.0f} GEMM FLOPs per point")
+    common = {"route": "cuda", "library_ms": None, "bf16_rel_rms_err": worst_bf16}
     return [
-        {"name": "sdf_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_sdf.py:261",
-         "max_abs_err": worst_f, "ms": ms_f, "ms_bf16": ms_f_b, "plain_ms": plain_f, **b_f},
-        {"name": "sdf_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_sdf.py:403",
-         "max_abs_err": worst_b, "ms": ms_b, "ms_bf16": ms_b_b, "plain_ms": plain_b, **b_b},
+        {"name": "sdf_fwd", **common, "source": "avatarclip_torch/csrc/fused_sdf.cu",
+         "replaces": "avatarclip_tpu/ops/fused_sdf.py:261", "max_abs_err": worst_f, "ms": ms_f,
+         "ms_f32": ms_f_f, "plain_ms": plain_f, **b_f},
+        {"name": "sdf_bwd", **common, "source": "avatarclip_torch/csrc/fused_neus_ray_tc.cu",
+         "source_f32": "avatarclip_torch/csrc/fused_sdf.cu",
+         "replaces": "avatarclip_tpu/ops/fused_sdf.py:403", "max_abs_err": worst_b, "ms": ms_b,
+         "ms_f32": ms_b_f, "plain_ms": plain_b, **b_b},
     ]
 
 

@@ -390,3 +390,81 @@ def test_bf16_operand_mode_holds_against_the_f32_function(dev, kernel):
     for i, (a, p, r) in enumerate(zip(got, plain, ref)):
         ek, ep, ok_ = hold.bf16_within(a, p, r)
         assert ok_, (kernel, i, ek, ep)
+
+
+def _neus_fields(width: int, n_rays: int, dev, dtype: str, seed: int):
+    """Nets of the conf's shapes (4x256 / 2x256, or 3x128 / 1x128; extra
+    head, no weight norm, perturbed) at ``dtype``, and n_rays rays of 64
+    samples through the unit sphere."""
+    from avatarclip_torch.fields import networks as nets
+
+    g = torch.Generator().manual_seed(seed)
+    n_layers, c_layers = (4, 2) if width == 256 else (3, 1)
+    fields = nets.NeuSFields(
+        nets.SDFConfig(d_out=width + 1, d_hidden=width, n_layers=n_layers, skip_in=(n_layers,),
+                       weight_norm=False, dtype=dtype),
+        nets.ColorConfig(d_feature=width, d_hidden=width, n_layers=c_layers, extra_color=True,
+                         weight_norm=False, dtype=dtype), 0.3, g)
+    with torch.no_grad():
+        for p in fields.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    S = 64
+    eye = torch.tensor([0.0, 0.2, 2.2])
+    rd = 0.5 * (torch.rand(n_rays, 3, generator=g) - 0.5) - eye
+    rd = rd / rd.norm(dim=-1, keepdim=True)
+    z = torch.sort(torch.linspace(1.2, 3.2, S)[None] + 0.02 * torch.rand(n_rays, S, generator=g))[0]
+    dt = torch.cat([z[:, 1:] - z[:, :-1], torch.full((n_rays, 1), 2.0 / 32)], -1)
+    ins = [eye.expand(n_rays, 3).clone(), rd, z + dt * 0.5, dt]
+    return fields.to(dev), [t.to(dev) for t in ins]
+
+
+@pytest.mark.parametrize("width,n_rays", [(256, 2048), (256, 2045), (128, 2048), (128, 2045)])
+def test_b3_tensor_core_forward_holds_at_bf16(dev, width, n_rays):
+    """B3's forward in the bf16 operand mode (the tensor-core kernel) under
+    no_grad, as the validation renders run it: sdf, grad, rgb, alpha, cdf and
+    the eikonal term against the f32 function in float64, beside the plain
+    bf16 version (ops/hold.bf16_within); inside exactly but at the sphere."""
+    from avatarclip_torch.ops import fused_neus as fn
+    from avatarclip_torch.ops import hold
+
+    fields, ins = _neus_fields(width, n_rays, dev, "bfloat16", seed=7)
+    f64 = hold.f32_copy(fields).double()
+    n0 = fn.LAUNCHES["neus_point_fwd"]
+    with torch.no_grad():
+        got = fn.point_eval(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4)
+        assert fn.LAUNCHES["neus_point_fwd"] == n0 + 1
+        plain = fn.point_eval_plain(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4)
+        ref = fn.point_eval_plain(f64.sdf, f64.color, *[t.double() for t in ins],
+                                  f64.variance.inv_s(), 0.4)
+    for i in (0, 1, 2, 3, 4, 6):
+        ek, ep, ok = hold.bf16_within(got[i], plain[i].detach(), ref[i].detach())
+        assert ok, (i, ek, ep)
+    # inside: exact but at points within rounding of |x|^2 = 1
+    ro, rd, mid = (t.double() for t in ins[:3])
+    r2 = ((ro[:, None] + rd[:, None] * mid[..., None]) ** 2).sum(-1).reshape(-1)
+    assert ((r2[got[5] != ref[5].float()] - 1.0).abs() < 1e-5).all()
+
+
+def test_b6_tensor_core_backward_holds_at_bf16(dev):
+    """B6's backward in the bf16 operand mode (the tensor-core kernel, the
+    weight gradients a GEMM over the points) at 4x256 on a ragged 131,071
+    points: d(points) and every weight gradient, with cotangents on sdf,
+    feature and gradient, against the f32 function in float64 beside the
+    plain bf16 version (ops/hold.bf16_within)."""
+    from avatarclip_torch.ops import fused_sdf as fs
+    from avatarclip_torch.ops import hold
+
+    fields, (ro, rd, mid, _) = _neus_fields(256, 2048, dev, "bfloat16", seed=8)
+    pts = (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3)[:-1].contiguous()
+    P = pts.shape[0]
+    g = torch.Generator().manual_seed(9)
+    cots = [(0.5 + torch.rand(P, k, generator=g)).to(dev) for k in (1, 256, 3)]
+    n0 = dict(fs.LAUNCHES)
+    ok, gk = hold.net_grads(fs.sdf_with_gradient_fused, fields.sdf, [pts], cots)
+    assert fs.LAUNCHES == {**n0, "sdf_fwd": n0["sdf_fwd"] + 1, "sdf_bwd": n0["sdf_bwd"] + 1}
+    op, gp = hold.net_grads(fs.sdf_with_gradient_plain, fields.sdf, [pts], cots)
+    orf, grf = hold.net_grads(fs.sdf_with_gradient_plain, hold.f32_copy(fields.sdf).double(),
+                              [pts.double()], [c.double() for c in cots])
+    for i, (a, p, r) in enumerate(zip(ok + gk, op + gp, orf + grf)):
+        ek, ep, ok_ = hold.bf16_within(a, p, r)
+        assert ok_, (i, ek, ep)
