@@ -17,9 +17,11 @@
 //
 // What bounds it on this card: f32 FMA throughput of the per-block GEMMs
 // (269,824 FLOPs a point forward, 809,472 backward at 2 x 256, head 6), well
-// above the bytes (about 1.1 KB a point, the feature). No tensor cores yet;
-// in the bf16 operand mode (Dims::bf16, the confs' default) every dot operand
-// is rounded to bf16 as the JAX kernel's _dot, with f32 sums.
+// above the bytes (about 1.1 KB a point, the feature). The forward serves
+// both operand modes: in the bf16 one (Dims::bf16, the confs' default) every
+// dot operand is rounded to bf16 as the JAX kernel's _dot, with f32 sums.
+// The bf16 mode's backward is the tensor-core kernel of
+// fused_neus_ray_tc.cu (colour_tc_bwd); this backward serves the f32 mode.
 //
 // Design: as B6 (fused_sdf.cu): a block of up to MAXS = 64 points is one
 // GEMM row block (neus_mlp.cuh's CTA-wide f32 GEMM), a ragged last block
@@ -202,8 +204,6 @@ __global__ void __launch_bounds__(NT) colour_bwd_kernel(
 extern "C" {
 
 // Dims fields read: F (feature width), HC, NHC, W (head width), squeeze.
-long long colour_weight_count(Dims d) { return (long long)col_offsets(d).total; }
-
 long long colour_workspace_floats(Dims d, int backward) {
   return (long long)col_work(d, backward != 0).total;
 }

@@ -1,6 +1,6 @@
 // The NeuS kernels for Hopper (sm_90a) on the tensor cores, in the bf16
 // operand mode: B1's per-ray pair, forward and backward, B3's point-level
-// forward and B6's backward (each below).
+// forward, B6's pair and B7's backward (each below).
 //
 // B1 replaces the Pallas kernels avatarclip_tpu/ops/fused_neus.py
 // `_fwd_kernel_ray` (:403) and `_bwd_kernel_ray` (:620) at their default
@@ -78,6 +78,30 @@
 // the same log and wgrad_kernel (2,754,048 GEMM FLOPs a point: 2.24 ms at
 // 802,816 points at the bf16 peak). The primal stack skips the head's
 // feature rows, which the backward does not read.
+//
+// B6's forward in the bf16 mode (sdf_tc_fwd) replaces
+// avatarclip_tpu/ops/fused_sdf.py `_fwd_kernel` (:261, launched by
+// `_run_fwd` :343): B3's forward body (encode_points, sdf_primal_tc,
+// gradient_sweep_tc) with the points read from memory in tiles of 64,
+// stopped after the gradient sweep; the head's feature rows go to device
+// memory in f32 from the head product's accumulators (FeatOut), and the sdf
+// row is rounded, as JAX's sdf+gradient kernel rounds it. 918,016 GEMM
+// FLOPs a point against 1,040 bytes out (the f32 feature): bound by the
+// products, 0.75 ms at 802,816 points at the bf16 peak.
+//
+// B7's backward in the bf16 mode (colour_tc_bwd) replaces
+// avatarclip_tpu/ops/fused_color.py `_bwd_kernel` (:244, launched by
+// `_run_bwd` :348): the colour half of B1's backward (colour_primal_tc with
+// its activations logged, the head's sigmoid VJP, the relu layers' reverse
+// products with their masks and bias sums in the epilogues) with the colour
+// input read from memory in tiles of 64 as one bf16 tile over the mode's
+// columns (the first layer one matrix, packed by ops/fused_neus.py's
+// pack_colour_tc); layer 0's reverse product writes the four input
+// cotangents in f32 from its accumulators, and the weight gradients go
+// through the log and wgrad_kernel (Dims with H = 0: the colour regions and
+// problems alone). 804,864 GEMM FLOPs a point against ~2.1 KB (the feature
+// in, its cotangent out): 0.65 ms at 802,816 points at the bf16 peak, 0.5
+// ms of bytes.
 #include "neus_tc.cuh"
 
 using namespace neus;
@@ -177,21 +201,32 @@ __device__ inline const uint2* mat(const uint2* pk, const Pack& pp, int i) { ret
 // SDF primal stack of the tile: hidden layers (outputs to hout(i), sigmoid
 // factors to P), the skip-producing layer (u[:, :SW] = bf16(a_s), f32 a_s
 // to AS, sigmoid to PS when given; ts = bf16(wsa * p_s) when given), the
-// embedding half of u, then (when feat) the head's feature rows into
-// cin[:, 6:]. xlog(i, ptr, ld) true: hidden output i (i < NH), and u
-// (i = -1), are also copied to the log at ptr (stride ld).
+// embedding half of u, then (when FOut::on) the head's feature rows through
+// fout(r, c, value): into cin[:, 6:] as the colour net's bf16 operand
+// (CinFeat: B1, B3), or B6's f32 feature output (FeatOut). xlog(i, ptr, ld)
+// true: hidden output i (i < NH), and u (i = -1), are also copied to the
+// log at ptr (stride ld).
 struct NoLog {
   __device__ bool operator()(int, bf16*&, int&) const { return false; }
+};
+struct NoFeat {
+  static constexpr bool on = false;
+  __device__ void operator()(int, int, float) const {}
+};
+struct CinFeat {
+  static constexpr bool on = true;
+  bf16* cin;
+  int ldC;
+  __device__ void operator()(int r, int c, float v) const { cin[r * ldC + 6 + c] = to_bf(v); }
 };
 
 __device__ inline void put(float* p, float v) { *p = v; }
 __device__ inline void put(f16* p, float v) { *p = __float2half_rn(v); }
 
-template <int NS, class Hout, class ASt, class XLog = NoLog>
+template <int NS, class Hout, class ASt, class XLog, class FOut>
 __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, unsigned char* sm, const float* wts,
                               const WeightOffsets& wo, const uint2* pk, const Pack& pp, f16* P,
-                              ASt* AS, f16* PS, bf16* ts, Hout hout, XLog xlog = NoLog(),
-                              bool feat = true) {
+                              ASt* AS, f16* PS, bf16* ts, Hout hout, XLog xlog, FOut fout) {
   const int H = d.H, SW = d.SW, ldX = L.ldX;
   uint2* ring = (uint2*)(sm + L.ring);
   const bf16* in = (const bf16*)(sm + L.eb);
@@ -247,14 +282,13 @@ __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, un
     int lld;
     if (xlog(-1, lp, lld)) log_put(lp, lld, u, ldX, H);
   }
-  if (!feat) return;
-  bf16* cin = (bf16*)(sm + L.cin);
+  if (!FOut::on) return;
   const float* bf = wts + wo.sb[d.NH + 1] + 1;
   phase_tag(2);
   gemm_rows_pre<NS>(u, ldX, H, mat(pk, pp, FHEAD), d.F, ring,
                 [&](int, int c) { return c < d.F ? bf[c] : 0.f; },
                 [&](int r, int c, float v, float b) {
-                  if (c < d.F) cin[r * L.ldC + 6 + c] = to_bf(v + b);
+                  if (c < d.F) fout(r, c, v + b);
                 });
 }
 
@@ -293,6 +327,61 @@ __device__ __forceinline__ void colour_primal_tc(const Dims& d, const Layout& L,
                 });
 }
 
+// The tile's spatial gradient into g (ROWS x 3, shared memory), after
+// sdf_primal_tc: the reverse sweep from ts (bf16(w0 / sqrt2 * p_s)) through
+// the skip and hidden layers, each product's epilogue applying the next
+// sigmoid factor (P), the embedding's cotangents into qe, then the chain
+// rule through the encoding (de) with the head's direct embedding term. ts
+// and skip_in (the skip layer's input, free by now) ping-pong. Shared by
+// B1's and B3's forward (neus_tc_fwd_kernel) and B6's (sdf_tc_fwd_kernel).
+// Ends with __syncthreads.
+template <int NS>
+__device__ __forceinline__ void gradient_sweep_tc(const Dims& d, const Layout& L, unsigned char* sm,
+                                                  const float* wts, const WeightOffsets& wo,
+                                                  const uint2* pk, const Pack& pp, const f16* P,
+                                                  bf16* ts, bf16* skip_in) {
+  const int H = d.H, SW = d.SW, E = d.E, ldX = L.ldX;
+  uint2* ring = (uint2*)(sm + L.ring);
+  float* g = (float*)(sm + L.g);
+  float* qe = (float*)(sm + L.qe);
+  const bf16* cur = ts;
+  bf16* nxt = skip_in;
+  for (int i = d.NH; i >= 0; --i) {
+    const int K = i == d.NH ? SW : H, N = i == 0 ? E : H;
+    if (i > 0) {
+      const f16* Pm = P + (size_t)(i - 1) * ROWS * H;
+      bf16* o = nxt;
+      phase_tag(11);
+      gemm_rows_pre<NS>(
+          cur, ldX, K, mat(pk, pp, RS + i), N, ring,
+          [&](int r, int c) {
+            float p = 0.f, q;
+            if (c < N) sig_load(Pm[r * H + c], p, q);
+            return p;
+          },
+          [&](int r, int c, float v, float p) {
+            if (c < N) o[r * ldX + c] = to_bf(v * p);
+          });
+      nxt = (bf16*)cur;
+      cur = o;
+    } else {
+      phase_tag(11);
+      gemm_rows<NS>(cur, ldX, K, mat(pk, pp, RS + 0), N, ring, [&](int r, int c, float v) {
+        if (c < N) qe[r * E + c] = v;
+      });
+    }
+  }
+  const float* de = (const float*)(sm + L.de);
+  const float* w0e = wts + wo.sw[d.NH + 1] + SW;
+  for (int e = threadIdx.x; e < ROWS * 3; e += TNT) {
+    const int r = e / 3, c = e % 3;
+    float acc = 0.f;
+    for (int j = c; j < E; j += 3) acc += (qe[r * E + j] + w0e[j] * RSQRT2) * de[r * E + j];
+    g[e] = acc;
+  }
+  __syncthreads();
+}
+
 // the forward's outputs: sdf and gradient per point (B1's residuals, B3's
 // outputs), then B1's per-ray compositing or B3's per-point quantities
 struct FwdOut {
@@ -317,7 +406,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_fwd_kernel(
   f16* P = (f16*)(scr + L.P);
   float* AS = (float*)(scr + L.AS);
   const int S = d.S, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int H = d.H, SW = d.SW, E = d.E, ldX = L.ldX;
+  const int SW = d.SW, E = d.E;
   const float inv_s = *inv_s_ptr;
   phase_start();
   float* ray = (float*)(sm + L.ray);
@@ -329,7 +418,6 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_fwd_kernel(
   bf16* ha = (bf16*)(sm + L.ha);
   bf16* hb = (bf16*)(sm + L.hb);
   bf16* cin = (bf16*)(sm + L.cin);
-  uint2* ring = (uint2*)(sm + L.ring);
   // every bf16 operand buffer starts zero: padding columns are never written
   for (size_t e = tid; e < L.smem / 4; e += TNT) ((float*)sm)[e] = 0.f;
   __syncthreads();
@@ -346,7 +434,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_fwd_kernel(
     bf16* skip_in = (d.NH % 2) ? ha : hb;
     bf16* ts = skip_in == ha ? hb : ha;
     sdf_primal_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, P, AS, (f16*)nullptr, ts,
-                  [&](int i) { return (i % 2) ? hb : ha; });
+                  [&](int i) { return (i % 2) ? hb : ha; }, NoLog(), CinFeat{cin, L.ldC});
     // the head's sdf row in f32: four threads a row, fixed order
     if (tid < 4 * ROWS) {
       const float* w0 = wts + wo.sw[d.NH + 1];
@@ -359,52 +447,12 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_fwd_kernel(
       acc += __shfl_xor_sync(0xffffffffu, acc, 2);
       if (q == 0) srow[r] = acc * RSQRT2 + wts[wo.sb[d.NH + 1]];
     }
-    // spatial gradient: reverse sweep from ts through the skip and hidden
-    // layers (each product's epilogue applies the next sigmoid factor)
-    {
-      const bf16* cur = ts;
-      bf16* nxt = skip_in;
-      float* qe = (float*)(sm + L.qe);
-      for (int i = d.NH; i >= 0; --i) {
-        const int K = i == d.NH ? SW : H, N = i == 0 ? E : H;
-        if (i > 0) {
-          const f16* Pm = P + (size_t)(i - 1) * ROWS * H;
-          bf16* o = nxt;
-          phase_tag(11);
-          gemm_rows_pre<NSTAGE_FWD>(
-              cur, ldX, K, mat(pk, pp, RS + i), N, ring,
-              [&](int r, int c) {
-                float p = 0.f, q;
-                if (c < N) sig_load(Pm[r * H + c], p, q);
-                return p;
-              },
-              [&](int r, int c, float v, float p) {
-                if (c < N) o[r * ldX + c] = to_bf(v * p);
-              });
-          nxt = (bf16*)cur;
-          cur = o;
-        } else {
-          phase_tag(11);
-          gemm_rows<NSTAGE_FWD>(cur, ldX, K, mat(pk, pp, RS + 0), N, ring, [&](int r, int c, float v) {
-            if (c < N) qe[r * E + c] = v;
-          });
-        }
-      }
-      const float* de = (const float*)(sm + L.de);
-      const float* w0e = wts + wo.sw[d.NH + 1] + SW;
-      for (int e = tid; e < ROWS * 3; e += TNT) {
-        const int r = e / 3, c = e % 3;
-        float acc = 0.f;
-        for (int j = c; j < E; j += 3) acc += (qe[r * E + j] + w0e[j] * RSQRT2) * de[r * E + j];
-        g[e] = acc;
-      }
-      __syncthreads();
-      for (int e = tid; e < ROWS * 6; e += TNT) {
-        const int r = e / 6, c = e % 6;
-        cin[r * L.ldC + c] = to_bf(c < 3 ? pts[r * 3 + c] : g[r * 3 + c - 3]);
-      }
-      __syncthreads();
+    gradient_sweep_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, P, ts, skip_in);
+    for (int e = tid; e < ROWS * 6; e += TNT) {
+      const int r = e / 6, c = e % 6;
+      cin[r * L.ldC + c] = to_bf(c < 3 ? pts[r * 3 + c] : g[r * 3 + c - 3]);
     }
+    __syncthreads();
     colour_primal_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, [&](int l) { return (l % 2) ? hb : ha; });
     phase_mark(PH_OTHER);
     for (int r = tid; r < S; r += TNT) {
@@ -755,7 +803,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
     // the hidden and colour activations ping-pong in shared memory, with a
     // copy in the log for the weight gradients
     sdf_primal_tc<NSTAGE_BWD>(d, L, sm, wts, wo, pk, pp, P, AS, PS, nullptr,
-                  [&](int i) { return (i % 2) ? czd : cz; }, to_log(LG_X));
+                  [&](int i) { return (i % 2) ? czd : cz; }, to_log(LG_X), CinFeat{cin, ldC});
     for (int e = tid; e < ROWS * 3; e += TNT) {
       const int r = e / 3;
       g[e] = r < S ? g_res[(size_t)rid * S * 3 + e] : 0.f;
@@ -1001,7 +1049,7 @@ __global__ void __launch_bounds__(TNT, 1) sdf_tc_bwd_kernel(
                                 ld = lg.ld[m];
                                 return true;
                               },
-                              false);
+                              NoFeat());
     // the feature cotangents: the head reverse's bf16 operand CF, and their
     // f32 sums into the feature biases' gradients
     column_pass(F, red, gp + wo.sb[d.NH + 1] + 1, [&](int c, int rb) {
@@ -1024,6 +1072,227 @@ __global__ void __launch_bounds__(TNT, 1) sdf_tc_bwd_kernel(
     __syncthreads();
   }
   phase_end(PK_SDF_BWD);
+}
+
+// B6's forward: the tile's f32 feature rows, straight from the head
+// product's accumulators plus bias, to the feature output; rows past the
+// last point are never stored
+struct FeatOut {
+  static constexpr bool on = true;
+  float* out;  // the tile's first row of the (P, F) feature output
+  int F, n;
+  __device__ void operator()(int r, int c, float v) const {
+    if (r < n) out[(size_t)r * F + c] = v;
+  }
+};
+
+// B6's forward in the bf16 mode: B3's forward body with the points read
+// from memory in tiles of 64 (a ragged last tile zero-padded, its padded
+// rows never stored), stopped after the gradient sweep: no colour net, no
+// alpha chain, no eikonal sum. Out go sdf (P,) / scale, the f32 feature
+// (P, F) and the gradient (P, 3). The head's sdf row is rounded, as the
+// JAX sdf+gradient kernel's _dot rounds it (B1 and B3 sum it in f32 from
+// AS): bf16 u = [a_s, e] against the bf16 row weights w0 / sqrt2, summed in
+// f32 in a fixed order, eight threads a row.
+__global__ void __launch_bounds__(TNT, 1) sdf_tc_fwd_kernel(
+    Dims d, Pack pp, const float* __restrict__ wts, const uint2* __restrict__ pk,
+    const float* __restrict__ pts_in, int n_pts, float* __restrict__ sdf_out,
+    float* __restrict__ feat_out, float* __restrict__ g_out, unsigned char* __restrict__ scr_all,
+    long long scr_stride) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const Layout L = tc_layout(d, false);
+  const WeightOffsets wo = weight_offsets(d);
+  unsigned char* scr = scr_all + (size_t)blockIdx.x * scr_stride;
+  f16* P = (f16*)(scr + L.P);
+  float* AS = (float*)(scr + L.AS);
+  const int tid = threadIdx.x, H = d.H, ldX = L.ldX;
+  phase_start();
+  float* pts = (float*)(sm + L.pts);
+  const float* g = (const float*)(sm + L.g);
+  const bf16* u = (const bf16*)(sm + L.u);
+  bf16* ha = (bf16*)(sm + L.ha);
+  bf16* hb = (bf16*)(sm + L.hb);
+  const float* w0 = wts + wo.sw[d.NH + 1];
+  const float b0 = wts[wo.sb[d.NH + 1]];
+  // every bf16 operand buffer starts zero: padding columns are never written
+  for (size_t e = tid; e < L.smem / 4; e += TNT) ((float*)sm)[e] = 0.f;
+  __syncthreads();
+  const int n_blk = (n_pts + ROWS - 1) / ROWS;
+  for (int blk = blockIdx.x; blk < n_blk; blk += gridDim.x) {
+    const long long row0 = (long long)blk * ROWS;
+    const int n = n_pts - row0 < ROWS ? (int)(n_pts - row0) : ROWS;
+    for (int e = tid; e < ROWS * 3; e += TNT) pts[e] = e < n * 3 ? pts_in[row0 * 3 + e] : 0.f;
+    __syncthreads();
+    encode_points(d, L, sm, true);
+    bf16* skip_in = (d.NH % 2) ? ha : hb;
+    bf16* ts = skip_in == ha ? hb : ha;
+    sdf_primal_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, P, AS, (f16*)nullptr, ts,
+                              [&](int i) { return (i % 2) ? hb : ha; }, NoLog(),
+                              FeatOut{feat_out + row0 * d.F, d.F, n});
+    // the sdf row, rounded: eight threads a row, strided partial sums, then
+    // three xor shuffles within the eight consecutive lanes
+    {
+      const int r = tid >> 3, q = tid & 7;
+      float acc = 0.f;
+      for (int k = q; k < H; k += 8)
+        acc += __bfloat162float(u[r * ldX + k]) * __bfloat162float(to_bf(w0[k] * RSQRT2));
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+      if (q == 0 && r < n) sdf_out[row0 + r] = (acc + b0) / d.scale;
+    }
+    gradient_sweep_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, P, ts, skip_in);
+    phase_mark(PH_OTHER);
+    for (int e = tid; e < n * 3; e += TNT) g_out[row0 * 3 + e] = g[e];
+    __syncthreads();
+    phase_mark(PH_COMPOSITE);
+  }
+  phase_end(PK_SDF_FWD);
+}
+
+// B7's backward in the bf16 mode: tiles blk0 .. blk1 of 64 points (the
+// chunk's), each CTA walking them; the colour half of B1's backward with the
+// colour input read from memory. The first layer's input is one bf16 tile
+// cin = the mode's columns of the colour net's concatenation: points at cx,
+// normals at cn, view directions at cv (-1: an input the mode does not
+// read), the feature from CW - F; rows past the last point are zero, with
+// zero cotangents. The head's sigmoid VJP seeds the reverse; each reverse
+// product's epilogue applies the relu mask (from the logged activations)
+// and sums its column into the bias gradient (gp: this CTA's partial row of
+// weight_count floats, zero from the caller); layer 0's reverse product
+// writes the input cotangents in f32 straight from its accumulators. Every
+// weight gradient's operands go to the log, for wgrad_kernel.
+__global__ void __launch_bounds__(TNT, 1) colour_tc_bwd_kernel(
+    Dims d, Pack pp, const float* __restrict__ wts, const uint2* __restrict__ pk,
+    const float* __restrict__ x_in, const float* __restrict__ n_in,
+    const float* __restrict__ v_in, const float* __restrict__ f_in, int n_pts, int cx, int cn,
+    int cv, const float* __restrict__ c_out, float* __restrict__ dx, float* __restrict__ dn,
+    float* __restrict__ dv, float* __restrict__ df, float* __restrict__ gpart, WLog lg,
+    bf16* __restrict__ log, long long log_rows, int blk0, int blk1) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const Layout L = tc_layout(d, true);
+  const WeightOffsets wo = weight_offsets(d);
+  float* gp = gpart + (size_t)blockIdx.x * wo.total;
+  const int tid = threadIdx.x, F = d.F, HC = d.HC, CW = d.CW, W = d.W, cf = d.CW - d.F;
+  const int ldX = L.ldX, ldC = L.ldC, ldHd = ld_of(8);
+  phase_start();
+  bf16* cin = (bf16*)(sm + L.cin);
+  bf16* cz = (bf16*)(sm + L.ha);
+  bf16* czd = (bf16*)(sm + L.hb);
+  const float* head = (const float*)(sm + L.head);
+  float* chead = (float*)(sm + L.chead);
+  bf16* cheadb = (bf16*)(sm + L.cheadb);
+  uint2* ring = (uint2*)(sm + L.ring);
+  float* red = (float*)(sm + L.red);
+  const int vcol[3] = {cx, cn, cv};
+  const float* vin[3] = {x_in, n_in, v_in};
+  float* vout[3] = {dx, dn, dv};
+  // every bf16 operand buffer starts zero: padding columns are never written
+  for (size_t e = tid; e < L.smem / 4; e += TNT) ((float*)sm)[e] = 0.f;
+  __syncthreads();
+  for (int blk = blk0 + blockIdx.x; blk < blk1; blk += gridDim.x) {
+    const long long row0 = (long long)blk * ROWS;
+    const int n = n_pts - row0 < ROWS ? (int)(n_pts - row0) : ROWS;
+    const long long q0 = (long long)(blk - blk0) * ROWS;
+    auto lp = [&](int m) { return log_at(log, lg, log_rows, m, q0); };
+    auto lput = [&](int m, const bf16* src, int lds, int ncols) { log_put(lp(m), lg.ld[m], src, lds, ncols); };
+    // the colour input tile: the vectors at their columns, then the feature
+    // (its loads a batch of RB at once, then the stores)
+    phase_mark(PH_OTHER);
+    for (int e = tid; e < ROWS * 9; e += TNT) {
+      const int r = e / 9, k = e % 9, i = k / 3;
+      if (vcol[i] >= 0)
+        cin[r * ldC + vcol[i] + k % 3] = to_bf(r < n ? vin[i][(row0 + r) * 3 + k % 3] : 0.f);
+    }
+    const float* fr = f_in + row0 * F;
+    for (int e0 = tid; e0 < ROWS * F; e0 += RB * TNT) {
+      float v[RB];
+#pragma unroll
+      for (int q = 0; q < RB; ++q) {
+        const int e = e0 + q * TNT;
+        v[q] = e < n * F ? fr[e] : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < RB; ++q) {
+        const int e = e0 + q * TNT;
+        if (e < ROWS * F) cin[(e / F) * ldC + cf + e % F] = to_bf(v[q]);
+      }
+    }
+    __syncthreads();
+    phase_mark(PH_COMPOSITE);
+    lput(LG_CIN, cin, ldC, CW);
+    colour_primal_tc<NSTAGE_BWD>(d, L, sm, wts, wo, pk, pp, [&](int l) { return (l % 2) ? czd : cz; },
+                                 [&](int l, bf16*& p, int& ld) {
+                                   p = lp(LG_ACT + l);
+                                   ld = lg.ld[LG_ACT + l];
+                                   return true;
+                                 });
+    // the head's cotangent through the sigmoid (f32, and its bf16 operand
+    // copy), zero past the head's width and the last point
+    phase_mark(PH_OTHER);
+    for (int e = tid; e < ROWS * ldHd; e += TNT) {
+      const int r = e / ldHd, ch = e % ldHd;
+      float c = 0.f;
+      if (ch < W && r < n) {
+        c = c_out[(row0 + r) * W + ch];
+        if (d.squeeze) {
+          const float sg = sigmoidf(head[r * 8 + ch]);
+          c *= sg * (1.f - sg);
+        }
+      }
+      if (ch < 8) chead[r * 8 + ch] = c;
+      cheadb[e] = to_bf(c);
+    }
+    __syncthreads();
+    phase_mark(PH_COMPOSITE);
+    lput(LG_CHEAD, cheadb, ldHd, W);
+    for (int c = tid; c < W; c += TNT) {
+      float s = 0.f;
+      for (int r = 0; r < ROWS; ++r) s += chead[r * 8 + c];
+      gp[wo.cb[d.NHC] + c] += s;
+    }
+    // the relu layers' reverse, as B1's colour reverse: each product's
+    // epilogue forms the next cotangent in cz (in place: one pass) under the
+    // relu mask of that layer's logged activations, and sums it into the
+    // layer's bias gradient
+    const bf16* A = cheadb;
+    int lda = ldHd, K = W;
+    for (int l = d.NHC; l >= 1; --l) {
+      const bf16* al = lp(LG_ACT + l - 1);
+      const int ldal = lg.ld[LG_ACT + l - 1];
+      phase_tag(4);
+      gemm_fused<NSTAGE_BWD, false>(
+          A, nullptr, lda, K, mat(pk, pp, RC + l), HC, ring, red, gp + wo.cb[l - 1], 0, HC,
+          [&](int r, int c) { return c < HC ? __bfloat162float(al[r * ldal + c]) : 0.f; },
+          [&](int r, int c, float v, float, float a) {
+            const float zc = c < HC && a > 0.f ? v : 0.f;
+            if (c < HC) cz[r * ldX + c] = to_bf(zc);
+            return zc;
+          });
+      lput(LG_CZC + l - 1, cz, ldX, HC);
+      A = cz;
+      lda = ldX;
+      K = HC;
+    }
+    // layer 0's reverse product: the input cotangents in f32 from the
+    // accumulators, the feature's to df and each vector's to its output
+    phase_tag(5);
+    gemm_fused<NSTAGE_BWD, false>(A, nullptr, lda, K, mat(pk, pp, RC + 0), CW, ring, red, nullptr,
+                                  0, 0, NoPre(), [&](int r, int c, float v, float, float) {
+                                    if (r < n && c < CW) {
+                                      if (c >= cf) {
+                                        df[(row0 + r) * F + c - cf] = v;
+                                      } else {
+#pragma unroll
+                                        for (int i = 0; i < 3; ++i)
+                                          if (vcol[i] >= 0 && c >= vcol[i] && c < vcol[i] + 3)
+                                            vout[i][(row0 + r) * 3 + c - vcol[i]] = v;
+                                      }
+                                    }
+                                    return 0.f;
+                                  });
+  }
+  phase_end(PK_COL_BWD);
 }
 
 // Weight gradients of one chunk: CTA (item, split) takes one WG_TM x WG_TN tile
@@ -1144,7 +1413,8 @@ long long neus_tc_weight_count(Dims d) { return (long long)weight_offsets(d).tot
 #ifdef NEUS_TC_PROF
 // the profiling build's per-CTA phase cycles of a kernel (neus_tc.cuh's
 // PK_*: 0 B1 forward, 1 B1 backward, 2 weight gradients, 3 B3 forward, 4
-// B6 backward): n_cta x PH_N into out (host memory)
+// B6 backward, 5 B6 forward, 6 B7 backward): n_cta x PH_N into out (host
+// memory)
 int neus_tc_phases(int kernel, long long* out, int n_cta) {
   return (int)cudaMemcpyFromSymbol(out, g_phase, sizeof(long long) * n_cta * PH_N,
                                    sizeof(long long) * PH_MAXCTA * PH_N * kernel);
@@ -1276,6 +1546,62 @@ int sdf_tc_bwd(Dims d, Pack pp, const float* wts, const void* pk, const float* p
     if (err) return err;
   }
   return reduce_partials(gpart, n_cta + 2 * n_split, stride, d_w, st);
+}
+
+// B6's forward: as sdf_fwd (fused_sdf.cu), with the packed bf16 SDF weights
+// pk (offsets pp) beside the flat f32 ones (Dims with no colour net); scr an
+// (n_cta, scr_stride)-byte scratch (neus_tc_scratch_bytes(d, 0)).
+int sdf_tc_fwd(Dims d, Pack pp, const float* wts, const void* pk, const float* pts, int n_pts,
+               float* sdf, float* feat, float* grad, void* scr, long long scr_stride, int n_cta,
+               void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int smem = (int)tc_layout(d, false).smem;
+  int err = (int)cudaFuncSetAttribute(sdf_tc_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      smem);
+  if (err) return err;
+  sdf_tc_fwd_kernel<<<n_cta, TNT, smem, st>>>(d, pp, wts, (const uint2*)pk, pts, n_pts, sdf, feat, grad, (unsigned char*)scr, scr_stride);
+  return (int)cudaGetLastError();
+}
+
+// B7's backward: as colour_bwd (fused_color.cu) for Dims of the colour net
+// alone (H = 0; CW = the first layer's input width, the feature from CW -
+// F), with the packed bf16 colour weights pk (offsets pp) and their flat f32
+// buffer in weight_offsets' colour layout (the first layer one (HC, CW)
+// matrix over the mode's columns cx, cn, cv; -1: not read, whose cotangent
+// is left as it is). The n_pts points run in chunks of `chunk` tiles of 64:
+// the per-tile kernel (n_cta CTAs) writes the chunk's weight-gradient
+// operands into log (chunk * 64 rows of neus_tc_log_row elements), then
+// wgrad_kernel forms the weight gradients with n_split splits of the points.
+// gpart: (n_cta + n_split) partial rows of weight_count floats, zero on
+// entry, summed in a fixed order into d_w.
+int colour_tc_bwd(Dims d, Pack pp, const float* wts, const void* pk, const float* x,
+                  const float* n, const float* v, const float* f, int n_pts, int cx, int cn,
+                  int cv, const float* c_out, float* dx, float* dn, float* dv, float* df,
+                  float* d_w, float* gpart, int n_cta, void* log, int chunk, int n_split,
+                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int smem = (int)tc_layout(d, true).smem;
+  int err = (int)cudaFuncSetAttribute(colour_tc_bwd_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err) return err;
+  const WLog lg = wlog_layout(d);
+  const WProbs ps = wgrad_problems(d);  // the colour problems: all of partial-sum set 0
+  const long long stride = (long long)weight_offsets(d).total;
+  const dim3 wgrid(neus_tc_wgrad_tiles(d), n_split);
+  const int n_blk = (n_pts + ROWS - 1) / ROWS;
+  for (int blk0 = 0; blk0 < n_blk; blk0 += chunk) {
+    const int blk1 = blk0 + chunk < n_blk ? blk0 + chunk : n_blk;
+    const long long rows = (long long)(blk1 - blk0) * ROWS;
+    colour_tc_bwd_kernel<<<n_cta, TNT, smem, st>>>(d, pp, wts, (const uint2*)pk, x, n, v, f, n_pts, cx, cn, cv, c_out, dx, dn, dv, df, gpart, lg, (bf16*)log, rows, blk0, blk1);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    wgrad_kernel<<<wgrid, WG_THREADS, WG_SMEM, st>>>(lg, ps, (const bf16*)log, rows, n_split, gpart + (size_t)n_cta * stride, stride);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return reduce_partials(gpart, n_cta + n_split, stride, d_w, st);
 }
 
 }  // extern "C"

@@ -19,9 +19,9 @@
 // (64 rows x 256 wide; 918,016 FLOPs a point forward and 2,754,048 backward
 // at 4 x 256), far above the bytes (about 1 KB a point, the feature), on
 // the CUDA cores (bf16-rounded dot operands with f32 sums in the bf16
-// operand mode, f32 throughout in the f32 mode). The bf16 mode's backward
-// is the tensor-core kernel of fused_neus_ray_tc.cu (sdf_tc_bwd); this
-// backward serves the f32 mode.
+// operand mode, f32 throughout in the f32 mode). The bf16 mode's pair is
+// the tensor-core kernels of fused_neus_ray_tc.cu (sdf_tc_fwd, sdf_tc_bwd);
+// this pair serves the f32 mode.
 //
 // Design: B3's SDF half (neus_ray.cuh) with the points read from memory: a
 // block of up to MAXS = 64 points is one GEMM row block, a ragged last block

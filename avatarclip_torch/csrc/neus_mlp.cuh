@@ -49,7 +49,8 @@ __device__ inline float round_bf16(float x) {
 
 // Flat weight buffer: SDF layers l = 0..NH+1 then colour layers l = 0..NHC,
 // each as W (out, in) followed by b (out). The colour head (layer NHC) stacks
-// the main and extra heads: (W, HC).
+// the main and extra heads: (W, HC). Dims without an SDF net (H = 0: the
+// colour net alone, B7's tensor-core backward) have the colour layers alone.
 struct WeightOffsets {
   size_t sw[MAXNH + 2], sb[MAXNH + 2];
   size_t cw[MAXNHC + 1], cb[MAXNHC + 1];
@@ -66,7 +67,7 @@ __host__ __device__ inline int col_out(const Dims& d, int l) { return l < d.NHC 
 __host__ __device__ inline WeightOffsets weight_offsets(const Dims& d) {
   WeightOffsets o;
   size_t off = 0;
-  for (int l = 0; l <= d.NH + 1; ++l) {
+  for (int l = 0; d.H > 0 && l <= d.NH + 1; ++l) {
     o.sw[l] = off;
     off += (size_t)sdf_out(d, l) * sdf_in(d, l);
     o.sb[l] = off;

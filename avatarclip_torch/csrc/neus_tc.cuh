@@ -1,11 +1,11 @@
 // Tensor-core building blocks of the bf16 NeuS kernels (fused_neus_ray_tc.cu:
-// B1's per-ray pair, B3's point-level forward, B6's backward): the packed
+// B1's per-ray pair, B3's point-level forward, B6's pair, B7's backward): the packed
 // bf16 weight layout, the CTA-level GEMM forms on mma.sync.m16n8k16 (bf16
 // operands, f32 accumulators: gemm_rows_pre and gemm_fused over a tile,
 // wgrad_kernel's tiles over the points), the backward's weight-gradient log,
 // and the shared-memory / scratch layouts of the kernels.
 //
-// A tile is 64 GEMM rows: one ray's samples (B1, B3) or 64 points (B6).
+// A tile is 64 GEMM rows: one ray's samples (B1, B3) or 64 points (B6, B7).
 // Rows past the ray's S samples or the last points are zero-padded points
 // whose results are never read and whose cotangents are zero. An
 // activation that feeds a product is a bf16 row-major (64 x ld) matrix with
@@ -19,8 +19,9 @@
 // k-step of all columns is one contiguous run, copied into shared memory by
 // cp.async a few k-steps ahead of its use (gemm_rows). ops/fused_neus.py builds the
 // pack per call from the flat f32 weights (pack_tc; B6's holds the SDF
-// layers alone); the flat f32 buffer stays the interface and carries the
-// biases and the head's f32 sdf row.
+// layers alone; pack_colour_tc, B7's, the colour layers alone); the flat f32
+// buffer stays the interface and carries the biases and the head's f32 sdf
+// row.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,10 +41,12 @@ typedef __half f16;
 // CTA adds the clock64 cycles since its previous mark to a phase, and the
 // kernel's end stores the CTA's sums in g_phase[kernel][cta] (kernel: PK_*).
 // A product's epilogue time also goes to slot PH_TAGS + the tag phase_tag
-// last set. PH_COMPOSITE is B1's compositing and B3's per-point stores.
+// last set. PH_COMPOSITE is B1's compositing and the per-point I/O: B3's and
+// B6's forward's stores, B7's backward's input tile and head cotangent.
 enum { PH_OTHER = 0, PH_GEMM, PH_WGRAD, PH_COLPASS = 4, PH_COMPOSITE, PH_EPI, PH_LOG,
        PH_TAGS = 8, PH_N = 24, PH_MAXCTA = 1024 };
-enum { PK_RAY_FWD = 0, PK_RAY_BWD, PK_WGRAD, PK_POINT_FWD, PK_SDF_BWD, PK_N };
+enum { PK_RAY_FWD = 0, PK_RAY_BWD, PK_WGRAD, PK_POINT_FWD, PK_SDF_BWD, PK_SDF_FWD, PK_COL_BWD,
+       PK_N };
 #if defined(NEUS_TC_PROF) && defined(__CUDACC__)
 __device__ long long g_phase[PK_N][PH_MAXCTA][PH_N];
 __device__ inline long long* phase_slots() {
@@ -418,7 +421,8 @@ __device__ __forceinline__ void gemm_fused(const bf16* A0, const bf16* A1, int l
 // n_split partial sums. A log region holds one matrix, row = point (tile
 // slot q of the chunk, row r: 64 q + r), stride ld = pad8(width) elements;
 // padded rows carry zero cotangents. Without a colour net (Dims::NHC = 0,
-// B6) the colour regions are empty and the colour problems absent.
+// B6) the colour regions are empty and the colour problems absent; without
+// an SDF net (Dims::H = 0, B7) the SDF regions and problems.
 enum { LG_EB = 0, LG_TB0, LG_X, LG_TI = LG_X + MAXNH, LG_U = LG_TI + MAXNH, LG_CIN, LG_ACT,
        LG_CZ = LG_ACT + MAXNHC, LG_CZD = LG_CZ + MAXNH + 1, LG_CF = LG_CZD + MAXNH + 1, LG_CZC,
        LG_CHEAD = LG_CZC + MAXNHC, LG_N };
@@ -435,16 +439,18 @@ __host__ __device__ inline WLog wlog_layout(const Dims& d) {
   WLog lg;
   int w[LG_N];
   for (int m = 0; m < LG_N; ++m) w[m] = 0;
-  w[LG_EB] = w[LG_TB0] = d.E;
-  for (int i = 0; i < d.NH; ++i) w[LG_X + i] = w[LG_TI + i] = d.H;
-  w[LG_U] = d.H;
+  if (d.H > 0) {
+    w[LG_EB] = w[LG_TB0] = d.E;
+    for (int i = 0; i < d.NH; ++i) w[LG_X + i] = w[LG_TI + i] = d.H;
+    w[LG_U] = d.H;
+    for (int i = 0; i <= d.NH; ++i) w[LG_CZ + i] = w[LG_CZD + i] = i < d.NH ? d.H : d.SW;
+    w[LG_CF] = d.F;
+  }
   if (d.NHC > 0) {
     w[LG_CIN] = d.CW;
     for (int l = 0; l < d.NHC; ++l) w[LG_ACT + l] = w[LG_CZC + l] = d.HC;
     w[LG_CHEAD] = d.W;
   }
-  for (int i = 0; i <= d.NH; ++i) w[LG_CZ + i] = w[LG_CZD + i] = i < d.NH ? d.H : d.SW;
-  w[LG_CF] = d.F;
   long long off = 0;
   for (int m = 0; m < LG_N; ++m) {
     lg.off[m] = off;
@@ -475,13 +481,14 @@ __host__ __device__ inline WProbs wgrad_problems(const Dims& d) {
   const WeightOffsets wo = weight_offsets(d);
   WProbs ps;
   int n = 0;
-  for (int i = 0; i <= d.NH; ++i) {
+  for (int i = 0; d.H > 0 && i <= d.NH; ++i) {
     const int in = sdf_in(d, i), out = sdf_out(d, i);
     const int x0 = i == 0 ? LG_EB : LG_X + i - 1, t0 = i == 0 ? LG_TB0 : LG_TI + i - 1;
     ps.p[n++] = WProb{LG_CZ + i, x0, out, in, in, 0, (long long)wo.sw[i], 1.f};
     ps.p[n++] = WProb{LG_CZD + i, t0, out, in, in, 1, (long long)wo.sw[i], 1.f};
   }
-  ps.p[n++] = WProb{LG_CF, LG_U, d.F, d.H, d.H, 0, (long long)wo.sw[d.NH + 1] + d.H, RSQRT2};
+  if (d.H > 0)
+    ps.p[n++] = WProb{LG_CF, LG_U, d.F, d.H, d.H, 0, (long long)wo.sw[d.NH + 1] + d.H, RSQRT2};
   for (int l = 0; d.NHC > 0 && l <= d.NHC; ++l) {
     const int in = col_in(d, l);
     const int x = l < d.NHC ? LG_CZC + l : LG_CHEAD, y = l == 0 ? LG_CIN : LG_ACT + l - 1;

@@ -12,7 +12,10 @@ cotangents of all four inputs and every dense weight gradient
 background is on).
 
 :func:`color_apply_fused` takes CUDA tensors and launches the kernel pair
-through :class:`ColorFunction`, or raises; on the CPU only the gate in
+through :class:`ColorFunction` (the forward csrc/fused_color.cu's in both
+operand modes; the backward csrc/fused_neus_ray_tc.cu's ``colour_tc_bwd`` on
+the tensor cores in the bf16 mode, fused_color.cu's in f32), or raises; on
+the CPU only the gate in
 fields/networks.py picks the plain module (:func:`color_apply_plain`, in the
 input's dtype). The kernels and the plain version take the net's operand mode
 (``fields.networks.operand_bf16``): bf16 dot operands with f32 sums at the
@@ -31,6 +34,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from . import fused_neus
 from .fused_neus import Dims, n_cta_for, split_flat
 from .fused_sdf import BLOCK, LANE
 from ..fields.networks import ColorNetwork, kernel_color_forward, operand_bf16
@@ -62,10 +66,46 @@ class FusedColorSpec:
         directions or both)."""
         return sum(c is not None for c in _COLUMNS[self.mode][:3])
 
+    @property
+    def d_in(self) -> int:
+        """The first layer's input width: the vectors the mode reads, then
+        the feature."""
+        return 3 * self.n_vectors + self.d_feature
+
     def dims(self) -> Dims:
-        """neus::Dims fields the colour kernels read: F, HC, NHC, W, squeeze."""
-        return Dims(BLOCK, 0, 0, 0, 0, 0, self.d_feature, self.d_hidden, self.n_hidden, 0,
+        """neus::Dims of the colour net alone (H = 0): F, HC, NHC, W,
+        squeeze, and CW = d_in, which the tensor-core backward reads."""
+        return Dims(BLOCK, 0, 0, 0, 0, 0, self.d_feature, self.d_hidden, self.n_hidden, self.d_in,
                     self.rgb_width, int(self.squeeze_out), 1.0, int(self.bf16))
+
+
+def slice_shapes(spec: FusedColorSpec) -> list[torch.Size]:
+    """The shapes of :func:`dense_weights`' list (the flat layout of
+    csrc/fused_color.cu)."""
+    H, F, W = spec.d_hidden, spec.d_feature, spec.rgb_width
+    shapes = [(H, 3)] * 3 + [(H, F), (H,)] + [(H, H), (H,)] * (spec.n_hidden - 1) + [(W, H), (W,)]
+    return [torch.Size(t) for t in shapes]
+
+
+def tc_weights(spec: FusedColorSpec, weights) -> list[torch.Tensor]:
+    """The tensor-core backward's weight list from :func:`dense_weights`'
+    (slice layout): the first layer's slices of the inputs the mode reads
+    joined, in their columns' order, into one (H, d_in) matrix; the rest as
+    it is. Its flat form is weight_offsets' colour layout
+    (csrc/neus_mlp.cuh)."""
+    cols = [(c, w) for c, w in zip(_COLUMNS[spec.mode], weights[:3]) if c is not None]
+    w0 = torch.cat([w for _, w in sorted(cols, key=lambda cw: cw[0])] + [weights[3]], 1)
+    return [w0, *weights[4:]]
+
+
+def slices_from_tc(spec: FusedColorSpec, d_tc: torch.Tensor) -> torch.Tensor:
+    """A flat gradient in :func:`tc_weights`' layout back in the slice
+    layout: the first layer's columns cut into the per-input slices, a zero
+    slice for an input the mode does not read."""
+    H, F = spec.d_hidden, spec.d_feature
+    d0 = d_tc[:H * spec.d_in].reshape(H, spec.d_in)
+    vec = [d0[:, c:c + 3] if c is not None else d0.new_zeros(H, 3) for c in _COLUMNS[spec.mode][:3]]
+    return torch.cat([t.reshape(-1) for t in vec + [d0[:, -F:]]] + [d_tc[H * spec.d_in:]])
 
 
 def spec_from_config(cfg) -> FusedColorSpec | None:
@@ -136,8 +176,6 @@ def _lib():
     lib = _build.load("fused_color", "fused_color.cu")
     if not getattr(lib, "_typed", False):
         P, I, L_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.colour_weight_count.argtypes = [Dims]
-        lib.colour_weight_count.restype = L_
         lib.colour_workspace_floats.argtypes = [Dims, I]
         lib.colour_workspace_floats.restype = L_
         lib.colour_fwd.argtypes = [Dims, P, P, P, P, P, I, P, P, L_, I, P]
@@ -148,14 +186,14 @@ def _lib():
     return lib
 
 
-def _check(spec: FusedColorSpec, lib, flat, x, n, v, f):
+def _check(spec: FusedColorSpec, flat, x, n, v, f):
     P = x.shape[0]
     if not x.is_cuda or flat.device != x.device:
         raise ValueError("the colour kernel takes inputs and weights on one CUDA device")
     _build.check_f32(x.device, (("points", x, (P, 3)), ("normals", n, (P, 3)),
                                 ("view_dirs", v, (P, 3)), ("features", f, (P, spec.d_feature)),
                                 ("flat", flat, (flat.numel(),))))
-    if flat.numel() != lib.colour_weight_count(spec.dims()):
+    if flat.numel() != sum(s.numel() for s in slice_shapes(spec)):
         raise ValueError("flat weight buffer does not match the network dims")
     if P >= 2**31:
         raise ValueError("the colour kernel takes fewer than 2^31 points")
@@ -164,7 +202,7 @@ def _check(spec: FusedColorSpec, lib, flat, x, n, v, f):
 def color_fwd(spec: FusedColorSpec, flat, x, n, v, f):
     """Launch the forward kernel. Returns (P, 3 | 6) after the sigmoid."""
     lib = _lib()
-    _check(spec, lib, flat, x, n, v, f)
+    _check(spec, flat, x, n, v, f)
     d, dev, P = spec.dims(), x.device, x.shape[0]
     n_cta = n_cta_for(dev, -(-P // BLOCK))
     stride = int(lib.colour_workspace_floats(d, 0))
@@ -179,12 +217,15 @@ def color_fwd(spec: FusedColorSpec, flat, x, n, v, f):
 
 
 def color_bwd(spec: FusedColorSpec, flat, x, n, v, f, c_out):
-    """Launch the backward kernel (+ its partial-sum pass). Returns
-    (dx, dn, dv (P, 3), df (P, F), d_flat)."""
-    lib = _lib()
-    _check(spec, lib, flat, x, n, v, f)
+    """Launch the backward kernel (+ its partial-sum pass): in the bf16 mode
+    the tensor-core one, in f32 fused_color.cu's. Returns (dx, dn, dv
+    (P, 3), df (P, F), d_flat)."""
+    lib = fused_neus._tc_lib() if spec.bf16 else _lib()
+    _check(spec, flat, x, n, v, f)
     d, dev, P = spec.dims(), x.device, x.shape[0]
     _build.check_f32(dev, (("c_out", c_out, (P, spec.rgb_width)),))
+    if spec.bf16:
+        return _color_tc_bwd(spec, lib, flat, x, n, v, f, c_out)
     n_w = flat.numel()
     n_cta = n_cta_for(dev, -(-P // BLOCK))
     stride = int(lib.colour_workspace_floats(d, 1))
@@ -201,9 +242,45 @@ def color_bwd(spec: FusedColorSpec, flat, x, n, v, f, c_out):
     return dx, dn, dv, df, d_w
 
 
+def _color_tc_bwd(spec, lib, flat, x, n, v, f, c_out):
+    """color_bwd's tensor-core kernel: the weights packed from the colour
+    layers alone (first layer joined over the mode's columns), the points in
+    chunks of 64-point tiles (fused_neus.tc_bwd_chunking), each chunk's
+    weight-gradient operands logged in bf16 and formed by the weight-gradient
+    GEMM over the points; the first layer's gradient cut back into its
+    slices."""
+    if spec.d_hidden > 256:
+        raise ValueError("the tensor-core colour backward takes nets at most 256 wide")
+    d, dev, P = spec.dims(), x.device, x.shape[0]
+    weights = tc_weights(spec, split_flat(flat, slice_shapes(spec)))
+    flat_tc = torch.cat([w.reshape(-1) for w in weights])
+    if flat_tc.numel() != lib.neus_tc_weight_count(d):
+        raise ValueError("flat weight buffer does not match the network dims")
+    pk, pack = fused_neus.pack_colour_tc(weights)
+    n_w = flat_tc.numel()
+    n_cta, chunk, n_split = fused_neus.tc_bwd_chunking(dev, lib, d, -(-P // BLOCK))
+    gpart = torch.zeros((n_cta + n_split) * n_w, device=dev)
+    log = torch.empty(chunk * BLOCK * int(lib.neus_tc_log_row(d)), dtype=torch.bfloat16, device=dev)
+    cols = _COLUMNS[spec.mode][:3]  # points, normals, view directions
+    # an input the mode does not read gets a zero cotangent, which the kernel leaves as it is
+    dx, dn, dv = (torch.empty(P, 3, device=dev) if c is not None else torch.zeros(P, 3, device=dev)
+                  for c in cols)
+    df = torch.empty(P, spec.d_feature, device=dev)
+    d_tc = torch.empty(n_w, device=dev)
+    p = _build.ptr
+    cx, cn, cv = (-1 if c is None else c for c in cols)
+    err = lib.colour_tc_bwd(d, pack, p(flat_tc), p(pk), p(x), p(n), p(v), p(f), P, cx, cn, cv,
+                            p(c_out), p(dx), p(dn), p(dv), p(df), p(d_tc), p(gpart), n_cta, p(log),
+                            chunk, n_split, _build.stream_ptr(dev))
+    _build.check(err, "colour_tc_bwd launch")
+    _build.count(LAUNCHES, "color_bwd")
+    return dx, dn, dv, df, slices_from_tc(spec, d_tc)
+
+
 class ColorFunction(torch.autograd.Function):
     """(spec, points, normals, view_dirs, features, *dense weights) ->
-    (P, 3 | 6); forward and backward are the CUDA kernels."""
+    (P, 3 | 6); forward and backward are the CUDA kernels (the backward on
+    the tensor cores in the bf16 mode)."""
 
     @staticmethod
     def forward(ctx, spec, x, n, v, f, *weights):

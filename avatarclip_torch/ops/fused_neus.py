@@ -380,8 +380,25 @@ def pack_tc(spec, weights) -> tuple[torch.Tensor, Pack]:
     slots = {_FHEAD: feat.t(), _RHEAD: feat}
     for i in range(NH + 1):
         slots[_FS + i], slots[_RS + i] = sdf_w[i].t(), sdf_w[i]
-    for l, w in enumerate(col_w):
+    return _pack(slots | _colour_slots(col_w))
+
+
+def pack_colour_tc(weights) -> tuple[torch.Tensor, Pack]:
+    """B7's packed bf16 weights: the colour layers alone, from a dense
+    weight list as (W, b) whose first layer is one (HC, CW) matrix over the
+    mode's input columns (fused_color.tc_weights), each matrix in its
+    forward and reverse forms; the SDF slots stay empty."""
+    return _pack(_colour_slots(weights[0::2]))
+
+
+def _colour_slots(mats) -> dict:
+    slots = {}
+    for l, w in enumerate(mats):
         slots[_FC + l], slots[_RC + l] = w.t(), w
+    return slots
+
+
+def _pack(slots) -> tuple[torch.Tensor, Pack]:
     parts, pack, off = [], Pack(), 0
     for slot in sorted(slots):
         part = pack_b(slots[slot].detach().float())
@@ -435,6 +452,10 @@ def type_tc(lib):
         lib.neus_point_tc_fwd.restype = I
         lib.sdf_tc_bwd.argtypes = [Dims, Pack, P, P, P, I] + [P] * 7 + [L_, I, P, I, I, P]
         lib.sdf_tc_bwd.restype = I
+        lib.sdf_tc_fwd.argtypes = [Dims, Pack, P, P, P, I, P, P, P, P, L_, I, P]
+        lib.sdf_tc_fwd.restype = I
+        lib.colour_tc_bwd.argtypes = [Dims, Pack] + [P] * 6 + [I] * 4 + [P] * 7 + [I, P, I, I, P]
+        lib.colour_tc_bwd.restype = I
         lib.neus_tc_log_row.argtypes = [Dims]
         lib.neus_tc_log_row.restype = L_
         lib.neus_tc_wgrad_tiles.argtypes = [Dims]
@@ -454,8 +475,8 @@ RAYS_PER_CTA_CHUNK = 8  # the backward's chunk: this many rays a CTA (its log: ~
 
 def tc_bwd_chunking(device, lib, d, R: int) -> tuple[int, int, int]:
     """(CTAs, tiles a chunk, point splits of the weight-gradient pass) of a
-    tensor-core backward over R tiles of 64 rows (B1's rays, B6's blocks of
-    points): the pass's CTAs (one an SM) fill about two waves."""
+    tensor-core backward over R tiles of 64 rows (B1's rays, B6's and B7's
+    blocks of points): the pass's CTAs (one an SM) fill about two waves."""
     n_cta = n_cta_tc(device, R)
     chunk = min(R, n_cta * RAYS_PER_CTA_CHUNK)
     sms = torch.cuda.get_device_properties(device).multi_processor_count

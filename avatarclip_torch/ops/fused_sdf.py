@@ -11,9 +11,10 @@ per-sample branch reaches it through ``fields.networks.sdf_with_gradient``
 when the megakernel is declined (the NeRF++ background is on).
 
 :func:`sdf_with_gradient_fused` takes a CUDA tensor and launches the kernel
-pair through :class:`SDFFunction` (the backward on the tensor cores in the
-bf16 operand mode: csrc/fused_neus_ray_tc.cu's ``sdf_tc_bwd``, whose weights
-``fused_neus.pack_tc`` packs from the SDF layers alone), or raises; on the
+pair through :class:`SDFFunction` (on the tensor cores in the bf16 operand
+mode: csrc/fused_neus_ray_tc.cu's ``sdf_tc_fwd`` and ``sdf_tc_bwd``, whose
+weights ``fused_neus.pack_tc`` packs from the SDF layers alone, once a step;
+csrc/fused_sdf.cu's pair in the f32 mode), or raises; on the
 CPU only the gate in fields/networks.py picks :func:`sdf_with_gradient_plain`, autograd through
 the plain module's maths with ``create_graph=True`` in the input's dtype.
 The kernels and their plain versions take the net's operand mode
@@ -171,21 +172,32 @@ def _check(spec: FusedSDFSpec, lib, flat, pts, tc: bool = False):
         raise ValueError("the SDF kernel takes fewer than 2^31 points")
 
 
-def sdf_fwd(spec: FusedSDFSpec, flat, pts):
-    """Launch the forward kernel. Returns (sdf (P, 1), feature (P, F),
-    gradient (P, 3))."""
-    lib = _lib()
-    _check(spec, lib, flat, pts)
+def sdf_fwd(spec: FusedSDFSpec, flat, pts, packed=None):
+    """Launch the forward kernel: in the bf16 mode the tensor-core one
+    (``packed`` = fused_neus.pack_tc's (pk, pack) of the SDF layers, packed
+    from ``flat`` when None), in f32 fused_sdf.cu's. Returns (sdf (P, 1),
+    feature (P, F), gradient (P, 3))."""
+    lib = fused_neus._tc_lib() if spec.bf16 else _lib()
+    _check(spec, lib, flat, pts, tc=spec.bf16)
     d, dev, P = spec.dims(), pts.device, pts.shape[0]
-    n_cta = n_cta_for(dev, -(-P // BLOCK))
-    stride = int(lib.sdf_workspace_floats(d, 0))
-    ws = torch.empty(n_cta * stride, device=dev)
     sdf = torch.empty(P, 1, device=dev)
     feat = torch.empty(P, spec.feat_dim, device=dev)
     grad = torch.empty(P, 3, device=dev)
     p = _build.ptr
-    err = lib.sdf_fwd(d, p(flat), p(pts), P, p(sdf), p(feat), p(grad), p(ws), stride, n_cta,
-                      _build.stream_ptr(dev))
+    if spec.bf16:
+        pk, pack = fused_neus.pack_flat(spec, flat) if packed is None else packed
+        fused_neus.check_packed(pk, dev)
+        n_cta = fused_neus.n_cta_tc(dev, -(-P // BLOCK))
+        stride = int(lib.neus_tc_scratch_bytes(d, 0))
+        scr = torch.empty(n_cta * stride, dtype=torch.uint8, device=dev)
+        err = lib.sdf_tc_fwd(d, pack, p(flat), p(pk), p(pts), P, p(sdf), p(feat), p(grad), p(scr),
+                             stride, n_cta, _build.stream_ptr(dev))
+    else:
+        n_cta = n_cta_for(dev, -(-P // BLOCK))
+        stride = int(lib.sdf_workspace_floats(d, 0))
+        ws = torch.empty(n_cta * stride, device=dev)
+        err = lib.sdf_fwd(d, p(flat), p(pts), P, p(sdf), p(feat), p(grad), p(ws), stride, n_cta,
+                          _build.stream_ptr(dev))
     _build.check(err, "sdf_fwd launch")
     _build.count(LAUNCHES, "sdf_fwd")
     return sdf, feat, grad
@@ -262,14 +274,20 @@ def _sdf_tc_bwd(spec, lib, flat, pts, c_sdf, c_feat, c_grad, packed):
 
 class SDFFunction(torch.autograd.Function):
     """(spec, pts, *dense weights) -> (sdf, feature, gradient); forward and
-    backward are the CUDA kernels (the backward on the tensor cores in the
-    bf16 mode), and the backward is not differentiated again."""
+    backward are the CUDA kernels (on the tensor cores in the bf16 mode, the
+    weights packed once in the forward for both), and the backward is not
+    differentiated again."""
 
     @staticmethod
     def forward(ctx, spec, pts, *weights):
         flat = torch.cat([w.detach().reshape(-1) for w in weights])
-        sdf, feat, grad = sdf_fwd(spec, flat, pts)
-        ctx.save_for_backward(flat, pts)
+        if spec.bf16:
+            pk, ctx.pack = fused_neus.pack_tc(spec, weights)
+            packed = (pk, ctx.pack)
+        else:
+            pk, packed = flat.new_empty(0), None
+        sdf, feat, grad = sdf_fwd(spec, flat, pts, packed)
+        ctx.save_for_backward(flat, pk, pts)
         ctx.spec = spec
         ctx.shapes = [w.shape for w in weights]
         return sdf, feat, grad
@@ -277,14 +295,15 @@ class SDFFunction(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, c_sdf, c_feat, c_grad):
-        flat, pts = ctx.saved_tensors
+        flat, pk, pts = ctx.saved_tensors
         P, dev = pts.shape[0], pts.device
 
         def cot(t, shape):
             return torch.zeros(shape, device=dev) if t is None else t.float().contiguous()
 
         d_pts, d_flat = sdf_bwd(ctx.spec, flat, pts, cot(c_sdf, (P, 1)),
-                                cot(c_feat, (P, ctx.spec.feat_dim)), cot(c_grad, (P, 3)))
+                                cot(c_feat, (P, ctx.spec.feat_dim)), cot(c_grad, (P, 3)),
+                                packed=(pk, ctx.pack) if ctx.spec.bf16 else None)
         return (None, d_pts, *split_flat(d_flat, ctx.shapes))
 
 

@@ -1,16 +1,18 @@
 """Time the tensor-core NeuS kernels (the bf16 operand mode) at the main
 path's shapes and split each kernel's time into phases: B1's pair at the
 train_clip step's rays, B3's forward at the validation chunk, B6's backward
-at the background step's points.
+(b6) and forward (b6f) and B7's backward (b7b) at the background step's
+points.
 
-    python -m avatarclip_torch.tools.profile_b1 [--kernel all|b1|b3|b6] [--reps 7]
+    python -m avatarclip_torch.tools.profile_b1 [--kernel all|b1|b3|b6|b6f|b7b ...] [--reps 7]
 
 Run from the root of a checkout on a CUDA card. It builds the 4x256 / 2x256
 nets of chip_smoke.neus_problem at bf16, then, for each kernel asked for:
 
 * times its entry point (``fused_neus.neus_ray_tc_fwd`` / ``neus_ray_tc_bwd``
   at ``--rays`` x 64, ``neus_point_fwd`` at 16,384 x 64, ``fused_sdf.sdf_bwd``
-  at 802,816 points; weights packed once) with CUDA events and prints the
+  and ``sdf_fwd`` and ``fused_color.color_bwd`` at 802,816 points; weights
+  packed once, but B7's, which its wrapper packs) with CUDA events and prints the
   median and the range over ``--reps`` calls; the backwards' device time by
   kernel (the per-tile kernel, the weight-gradient GEMM, the partial sums)
   by torch.profiler;
@@ -32,12 +34,12 @@ import subprocess
 import sys
 
 PHASES = ("other", "product k-loops", "weight grads", "stage copies", "column passes",
-          "compositing / per-point stores", "product epilogues", "log stores")
+          "compositing / per-point I/O", "product epilogues", "log stores")
 N_PHASE = 24  # neus_tc.cuh's PH_N: PHASES, then the epilogues by tag
 TAGS = ("sdf primal hidden", "skip primal", "head primal", "colour primal", "colour reverse",
         "colour input reverse", "tangent hidden", "tangent skip", "head reverse", "sdf reverse pairs",
         "embedding reverse", "gradient sweep")
-PK_RAY_FWD, PK_RAY_BWD, PK_WGRAD, PK_POINT_FWD, PK_SDF_BWD = range(5)  # neus_tc.cuh's PK_*
+PK_RAY_FWD, PK_RAY_BWD, PK_WGRAD, PK_POINT_FWD, PK_SDF_BWD, PK_SDF_FWD, PK_COL_BWD = range(7)  # neus_tc.cuh's PK_*
 B3_RAYS = 16384  # the validation chunk
 B6_RAYS = 112 * 112  # the background step's rays: 802,816 points
 
@@ -157,6 +159,46 @@ def b6_problem(dev) -> dict:
          lambda: fs.sdf_bwd(spec, flat, pts, *cots, packed=packed))]}
 
 
+def b6f_problem(dev) -> dict:
+    import torch
+
+    from avatarclip_torch.ops import fused_neus as fn
+    from avatarclip_torch.ops import fused_sdf as fs
+
+    fields, (ro, rd, mid, _), _, _ = _nets(B6_RAYS, dev, 6)
+    pts = (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3).contiguous()
+    spec = fs.spec_from_config(fields.sdf.cfg)
+    with torch.no_grad():
+        weights = fs.dense_weights(fields.sdf)
+        flat = torch.cat([w.reshape(-1) for w in weights])
+        packed = fn.pack_tc(spec, weights)
+    return {"shape": f"{pts.shape[0]} points", "ctas": fn.n_cta_tc(dev, -(-pts.shape[0] // fs.BLOCK)),
+            "calls": [("B6 forward", PK_SDF_FWD, lambda: fs.sdf_fwd(spec, flat, pts, packed))]}
+
+
+def b7b_problem(dev) -> dict:
+    """B7's backward at path (e)'s mode: no_view_dir with the extra head."""
+    import torch
+
+    from avatarclip_torch.ops import fused_neus as fn
+    from avatarclip_torch.ops import fused_color as fc
+
+    fields, inputs, _, _ = _nets(B6_RAYS, dev, 10)
+    from chip_smoke import colour_inputs, colour_net  # importable once _nets put the checkout on the path
+
+    ins = colour_inputs(fields, inputs)
+    del fields
+    net = colour_net("no_view_dir", True, dev, seed=11, dtype="bfloat16")
+    spec = fc.spec_from_config(net.cfg)
+    flat = torch.cat([w.detach().reshape(-1) for w in fc.dense_weights(net, spec)])
+    P = ins[0].shape[0]
+    cot = (0.5 + torch.rand(P, spec.rgb_width, generator=torch.Generator().manual_seed(8))).to(dev)
+    n_cta, _, _ = fn.tc_bwd_chunking(dev, fn._tc_lib(), spec.dims(), -(-P // fc.BLOCK))
+    return {"shape": f"{P} points", "ctas": n_cta, "calls": [
+        ("B7 backward (per-tile kernel, last chunk)", PK_COL_BWD,
+         lambda: fc.color_bwd(spec, flat, *ins, cot))]}
+
+
 def phases(lib, name: str, k: int, n_cta: int, ms: float) -> None:
     from avatarclip_torch.ops import _build
 
@@ -174,7 +216,8 @@ def phases(lib, name: str, k: int, n_cta: int, ms: float) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("all", "b1", "b3", "b6"), default="all")
+    ap.add_argument("--kernel", nargs="+", choices=("all", "b1", "b3", "b6", "b6f", "b7b"),
+                    default=["all"])
     ap.add_argument("--rays", type=int, default=112 * 112, help="B1's rays")
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--define", action="append", default=[],
@@ -200,10 +243,13 @@ def main() -> None:
     if defs:
         timed = fn.type_tc(_build.load_variant("fused_neus_ray_tc" + tag, "fused_neus_ray_tc.cu", defs))
         fn._tc_lib = lambda: timed
-    want = ("b1", "b3", "b6") if a.kernel == "all" else (a.kernel,)
+    want = ("b1", "b3", "b6", "b6f", "b7b") if "all" in a.kernel else a.kernel
+    makers = {"b1": lambda: b1_problem(a.rays, dev), "b3": lambda: b3_problem(dev),
+              "b6": lambda: b6_problem(dev), "b6f": lambda: b6f_problem(dev),
+              "b7b": lambda: b7b_problem(dev)}
     problems = []
     for k in want:
-        prob = b1_problem(a.rays, dev) if k == "b1" else b3_problem(dev) if k == "b3" else b6_problem(dev)
+        prob = makers[k]()
         for i, (name, slot, call) in enumerate(prob["calls"]):
             med, lo, hi = median_ms(call, a.reps)
             print(f"[profile] {name}, {prob['shape']}, 4x256 / 2x256, bf16"

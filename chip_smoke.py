@@ -59,15 +59,17 @@ kernel's plain version):
        magnitude, at every point (at B7's relu near-ties the f64 input
        cotangents take the masks the kernel took, ops/hold.py); B7 in
        no_view_dir with the extra head and in idr without it; in the bf16
-       mode (B6's backward: the tensor-core kernel) held as B1 is, at 256
-       and 128 wide on the ragged count; both timed at path (e)'s 802,816
-       points a step in both modes (and held there in path e);
+       mode (B6's pair and B7's backward: the tensor-core kernels; B7's
+       forward: the CUDA-core kernel) held as B1 is, at 256 and 128 wide on
+       the ragged count; both timed at path (e)'s 802,816 points a step in
+       both modes, each bf16 kernel beside its plain version, its bounds and
+       its TFLOP/s (and held there in path e);
      - #12, the sdf-only forward, through its entry (backward: autograd of
        the plain version) against the plain version in float64 at 4x256
        and 3x128 on 2,048 rays x 56 sweep points and on a ragged 131,071
        points (the sdf to 1e-4, its VJP to 1e-3), and its forward at one
        train_clip step's 12,544 x 56 points; timed there and on a
-       262,144-point grid chunk;
+       262,144-point grid chunk, in both operand modes;
      each kernel's bound is max(FLOPs / peak, bytes / 3.35 TB/s) for the
      work of that call (f32 CUDA-core peak 67 TFLOP/s, the type the kernels
      compute in; the bf16 tensor-core bound at 989 TFLOP/s is printed too);
@@ -1415,11 +1417,11 @@ def time_plain(fn, args, params, cots, reps=2) -> tuple[float, float]:
 def check_sdf(dev):
     """B6: the f32 mode (fused_sdf.cu's pair) held in f64 to OUT_TOL /
     GRAD_TOL on 131,072 points and a ragged 131,071, the bf16 mode (the
-    CUDA-core forward rounding its operands, the tensor-core backward of
-    fused_neus_ray_tc.cu) by hold_bf16_sets at 256 and 128 wide on the
-    ragged count. Timed at path (e)'s 802,816 points in both modes: the bf16
-    backward beside its plain version and its f32 CUDA-core bound (readings,
-    not checks), its bf16 tensor-core bound and the f32 CUDA-core kernel."""
+    tensor-core pair of fused_neus_ray_tc.cu) by hold_bf16_sets at 256 and
+    128 wide on the ragged count. Timed at path (e)'s 802,816 points in both
+    modes: each bf16 kernel beside its plain version and its f32 CUDA-core
+    bound (readings, not checks), its bf16 tensor-core bound, its achieved
+    TFLOP/s and the f32 CUDA-core kernel."""
     import torch
 
     from avatarclip_torch.ops import fused_neus as fn
@@ -1459,8 +1461,9 @@ def check_sdf(dev):
     flat = torch.cat([w.reshape(-1) for w in weights])
     packed = fn.pack_tc(spec, weights)
     cots = [(0.5 + torch.rand(P, k, generator=g)).to(dev) for k in (1, 256, 3)]
-    ms_f, ms_f_f = cuda_ms(lambda: fs.sdf_fwd(spec, flat, pts), reps=3), cuda_ms(
-        lambda: fs.sdf_fwd(spec_f, flat, pts), reps=3)
+    ms_f = cuda_ms(lambda: fs.sdf_fwd(spec, flat, pts, packed), reps=5)
+    ms_f_f = cuda_ms(lambda: fs.sdf_fwd(spec_f, flat, pts), reps=3)
+    ms_f = statistics.median([ms_f, cuda_ms(lambda: fs.sdf_fwd(spec, flat, pts, packed), reps=5)])
     torch.cuda.reset_peak_memory_stats()
     ms_b = cuda_ms(lambda: fs.sdf_bwd(spec, flat, pts, *cots, packed=packed), reps=5)
     mem_k = torch.cuda.max_memory_allocated() / 2**30
@@ -1473,7 +1476,7 @@ def check_sdf(dev):
     mem_p = torch.cuda.max_memory_allocated() / 2**30
     fl_f, fl_b = fs.flops_per_point(spec)
     n_w, F = flat.numel(), spec.feat_dim
-    b_f = bound(fl_f * P, 4 * (n_w + 3 * P + (1 + F + 3) * P))
+    b_f = bound_tc(fl_f * P, 4 * (n_w + 3 * P + (1 + F + 3) * P))
     b_b = bound_tc(fl_b * P, 4 * (n_w + 3 * P + (1 + F + 3) * P + 3 * P + n_w))
     print(f"[B6] {P} points (path e's step), 4x256, bf16 mode: backward kernel (tensor cores) "
           f"{ms_b:.3f} ms, {fl_b * P / ms_b * 1e-9:.1f} TFLOP/s; plain {plain_b:.3f} ms "
@@ -1482,12 +1485,15 @@ def check_sdf(dev):
           f"check), bf16 tensor-core bound {b_b['bound_ms']:.3f} ms ({b_b['bound_by']}); the f32 "
           f"CUDA-core kernel (the design both modes ran before) {ms_b_f:.3f} ms; peak memory "
           f"{mem_k:.2f} GiB (plain {mem_p:.2f} GiB)")
-    print(f"[B6] forward kernel (CUDA cores): bf16 {ms_f:.3f} ms, f32 {ms_f_f:.3f} ms (plain "
-          f"{plain_f:.3f} ms, bound {b_f['bound_ms']:.3f} ms {b_f['bound_by']}, bf16 tensor-core "
-          f"bound {b_f['bound_ms_bf16_tc']:.3f} ms); {fl_f:.0f} / {fl_b:.0f} GEMM FLOPs per point")
+    print(f"[B6] {P} points, 4x256, bf16 mode: forward kernel (tensor cores) {ms_f:.3f} ms, "
+          f"{fl_f * P / ms_f * 1e-9:.1f} TFLOP/s; plain {plain_f:.3f} ms ({'under' if ms_f < plain_f else 'NOT under'} "
+          f"it); f32 CUDA-core bound {b_f['bound_ms_f32']:.3f} ms ({ms_f / b_f['bound_ms_f32']:.2f}x it: "
+          f"a reading, not a check), bf16 tensor-core bound {b_f['bound_ms']:.3f} ms ({b_f['bound_by']}); "
+          f"the f32 CUDA-core kernel {ms_f_f:.3f} ms; {fl_f:.0f} / {fl_b:.0f} GEMM FLOPs per point")
     common = {"route": "cuda", "library_ms": None, "bf16_rel_rms_err": worst_bf16}
     return [
-        {"name": "sdf_fwd", **common, "source": "avatarclip_torch/csrc/fused_sdf.cu",
+        {"name": "sdf_fwd", **common, "source": "avatarclip_torch/csrc/fused_neus_ray_tc.cu",
+         "source_f32": "avatarclip_torch/csrc/fused_sdf.cu",
          "replaces": "avatarclip_tpu/ops/fused_sdf.py:261", "max_abs_err": worst_f, "ms": ms_f,
          "ms_f32": ms_f_f, "plain_ms": plain_f, **b_f},
         {"name": "sdf_bwd", **common, "source": "avatarclip_torch/csrc/fused_neus_ray_tc.cu",
@@ -1560,43 +1566,54 @@ def check_colour(dev):
                 fc.color_apply_fused, fc.color_apply_plain, net, [t[:P].contiguous() for t in ins],
                 cots, ("points", "normals", "view_dirs", "features"), ("rgb",)))
 
-    # time at path (e)'s points, in the path's mode (no_view_dir, extra head)
+    # time at path (e)'s points, in the path's mode (no_view_dir, extra head):
+    # the forward (CUDA cores) in f32 and bf16, the backward in the bf16 mode
+    # (tensor cores) beside the f32 CUDA-core kernel
     fields, inputs, _, _ = neus_problem(256, PATH_E_RAYS, dev, seed=10)
     ins = colour_inputs(fields, inputs)
     del fields
     net = colour_net("no_view_dir", True, dev, seed=11)
+    net_b = colour_net("no_view_dir", True, dev, seed=11, dtype="bfloat16")
     spec = fc.spec_from_config(net.cfg)
+    spec_b = fc.spec_from_config(net_b.cfg)
     flat = torch.cat([w.detach().reshape(-1) for w in fc.dense_weights(net, spec)])
     P = ins[0].shape[0]
     cot = (0.5 + torch.rand(P, 6, generator=g)).to(dev)
-    torch.cuda.reset_peak_memory_stats()
     ms_f = cuda_ms(lambda: fc.color_fwd(spec, flat, *ins), reps=3)
-    ms_b = cuda_ms(lambda: fc.color_bwd(spec, flat, *ins, cot), reps=3)
-    mem_k = torch.cuda.max_memory_allocated() / 2**30
-    spec_b = dataclasses.replace(spec, bf16=True)
+    ms_b_f = cuda_ms(lambda: fc.color_bwd(spec, flat, *ins, cot), reps=3)
     ms_f_b = cuda_ms(lambda: fc.color_fwd(spec_b, flat, *ins), reps=3)
-    ms_b_b = cuda_ms(lambda: fc.color_bwd(spec_b, flat, *ins, cot), reps=3)
-    plain_f, plain_b = time_plain(lambda *xs: fc.color_apply_plain(net, *xs), ins,
-                                  list(net.parameters()), [cot])
+    torch.cuda.reset_peak_memory_stats()
+    ms_b = cuda_ms(lambda: fc.color_bwd(spec_b, flat, *ins, cot), reps=5)
+    mem_k = torch.cuda.max_memory_allocated() / 2**30
+    ms_b = statistics.median([ms_b, cuda_ms(lambda: fc.color_bwd(spec_b, flat, *ins, cot), reps=5)])
+    plain_f, _ = time_plain(lambda *xs: fc.color_apply_plain(net, *xs), ins,
+                            list(net.parameters()), [cot])
+    _, plain_b = time_plain(lambda *xs: fc.color_apply_plain(net_b, *xs), ins,
+                            list(net_b.parameters()), [cot])
     fl_f, fl_b = fc.flops_per_point(spec)
     n_w, W = flat.numel(), spec.rgb_width
     n_in = 3 * spec.n_vectors + spec.d_feature  # the input floats a point the mode reads
     b_f = bound(fl_f * P, 4 * (n_w + n_in * P + W * P))
-    b_b = bound(fl_b * P, 4 * (n_w + n_in * P + W * P + n_in * P + n_w))
-    print(f"[B7] {P} points (path e's step), 2x256 no_view_dir + extra head: forward kernel "
-          f"{ms_f:.3f} ms (plain {plain_f:.3f} ms, bound {b_f['bound_ms']:.3f} ms "
-          f"{b_f['bound_by']}, bf16 tensor-core bound {b_f['bound_ms_bf16_tc']:.3f} ms); backward "
-          f"kernel {ms_b:.3f} ms (plain {plain_b:.3f} ms, bound {b_b['bound_ms']:.3f} ms "
-          f"{b_b['bound_by']}, bf16 {b_b['bound_ms_bf16_tc']:.3f} ms); {fl_f:.0f} / {fl_b:.0f} GEMM "
-          f"FLOPs per point; peak memory kernel {mem_k:.2f} GiB; bf16 operand mode: forward "
-          f"{ms_f_b:.3f} ms, backward {ms_b_b:.3f} ms")
-    common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_color.cu", "library_ms": None,
-              "bf16_rel_rms_err": worst_bf16}
+    b_b = bound_tc(fl_b * P, 4 * (n_w + n_in * P + W * P + n_in * P + n_w))
+    print(f"[B7] {P} points (path e's step), 2x256 no_view_dir + extra head: forward kernel (CUDA "
+          f"cores) {ms_f:.3f} ms, bf16 operand mode {ms_f_b:.3f} ms (plain {plain_f:.3f} ms, bound "
+          f"{b_f['bound_ms']:.3f} ms {b_f['bound_by']}, bf16 tensor-core bound "
+          f"{b_f['bound_ms_bf16_tc']:.3f} ms); {fl_f:.0f} / {fl_b:.0f} GEMM FLOPs per point")
+    print(f"[B7] bf16 mode: backward kernel (tensor cores) {ms_b:.3f} ms, "
+          f"{fl_b * P / ms_b * 1e-9:.1f} TFLOP/s; plain bf16 {plain_b:.3f} ms "
+          f"({'under' if ms_b < plain_b else 'NOT under'} it); f32 CUDA-core bound "
+          f"{b_b['bound_ms_f32']:.3f} ms ({ms_b / b_b['bound_ms_f32']:.2f}x it: a reading, not a "
+          f"check), bf16 tensor-core bound {b_b['bound_ms']:.3f} ms ({b_b['bound_by']}); the f32 "
+          f"CUDA-core kernel {ms_b_f:.3f} ms; peak memory {mem_k:.2f} GiB")
+    common = {"route": "cuda", "library_ms": None, "bf16_rel_rms_err": worst_bf16}
     return [
-        {"name": "color_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_color.py:230",
+        {"name": "color_fwd", **common, "source": "avatarclip_torch/csrc/fused_color.cu",
+         "replaces": "avatarclip_tpu/ops/fused_color.py:230",
          "max_abs_err": worst_f, "ms": ms_f, "ms_bf16": ms_f_b, "plain_ms": plain_f, **b_f},
-        {"name": "color_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_color.py:244",
-         "max_abs_err": worst_b, "ms": ms_b, "ms_bf16": ms_b_b, "plain_ms": plain_b, **b_b},
+        {"name": "color_bwd", **common, "source": "avatarclip_torch/csrc/fused_neus_ray_tc.cu",
+         "source_f32": "avatarclip_torch/csrc/fused_color.cu",
+         "replaces": "avatarclip_tpu/ops/fused_color.py:244",
+         "max_abs_err": worst_b, "ms": ms_b, "ms_f32": ms_b_f, "plain_ms": plain_b, **b_b},
     ]
 
 
@@ -1660,6 +1677,7 @@ def check_sdf_only(dev):
     spec_b = dataclasses.replace(spec, bf16=True)
     with torch.no_grad():
         ms_bf16 = cuda_ms(lambda: fs.sdf_only_fwd(spec_b, flat, pts), reps=5)
+        ms_bf16_g = cuda_ms(lambda: fs.sdf_only_fwd(spec_b, flat, grid), reps=5)
     for tag, x in (("step", pts), ("grid", grid)):
         n = x.shape[0]
         with torch.no_grad():
@@ -1672,14 +1690,16 @@ def check_sdf_only(dev):
           f"bound {b['bound_ms']:.3f} ms {b['bound_by']}, bf16 tensor-core {b['bound_ms_bf16_tc']:.3f} ms); "
           f"{GRID_CHUNK}-point grid chunk kernel {ms_g:.3f} ms (plain {plain_g:.3f} ms, bound "
           f"{b_g['bound_ms']:.3f} ms); the VJP (autograd of the plain version) max abs err {worst_b:.3e}; "
-          f"bf16 operand mode {ms_bf16:.3f} ms on the step's points")
+          f"bf16 operand mode {ms_bf16:.3f} ms on the step's points, {ms_bf16_g:.3f} ms on the grid chunk "
+          f"(the shape of its bf16 launches)")
     del fields, inputs
     torch.cuda.empty_cache()
     return {"name": "sdf_only_fwd", "route": "cuda", "source": "avatarclip_torch/csrc/fused_sdf.cu",
             "replaces": "avatarclip_tpu/ops/fused_sdf.py:626", "max_abs_err": worst_f, "ms": ms,
             "ms_bf16": ms_bf16, "bf16_rel_rms_err": worst_bf16,
             "plain_ms": plain_ms, "library_ms": None, **b, "ms_grid_chunk": ms_g,
-            "plain_ms_grid_chunk": plain_g, "bound_ms_grid_chunk": b_g["bound_ms"]}
+            "plain_ms_grid_chunk": plain_g, "bound_ms_grid_chunk": b_g["bound_ms"],
+            "ms_bf16_grid_chunk": ms_bf16_g}
 
 
 def hold_brute(tag, coef, valid, sx, sy, H, W) -> tuple[float, int, int, int]:

@@ -468,3 +468,70 @@ def test_b6_tensor_core_backward_holds_at_bf16(dev):
     for i, (a, p, r) in enumerate(zip(ok + gk, op + gp, orf + grf)):
         ek, ep, ok_ = hold.bf16_within(a, p, r)
         assert ok_, (i, ek, ep)
+
+
+@pytest.mark.parametrize("width", [256, 128])
+def test_b6_tensor_core_forward_holds_at_bf16(dev, width):
+    """B6's forward in the bf16 operand mode (the tensor-core kernel) under
+    no_grad on a ragged 131,071 points: sdf, feature and gradient each
+    against the f32 function in float64 beside the plain bf16 version
+    (ops/hold.bf16_within)."""
+    from avatarclip_torch.ops import fused_sdf as fs
+    from avatarclip_torch.ops import hold
+
+    fields, (ro, rd, mid, _) = _neus_fields(width, 2048, dev, "bfloat16", seed=10)
+    pts = (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3)[:-1].contiguous()
+    n0 = dict(fs.LAUNCHES)
+    with torch.no_grad():
+        got = fs.sdf_with_gradient_fused(fields.sdf, pts)
+    assert fs.LAUNCHES == {**n0, "sdf_fwd": n0["sdf_fwd"] + 1}
+    plain = [t.detach() for t in fs.sdf_with_gradient_plain(fields.sdf, pts)]
+    ref = [t.detach() for t in fs.sdf_with_gradient_plain(hold.f32_copy(fields.sdf).double(),
+                                                          pts.double())]
+    for name, a, p, r in zip(("sdf", "feature", "gradient"), got, plain, ref):
+        ek, ep, ok = hold.bf16_within(a, p, r)
+        assert ok, (name, ek, ep)
+
+
+@pytest.mark.parametrize("width,mode,extra", [(256, "no_view_dir", True), (256, "idr", False),
+                                              (128, "no_view_dir", True), (128, "idr", False)])
+def test_b7_tensor_core_backward_holds_at_bf16(dev, width, mode, extra):
+    """B7's backward in the bf16 operand mode (the tensor-core kernel, the
+    weight gradients a GEMM over the points) on a ragged 32,767 points at
+    the path's inputs (the SDF net's points, unit normals and feature, the
+    rays' directions): the output, every weight gradient and the four input
+    cotangents against the f32 function in float64 beside the plain bf16
+    version (ops/hold.bf16_within)."""
+    from avatarclip_torch.fields import networks as nets
+    from avatarclip_torch.ops import fused_color as fc
+    from avatarclip_torch.ops import hold
+
+    fields, (ro, rd, mid, _) = _neus_fields(width, 512, dev, "bfloat16", seed=11)
+    pts = (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3)
+    dirs = rd[:, None].expand(-1, mid.shape[1], -1).reshape(-1, 3)
+    with torch.no_grad():
+        _, feat, grad = fields.sdf.sdf_with_gradient(pts)
+    normals = grad / (grad.norm(dim=-1, keepdim=True) + 1e-6)
+    P = pts.shape[0] - 1
+    ins = [t[:P].contiguous() for t in (pts, normals, dirs, feat)]
+    g = torch.Generator().manual_seed(12)
+    net = nets.ColorNetwork(nets.ColorConfig(mode=mode, d_in=9 if mode == "idr" else 6,
+                                             d_feature=width, d_hidden=width,
+                                             n_layers=2 if width == 256 else 1, extra_color=extra,
+                                             weight_norm=False, dtype="bfloat16"), g)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    net = net.to(dev)
+    cots = [(0.5 + torch.rand(P, 6 if extra else 3, generator=g)).to(dev)]
+    n0 = dict(fc.LAUNCHES)
+    ok, gk = hold.net_grads(fc.color_apply_fused, net, ins, cots)
+    assert fc.LAUNCHES == {"color_fwd": n0["color_fwd"] + 1, "color_bwd": n0["color_bwd"] + 1}
+    op, gp = hold.net_grads(fc.color_apply_plain, net, ins, cots)
+    orf, grf = hold.net_grads(fc.color_apply_plain, hold.f32_copy(net).double(),
+                              [t.double() for t in ins], [c.double() for c in cots])
+    names = ["rgb"] + [n for n, _ in net.named_parameters()] + ["points", "normals", "view_dirs",
+                                                                "features"]
+    for name, a, p, r in zip(names, ok + gk, op + gp, orf + grf):
+        ek, ep, ok_ = hold.bf16_within(a, p, r)
+        assert ok_, (name, ek, ep)

@@ -125,8 +125,8 @@ def test_sdf_backward_takes_the_tensor_cores_in_bf16(pick_libs, dtype, want):
     pts = torch.zeros(5, 3)
     with pytest.raises(_Picked, match=want):
         fs.sdf_bwd(spec, flat, pts, torch.zeros(5, 1), torch.zeros(5, 128), torch.zeros(5, 3))
-    # the forward stays on the CUDA cores in both modes
-    with pytest.raises(_Picked, match="B6 CUDA cores"):
+    # the forward too takes the tensor cores in bf16 and the CUDA cores in f32
+    with pytest.raises(_Picked, match=want):
         fs.sdf_fwd(spec, flat, pts)
     # the operand mode is the spec's: the same net read at f32
     with pytest.raises(_Picked, match="B6 CUDA cores"):
