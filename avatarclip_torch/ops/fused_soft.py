@@ -23,7 +23,10 @@ packing, the exp of ``sil_log`` and every O(F) transform around it are
 plain autograd outside :class:`SoftAggregateFunction`.
 
 On a CUDA tensor :func:`aggregate` runs ``csrc/fused_soft.cu`` (forward and
-backward kernels; no fallback); on a CPU tensor it runs
+backward kernels, each followed by a small kernel that sums its K partials
+in a fixed order; no fallback). The kernels evaluate a face only on the
+8 x 8 pixel patches that :func:`patch_keep` keeps, its Python twin. On a
+CPU tensor it runs
 :func:`aggregate_plain`, which evaluates every pair in face chunks under
 ``torch.utils.checkpoint`` so that its backward keeps O(B x P x chunk)
 memory, as the JAX CPU path's checkpointed scan does. The Pallas pixel tile
@@ -34,6 +37,7 @@ compute pixel coordinates from their block index and write row-major.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +49,14 @@ TILE_H = 32
 TILE_W = 32
 FBLOCK = 512  # faces per block of the culling table
 NF = 16  # floats per packed face row
+# the kernels' work split (csrc/fused_soft.cu): a warp's 8 x 8 pixel patch;
+# forward CTAs of 32 x 16 pixels over interleaved ranges of 256-face
+# stages, backward CTAs of 128 faces over interleaved ranges of the tiles
+PATCH = 8
+FWD_CELL_W, FWD_CELL_H = 32, 16
+STAGE = 256
+GROUP = 128
+CTAS_PER_SM = 64  # the splits aim at this many CTAs an SM, at 2 views as at 5
 # Cull only (tile, face-block) pairs whose sigmoid is exactly zero in f32:
 # beyond d < -104 sigma the sigmoid underflows. A margin that is merely
 # "negligible" is not sound: the depth weights saturate at e^60 beside the
@@ -52,8 +64,9 @@ NF = 16  # floats per packed face row
 _MARGIN_LOGITS = 104.0
 PLAIN_CHUNK = 256  # faces per checkpointed chunk of the plain version
 
-# kernel launches, counted by the wrappers (reset by callers that measure)
-LAUNCHES = {"soft_fwd": 0, "soft_bwd": 0}
+# kernel launches, counted by the wrappers (reset by callers that measure);
+# each pass is followed by the kernel that sums its partials
+LAUNCHES = {"soft_fwd": 0, "soft_bwd": 0, "soft_fwd_reduce": 0, "soft_bwd_reduce": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -91,6 +104,41 @@ def overlap_table_halfplane(valid: torch.Tensor, cs: torch.Tensor, H: int, W: in
         mx = xc * a[:, None, :] + yc * b[:, None, :] + (c + a.abs() * hw + b.abs() * hh)[:, None, :]
         keep = keep & (mx >= thresh)
     return keep.reshape(B, n_tiles, n_fb, FBLOCK).any(-1).to(torch.int32)
+
+
+def cull_threshold(inv_sigma: float) -> float:
+    """The patch test's bound on an edge's maximum, -(104 sigma + 1 px) as
+    the table's, rounded to float32 as the kernels take it."""
+    return ctypes.c_float(-(_MARGIN_LOGITS / inv_sigma + 1.0)).value
+
+
+def patch_keep(faces: torch.Tensor, tab: torch.Tensor, H: int, W: int,
+               inv_sigma: float) -> torch.Tensor:
+    """The (8 x 8 pixel patch, face) pairs the kernels evaluate: (B, n_py,
+    n_px, Fp) bool, patch (i, j) holding pixels [8j, 8j + 8) x [8i, 8i + 8).
+    A valid face is kept on a patch when the table keeps its block on the
+    patch's tile and every edge's maximum over the patch, in float32 and in
+    the kernels' order, is at least :func:`cull_threshold`. The table's test
+    on a finer rectangle, so it keeps every pair with x > -104: below that
+    the sigmoid underflows and each term of the pair is exactly 0."""
+    B, Fp, _ = faces.shape
+    n_py, n_px = -(-H // PATCH), -(-W // PATCH)
+    dev = faces.device
+    h = (PATCH - 1) / 2.0
+    xc = (torch.arange(n_px, device=dev, dtype=torch.float32) * PATCH + h)[None, None, :, None]
+    yc = (torch.arange(n_py, device=dev, dtype=torch.float32) * PATCH + h)[None, :, None, None]
+    thresh = cull_threshold(inv_sigma)
+    f = faces.float()
+    keep = (f[..., 13] != 0)[:, None, None, :]
+    for e in range(3):
+        a, b, c = (f[:, None, None, :, 3 * e + i] for i in range(3))
+        keep = keep & (xc * a + yc * b + (c + a.abs() * h + b.abs() * h) >= thresh)
+    n_tx = grid_dims(H, W)[1]
+    per = TILE_H // PATCH
+    tile = ((torch.arange(n_py, device=dev) // per)[:, None] * n_tx
+            + (torch.arange(n_px, device=dev) // per)[None, :])
+    blocks = tab[:, tile] != 0  # (B, n_py, n_px, n_fb)
+    return keep & blocks.repeat_interleave(FBLOCK, -1)
 
 
 def pack_faces(cs: torch.Tensor, ezf: torch.Tensor, colf: torch.Tensor,
@@ -150,12 +198,33 @@ def _lib():
     lib = _build.load("fused_soft", "fused_soft.cu")
     if not getattr(lib, "_typed", False):
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.soft_fwd.argtypes = [P] * 5 + [I] * 6 + [Fl, P]
-        lib.soft_fwd.restype = I
-        lib.soft_bwd.argtypes = [P] * 6 + [I] * 6 + [Fl, P]
-        lib.soft_bwd.restype = I
+        lib.soft_fwd.argtypes = [P] * 3 + [I] * 5 + [Fl, Fl, P]
+        lib.soft_fwd_reduce.argtypes = [P] * 4 + [I] * 3 + [P]
+        lib.soft_bwd.argtypes = [P] * 6 + [I] * 5 + [Fl, Fl, P]
+        lib.soft_bwd_reduce.argtypes = [P] * 2 + [I] * 2 + [P]
+        for fn in (lib.soft_fwd, lib.soft_fwd_reduce, lib.soft_bwd, lib.soft_bwd_reduce):
+            fn.restype = I
         lib._typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def fwd_splits(B: int, H: int, W: int, Fp: int, n_sm: int) -> int:
+    """K, the forward's interleaved ranges of face stages: ~CTAS_PER_SM
+    CTAs an SM over the B views' 32 x 16 cells."""
+    cells = B * -(-H // FWD_CELL_H) * -(-W // FWD_CELL_W)
+    return max(1, min(Fp // STAGE, -(-CTAS_PER_SM * n_sm // cells)))
+
+
+def bwd_splits(B: int, H: int, W: int, Fp: int, n_sm: int) -> int:
+    """K, the backward's interleaved ranges of screen tiles: ~CTAS_PER_SM
+    CTAs an SM over the B views' 128-face groups."""
+    n_ty, n_tx = grid_dims(H, W)
+    return max(1, min(n_ty * n_tx, -(-CTAS_PER_SM * n_sm // (B * Fp // GROUP))))
 
 
 def _check(faces, tab, H, W):
@@ -169,37 +238,49 @@ def _check(faces, tab, H, W):
     if (tuple(tab.shape) != (B, n_ty * n_tx, Fp // FBLOCK) or tab.dtype != torch.int32
             or tab.device != faces.device or not tab.is_contiguous()):
         raise ValueError("tab must be the contiguous int32 (B, n_tiles, n_fb) table on the faces' device")
-    return B, Fp, n_ty, n_tx
+    return B, Fp
 
 
 def soft_fwd(faces, tab, H: int, W: int, inv_sigma: float):
-    """Launch the forward kernel: (sil_log (B, H*W), num (B, H*W, 3), den (B, H*W))."""
-    B, Fp, n_ty, n_tx = _check(faces, tab, H, W)
+    """Launch the forward kernel and the sum of its partials: (sil_log (B,
+    H*W), num (B, H*W, 3), den (B, H*W))."""
+    B, Fp = _check(faces, tab, H, W)
     dev = faces.device
-    sil = torch.empty(B, H * W, device=dev)
-    num = torch.empty(B, H * W, 3, device=dev)
-    den = torch.empty(B, H * W, device=dev)
-    p = _build.ptr
-    err = _lib().soft_fwd(p(faces), p(tab), p(sil), p(num), p(den), B, H, W, n_tx, n_ty,
-                          Fp // FBLOCK, inv_sigma, _build.stream_ptr(dev))
+    P = H * W
+    K = fwd_splits(B, H, W, Fp, _n_sm(dev))
+    part = torch.empty(K, B, 5, P, device=dev)
+    sil = torch.empty(B, P, device=dev)
+    num = torch.empty(B, P, 3, device=dev)
+    den = torch.empty(B, P, device=dev)
+    p, lib, st = _build.ptr, _lib(), _build.stream_ptr(dev)
+    err = lib.soft_fwd(p(faces), p(tab), p(part), B, H, W, Fp // FBLOCK, K, inv_sigma,
+                       cull_threshold(inv_sigma), st)
     _build.check(err, "soft_fwd launch")
     _build.count(LAUNCHES, "soft_fwd")
+    err = lib.soft_fwd_reduce(p(part), p(sil), p(num), p(den), B, P, K, st)
+    _build.check(err, "soft_fwd_reduce launch")
+    _build.count(LAUNCHES, "soft_fwd_reduce")
     return sil, num, den
 
 
 def soft_bwd(faces, tab, dsil, dnum, dden, H: int, W: int, inv_sigma: float):
-    """Launch the backward kernel: d faces (B, Fp, NF), 0 in the vmask and
-    padding columns."""
-    B, Fp, n_ty, n_tx = _check(faces, tab, H, W)
+    """Launch the backward kernel and the sum of its partials: d faces (B,
+    Fp, NF), 0 in the vmask and padding columns."""
+    B, Fp = _check(faces, tab, H, W)
+    dev = faces.device
     P = H * W
-    _build.check_f32(faces.device, (("dsil", dsil, (B, P)), ("dnum", dnum, (B, P, 3)),
-                                    ("dden", dden, (B, P))))
+    _build.check_f32(dev, (("dsil", dsil, (B, P)), ("dnum", dnum, (B, P, 3)), ("dden", dden, (B, P))))
+    K = bwd_splits(B, H, W, Fp, _n_sm(dev))
+    part = torch.empty(K, B, Fp, 13, device=dev)
     dfaces = torch.empty_like(faces)
-    p = _build.ptr
-    err = _lib().soft_bwd(p(faces), p(tab), p(dsil), p(dnum), p(dden), p(dfaces), B, H, W,
-                          n_tx, n_ty, Fp // FBLOCK, inv_sigma, _build.stream_ptr(faces.device))
+    p, lib, st = _build.ptr, _lib(), _build.stream_ptr(dev)
+    err = lib.soft_bwd(p(faces), p(tab), p(dsil), p(dnum), p(dden), p(part), B, H, W,
+                       Fp // FBLOCK, K, inv_sigma, cull_threshold(inv_sigma), st)
     _build.check(err, "soft_bwd launch")
     _build.count(LAUNCHES, "soft_bwd")
+    err = lib.soft_bwd_reduce(p(part), p(dfaces), B * Fp, K, st)
+    _build.check(err, "soft_bwd_reduce launch")
+    _build.count(LAUNCHES, "soft_bwd_reduce")
     return dfaces
 
 

@@ -52,6 +52,30 @@ def smpl_size_body() -> tuple[np.ndarray, np.ndarray]:
             np.concatenate([f, [[top, n, n + 1]]]).astype(np.int32))
 
 
+def humanoid_views(dev, n_views: int = 5, res: int = 224, seed: int = 0, elev_std: float = 0.3,
+                   n_seg: int = 41, n_ring: int = 28):
+    """The pose optimizer's views of the procedural body (at the default
+    n_seg / n_ring, 13,776 faces: SMPL's count), posed as
+    AnimateContext._pose_vertices poses it at the zero body pose, at the
+    azimuths 120, 150, ... 240 (the first n_views) and elevations ~ N(0,
+    elev_std): (vertices (n_views, V, 3), faces, poses (n_views, 4, 4), focal)."""
+    from ..assets import _procedural_humanoid
+    from ..body import smpl
+    from ..render import cameras
+    from . import animate
+
+    v, f = _procedural_humanoid(n_seg=n_seg, n_ring=n_ring)
+    model = smpl.approximate_model_from_mesh(v, f)
+    go = torch.tensor([[np.pi / 2, 0.0, 0.0]])
+    verts, _ = model.forward(body_pose=torch.zeros(1, 23, 3), global_orient=go)
+    verts = (verts[0] @ torch.from_numpy(cameras.BODY_TO_WORLD).t()).to(dev)
+    elevs = torch.randn(n_views, generator=torch.Generator().manual_seed(seed)) * elev_std
+    azims = torch.tensor([120.0, 150.0, 180.0, 210.0, 240.0])[:n_views]
+    poses = animate.view_poses(elevs.to(dev), azims.to(dev))
+    focal = cameras.focal_from_fov(res, np.deg2rad(60.0))
+    return verts.expand(n_views, -1, -1).contiguous(), torch.from_numpy(f).to(dev), poses, focal
+
+
 def write_template_obj(data_dir: str, v: np.ndarray, f: np.ndarray) -> str:
     """Write a body as the zero-beta template OBJ, where both packages'
     ``assets.load_smpl`` look for it (under ``$AVATARCLIP_TPU_DATA``)."""

@@ -47,10 +47,15 @@ kernel's plain version):
        rgb and silhouette to 2e-4 absolute, the gradients of the x, y and
        constant edge coefficients, ezf and colf each to 1e-3 of its own
        largest magnitude) at one PoseOptimizer step's shapes (5 views x
-       224^2 x the 13,776-face body, sigma 0.5), at a ragged 200 x 136 x
-       1,000 faces and on a compact 320^2 scene at sigma 0.1 where the culling
-       table skips pairs; timed at the pose step's shapes, with its kept share
-       and its bound (f32 operations, special functions and bytes);
+       224^2 x the 13,776-face body, sigma 0.5), at one MotionOptimizer
+       step's (2 views), at a ragged 200 x 136 x 1,000 faces and on a
+       compact 320^2 scene at sigma 0.1 where the culling table skips pairs;
+       two launches of each kernel give the same bits; timed at the pose and
+       the motion step's shapes (each kernel with the kernel that sums its
+       partials), with the pairs the table keeps, the pairs the kernels
+       evaluate and the live ones (every live pair must be evaluated), and
+       the bound of the live pairs' work (f32 operations, special functions
+       and bytes);
      - B6, the standalone SDF pair (4x256), and B7, the colour pair (2x256):
        forward and backward on 2,048 rays x 64 samples' points and on a
        ragged 131,071 of them against the plain version in float64, with
@@ -219,7 +224,7 @@ def check_zbuffer(runner, dev):
     import torch
 
     from avatarclip_torch.ops import raster_zbuffer as rz
-    from avatarclip_torch.pipelines import visualize
+    from avatarclip_torch.pipelines import synthetic, visualize
     from avatarclip_torch.render import raster
 
     template_v, faces = runner._template
@@ -240,7 +245,7 @@ def check_zbuffer(runner, dev):
     # the animate paths' shapes: the 13,776-face body at the five 224^2
     # scoring azimuths (elevation 0, as sort_poses_by_score renders) and at
     # visualize's 512^2 frontal camera
-    body_v, body_f, body_poses, body_focal = humanoid_views(dev, elev_std=0.0)
+    body_v, body_f, body_poses, body_focal = synthetic.humanoid_views(dev, elev_std=0.0)
     for k, azim in enumerate((120, 150, 180, 210, 240)):
         cases.append((f"13,776-face body 224^2 azimuth {azim}", body_v[0], body_f, body_poses[k], 224,
                       body_focal))
@@ -1026,21 +1031,25 @@ def check_composite(dev):
 # B5: the soft aggregation pair
 # ---------------------------------------------------------------------------
 
-# Operations per (pixel, face) pair, counted from csrc/fused_soft.cu. Every
-# pair of a kept (tile, block) with a valid face: 3 edge distances (2 mul +
-# 2 add each), 2 min, the scale and the x > -110 test. A live pair (x > -110,
-# where the sigmoid is not exactly 0 in f32) adds, in the forward, |x|, 1 + e,
-# the sigmoid select, softplus's max, add and subtract, w, 3 FMA (6) and den
-# (14) with exp, reciprocal and log1p's log on the special-function unit;
-# in the backward |x|, 1 + e, the select, dw (6), dd (7), the tie test (5),
-# one edge's 3 sums (5), dezf (2), w (1) and dcolf (6), 35, with exp and
-# reciprocal.
+# Operations per (pixel, face) pair (f32 arithmetic, an FMA counted as 2).
+# Every evaluated pair: 3 edge distances (2 mul + 2 add each), 2 min, the
+# scale and the x > -104 test (16). A live pair (x > -104: beyond, exp(x)
+# underflows in f32 and every term is exactly 0) adds, in the forward,
+# exp's argument |x| log2 e, 1 + e, e / (1 + e), the sigmoid select,
+# softplus's max(x, 0) and its sum, the product of the (1 + e), w, num's 3
+# FMA (6) and den (15), with exp and the reciprocal on the special-function
+# unit (softplus's log is one lg2 for a run of up to 32 faces); in the
+# backward exp's argument, 1 + e, e / (1 + e), the two selects, dw (6), dd
+# (6), the tie test (3), one edge's 3 sums (5), dezf (2), w (1) and dcolf
+# (6), 34, with exp and the reciprocal. The bound counts what the inputs
+# need, the live pairs' work; the kept (tile, block) pairs' count of the
+# earlier design is printed beside it as ops_kept.
 SOFT_OPS_PAIR = 16
-SOFT_FWD_OPS_LIVE, SOFT_FWD_SFU_LIVE = 14, 3
-SOFT_BWD_OPS_LIVE, SOFT_BWD_SFU_LIVE = 35, 2
+SOFT_FWD_OPS_LIVE, SOFT_BWD_OPS_LIVE = 15, 34
+SOFT_SFU_LIVE = 2
 SFU_PER_SM_CLOCK = 16  # H100: special-function results per SM per clock
 N_SM = 132
-X_DEAD = -110.0  # the kernels' live-pair threshold
+X_DEAD = -104.0  # the kernels' live-pair threshold (fused_soft._MARGIN_LOGITS)
 
 
 def sm_clock_hz() -> float:
@@ -1057,31 +1066,6 @@ def soft_bound(ops: float, sfu: float, nbytes: float, clock_hz: float) -> dict:
     by = max(t, key=t.get)
     return {"bound_ms": t[by], "bound_by": "bytes" if by == "bytes" else "operations",
             "bound_resource": by, "ops": ops, "sfu_ops": sfu, "bytes": nbytes}
-
-
-def humanoid_views(dev, n_views=5, res=224, seed=0, elev_std=0.3):
-    """The pose optimizer's five 224^2 views of the 13,776-face procedural
-    body (SMPL's face count), posed as AnimateContext._pose_vertices poses
-    it at the zero body pose, elevations ~ N(0, elev_std): (vertices (B, V,
-    3), faces, poses (B, 4, 4), focal)."""
-    import numpy as np
-    import torch
-
-    from avatarclip_torch import assets
-    from avatarclip_torch.body import smpl
-    from avatarclip_torch.pipelines import animate
-    from avatarclip_torch.render import cameras
-
-    v, f = assets._procedural_humanoid(n_seg=41, n_ring=28)
-    model = smpl.approximate_model_from_mesh(v, f)
-    go = torch.tensor([[np.pi / 2, 0.0, 0.0]])
-    verts, _ = model.forward(body_pose=torch.zeros(1, 23, 3), global_orient=go)
-    verts = (verts[0] @ torch.from_numpy(cameras.BODY_TO_WORLD).t()).to(dev)
-    elevs = torch.randn(n_views, generator=torch.Generator().manual_seed(seed)) * elev_std
-    azims = torch.tensor([120.0, 150.0, 180.0, 210.0, 240.0])[:n_views]
-    poses = animate.view_poses(elevs.to(dev), azims.to(dev))
-    focal = cameras.focal_from_fov(res, np.deg2rad(60.0))
-    return verts.expand(n_views, -1, -1).contiguous(), torch.from_numpy(f).to(dev), poses, focal
 
 
 def soup_views(dev, n_faces, seed, eyes, compact=False):
@@ -1195,10 +1179,12 @@ def hold_soft(tag, faces, tab, H, W, sigma, dev) -> tuple[float, float]:
     return worst_f, worst_b
 
 
-def soft_pair_counts(faces, tab, H, W, sigma) -> tuple[float, float]:
-    """(kept pairs, live pairs) of this input: the pairs of image pixels and
-    valid faces in the table's kept (tile, block) pairs, and those with
-    x > -110 (all of which are kept: the table is sound)."""
+def soft_pair_counts(faces, tab, H, W, sigma) -> dict:
+    """Pairs of image pixels and valid faces of this input: those in the
+    table's kept (tile, block) pairs (the earlier design's work), those in
+    the (8 x 8 patch, face) pairs the kernels evaluate
+    (fused_soft.patch_keep), and the live ones (x > -104). Fails unless
+    every live pair is evaluated."""
     import torch
 
     from avatarclip_torch.ops import fused_soft as fs
@@ -1210,87 +1196,164 @@ def soft_pair_counts(faces, tab, H, W, sigma) -> tuple[float, float]:
     px_tile = ((H - ty * fs.TILE_H).clamp(max=fs.TILE_H) * (W - tx * fs.TILE_W).clamp(max=fs.TILE_W)).double()
     valid_blk = (faces[..., 13] != 0).reshape(B, -1, fs.FBLOCK).sum(-1).double()  # (B, n_fb)
     kept = float((tab.double() * px_tile[None, :, None] * valid_blk[:, None, :]).sum())
+    keep = fs.patch_keep(faces, tab, H, W, 1.0 / sigma)  # (B, n_py, n_px, Fp)
+    n_py, n_px = keep.shape[1:3]
+    r = torch.arange(n_py, device=faces.device) * fs.PATCH
+    c = torch.arange(n_px, device=faces.device) * fs.PATCH
+    px_patch = ((H - r).clamp(max=fs.PATCH)[:, None] * (W - c).clamp(max=fs.PATCH)[None, :]).double()
+    evaluated = float((keep.double().sum(-1) * px_patch).sum())
     live = 0.0
     px, py = fs._pixel_coords(H, W, faces.device, torch.float32)
+    pix_patch = ((py.long() // fs.PATCH) * n_px + px.long() // fs.PATCH).reshape(-1)  # (P,)
+    keep = keep.reshape(B, n_py * n_px, Fp)
     for f0 in range(0, Fp, 256):
         fc = faces[:, f0:f0 + 256]
         v = [(px * fc[:, None, :, 3 * e] + py * fc[:, None, :, 3 * e + 1]) + fc[:, None, :, 3 * e + 2]
              for e in range(3)]
         x = torch.minimum(torch.minimum(v[0], v[1]), v[2]) * (1.0 / sigma)
-        live += float(((x > X_DEAD) & (fc[:, None, :, 13] != 0)).sum())
-    return kept, live
+        lv = (x > X_DEAD) & (fc[:, None, :, 13] != 0)
+        live += float(lv.sum())
+        if bool((lv & ~keep[:, pix_patch, f0:f0 + 256]).any()):
+            fail("B5: a live pair lies outside the (patch, face) pairs the kernels evaluate")
+    return {"kept": kept, "evaluated": evaluated, "live": live}
 
 
-def check_soft(dev):
+def time_soft(fp, tab, H, W, sigma) -> dict:
+    """Each kernel and its partial sum on preallocated buffers (CUDA
+    events, the splits the wrappers pick), the plain version's forward and
+    its VJP, and the pair counts and bounds of this input."""
     import torch
 
     from avatarclip_torch.ops import _build
     from avatarclip_torch.ops import fused_soft as fs
 
+    dev = fp.device
+    inv = 1.0 / sigma
+    B, Fp, _ = fp.shape
+    P, n_fb = H * W, Fp // fs.FBLOCK
+    g = torch.Generator().manual_seed(7)
+    cots = [(torch.rand(B, P, generator=g) * 1e-3).to(dev), (torch.rand(B, P, 3, generator=g) * 1e-30).to(dev),
+            (torch.rand(B, P, generator=g) * -1e-30).to(dev)]
+    lib, p, st = fs._lib(), _build.ptr, _build.stream_ptr(dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    kf, kb = fs.fwd_splits(B, H, W, Fp, n_sm), fs.bwd_splits(B, H, W, Fp, n_sm)
+    thresh = fs.cull_threshold(inv)
+    part_f, part_b = torch.empty(kf, B, 5, P, device=dev), torch.empty(kb, B, Fp, 13, device=dev)
+    outs = [torch.empty(B, P, device=dev), torch.empty(B, P, 3, device=dev), torch.empty(B, P, device=dev)]
+    dfp = torch.empty_like(fp)
+    fwd = lambda: lib.soft_fwd(p(fp), p(tab), p(part_f), B, H, W, n_fb, kf, inv, thresh, st)
+    fwd_red = lambda: lib.soft_fwd_reduce(p(part_f), *[p(o) for o in outs], B, P, kf, st)
+    bwd = lambda: lib.soft_bwd(p(fp), p(tab), *[p(c) for c in cots], p(part_b), B, H, W, n_fb, kb, inv, thresh, st)
+    bwd_red = lambda: lib.soft_bwd_reduce(p(part_b), p(dfp), B * Fp, kb, st)
+    t = {"splits_fwd": kf, "splits_bwd": kb}
+    t["ms_f"] = cuda_ms(lambda: (fwd(), fwd_red()), reps=10)
+    t["ms_b"] = cuda_ms(lambda: (bwd(), bwd_red()), reps=10)
+    t["ms_f_reduce"] = cuda_ms(fwd_red, reps=10)
+    t["ms_b_reduce"] = cuda_ms(bwd_red, reps=10)
+    with torch.no_grad():
+        t["plain_f"] = cuda_ms(lambda: fs.aggregate_plain(fp, H, W, inv), reps=2)
+    x = fp.clone().requires_grad_(True)
+    o = fs.aggregate_plain(x, H, W, inv)
+    torch.cuda.synchronize()
+    t["plain_b"] = cuda_ms(lambda: torch.autograd.grad(o, [x], cots, retain_graph=True), reps=2)
+    del x, o
+    torch.cuda.empty_cache()
+    n = soft_pair_counts(fp, tab, H, W, sigma)
+    clock = sm_clock_hz()
+    face_b, pix_b, tab_b = B * Fp * 64, B * P * 20, tab.numel() * 4
+    t["b_f"] = soft_bound(n["live"] * (SOFT_OPS_PAIR + SOFT_FWD_OPS_LIVE), n["live"] * SOFT_SFU_LIVE,
+                          face_b + tab_b + pix_b, clock)
+    t["b_b"] = soft_bound(n["live"] * (SOFT_OPS_PAIR + SOFT_BWD_OPS_LIVE), n["live"] * SOFT_SFU_LIVE,
+                          face_b + tab_b + pix_b + face_b, clock)
+    t["ops_kept_f"] = n["kept"] * SOFT_OPS_PAIR + n["live"] * SOFT_FWD_OPS_LIVE
+    t["ops_kept_b"] = n["kept"] * SOFT_OPS_PAIR + n["live"] * SOFT_BWD_OPS_LIVE
+    t.update(n, clock=clock)
+    return t
+
+
+def soft_deterministic(tag, fp, tab, H, W, sigma) -> None:
+    """Two launches of each kernel on the same inputs give the same bits."""
+    import torch
+
+    from avatarclip_torch.ops import fused_soft as fs
+
+    inv = 1.0 / sigma
+    B, P = fp.shape[0], H * W
+    g = torch.Generator().manual_seed(11)
+    cots = [torch.rand(B, P, generator=g).to(fp.device), (torch.rand(B, P, 3, generator=g) * 1e-26).to(fp.device),
+            (-torch.rand(B, P, generator=g) * 1e-26).to(fp.device)]
+    a, b = fs.soft_fwd(fp, tab, H, W, inv), fs.soft_fwd(fp, tab, H, W, inv)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"B5 {tag}: two forward launches differ")
+    if not torch.equal(fs.soft_bwd(fp, tab, *cots, H, W, inv), fs.soft_bwd(fp, tab, *cots, H, W, inv)):
+        fail(f"B5 {tag}: two backward launches differ")
+
+
+def check_soft(dev):
+    import torch
+
+    from avatarclip_torch.pipelines import synthetic
+
     worst_f = worst_b = 0.0
-    # 1. one PoseOptimizer step's shapes: 5 views x 224^2 x 13,776 faces
-    verts, faces, poses, focal = humanoid_views(dev)
     H = W = 224
     sigma = 0.5
-    fp, tab = soft_problem(verts, faces, poses, H, W, focal, sigma)
-    f_, b_ = hold_soft("pose step 224^2 x 13,776 faces, sigma 0.5", fp, tab, H, W, sigma, dev)
-    worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
-    # 2. ragged: partial tiles and a partial face block
+    # 1. one PoseOptimizer step's shapes: 5 views x 224^2 x 13,776 faces;
+    # 2. one MotionOptimizer step's: 2 views (the n_part strided frames)
+    scenes = {}
+    for n_views, tag in ((5, "pose step"), (2, "motion step")):
+        verts, faces, poses, focal = synthetic.humanoid_views(dev, n_views=n_views)
+        fp, tab = soft_problem(verts, faces, poses, H, W, focal, sigma)
+        f_, b_ = hold_soft(f"{tag} {n_views} x 224^2 x 13,776 faces, sigma 0.5", fp, tab, H, W, sigma, dev)
+        worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
+        soft_deterministic(tag, fp, tab, H, W, sigma)
+        scenes[tag] = (fp, tab)
+    # 3. ragged: partial tiles and a partial face block
     v2, f2, p2 = soup_views(dev, 1000, 5, [(0.0, 0.0, 2.0), (0.3, 0.2, 1.9)])
     fp2, tab2 = soft_problem(v2, f2, p2, 200, 136, 150.0, 0.5)
     f_, b_ = hold_soft("ragged 200x136 x 1,000 faces (1,024 padded)", fp2, tab2, 200, 136, 0.5, dev)
     worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
-    # 3. compact scene at small sigma: the table skips most pairs
+    # 4. compact scene at small sigma: the table skips most pairs
     v3, f3, p3 = soup_views(dev, 1500, 11, [(0.0, 0.0, 2.0)], compact=True)
     fp3, tab3 = soft_problem(v3, f3, p3, 320, 320, 320 * 0.5 / math.tan(math.radians(30.0)), 0.1)
     if not float(tab3.float().mean()) < 0.9:
         fail(f"B5: the compact scene keeps {float(tab3.float().mean()):.3f} of its pairs")
     f_, b_ = hold_soft("compact 320^2 x 1,500 faces, sigma 0.1", fp3, tab3, 320, 320, 0.1, dev)
     worst_f, worst_b = max(worst_f, f_), max(worst_b, b_)
+    soft_deterministic("compact", fp3, tab3, 320, 320, 0.1)
 
-    # time at size 1: the kernels alone, on preallocated outputs
-    inv = 1.0 / sigma
-    B, Fp, _ = fp.shape
-    P = H * W
-    g = torch.Generator().manual_seed(7)
-    cots = [(torch.rand(B, P, generator=g) * 1e-3).to(dev), (torch.rand(B, P, 3, generator=g) * 1e-30).to(dev),
-            (torch.rand(B, P, generator=g) * -1e-30).to(dev)]
-    lib, p, st = fs._lib(), _build.ptr, _build.stream_ptr(dev)
-    n_ty, n_tx = fs.grid_dims(H, W)
-    outs = fs.soft_fwd(fp, tab, H, W, inv)
-    dfp = fs.soft_bwd(fp, tab, *cots, H, W, inv)
-    torch.cuda.synchronize()
-    args = (B, H, W, n_tx, n_ty, Fp // fs.FBLOCK, inv, st)
-    ms_f = cuda_ms(lambda: lib.soft_fwd(p(fp), p(tab), *[p(o) for o in outs], *args), reps=10)
-    ms_b = cuda_ms(lambda: lib.soft_bwd(p(fp), p(tab), *[p(c) for c in cots], p(dfp), *args), reps=10)
-    with torch.no_grad():
-        plain_f = cuda_ms(lambda: fs.aggregate_plain(fp, H, W, inv), reps=2)
-    x = fp.clone().requires_grad_(True)
-    o = fs.aggregate_plain(x, H, W, inv)
-    torch.cuda.synchronize()
-    plain_b = cuda_ms(lambda: torch.autograd.grad(o, [x], cots, retain_graph=True), reps=2)
-    del x, o
-    torch.cuda.empty_cache()
-    kept, live = soft_pair_counts(fp, tab, H, W, sigma)
-    clock = sm_clock_hz()
-    face_b, pix_b, tab_b = B * Fp * 64, B * P * 20, tab.numel() * 4
-    b_f = soft_bound(kept * SOFT_OPS_PAIR + live * SOFT_FWD_OPS_LIVE, live * SOFT_FWD_SFU_LIVE,
-                     face_b + tab_b + pix_b, clock)
-    b_b = soft_bound(kept * SOFT_OPS_PAIR + live * SOFT_BWD_OPS_LIVE, live * SOFT_BWD_SFU_LIVE,
-                     face_b + tab_b + pix_b + face_b, clock)
-    print(f"[B5] pose step 5 x 224^2 x {Fp} padded faces: kept share {float(tab.float().mean()):.4f} "
-          f"of (tile, block) pairs, {kept:.0f} kept pixel-face pairs, {live:.0f} live (x > -110, "
-          f"{live / max(kept, 1):.4f} of kept); SM clock {clock / 1e6:.0f} MHz")
-    print(f"[B5] forward kernel {ms_f:.4f} ms (plain {plain_f:.4f} ms, bound {b_f['bound_ms']:.4f} ms "
-          f"by {b_f['bound_resource']}); backward kernel {ms_b:.4f} ms (plain {plain_b:.4f} ms, bound "
-          f"{b_b['bound_ms']:.4f} ms by {b_b['bound_resource']}); one launch each per step")
+    # time at size 1: the kernels alone, on preallocated buffers
+    t = {tag: time_soft(fp, tab, H, W, sigma) for tag, (fp, tab) in scenes.items()}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    for tag, n_views in (("pose step", 5), ("motion step", 2)):
+        r = t[tag]
+        print(f"[B5] {tag} {n_views} x 224^2 x 13,824 padded faces: {r['kept']:.0f} pixel-face pairs in the "
+              f"table's kept (tile, block) pairs, {r['evaluated']:.0f} evaluated ((8 x 8 patch, face) pairs "
+              f"kept, {r['evaluated'] / max(r['kept'], 1):.4f} of those), {r['live']:.0f} live (x > -104, "
+              f"{r['live'] / max(r['evaluated'], 1):.4f} of the evaluated); splits {r['splits_fwd']} forward, "
+              f"{r['splits_bwd']} backward; SM clock {r['clock'] / 1e6:.0f} MHz; {smi}")
+        print(f"[B5] {tag}: forward {r['ms_f']:.4f} ms (its partial sum {r['ms_f_reduce']:.4f}; plain "
+              f"{r['plain_f']:.4f} ms; bound {r['b_f']['bound_ms']:.4f} ms by {r['b_f']['bound_resource']}, "
+              f"{r['b_f']['ops']:.4e} ops and {r['b_f']['sfu_ops']:.4e} special functions on the live pairs; "
+              f"ops_kept {r['ops_kept_f']:.4e}); backward {r['ms_b']:.4f} ms (its partial sum "
+              f"{r['ms_b_reduce']:.4f}; plain {r['plain_b']:.4f} ms; bound {r['b_b']['bound_ms']:.4f} ms by "
+              f"{r['b_b']['bound_resource']}, {r['b_b']['ops']:.4e} ops; ops_kept {r['ops_kept_b']:.4e}); "
+              f"one launch each way per step, and one of each partial sum")
+    pose, motion = t["pose step"], t["motion step"]
+    print(f"[B5] motion step / pose step (2 / 5 views): forward {motion['ms_f'] / pose['ms_f']:.3f}, backward "
+          f"{motion['ms_b'] / pose['ms_b']:.3f}; live pairs {motion['live'] / pose['live']:.3f}")
     common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_soft.cu", "library_ms": None}
-    return [
-        {"name": "soft_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_soft.py:106",
-         "max_abs_err": worst_f, "ms": ms_f, "plain_ms": plain_f, **b_f},
-        {"name": "soft_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_soft.py:132",
-         "max_abs_err": worst_b, "ms": ms_b, "plain_ms": plain_b, **b_b},
-    ]
+    out = []
+    for name, line, ms, plain, b, kept_ops, red in (
+            ("soft_fwd", 106, "ms_f", "plain_f", "b_f", "ops_kept_f", "ms_f_reduce"),
+            ("soft_bwd", 132, "ms_b", "plain_b", "b_b", "ops_kept_b", "ms_b_reduce")):
+        out.append({"name": name, **common, "replaces": f"avatarclip_tpu/ops/fused_soft.py:{line}",
+                    "max_abs_err": worst_f if name == "soft_fwd" else worst_b, "ms": pose[ms],
+                    "plain_ms": pose[plain], **pose[b], "ops_kept": pose[kept_ops],
+                    "pairs_live": pose["live"], "pairs_evaluated": pose["evaluated"],
+                    "partial_sum_ms": pose[red], "ms_2_views": motion[ms],
+                    "bound_ms_2_views": motion[b]["bound_ms"]})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2356,7 +2419,8 @@ def check_losses(tag: str, losses) -> list:
 
 def expect(tag: str, got: dict, soft: int, zbuffer: int) -> None:
     want = {k: 0 for k in got}
-    want.update(soft_fwd=soft, soft_bwd=soft, zbuffer_tiled=zbuffer)
+    want.update(soft_fwd=soft, soft_bwd=soft, soft_fwd_reduce=soft, soft_bwd_reduce=soft,
+                zbuffer_tiled=zbuffer)
     if got != want:
         fail(f"{tag}: kernel launches {got}, expected {want}")
 

@@ -137,14 +137,93 @@ def test_composite_kernel_pair_matches_plain(dev, W, R, S):
         assert (a.detach() - b.detach()).abs().max() <= 1e-5 * max(b.detach().abs().max(), 1e-6)
 
 
-def test_soft_kernel_pair_matches_plain(dev):
-    """B5 at a ragged size (partial tiles, a partial face block, 2 views)
-    against the plain version in float64: sil_log, num and den to 1e-4 of
-    their largest magnitude, the rgb and silhouette they form to 2e-4
-    absolute, and the gradients of the x, y and constant edge coefficients,
-    ezf and colf each to 1e-3 of its own largest magnitude."""
+def _soft_problem(v, f, poses, H, W, focal, sigma):
     from avatarclip_torch.ops import fused_soft as fs
-    from avatarclip_torch.render import cameras, raster
+    from avatarclip_torch.render import raster
+
+    fi = raster.soft_face_inputs(v, f, poses, H, W, focal)
+    faces, tab = fs.prepare(fi["coef"], fi["valid"], fi["edge_inv_len"], fi["iz_face"],
+                            fi["colors_face"], H, W, sigma, 0.005, fi["face_sx"], fi["face_sy"])
+    return faces.detach().contiguous(), tab
+
+
+def _soft_cotangents(B, P, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.rand(B, P, generator=g).to(dev), (torch.rand(B, P, 3, generator=g) * 1e-26).to(dev),
+            (-torch.rand(B, P, generator=g) * 1e-26).to(dev)]
+
+
+def _soft_f64_f32_edges(faces, H, W, inv_sigma):
+    """The plain version in float64 with each pair's min over the edges
+    taken at the edges float32 takes it at (ties split equally, as in the
+    kernels and in XLA's reduce-min): along a face whose edge lines are
+    nearly parallel, float32 rounds a band of pixels to the other edge, and
+    the float32 function's edge gradients (the plain version's as the
+    kernels') then differ from the float64 function's beyond the 1e-3
+    tolerance under a silhouette cotangent on every pixel. So every pair is
+    held in float64 under the float32 edge choice, as B7's relu near-ties
+    are (ops/hold.resolve_relu_ties). Face chunks checkpointed, as in
+    aggregate_plain."""
+    import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
+
+    from avatarclip_torch.ops import fused_soft as fs
+
+    B, Fp, _ = faces.shape
+    px, py = fs._pixel_coords(H, W, faces.device, torch.float64)
+
+    def chunk(fc):
+        f32 = fc.detach().float()
+        v32 = torch.stack([(px.float() * f32[:, None, :, 3 * e] + py.float() * f32[:, None, :, 3 * e + 1])
+                           + f32[:, None, :, 3 * e + 2] for e in range(3)], -1)
+        m = (v32 == v32.amin(-1, keepdim=True)).double()
+        v = torch.stack([(px * fc[:, None, :, 3 * e] + py * fc[:, None, :, 3 * e + 1]) + fc[:, None, :, 3 * e + 2]
+                         for e in range(3)], -1)
+        x = (v * m).sum(-1) / m.sum(-1) * inv_sigma
+        vmask = fc[:, None, :, 13]
+        w = torch.sigmoid(x) * vmask * fc[:, None, :, 9]
+        return (-F.softplus(x) * vmask).sum(-1), torch.bmm(w, fc[..., 10:13]), w.sum(-1)
+
+    sil, num, den = faces.new_zeros(B, H * W), faces.new_zeros(B, H * W, 3), faces.new_zeros(B, H * W)
+    for f0 in range(0, Fp, fs.PLAIN_CHUNK):
+        s, n, d = checkpoint(chunk, faces[:, f0:f0 + fs.PLAIN_CHUNK], use_reentrant=False)
+        sil, num, den = sil + s, num + n, den + d
+    return sil, num, den
+
+
+def _hold_soft(faces, tab, H, W, inv_sigma, cot, reference=None):
+    """B5 through aggregate (one launch of each kernel and of each partial
+    sum) against ``reference`` on the faces in float64 (the plain version
+    by default): sil_log, num and den to 1e-4 of their largest magnitude,
+    the rgb and silhouette they form to 2e-4 absolute, and the gradients of
+    the x, y and constant edge coefficients, ezf and colf each to 1e-3 of
+    its own largest magnitude; the vmask and padding columns' gradient 0."""
+    from avatarclip_torch.ops import fused_soft as fs
+
+    reference = reference or (lambda x: fs.aggregate_plain(x, H, W, inv_sigma))
+
+    def run(fn, x0, cots):
+        x = x0.clone().requires_grad_(True)
+        outs = fn(x)
+        return [o.detach() for o in outs], torch.autograd.grad(
+            sum((o * c).sum() for o, c in zip(outs, cots)), [x])[0]
+
+    n0 = dict(fs.LAUNCHES)
+    ok, gk = run(lambda x: fs.aggregate(x, tab, H, W, inv_sigma), faces, cot)
+    assert {k: fs.LAUNCHES[k] - n0[k] for k in n0} == {k: 1 for k in n0}
+    op, gp = run(reference, faces.double(), [c.double() for c in cot])
+    for a, b in zip(ok, op):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    for a, b in ((ok[1] / (ok[2][..., None] + 1.0), op[1] / (op[2][..., None] + 1.0)),
+                 (torch.exp(ok[0]), torch.exp(op[0]))):
+        assert (a - b).abs().max() <= 2e-4
+    for cols in (slice(0, 9, 3), slice(1, 9, 3), slice(2, 9, 3), slice(9, 10), slice(10, 13)):
+        assert (gk[..., cols] - gp[..., cols]).abs().max() <= 1e-3 * gp[..., cols].abs().max()
+    assert float(gk[..., 13:].abs().max()) == 0.0
+
+
+def _soft_ragged(dev):
+    from avatarclip_torch.render import cameras
 
     g = np.random.default_rng(2)
     n = 137
@@ -157,33 +236,42 @@ def test_soft_kernel_pair_matches_plain(dev):
     poses = torch.stack([torch.as_tensor(cameras.lookat_np(e, np.zeros(3, np.float32),
                                                            np.array([0, 1, 0], np.float32)))
                          for e in eyes]).to(dev)
-    H, W = 50, 70
-    fi = raster.soft_face_inputs(v.expand(2, -1, -1), f, poses, H, W, 60.0)
-    faces, tab = fs.prepare(fi["coef"], fi["valid"], fi["edge_inv_len"], fi["iz_face"],
-                            fi["colors_face"], H, W, 0.5, 0.005, fi["face_sx"], fi["face_sy"])
-    faces = faces.detach().contiguous()
-    cot = [torch.rand(2, H * W, device=dev), torch.rand(2, H * W, 3, device=dev) * 1e-26,
-           -torch.rand(2, H * W, device=dev) * 1e-26]
+    return _soft_problem(v.expand(2, -1, -1), f, poses, 50, 70, 60.0, 0.5)
 
-    def run(fn, x0, cots):
-        x = x0.clone().requires_grad_(True)
-        outs = fn(x)
-        return [o.detach() for o in outs], torch.autograd.grad(
-            sum((o * c).sum() for o, c in zip(outs, cots)), [x])[0]
 
-    n0 = dict(fs.LAUNCHES)
-    ok, gk = run(lambda x: fs.aggregate(x, tab, H, W, 2.0), faces, cot)
-    assert fs.LAUNCHES["soft_fwd"] == n0["soft_fwd"] + 1
-    assert fs.LAUNCHES["soft_bwd"] == n0["soft_bwd"] + 1
-    op, gp = run(lambda x: fs.aggregate_plain(x, H, W, 2.0), faces.double(), [c.double() for c in cot])
-    for a, b in zip(ok, op):
-        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
-    for a, b in ((ok[1] / (ok[2][..., None] + 1.0), op[1] / (op[2][..., None] + 1.0)),
-                 (torch.exp(ok[0]), torch.exp(op[0]))):
-        assert (a - b).abs().max() <= 2e-4
-    for cols in (slice(0, 9, 3), slice(1, 9, 3), slice(2, 9, 3), slice(9, 10), slice(10, 13)):
-        assert (gk[..., cols] - gp[..., cols]).abs().max() <= 1e-3 * gp[..., cols].abs().max()
-    assert float(gk[..., 13:].abs().max()) == 0.0
+def test_soft_kernel_pair_matches_plain(dev):
+    """B5 at a ragged size (partial tiles, a partial face block, 2 views)
+    against the plain version in float64 (_hold_soft)."""
+    faces, tab = _soft_ragged(dev)
+    _hold_soft(faces, tab, 50, 70, 2.0, _soft_cotangents(2, 50 * 70, dev))
+
+
+def test_soft_kernel_pair_holds_at_motion_step(dev):
+    """B5 at one MotionOptimizer step's shapes, the 13,776-face body at 2
+    views x 224^2, sigma 0.5, against float64 (_hold_soft) under the edges
+    float32 takes each pair's min at (_soft_f64_f32_edges)."""
+    from avatarclip_torch.pipelines import synthetic
+
+    v, f, poses, focal = synthetic.humanoid_views(dev, n_views=2)
+    faces, tab = _soft_problem(v, f, poses, 224, 224, focal, 0.5)
+    _hold_soft(faces, tab, 224, 224, 2.0, _soft_cotangents(2, 224 * 224, dev, seed=1),
+               reference=lambda x: _soft_f64_f32_edges(x, 224, 224, 2.0))
+
+
+def test_soft_kernels_are_deterministic(dev):
+    """Two launches of B5's forward and of its backward on the same inputs
+    give the same bits (fixed-order sums, no atomics), on the ragged scene
+    and at the motion step's shapes."""
+    from avatarclip_torch.ops import fused_soft as fs
+    from avatarclip_torch.pipelines import synthetic
+
+    v, f, poses, focal = synthetic.humanoid_views(dev, n_views=2)
+    for (faces, tab), H, W in ((_soft_ragged(dev), 50, 70),
+                               (_soft_problem(v, f, poses, 224, 224, focal, 0.5), 224, 224)):
+        cot = _soft_cotangents(faces.shape[0], H * W, dev, seed=2)
+        a, b = fs.soft_fwd(faces, tab, H, W, 2.0), fs.soft_fwd(faces, tab, H, W, 2.0)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert torch.equal(fs.soft_bwd(faces, tab, *cot, H, W, 2.0), fs.soft_bwd(faces, tab, *cot, H, W, 2.0))
 
 
 def test_sdf_kernel_pair_matches_plain(dev):
