@@ -1295,6 +1295,77 @@ __global__ void __launch_bounds__(TNT, 1) colour_tc_bwd_kernel(
   phase_end(PK_COL_BWD);
 }
 
+// B7's forward in the bf16 mode: persistent CTAs walk tiles of 64 points.
+// The first layer's input is one bf16 tile cin over the mode's columns, as
+// colour_tc_bwd_kernel builds it: points at cx, normals at cn, view
+// directions at cv (-1: an input the mode does not read), the feature from
+// CW - F; rows past the last point are zero and never stored. The feature,
+// ~1 KB a point of the ~1.1 KB read, streams: thread 0 bulk-copies the
+// next tile's f32 rows into the staging buffer (colour_fwd_layout's fstage)
+// as soon as this tile has rounded its own into cin, so the copy runs under
+// this tile's three products; the vectors (36 B a point) are plain loads
+// issued before the wait. colour_primal_tc runs the relu layers and the
+// head (no log); the head's f32 accumulators plus bias go through the
+// sigmoid (when squeeze) straight to out, (n_pts, W).
+__global__ void __launch_bounds__(TNT, 1) colour_tc_fwd_kernel(
+    Dims d, Pack pp, const float* __restrict__ wts, const uint2* __restrict__ pk,
+    const float* __restrict__ x_in, const float* __restrict__ n_in,
+    const float* __restrict__ v_in, const float* __restrict__ f_in, int n_pts, int cx, int cn,
+    int cv, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const Layout L = colour_fwd_layout(d);
+  const WeightOffsets wo = weight_offsets(d);
+  const int tid = threadIdx.x, F = d.F, W = d.W, cf = d.CW - d.F, ldC = L.ldC;
+  phase_start();
+  bf16* cin = (bf16*)(sm + L.cin);
+  bf16* ha = (bf16*)(sm + L.ha);
+  bf16* hb = (bf16*)(sm + L.hb);
+  const float* head = (const float*)(sm + L.head);
+  const float* stage = (const float*)(sm + L.fstage);
+  uint64_t* bar = (uint64_t*)(sm + L.bar);
+  const int vcol[3] = {cx, cn, cv};
+  const float* vin[3] = {x_in, n_in, v_in};
+  const int n_blk = (n_pts + ROWS - 1) / ROWS;
+  // thread 0: tile blk's feature rows into the stage (F a multiple of 4 and
+  // f_in 16-byte aligned: every row run is a multiple of 16 bytes)
+  auto fetch = [&](int blk) {
+    const long long row0 = (long long)blk * ROWS;
+    const int n = n_pts - row0 < ROWS ? (int)(n_pts - row0) : ROWS;
+    bulk_load((void*)stage, f_in + row0 * F, (unsigned)(n * F * 4), bar);
+  };
+  // every bf16 operand buffer starts zero: padding columns are never written
+  // (the stage is written by the copies alone)
+  for (size_t e = tid; e < L.fstage / 4; e += TNT) ((float*)sm)[e] = 0.f;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    if ((int)blockIdx.x < n_blk) fetch(blockIdx.x);
+  }
+  __syncthreads();
+  unsigned parity = 0;
+  for (int blk = blockIdx.x; blk < n_blk; blk += gridDim.x, parity ^= 1u) {
+    const long long row0 = (long long)blk * ROWS;
+    const int n = n_pts - row0 < ROWS ? (int)(n_pts - row0) : ROWS;
+    phase_mark(PH_OTHER);
+    for (int e = tid; e < ROWS * 9; e += TNT) {
+      const int r = e / 9, k = e % 9, i = k / 3;
+      if (vcol[i] >= 0)
+        cin[r * ldC + vcol[i] + k % 3] = to_bf(r < n ? vin[i][(row0 + r) * 3 + k % 3] : 0.f);
+    }
+    mbar_wait(bar, parity);
+    for (int e = tid; e < ROWS * F; e += TNT)
+      cin[(e / F) * ldC + cf + e % F] = to_bf(e < n * F ? stage[e] : 0.f);
+    __syncthreads();  // the stage is read: the next tile's rows may land in it
+    if (tid == 0 && blk + (int)gridDim.x < n_blk) fetch(blk + gridDim.x);
+    phase_mark(PH_COMPOSITE);
+    colour_primal_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, [&](int l) { return (l % 2) ? hb : ha; });
+    phase_mark(PH_OTHER);
+    float* o = out + row0 * W;
+    for (int e = tid; e < n * W; e += TNT) o[e] = rgb_of(d, head[(e / W) * 8 + e % W]);
+    phase_mark(PH_COMPOSITE);
+  }
+  phase_end(PK_COL_FWD);
+}
+
 // Weight gradients of one chunk: CTA (item, split) takes one WG_TM x WG_TN tile
 // of one problem's D (wgrad_problems) and the split's share of the chunk's
 // rows (whole rays), forms X^T Y over them on the tensor cores, and adds it
@@ -1602,6 +1673,21 @@ int colour_tc_bwd(Dims d, Pack pp, const float* wts, const void* pk, const float
     if (err) return err;
   }
   return reduce_partials(gpart, n_cta + n_split, stride, d_w, st);
+}
+
+// B7's forward: as colour_fwd (fused_color.cu) for Dims of the colour net
+// alone, with the packed bf16 colour weights pk (offsets pp) and their flat
+// f32 buffer in weight_offsets' colour layout, the mode's columns cx, cn, cv
+// (-1: not read); f 16-byte aligned. n_cta persistent CTAs; out (n_pts, W).
+int colour_tc_fwd(Dims d, Pack pp, const float* wts, const void* pk, const float* x,
+                  const float* n, const float* v, const float* f, int n_pts, int cx, int cn,
+                  int cv, float* out, int n_cta, void* stream) {
+  const int smem = (int)colour_fwd_layout(d).smem;
+  int err = (int)cudaFuncSetAttribute(colour_tc_fwd_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  colour_tc_fwd_kernel<<<n_cta, TNT, smem, (cudaStream_t)stream>>>(d, pp, wts, (const uint2*)pk, x, n, v, f, n_pts, cx, cn, cv, out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -46,7 +46,7 @@ typedef __half f16;
 enum { PH_OTHER = 0, PH_GEMM, PH_WGRAD, PH_COLPASS = 4, PH_COMPOSITE, PH_EPI, PH_LOG,
        PH_TAGS = 8, PH_N = 24, PH_MAXCTA = 1024 };
 enum { PK_RAY_FWD = 0, PK_RAY_BWD, PK_WGRAD, PK_POINT_FWD, PK_SDF_BWD, PK_SDF_FWD, PK_COL_BWD,
-       PK_N };
+       PK_COL_FWD, PK_N };
 #if defined(NEUS_TC_PROF) && defined(__CUDACC__)
 __device__ long long g_phase[PK_N][PH_MAXCTA][PH_N];
 __device__ inline long long* phase_slots() {
@@ -157,8 +157,48 @@ __device__ inline void ldsm_x4_t(uint32_t* r, const void* row) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
 }
+
+// A bulk copy (the Tensor Memory Accelerator's 1-D form) of `bytes` (a
+// multiple of 16, both addresses 16-byte aligned) from global to shared
+// memory, completing on the mbarrier bar: one thread sets the barrier's
+// expected bytes and issues the copy; every thread that waits on the
+// barrier's phase then sees the data. Independent of cp.async's groups, so
+// it stays in flight across gemm_rows' waits.
+__device__ inline void mbar_init(uint64_t* bar, int count) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ inline void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(a), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(d), "l"(src), "r"(bytes), "r"(a)
+               : "memory");
+}
+// wait until the barrier's phase of parity `parity` has completed; a copy
+// that never lands (2^32 cycles, seconds) traps instead of hanging the card
+__device__ inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  const long long t0 = clock64();
+  unsigned done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+}
 #else
 // host compilers (a CPU rehearsal of the kernels) supply their own
+void mbar_init(uint64_t* bar, int count);
+void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar);
+void mbar_wait(uint64_t* bar, unsigned parity);
 void mma(float* c, const uint32_t* a, uint2 b);
 void cp_async16(void* dst, const void* src);
 void cp_async_commit();
@@ -559,7 +599,7 @@ struct Layout {
   int ldE, ldX, ldC, ldF;
   // shared memory
   size_t pts, g, ef, de, dde, qe, eb, tb0, ha, hb, u, cin, head, srow, sres, cg, cdir, dx, cs,
-      chead, cheadb, ray, alpha, w, tr, calpha, ccin6, cue, red, ring, smem;
+      chead, cheadb, ray, alpha, w, tr, calpha, ccin6, cue, red, ring, fstage, bar, smem;
   // scratch
   size_t P, AS, ZD, PS, ZDS, CH, CHD, scratch;
 };
@@ -618,6 +658,7 @@ __host__ __device__ inline Layout tc_layout(const Dims& d, bool backward) {
     L.cue = take(o, R * d.E * f4);   // the head reverse's embedding half
     L.qe = L.srow = 0;
   }
+  L.fstage = L.bar = 0;
   L.smem = o;
   // scratch: 16-bit states, so that the resident CTAs' scratch stays in L2
   // (sigmoid factors as sig_load reads them, tangent pre-activations bf16;
@@ -635,6 +676,29 @@ __host__ __device__ inline Layout tc_layout(const Dims& d, bool backward) {
     L.CHD = take(s, R * d.E * f4);
   }
   L.scratch = s;
+  return L;
+}
+
+// B7's forward (the colour net alone, Dims with H = 0): the input tile,
+// the relu layers' two ping-pong operands, the head, the product ring, then
+// the f32 staging rows of the next tile's feature (ROWS x F, filled by a
+// bulk copy) and its mbarrier; no scratch. At 2x256: 220,176 bytes, one CTA
+// an SM.
+__host__ __device__ inline Layout colour_fwd_layout(const Dims& d) {
+  Layout L = {};
+  L.F = d.F; L.HC = d.HC; L.CW = d.CW; L.W = d.W; L.NHC = d.NHC;
+  L.ldX = ld_of(d.HC);
+  L.ldC = ld_of(d.CW);
+  const size_t f4 = 4, b2 = 2, R = ROWS;
+  size_t o = 0;
+  L.cin = take(o, R * L.ldC * b2);
+  L.ha = take(o, R * L.ldX * b2);
+  L.hb = take(o, R * L.ldX * b2);
+  L.head = take(o, R * 8 * f4);
+  L.ring = take(o, (size_t)NSTAGE_FWD * STAGE * 8);
+  L.fstage = take(o, R * d.F * f4);
+  L.bar = take(o, 8);
+  L.smem = o;
   return L;
 }
 

@@ -1,87 +1,261 @@
-// Hard z-buffer winner selection for Hopper (sm_90a): the tiled, culled
-// kernel (B2) and the brute-force kernel (B8's #15).
+// Hard z-buffer winner selection for Hopper (sm_90a): the binned kernel (B2)
+// and the brute-force kernel (B8's #15).
 //
-// Replaces the Pallas kernel avatarclip_tpu/ops/raster_zbuffer.py
+// B2 replaces the Pallas kernel avatarclip_tpu/ops/raster_zbuffer.py
 // `_zbuffer_kernel_tiled` (:266), launched by `zbuffer_select_tiled` (:304)
-// with the winner rule of `_select_update` (:66) and the culling table of
-// `overlap_table` (:205).
+// with the winner rule of `_select_update` (:66).
 //
 // For every pixel of an (H, W) image: the face whose three oriented
 // barycentric edge values are all >= 0, whose screen-linear inverse depth iz
 // is > 0 and which is valid, maximising (iz, face id) lexicographically in
 // exact f32 (ties to the higher face id); -1 where no face covers the pixel.
-//
-// What bounds it on this card: the pair count (pixels x faces of the kept
-// tile / face-block pairs), 4 K=3 dot products each, in f32 FMA-free
-// arithmetic (no tensor cores: K = 3, and TF32 would break the inside test
-// of thin faces). Design: one CTA per 32 x 32 screen tile, one thread per
-// pixel; the CTA walks the face blocks the overlap table keeps for its tile,
-// stages each block's coefficients and valid flags in shared memory (24 KB),
-// and every thread keeps its running (iz, id) winner in registers. Faces are
-// visited in increasing id order, so ">=" on iz implements the tie-break.
 // Each edge value is evaluated as (px * c0 + py * c1) + c2 with separately
 // rounded products and sums (__fmul_rn / __fadd_rn: no FMA contraction), the
 // same order the plain PyTorch version uses, so the two agree bit for bit.
-// At 256^2 there are 64 tiles for 132 SMs: the card is under-filled (later
-// work: split face blocks across CTAs and merge).
+//
+// What bounds B2 on this card: the (pixel, face) pairs inside each face's
+// pixel bbox, ~17 f32 operations each (4 K=3 dots and the tests; no tensor
+// cores: K = 3, and TF32 would break the inside test of thin faces), and the
+// bytes (coef, valid and the corners once, the ids once). At the main path's
+// shapes both lie below one launch's latency (0.2-0.7 us against a few us),
+// so the floor in practice is one launch. The Pallas kernel's culling (a
+// table of 32 x 32 tiles against 512-face blocks, built by ~15 small torch
+// ops) kept almost every pair: a mesh's faces are in mesh order, so nearly
+// every block's bbox covers nearly every tile, and 64 CTAs filled half the
+// card at 256^2. Design:
+// - a prologue kernel (one thread a face) turns each face's corners into
+//   the pixels its bbox, widened by a 1 px float margin (the JAX table's),
+//   may cover: an x and a y range, 8 bytes; an invalid face gets an empty
+//   range. A tile meets the range exactly when the f32 test of
+//   ops/raster_zbuffer.py's `tile_faces` (its Python twin) keeps the face;
+// - the raster kernel: a 16 x 16 tile is a thread block cluster of
+//   `split` CTAs (4 at 224^2 and 256^2: 784 and 1,024 CTAs; 2 at 512^2:
+//   2,048), each over every split-th face, one thread a pixel. A dense
+//   mesh small on the screen puts ~1,900 faces in one tile (the 13,441-face
+//   body at 256^2) and none in most: the split shares out both that tile's
+//   work and every CTA's walk of the face list. A CTA walks its faces in
+//   passes of 2,048 in increasing id, each thread testing 8 ranges
+//   (L1-resident), and compacts those that meet its tile into shared
+//   memory with a warp ballot and a prefix count over the (face slot, warp)
+//   counts: increasing id order, no atomics, no host sync. The next pass's
+//   ranges load while this pass's faces are staged (256 at a time, 56 B
+//   each) and evaluated. A warp holds 8 x 4 pixels and takes, in order,
+//   only the staged faces whose range meets them (a lane tests one face of
+//   32, then the ballot's bits in turn). Every thread keeps its running
+//   (iz, id) winner in registers, ">=" on iz giving the tie-break; then
+//   each CTA of the cluster merges a share of the tile's pixels over the
+//   CTAs' winners, read from their shared memory (the largest (iz, id), in
+//   rank order: the same bits every run);
+// - one call, no torch ops: the caller's (F, 3, 4) coefficients, (F,) bool
+//   flags and (F, 3) corners are read in place, ragged face counts and edge
+//   tiles masked.
 //
 // The brute-force kernel replaces avatarclip_tpu/ops/raster_zbuffer.py
 // `_zbuffer_kernel` (:104, entry `zbuffer_select` :144): every (pixel, face)
-// pair with no culling table, the same winner rule, the same (px * c0 + py *
-// c1) + c2 evaluation and the same increasing face order, so its winners are
-// B2's exactly. What bounds it: the full pair count, 4 K=3 dots each (about
-// 17 f32 operations a pair). Design: B2's CTA (one 32 x 32 tile, one thread a
-// pixel, faces staged FBLOCK at a time in shared memory) over every face
-// block; the faces are read from the caller's (F, 3, 4) coefficients and
-// (F,) bool valid flags in place: the ragged last block is masked by F and
-// the ragged edge tiles by H and W, with no padded copies.
+// pair with no culling, the same winner rule, the same (px * c0 + py * c1)
+// + c2 evaluation and the same increasing face order, so its winners are
+// B2's exactly. What bounds it: the full pair count, about 17 f32 operations
+// a pair. Design: one CTA a 32 x 32 tile, one thread a pixel, the faces
+// staged FBLOCK at a time in shared memory, read in place from the caller's
+// coefficients and bool flags (the ragged last block masked by F, the
+// ragged edge tiles by H and W).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TILE = 32;
+constexpr int TILE = 32;  // the brute-force kernel's screen tile
 constexpr int FBLOCK = 512;
+
+constexpr int BIN = 16;                // the binned kernel's screen tile (pixels a side)
+constexpr int BT = BIN * BIN;          // its threads: one a pixel
+constexpr int BWARPS = BT / 32;
+constexpr int WX = 8, WY = 4;          // a warp's pixels: 8 x 4, the tile 2 x 4 warps
+constexpr int BK = 8;                  // faces a thread tests a pass
+constexpr int BPASS = BT * BK;         // faces a pass
+constexpr int BSTAGE = 256;            // faces staged in shared memory at once
+constexpr int EMPTY = (int)0xffff0000u;  // the range [0, -1]
 
 __device__ __forceinline__ float lin(float px, float py, float a, float b, float c) {
   return __fadd_rn(__fadd_rn(__fmul_rn(px, a), __fmul_rn(py, b)), c);
 }
 
-__global__ void __launch_bounds__(TILE * TILE) zbuffer_tiled_kernel(
-    const float* __restrict__ coef,  // (n_fb * FBLOCK, 3, 4): [pixel term k][b0, b1, b2, iz]
-    const int* __restrict__ valid,   // (n_fb * FBLOCK,)
-    const int* __restrict__ tab,     // (n_tiles * n_fb,)
+// A face's pixel range on one axis, from its corners' min lo and max hi:
+// the first pixel p in [0, n) with lo <= p + 1 in f32 (n if none) and the
+// last with hi >= p - 1 (-1 if none), i.e. the pixels within the 1 px float
+// margin of its bbox. Each test is monotone in p: a guess from the clamped
+// value, then steps by the exact test itself.
+__device__ __forceinline__ int first_px(float lo, int n) {
+  int p = (int)floorf(fminf(fmaxf(lo, -4.f), n + 4.f)) - 2;
+  p = min(max(p, 0), n);
+  while (p > 0 && lo <= (float)p) --p;  // pixel p - 1 passes: lo <= (p - 1) + 1
+  while (p < n && !(lo <= (float)(p + 1))) ++p;
+  return p;
+}
+__device__ __forceinline__ int last_px(float hi, int n) {
+  int p = (int)floorf(fminf(fmaxf(hi, -4.f), n + 4.f)) + 2;
+  p = min(max(p, -1), n - 1);
+  while (p < n - 1 && hi >= (float)p) ++p;  // pixel p + 1 passes: hi >= (p + 1) - 1
+  while (p >= 0 && !(hi >= (float)(p - 1))) --p;
+  return p;
+}
+
+__device__ __forceinline__ float min3(float a, float b, float c) { return fminf(fminf(a, b), c); }
+__device__ __forceinline__ float max3(float a, float b, float c) { return fmaxf(fmaxf(a, b), c); }
+
+// rng[f] = (x0 | x1 << 16, y0 | y1 << 16): the pixels face f may cover, in
+// the padded (n_ty BIN, n_tx BIN) grid (16-bit fields); [0, -1] for an
+// invalid face or one with a NaN corner. A tile (or a warp's pixels) meets
+// the range iff the f32 test of tile_faces keeps the face for it.
+__global__ void face_ranges_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
+                                   const unsigned char* __restrict__ valid, int2* __restrict__ rng,
+                                   int F, int n_px, int n_py) {
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  if (f >= F) return;
+  const float x0 = sx[3 * f], x1 = sx[3 * f + 1], x2 = sx[3 * f + 2];
+  const float y0 = sy[3 * f], y1 = sy[3 * f + 1], y2 = sy[3 * f + 2];
+  const bool nan = isnan(x0) || isnan(x1) || isnan(x2) || isnan(y0) || isnan(y1) || isnan(y2);
+  int2 r = make_int2(EMPTY, EMPTY);
+  if (valid[f] && !nan) {
+    const int px0 = first_px(min3(x0, x1, x2), n_px), px1 = last_px(max3(x0, x1, x2), n_px);
+    const int py0 = first_px(min3(y0, y1, y2), n_py), py1 = last_px(max3(y0, y1, y2), n_py);
+    if (px0 <= px1 && py0 <= py1) r = make_int2(px0 | (px1 << 16), py0 | (py1 << 16));
+  }
+  rng[f] = r;
+}
+
+// a packed range meets the pixels [lo, hi]
+__device__ __forceinline__ bool meets(int packed, int lo, int hi) {
+  return (packed & 0xffff) <= hi && (packed >> 16) >= lo;
+}
+
+__global__ void __launch_bounds__(BT) zbuffer_binned_kernel(
+    const float* __restrict__ coef,  // (F, 3, 4): [pixel term k][b0, b1, b2, iz]
+    const int2* __restrict__ rng,    // (F,) from face_ranges_kernel
     int* __restrict__ face_id,       // (H * W,) row-major
-    int H, int W, int n_tx, int n_fb) {
-  __shared__ float s_coef[FBLOCK * 12];
-  __shared__ int s_valid[FBLOCK];
-  const int tile = blockIdx.x;
-  const int ty = tile / n_tx, tx = tile % n_tx;
-  const int py = ty * TILE + threadIdx.x / TILE;
-  const int px = tx * TILE + threadIdx.x % TILE;
-  const float fx = (float)px, fy = (float)py;
+    int F, int H, int W, int n_tx) {
+  __shared__ int s_cnt[BK * BWARPS];  // kept faces by (slot k, warp), then their exclusive prefix
+  __shared__ int s_n;
+  __shared__ int s_id[BPASS];         // the pass's kept faces, increasing id
+  __shared__ float4 s_coef[BSTAGE * 3];
+  __shared__ int2 s_rng[BSTAGE];
+  __shared__ float s_iz[BT];          // this CTA's winners, for the cluster's merge
+  __shared__ int s_best[BT];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks();  // the tile's CTAs, each over every split-th face
+  const int rank = (int)cluster.block_rank(), tile = blockIdx.x / split;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int x0 = (tile % n_tx) * BIN, y0 = (tile / n_tx) * BIN;
+  const int wx = x0 + (warp % (BIN / WX)) * WX, wy = y0 + (warp / (BIN / WX)) * WY;
+  const float fx = (float)(wx + lane % WX), fy = (float)(wy + lane / WX);
+  const unsigned below = (1u << lane) - 1u;
+  // this CTA's faces: rank, rank + split, ...: nf of them, slot i is face rank + split i
+  const int nf = F > rank ? (F - rank + split - 1) / split : 0;
   float best_iz = -1.f;
   int best = -1;
-  for (int j = 0; j < n_fb; ++j) {
-    if (tab[tile * n_fb + j] == 0) continue;  // uniform across the CTA
+  int2 r[BK];
+#pragma unroll
+  for (int k = 0; k < BK; ++k) {
+    const int i = k * BT + tid;
+    r[k] = i < nf ? __ldg(rng + rank + (size_t)split * i) : make_int2(EMPTY, EMPTY);
+  }
+  for (int base = 0; base < nf; base += BPASS) {
+    unsigned keep[BK];
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      keep[k] = __ballot_sync(0xffffffffu, meets(r[k].x, x0, x0 + BIN - 1) &&
+                                               meets(r[k].y, y0, y0 + BIN - 1));
+      if (lane == 0) s_cnt[k * BWARPS + warp] = __popc(keep[k]);
+    }
+    // the next pass's ranges, in flight while this pass is compacted and evaluated
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const int i = base + BPASS + k * BT + tid;
+      r[k] = i < nf ? __ldg(rng + rank + (size_t)split * i) : make_int2(EMPTY, EMPTY);
+    }
     __syncthreads();
-    const float* src = coef + (size_t)j * FBLOCK * 12;
-    for (int e = threadIdx.x; e < FBLOCK * 12; e += blockDim.x) s_coef[e] = src[e];
-    for (int e = threadIdx.x; e < FBLOCK; e += blockDim.x) s_valid[e] = valid[j * FBLOCK + e];
-    __syncthreads();
-    for (int f = 0; f < FBLOCK; ++f) {
-      if (!s_valid[f]) continue;
-      const float* c = s_coef + f * 12;
-      const float b0 = lin(fx, fy, c[0], c[4], c[8]);
-      const float b1 = lin(fx, fy, c[1], c[5], c[9]);
-      const float b2 = lin(fx, fy, c[2], c[6], c[10]);
-      const float iz = lin(fx, fy, c[3], c[7], c[11]);
-      if (b0 >= 0.f && b1 >= 0.f && b2 >= 0.f && iz > 0.f && iz >= best_iz) {
-        best_iz = iz;
-        best = j * FBLOCK + f;
+    if (warp == 0) {  // exclusive prefix of the BK x BWARPS counts, in (k, warp) order
+      constexpr int Q = BK * BWARPS / 32;
+      int v[Q], run = 0;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        v[q] = run;
+        run += s_cnt[lane * Q + q];
       }
+      int incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += u;
+      }
+#pragma unroll
+      for (int q = 0; q < Q; ++q) s_cnt[lane * Q + q] = incl - run + v[q];
+      if (lane == 31) s_n = incl;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BK; ++k)
+      if (keep[k] >> lane & 1u)
+        s_id[s_cnt[k * BWARPS + warp] + __popc(keep[k] & below)] = rank + split * (base + k * BT + tid);
+    __syncthreads();
+    const int n = s_n;
+    for (int c0 = 0; c0 < n; c0 += BSTAGE) {
+      const int m = min(BSTAGE, n - c0);
+      for (int e = tid; e < 4 * m; e += BT) {
+        const int f = s_id[c0 + e / 4], q = e % 4;
+        if (q < 3) s_coef[3 * (e / 4) + q] = __ldg((const float4*)coef + (size_t)f * 3 + q);
+        else s_rng[e / 4] = __ldg(rng + f);
+      }
+      __syncthreads();
+      auto eval = [&](int jf) {
+        const float4 cx = s_coef[3 * jf], cy = s_coef[3 * jf + 1], cc = s_coef[3 * jf + 2];
+        const float b0 = lin(fx, fy, cx.x, cy.x, cc.x);
+        const float b1 = lin(fx, fy, cx.y, cy.y, cc.y);
+        const float b2 = lin(fx, fy, cx.z, cy.z, cc.z);
+        const float iz = lin(fx, fy, cx.w, cy.w, cc.w);
+        if (b0 >= 0.f && b1 >= 0.f && b2 >= 0.f && iz > 0.f && iz >= best_iz) {
+          best_iz = iz;
+          best = s_id[c0 + jf];
+        }
+      };
+      // each warp takes, in order, the staged faces whose range meets its
+      // 8 x 4 pixels: a lane tests one face of 32, then the ballot's bits
+      for (int j0 = 0; j0 < m; j0 += 32) {
+        const int j = j0 + lane;
+        const bool hit = j < m && meets(s_rng[j].x, wx, wx + WX - 1) && meets(s_rng[j].y, wy, wy + WY - 1);
+        unsigned todo = __ballot_sync(0xffffffffu, hit);
+        while (todo) {
+          eval(j0 + __ffs((int)todo) - 1);
+          todo &= todo - 1u;
+        }
+      }
+      __syncthreads();
     }
   }
-  if (py < H && px < W) face_id[py * W + px] = best;
+  // the cluster's merge: rank r takes pixel slots r BT / split .. and the
+  // largest (iz, id) over the ranks' winners (each the largest of its
+  // faces), in rank order
+  s_iz[tid] = best_iz;
+  s_best[tid] = best;
+  cluster.sync();
+  if (tid < BT / split) {
+    const int q = rank * (BT / split) + tid, qw = q >> 5, ql = q & 31;
+    float iz = -1.f;
+    int id = -1;
+    for (int k = 0; k < split; ++k) {
+      const float ci = cluster.map_shared_rank(s_iz, k)[q];
+      const int cb = cluster.map_shared_rank(s_best, k)[q];
+      if (ci > iz || (ci == iz && cb > id)) {
+        iz = ci;
+        id = cb;
+      }
+    }
+    const int px = x0 + (qw % (BIN / WX)) * WX + ql % WX, py = y0 + (qw / (BIN / WX)) * WY + ql / WX;
+    if (py < H && px < W) face_id[py * W + px] = id;
+  }
+  cluster.sync();  // every rank's shared memory stays until the merge has read it
 }
 
 __global__ void __launch_bounds__(TILE * TILE) zbuffer_brute_kernel(
@@ -130,8 +304,51 @@ extern "C" int zbuffer_brute(const float* coef, const unsigned char* valid, int*
   return (int)cudaGetLastError();
 }
 
-extern "C" int zbuffer_tiled(const float* coef, const int* valid, const int* tab, int* face_id,
-                             int H, int W, int n_tx, int n_ty, int n_fb, void* stream) {
-  zbuffer_tiled_kernel<<<n_tx * n_ty, TILE * TILE, 0, (cudaStream_t)stream>>>(coef, valid, tab, face_id, H, W, n_tx, n_fb);
-  return (int)cudaGetLastError();
+// CTAs a tile (its cluster) for n_tiles tiles: the most of 1, 2, 4 that keeps
+// the grid within 2,048 CTAs (4 at 224^2 and 256^2, 2 at 512^2)
+static int zbuffer_split(int n_tiles) {
+  int k = 4;
+  while (k > 1 && n_tiles * k > 2048) k /= 2;
+  return k;
+}
+
+// B2's grid for an (H, W) image: the CTAs zbuffer_binned launches, tiles
+// times the CTAs a tile (split; 0: zbuffer_split's); 0 for a split other
+// than 0, 1, 2 or 4
+extern "C" int zbuffer_ctas(int H, int W, int split) {
+  const int n_tiles = ((W + BIN - 1) / BIN) * ((H + BIN - 1) / BIN);
+  if (split == 0) split = zbuffer_split(n_tiles);
+  return split == 1 || split == 2 || split == 4 ? n_tiles * split : 0;
+}
+
+// B2: the prologue (the faces' pixel ranges into rng, (F,) int2 scratch)
+// and the raster kernel over the (ceil(H / 16), ceil(W / 16)) tiles, each a
+// cluster of `split` CTAs (0: zbuffer_split's, as the entry calls it; 1, 2
+// or 4: a seam for the tests of the cluster's merge); coef 16-byte aligned,
+// H and W at most 32,752.
+extern "C" int zbuffer_binned(const float* coef, const unsigned char* valid, const float* sx,
+                              const float* sy, void* rng, int* face_id, int F, int H, int W,
+                              int split, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_tx = (W + BIN - 1) / BIN, n_ty = (H + BIN - 1) / BIN;
+  const int ctas = zbuffer_ctas(H, W, split);
+  if (ctas == 0) return (int)cudaErrorInvalidValue;
+  if (F > 0) {
+    face_ranges_kernel<<<(F + 255) / 256, 256, 0, st>>>(sx, sy, valid, (int2*)rng, F, n_tx * BIN, n_ty * BIN);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(BT);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas / (n_tx * n_ty);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, zbuffer_binned_kernel, coef, (const int2*)rng, face_id, F, H, W,
+                                 n_tx);
 }

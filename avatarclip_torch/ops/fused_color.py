@@ -12,9 +12,9 @@ cotangents of all four inputs and every dense weight gradient
 background is on).
 
 :func:`color_apply_fused` takes CUDA tensors and launches the kernel pair
-through :class:`ColorFunction` (the forward csrc/fused_color.cu's in both
-operand modes; the backward csrc/fused_neus_ray_tc.cu's ``colour_tc_bwd`` on
-the tensor cores in the bf16 mode, fused_color.cu's in f32), or raises; on
+through :class:`ColorFunction` (in the bf16 mode csrc/fused_neus_ray_tc.cu's
+``colour_tc_fwd`` and ``colour_tc_bwd`` on the tensor cores, their weights
+packed once for both; in f32 csrc/fused_color.cu's pair), or raises; on
 the CPU only the gate in
 fields/networks.py picks the plain module (:func:`color_apply_plain`, in the
 input's dtype). The kernels and the plain version take the net's operand mode
@@ -199,10 +199,25 @@ def _check(spec: FusedColorSpec, flat, x, n, v, f):
         raise ValueError("the colour kernel takes fewer than 2^31 points")
 
 
-def color_fwd(spec: FusedColorSpec, flat, x, n, v, f):
-    """Launch the forward kernel. Returns (P, 3 | 6) after the sigmoid."""
-    lib = _lib()
+def tc_pack(spec: FusedColorSpec, flat) -> tuple[torch.Tensor, torch.Tensor, fused_neus.Pack]:
+    """The tensor-core kernels' weights from the flat slice-layout buffer
+    (flat_tc, the (H, d_in) first layer joined in :func:`tc_weights`'
+    layout; pk, its packed bf16 fragments; pack, their offsets): made once a
+    step by :class:`ColorFunction` for both kernels."""
+    weights = tc_weights(spec, split_flat(flat, slice_shapes(spec)))
+    pk, pack = fused_neus.pack_colour_tc(weights)
+    return torch.cat([w.reshape(-1) for w in weights]), pk, pack
+
+
+def color_fwd(spec: FusedColorSpec, flat, x, n, v, f, packed=None):
+    """Launch the forward kernel: in the bf16 mode the tensor-core one
+    (``packed``: :func:`tc_pack`'s, made here when not given), in f32
+    fused_color.cu's. Returns (P, 3 | 6) after the sigmoid."""
+    lib = fused_neus._tc_lib() if spec.bf16 else _lib()
     _check(spec, flat, x, n, v, f)
+    if spec.bf16:
+        return _color_tc_fwd(spec, lib, packed if packed is not None else tc_pack(spec, flat),
+                             x, n, v, f)
     d, dev, P = spec.dims(), x.device, x.shape[0]
     n_cta = n_cta_for(dev, -(-P // BLOCK))
     stride = int(lib.colour_workspace_floats(d, 0))
@@ -216,16 +231,17 @@ def color_fwd(spec: FusedColorSpec, flat, x, n, v, f):
     return out
 
 
-def color_bwd(spec: FusedColorSpec, flat, x, n, v, f, c_out):
+def color_bwd(spec: FusedColorSpec, flat, x, n, v, f, c_out, packed=None):
     """Launch the backward kernel (+ its partial-sum pass): in the bf16 mode
-    the tensor-core one, in f32 fused_color.cu's. Returns (dx, dn, dv
-    (P, 3), df (P, F), d_flat)."""
+    the tensor-core one (``packed`` as for :func:`color_fwd`), in f32
+    fused_color.cu's. Returns (dx, dn, dv (P, 3), df (P, F), d_flat)."""
     lib = fused_neus._tc_lib() if spec.bf16 else _lib()
     _check(spec, flat, x, n, v, f)
     d, dev, P = spec.dims(), x.device, x.shape[0]
     _build.check_f32(dev, (("c_out", c_out, (P, spec.rgb_width)),))
     if spec.bf16:
-        return _color_tc_bwd(spec, lib, flat, x, n, v, f, c_out)
+        return _color_tc_bwd(spec, lib, packed if packed is not None else tc_pack(spec, flat),
+                             x, n, v, f, c_out)
     n_w = flat.numel()
     n_cta = n_cta_for(dev, -(-P // BLOCK))
     stride = int(lib.colour_workspace_floats(d, 1))
@@ -242,21 +258,46 @@ def color_bwd(spec: FusedColorSpec, flat, x, n, v, f, c_out):
     return dx, dn, dv, df, d_w
 
 
-def _color_tc_bwd(spec, lib, flat, x, n, v, f, c_out):
+def _tc_weights_checked(spec, lib, packed, what):
+    if spec.d_hidden > 256 or spec.d_feature > 256:
+        raise ValueError(f"the tensor-core colour {what} takes nets at most 256 wide")
+    flat_tc, pk, pack = packed
+    if flat_tc.numel() != lib.neus_tc_weight_count(spec.dims()):
+        raise ValueError("flat weight buffer does not match the network dims")
+    fused_neus.check_packed(pk, flat_tc.device)
+    return flat_tc, pk, pack
+
+
+def _color_tc_fwd(spec, lib, packed, x, n, v, f):
+    """color_fwd's tensor-core kernel: persistent CTAs (one an SM) over
+    64-point tiles, the feature streamed in by bulk copies (16-byte aligned
+    rows: an unaligned feature is copied first)."""
+    flat_tc, pk, pack = _tc_weights_checked(spec, lib, packed, "forward")
+    if spec.d_feature % 4:
+        raise ValueError("the tensor-core colour forward takes a feature width that is a multiple of 4")
+    d, dev, P = spec.dims(), x.device, x.shape[0]
+    if f.data_ptr() % 16:
+        f = f.clone()
+    out = torch.empty(P, spec.rgb_width, device=dev)
+    p = _build.ptr
+    cx, cn, cv = (-1 if c is None else c for c in _COLUMNS[spec.mode][:3])
+    err = lib.colour_tc_fwd(d, pack, p(flat_tc), p(pk), p(x), p(n), p(v), p(f), P, cx, cn, cv,
+                            p(out), fused_neus.n_cta_tc(dev, -(-P // BLOCK)),
+                            _build.stream_ptr(dev))
+    _build.check(err, "colour_tc_fwd launch")
+    _build.count(LAUNCHES, "color_fwd")
+    return out
+
+
+def _color_tc_bwd(spec, lib, packed, x, n, v, f, c_out):
     """color_bwd's tensor-core kernel: the weights packed from the colour
     layers alone (first layer joined over the mode's columns), the points in
     chunks of 64-point tiles (fused_neus.tc_bwd_chunking), each chunk's
     weight-gradient operands logged in bf16 and formed by the weight-gradient
     GEMM over the points; the first layer's gradient cut back into its
     slices."""
-    if spec.d_hidden > 256:
-        raise ValueError("the tensor-core colour backward takes nets at most 256 wide")
+    flat_tc, pk, pack = _tc_weights_checked(spec, lib, packed, "backward")
     d, dev, P = spec.dims(), x.device, x.shape[0]
-    weights = tc_weights(spec, split_flat(flat, slice_shapes(spec)))
-    flat_tc = torch.cat([w.reshape(-1) for w in weights])
-    if flat_tc.numel() != lib.neus_tc_weight_count(d):
-        raise ValueError("flat weight buffer does not match the network dims")
-    pk, pack = fused_neus.pack_colour_tc(weights)
     n_w = flat_tc.numel()
     n_cta, chunk, n_split = fused_neus.tc_bwd_chunking(dev, lib, d, -(-P // BLOCK))
     gpart = torch.zeros((n_cta + n_split) * n_w, device=dev)
@@ -285,7 +326,9 @@ class ColorFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec, x, n, v, f, *weights):
         flat = torch.cat([w.detach().reshape(-1) for w in weights])
-        out = color_fwd(spec, flat, x, n, v, f)
+        # the bf16 mode's packed weights, made once for both kernels
+        ctx.packed = tc_pack(spec, flat) if spec.bf16 else None
+        out = color_fwd(spec, flat, x, n, v, f, ctx.packed)
         ctx.save_for_backward(flat, x, n, v, f)
         ctx.spec = spec
         ctx.shapes = [w.shape for w in weights]
@@ -295,7 +338,8 @@ class ColorFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, c_out):
         flat, x, n, v, f = ctx.saved_tensors
-        dx, dn, dv, df, d_flat = color_bwd(ctx.spec, flat, x, n, v, f, c_out.float().contiguous())
+        dx, dn, dv, df, d_flat = color_bwd(ctx.spec, flat, x, n, v, f, c_out.float().contiguous(),
+                                           ctx.packed)
         return (None, dx, dn, dv, df, *split_flat(d_flat, ctx.shapes))
 
 

@@ -456,6 +456,8 @@ def type_tc(lib):
         lib.sdf_tc_fwd.restype = I
         lib.colour_tc_bwd.argtypes = [Dims, Pack] + [P] * 6 + [I] * 4 + [P] * 7 + [I, P, I, I, P]
         lib.colour_tc_bwd.restype = I
+        lib.colour_tc_fwd.argtypes = [Dims, Pack] + [P] * 6 + [I] * 4 + [P, I, P]
+        lib.colour_tc_fwd.restype = I
         lib.neus_tc_log_row.argtypes = [Dims]
         lib.neus_tc_log_row.restype = L_
         lib.neus_tc_wgrad_tiles.argtypes = [Dims]

@@ -1,5 +1,5 @@
-"""Hard z-buffer winner selection: the tiled CUDA kernel (B2) and the
-brute-force one (B8's #15), their plain version, the culling table.
+"""Hard z-buffer winner selection: the binned CUDA kernel (B2) and the
+brute-force one (B8's #15), their plain version, the culling twins.
 
 Twin of avatarclip_tpu/ops/raster_zbuffer.py (`zbuffer_select_tiled`,
 `overlap_table`, the `_select_update` winner rule, and the untiled
@@ -8,12 +8,16 @@ inside, valid face with iz > 0 that maximises (exact f32 inverse depth, face
 id); -1 is background. Edge values are evaluated as (px * c0 + py * c1) + c2
 with separately rounded products and sums in every version, so the kernels
 and the plain version agree exactly, and the two kernels with each other
-(the tiled one's culling is winner-exact).
+(B2's culling is winner-exact).
 
 The kernels are in ``csrc/raster_zbuffer.cu``; a CUDA tensor launches them
 (or the call raises), a CPU tensor takes :func:`zbuffer_select_plain`. The
-renderer calls the tiled kernel; the brute-force one, as in the JAX package,
-is held against it and timed beside it.
+renderer calls B2, which culls by face inside the kernel: a face reaches
+the 16 x 16 screen tiles, and within a tile the warps' 8 x 4 pixels, that
+meet its pixel bbox (:func:`tile_faces` is the Python twin of the faces a
+tile evaluates). :func:`overlap_table` stays as the twin of
+the JAX package's table. The brute-force kernel, as in the JAX package, is
+held against B2 and timed beside it.
 """
 
 from __future__ import annotations
@@ -24,9 +28,11 @@ import torch
 
 from . import _build
 
-TILE_H = 32
+TILE_H = 32  # the JAX package's culling table: 32 x 32 tiles ...
 TILE_W = 32
-FBLOCK_T = 512  # faces per block (the kernel's shared-memory stage)
+FBLOCK_T = 512  # ... against 512-face blocks
+BIN = 16  # B2's screen tile (pixels a side; csrc/raster_zbuffer.cu's BIN)
+MARGIN = 1.0  # the float margin (pixels) around a face's bbox, the JAX table's
 
 # kernel launches, counted by the wrapper (reset by callers that measure)
 LAUNCHES = {"zbuffer_tiled": 0, "zbuffer_brute": 0}
@@ -70,6 +76,33 @@ def overlap_table(valid: torch.Tensor, face_sx: torch.Tensor, face_sy: torch.Ten
     return tab, n_tiles, n_fb
 
 
+def bin_grid(H: int, W: int) -> tuple[int, int]:
+    """(rows, columns) of B2's BIN x BIN screen tiles (each run by a cluster
+    of CTAs: :func:`grid` counts them as launched)."""
+    return -(-H // BIN), -(-W // BIN)
+
+
+def tile_faces(valid: torch.Tensor, face_sx: torch.Tensor, face_sy: torch.Tensor,
+               H: int, W: int, tile: int = BIN) -> list[torch.Tensor]:
+    """Python twin of B2's culling: for each screen tile (row-major), the ids
+    of the faces its CTA evaluates, in increasing order. A face is kept for
+    a tile iff it is valid and its pixel bbox (the corners' min / max, NaN
+    keeping nothing), widened by MARGIN, overlaps the tile's pixels: the
+    JAX table's f32 test, per face instead of per 512-face block. At tile =
+    1 it is the per-pixel test on which the kernel's warp-level culling (8
+    x 4 pixels) rests."""
+    n_ty, n_tx = -(-H // tile), -(-W // tile)
+
+    def keep(lo, hi, n):  # (n, F): tile t's pixels [t tile, t tile + tile - 1] +- MARGIN
+        t = torch.arange(n, device=lo.device, dtype=torch.float32)[:, None]
+        return (lo[None] <= t * tile + (tile - 1) + MARGIN) & (hi[None] >= t * tile - MARGIN)
+
+    kx = keep(face_sx.amin(1), face_sx.amax(1), n_tx)
+    ky = keep(face_sy.amin(1), face_sy.amax(1), n_ty)
+    kept = ky[:, None] & kx[None] & valid[None, None]
+    return [row.nonzero().flatten() for row in kept.reshape(n_ty * n_tx, -1)]
+
+
 def lin3(px, py, c0, c1, c2):
     """(px * c0 + py * c1) + c2 — the kernel's evaluation order."""
     return (px * c0 + py * c1) + c2
@@ -103,12 +136,21 @@ def zbuffer_select_plain(coef: torch.Tensor, valid: torch.Tensor, H: int, W: int
     return best
 
 
-def zbuffer_select(coef: torch.Tensor, valid: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    """Winner face id per pixel by the brute-force kernel, (H*W,) int32
-    row-major, -1 = background; coef (F, 3, 4) f32 from
-    raster._face_coefficients, valid (F,) bool."""
-    if not coef.is_cuda:
-        return zbuffer_select_plain(coef, valid, H, W)
+def _lib():
+    lib = _build.load("raster_zbuffer", "raster_zbuffer.cu")
+    if not getattr(lib, "_typed", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.zbuffer_brute.argtypes = [P] * 3 + [I] * 3 + [P]
+        lib.zbuffer_brute.restype = I
+        lib.zbuffer_binned.argtypes = [P] * 6 + [I] * 4 + [P]
+        lib.zbuffer_binned.restype = I
+        lib.zbuffer_ctas.argtypes = [I] * 3
+        lib.zbuffer_ctas.restype = I
+        lib._typed = True
+    return lib
+
+
+def _check_faces(coef: torch.Tensor, valid: torch.Tensor) -> int:
     F = coef.shape[0]
     if coef.shape != (F, 3, 4) or coef.dtype != torch.float32 or not coef.is_contiguous():
         raise ValueError(f"coef must be contiguous (F, 3, 4) float32, got {tuple(coef.shape)} {coef.dtype}")
@@ -116,15 +158,21 @@ def zbuffer_select(coef: torch.Tensor, valid: torch.Tensor, H: int, W: int) -> t
         raise ValueError("valid must be a contiguous (F,) bool tensor")
     if valid.device != coef.device:
         raise ValueError("all inputs must be on one device")
+    return F
+
+
+def zbuffer_select(coef: torch.Tensor, valid: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Winner face id per pixel by the brute-force kernel, (H*W,) int32
+    row-major, -1 = background; coef (F, 3, 4) f32 from
+    raster._face_coefficients, valid (F,) bool."""
+    if not coef.is_cuda:
+        return zbuffer_select_plain(coef, valid, H, W)
+    F = _check_faces(coef, valid)
     out = torch.empty(H * W, dtype=torch.int32, device=coef.device)
     if H * W == 0:
         return out
-    lib = _build.load("raster_zbuffer", "raster_zbuffer.cu")
-    fn = lib.zbuffer_brute
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    err = fn(_build.ptr(coef), _build.ptr(valid), _build.ptr(out), F, H, W,
-             _build.stream_ptr(coef.device))
+    err = _lib().zbuffer_brute(_build.ptr(coef), _build.ptr(valid), _build.ptr(out), F, H, W,
+                               _build.stream_ptr(coef.device))
     _build.check(err, "zbuffer_brute launch")
     _build.count(LAUNCHES, "zbuffer_brute")
     return out
@@ -133,32 +181,51 @@ def zbuffer_select(coef: torch.Tensor, valid: torch.Tensor, H: int, W: int) -> t
 def zbuffer_select_tiled(coef: torch.Tensor, valid: torch.Tensor,
                          face_sx: torch.Tensor, face_sy: torch.Tensor,
                          H: int, W: int) -> torch.Tensor:
-    """Winner face id per pixel, (H*W,) int32 row-major, -1 = background.
+    """Winner face id per pixel by B2, (H*W,) int32 row-major, -1 =
+    background.
 
-    coef (F, 3, 4) f32 from raster._face_coefficients, valid (F,) bool,
-    face_sx / face_sy (F, 3) screen coordinates of each face's corners."""
+    coef (F, 3, 4) f32 from raster._face_coefficients (16-byte aligned),
+    valid (F,) bool, face_sx / face_sy (F, 3) screen coordinates of each
+    face's corners, all contiguous. One allocation (the ids and the
+    prologue's 8 bytes a face of pixel ranges) and one call that launches
+    the prologue and the raster kernel."""
     if not coef.is_cuda:
         return zbuffer_select_plain(coef, valid, H, W)
-    F = coef.shape[0]
-    if coef.shape != (F, 3, 4) or coef.dtype != torch.float32:
-        raise ValueError(f"coef must be (F, 3, 4) float32, got {tuple(coef.shape)} {coef.dtype}")
-    if valid.shape != (F,) or face_sx.shape != (F, 3) or face_sy.shape != (F, 3):
-        raise ValueError("valid / face_sx / face_sy do not match coef")
-    for t in (valid, face_sx, face_sy):
+    F = _check_faces(coef, valid)
+    for name, t in (("face_sx", face_sx), ("face_sy", face_sy)):
+        if t.shape != (F, 3) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (F, 3) float32 tensor")
         if t.device != coef.device:
             raise ValueError("all inputs must be on one device")
-    tab, n_tiles, n_fb = overlap_table(valid, face_sx, face_sy, H, W)
-    f_pad = n_fb * FBLOCK_T - F
-    coef_p = torch.cat([coef, coef.new_zeros(f_pad, 3, 4)]).contiguous()
-    valid_p = torch.cat([valid.to(torch.int32), valid.new_zeros(f_pad, dtype=torch.int32)])
-    out = torch.empty(H * W, dtype=torch.int32, device=coef.device)
-    lib = _build.load("raster_zbuffer", "raster_zbuffer.cu")
-    fn = lib.zbuffer_tiled
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    n_tx, n_ty = _round_up(W, TILE_W) // TILE_W, _round_up(H, TILE_H) // TILE_H
-    err = fn(_build.ptr(coef_p), _build.ptr(valid_p), _build.ptr(tab), _build.ptr(out),
-             H, W, n_tx, n_ty, n_fb, _build.stream_ptr(coef.device))
-    _build.check(err, "zbuffer_tiled launch")
+    if coef.data_ptr() % 16:
+        raise ValueError("coef must be 16-byte aligned (the kernel reads a face as 3 float4)")
+    if max(H, W) > 32752:
+        raise ValueError("the binned kernel takes images at most 32,752 pixels a side")
+    buf = torch.empty(2 * F + H * W, dtype=torch.int32, device=coef.device)
+    out = buf[2 * F:]
+    if H * W == 0:
+        return out
+    launch(coef, valid, face_sx, face_sy, buf, out, H, W)
     _build.count(LAUNCHES, "zbuffer_tiled")
     return out
+
+
+def grid(H: int, W: int) -> tuple[int, int]:
+    """(tiles, CTAs) of B2's raster launch for an (H, W) image, from the
+    function that sets the C call's grid: the CTAs are the tiles times the
+    CTAs of a tile's cluster."""
+    lib = _lib()
+    return lib.zbuffer_ctas(H, W, 1), lib.zbuffer_ctas(H, W, 0)
+
+
+def launch(coef, valid, face_sx, face_sy, ranges, out, H: int, W: int, split: int = 0) -> None:
+    """B2's C call on checked inputs: the prologue's pixel ranges into
+    ranges (at least 2 F int32, 8-byte aligned), the winners into out (H * W
+    int32). ``split`` is 0 as the entry calls it (the CTAs a tile picked
+    from the tile count); 1, 2 or 4 forces that cluster size, a seam for the
+    tests of the cluster's merge. Not counted: zbuffer_select_tiled counts
+    its calls."""
+    err = _lib().zbuffer_binned(_build.ptr(coef), _build.ptr(valid), _build.ptr(face_sx),
+                                _build.ptr(face_sy), _build.ptr(ranges), _build.ptr(out),
+                                coef.shape[0], H, W, split, _build.stream_ptr(coef.device))
+    _build.check(err, "zbuffer_binned launch")

@@ -76,6 +76,38 @@ def humanoid_views(dev, n_views: int = 5, res: int = 224, seed: int = 0, elev_st
     return verts.expand(n_views, -1, -1).contiguous(), torch.from_numpy(f).to(dev), poses, focal
 
 
+def smpl_size_body_view(dev):
+    """ShapeGen's 13,441-face body (SMPL's 6,890 vertices) and its 256^2
+    camera: (vertices, faces, pose, focal)."""
+    from ..render import cameras
+    from . import shape
+
+    v, f = smpl_size_body()
+    return (torch.as_tensor(v @ cameras.BODY_TO_WORLD.T, device=dev), torch.as_tensor(f, device=dev).long(),
+            shape._eye_pose(0.0, float(np.deg2rad(-20.0)), 2.2).to(dev),
+            cameras.focal_from_fov(256, np.deg2rad(60.0)))
+
+
+def zbuffer_scenes(runner, dev) -> dict:
+    """The hard z-buffer's renders on the paths, by name, each (vertices,
+    faces, pose, res, focal): the train_clip GT render (``runner``'s SMPL
+    template, after ``init_smpl``, at 256^2), an animate scoring view (the
+    13,776-face body at 224^2, azimuth 180), visualize's 512^2 picture of
+    that body and a ShapeGen render (the 13,441-face body at 256^2)."""
+    from . import visualize
+
+    template_v, faces = runner._template
+    cam, _ = runner.sample_iteration_camera(1, (256,))
+    body_v, body_f, poses, focal = humanoid_views(dev, elev_std=0.0)
+    vis_pose, vis_focal = visualize.camera(dev, 512)
+    sv, sf, s_pose, s_focal = smpl_size_body_view(dev)
+    return {"template 256^2": (template_v, faces, torch.as_tensor(cam["pose"], device=dev), 256,
+                               runner.dataset.focal),
+            "13,776-face body 224^2": (body_v[0], body_f, poses[2], 224, focal),
+            "13,776-face body 512^2": (body_v[0], body_f, vis_pose, 512, vis_focal),
+            "13,441-face body 256^2": (sv, sf, s_pose, 256, s_focal)}
+
+
 def write_template_obj(data_dir: str, v: np.ndarray, f: np.ndarray) -> str:
     """Write a body as the zero-beta template OBJ, where both packages'
     ``assets.load_smpl`` look for it (under ``$AVATARCLIP_TPU_DATA``)."""

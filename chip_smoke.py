@@ -16,10 +16,13 @@ kernel's plain version):
      libraries (g++), and prints the build seconds;
   3. holds each kernel against its plain PyTorch version on the card and
      times both at the main path's shapes:
-     - B2, the tiled z-buffer: the template at 256^2 and 128^2, a random
-       triangle soup, and the animate paths' 13,776-face body at the five
-       224^2 scoring views and visualize's 512^2 camera, exactly but for
-       near-ties; timed on the 256^2 template and the 512^2 body;
+     - B2, the binned z-buffer: the template at 256^2 and 128^2, a random
+       triangle soup, the animate paths' 13,776-face body at the five 224^2
+       scoring views and visualize's 512^2 camera, and ShapeGen's
+       13,441-face body at 256^2, equal to the plain version at every pixel,
+       one counted launch a call, two launches the same bits; timed on the
+       256^2 template, the 512^2 body and the 13,441-face body, through its
+       entry and as the bare C call;
      - #15, the brute-force z-buffer: against the plain version and B2's
        winners, exactly but for near-ties, on the template at 256^2, a
        ragged triangle soup and the 13,441-face ShapeGen body at 256^2
@@ -64,11 +67,10 @@ kernel's plain version):
        magnitude, at every point (at B7's relu near-ties the f64 input
        cotangents take the masks the kernel took, ops/hold.py); B7 in
        no_view_dir with the extra head and in idr without it; in the bf16
-       mode (B6's pair and B7's backward: the tensor-core kernels; B7's
-       forward: the CUDA-core kernel) held as B1 is, at 256 and 128 wide on
-       the ragged count; both timed at path (e)'s 802,816 points a step in
-       both modes, each bf16 kernel beside its plain version, its bounds and
-       its TFLOP/s (and held there in path e);
+       mode (both pairs: the tensor-core kernels) held as B1 is, at 256 and
+       128 wide on the ragged count; both timed at path (e)'s 802,816
+       points a step in both modes, each bf16 kernel beside its plain
+       version, its bounds and its TFLOP/s (and held there in path e);
      - #12, the sdf-only forward, through its entry (backward: autograd of
        the plain version) against the plain version in float64 at 4x256
        and 3x128 on 2,048 rays x 56 sweep points and on a ragged 131,071
@@ -251,31 +253,43 @@ def check_zbuffer(runner, dev):
                       body_focal))
     vis_pose, vis_focal = visualize.camera(dev, 512)
     cases.append(("13,776-face body 512^2 visualize camera", body_v[0], body_f, vis_pose, 512, vis_focal))
+    # path f's shape: ShapeGen's 13,441-face body at 256^2
+    sv, sf, s_pose, s_focal = synthetic.smpl_size_body_view(dev)
+    cases.append(("13,441-face body 256^2", sv, sf, s_pose, 256, s_focal))
 
-    worst = 0.0  # largest inverse-depth gap between differing winners
     for name, v, f, pose, res, focal in cases:
         H, W = (res, res) if isinstance(res, int) else res
         proj = raster.project_vertices(v, pose, H, W, focal)
         coef, valid, _ = raster._face_coefficients(proj, f)
         args = (coef, valid, proj.sx[f], proj.sy[f], H, W)
         want = rz.zbuffer_select_plain(coef, valid, H, W)
-        gap, n = same_winners(f"z-buffer {name}", rz.zbuffer_select_tiled(*args), want, coef, W)
-        worst = max(worst, gap)
-        print(f"[B2] {name}: {int((want >= 0).sum())} covered px, {n} near-tie "
-              f"differences, kernel == plain elsewhere")
-    # time at the train_clip GT raster (the template at 256^2) and at the
-    # animate paths' largest render (the body at 512^2)
-    cam, _ = runner.sample_iteration_camera(1, (256,))
-    ms, plain_ms, b = time_zbuffer("256^2 template", template_v, faces,
-                                   torch.as_tensor(cam["pose"], device=dev), 256, ds.focal)
-    ms_v, plain_ms_v, b_v = time_zbuffer("512^2 body, visualize camera", body_v[0], body_f, vis_pose, 512,
-                                         vis_focal)
+        n0 = rz.LAUNCHES["zbuffer_tiled"]
+        got = rz.zbuffer_select_tiled(*args)
+        if rz.LAUNCHES["zbuffer_tiled"] != n0 + 1:
+            fail(f"B2 {name}: {rz.LAUNCHES['zbuffer_tiled'] - n0} counted launches for one call")
+        _, n = same_winners(f"z-buffer {name}", got, want, coef, W)
+        if n:
+            fail(f"B2 {name}: {n} pixels differ from the plain version (near-ties included)")
+        if not torch.equal(rz.zbuffer_select_tiled(*args), got):
+            fail(f"B2 {name}: two launches gave different winners")
+        print(f"[B2] {name}: {int((want >= 0).sum())} covered px, kernel == plain at every pixel, "
+              f"two launches the same bits")
+    # time at the paths' renders (profile_zbuffer's scenes): the train_clip
+    # GT raster, a scoring view, the animate paths' largest render (the body
+    # at 512^2) and ShapeGen's body
+    t, t_a, t_v, t_s = (time_zbuffer(name, *scene) for name, scene in
+                        synthetic.zbuffer_scenes(runner, dev).items())
     return {"name": "zbuffer_tiled", "route": "cuda",
             "source": "avatarclip_torch/csrc/raster_zbuffer.cu",
             "replaces": "avatarclip_tpu/ops/raster_zbuffer.py:266",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b,
-            "ms_512_body": ms_v, "plain_ms_512_body": plain_ms_v, "bound_ms_512_body": b_v["bound_ms"],
-            "bound_by_512_body": b_v["bound_by"]}
+            "max_abs_err": 0.0, "ms": t["ms"], "ms_kernel": t["ms_kernel"], "plain_ms": t["plain_ms"],
+            "library_ms": None, **t["bound"], "tiles": t["tiles"], "ctas": t["ctas"],
+            "ms_224_body": t_a["ms"], "ms_kernel_224_body": t_a["ms_kernel"],
+            "ms_512_body": t_v["ms"], "ms_kernel_512_body": t_v["ms_kernel"],
+            "plain_ms_512_body": t_v["plain_ms"], "bound_ms_512_body": t_v["bound"]["bound_ms"],
+            "bound_by_512_body": t_v["bound"]["bound_by"], "tiles_512_body": t_v["tiles"],
+            "ctas_512_body": t_v["ctas"],
+            "ms_13441_body": t_s["ms"], "ms_kernel_13441_body": t_s["ms_kernel"]}
 
 
 def same_winners(tag, got, want, coef, W) -> tuple[float, int]:
@@ -301,35 +315,49 @@ def same_winners(tag, got, want, coef, W) -> tuple[float, int]:
     return float(gap.max()), diff.numel()
 
 
-def time_zbuffer(name, v, faces, pose, res, focal, brute: bool = False):
+def time_zbuffer(name, v, faces, pose, res, focal, brute: bool = False) -> dict:
     """B2's (or with ``brute`` #15's) and the plain version's milliseconds on
     one render, and the bound of the work that render needs: every (pixel,
     valid face) pair inside the face's screen bbox gets 3 edge tests and an
     inverse depth (~17 FLOPs). #15 computes B2's function, so it has B2's
     operations; it evaluates every (pixel, face) pair. The bytes are each
-    kernel's own inputs and output: B2 reads coef (48 B a face), valid as
-    int32 and the corners' screen coordinates (24 B) for its culling table;
-    #15 reads coef and valid as bool (1 B)."""
+    kernel's own inputs and output, read once: coef (48 B a face), the bool
+    flags (1 B) and, for B2, the corners' screen coordinates (24 B), plus the
+    int32 ids. B2 is timed through its entry (``ms``: the allocation, the
+    checks and the C call, as the renderer calls it) and as the bare C call
+    on buffers allocated once (``ms_kernel``: its prologue and raster
+    launches)."""
+    import torch
+
     from avatarclip_torch.ops import raster_zbuffer as rz
     from avatarclip_torch.render import raster
 
     proj = raster.project_vertices(v, pose, res, res, focal)
     coef, valid, _ = raster._face_coefficients(proj, faces)
     sx, sy = proj.sx[faces], proj.sy[faces]
+    F = faces.shape[0]
+    out = {"ms_kernel": None, "tiles": None, "ctas": None}
     if brute:
-        ms = cuda_ms(lambda: rz.zbuffer_select(coef, valid, res, res), reps=20)
+        out["ms"] = cuda_ms(lambda: rz.zbuffer_select(coef, valid, res, res), reps=20)
     else:
-        ms = cuda_ms(lambda: rz.zbuffer_select_tiled(coef, valid, sx, sy, res, res), reps=20)
-    plain_ms = cuda_ms(lambda: rz.zbuffer_select_plain(coef, valid, res, res), reps=5)
+        out["ms"] = cuda_ms(lambda: rz.zbuffer_select_tiled(coef, valid, sx, sy, res, res), reps=20)
+        bins = torch.empty(2 * F, dtype=torch.int32, device=coef.device)
+        ids = torch.empty(res * res, dtype=torch.int32, device=coef.device)
+        out["ms_kernel"] = cuda_ms(lambda: rz.launch(coef, valid, sx, sy, bins, ids, res, res), reps=50)
+        out["tiles"], out["ctas"] = rz.grid(res, res)
+    out["plain_ms"] = cuda_ms(lambda: rz.zbuffer_select_plain(coef, valid, res, res), reps=5)
     nx = (sx.amax(1).clamp(0, res - 1).floor() - sx.amin(1).clamp(0, res - 1).ceil() + 1).clamp_min(0)
     ny = (sy.amax(1).clamp(0, res - 1).floor() - sy.amin(1).clamp(0, res - 1).ceil() + 1).clamp_min(0)
     pairs = float((nx * ny * valid.float()).sum())
-    F = faces.shape[0]
-    b = bound(17.0 * pairs, F * (48 + 1 if brute else 48 + 4 + 24) + res * res * 4)
+    out["bound"] = b = bound(17.0 * pairs, F * (48 + 1 + (0 if brute else 24)) + res * res * 4)
     tag = "#15" if brute else "B2"
+    kern = "" if brute else (f", bare C call {out['ms_kernel']:.4f} ms ({out['ctas']} CTAs: "
+                             f"{out['tiles']} tiles of {rz.BIN}x{rz.BIN} pixels, "
+                             f"{out['ctas'] // out['tiles']} CTAs a tile)")
     print(f"[{tag}] {name} ({F} faces, {pairs:.0f} bbox pixel-face pairs, {res * res * F} pairs in all): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
-    return ms, plain_ms, b
+          f"entry {out['ms']:.4f} ms{kern}, plain {out['plain_ms']:.4f} ms, bound "
+          f"{b['bound_ms']:.5f} ms ({b['bound_by']}, {b['flops']:.3e} FLOPs, {b['bytes']:.0f} bytes)")
+    return out
 
 
 def runner_lookat(eye):
@@ -1630,8 +1658,8 @@ def check_colour(dev):
                 cots, ("points", "normals", "view_dirs", "features"), ("rgb",)))
 
     # time at path (e)'s points, in the path's mode (no_view_dir, extra head):
-    # the forward (CUDA cores) in f32 and bf16, the backward in the bf16 mode
-    # (tensor cores) beside the f32 CUDA-core kernel
+    # both kernels in the bf16 mode (tensor cores, their weights packed once
+    # as ColorFunction packs them) beside the f32 CUDA-core kernels
     fields, inputs, _, _ = neus_problem(256, PATH_E_RAYS, dev, seed=10)
     ins = colour_inputs(fields, inputs)
     del fields
@@ -1640,42 +1668,48 @@ def check_colour(dev):
     spec = fc.spec_from_config(net.cfg)
     spec_b = fc.spec_from_config(net_b.cfg)
     flat = torch.cat([w.detach().reshape(-1) for w in fc.dense_weights(net, spec)])
+    packed = fc.tc_pack(spec_b, flat)
     P = ins[0].shape[0]
     cot = (0.5 + torch.rand(P, 6, generator=g)).to(dev)
     ms_f = cuda_ms(lambda: fc.color_fwd(spec, flat, *ins), reps=3)
     ms_b_f = cuda_ms(lambda: fc.color_bwd(spec, flat, *ins, cot), reps=3)
-    ms_f_b = cuda_ms(lambda: fc.color_fwd(spec_b, flat, *ins), reps=3)
+    ms_f_b = statistics.median(cuda_ms(lambda: fc.color_fwd(spec_b, flat, *ins, packed), reps=5)
+                               for _ in range(3))
     torch.cuda.reset_peak_memory_stats()
-    ms_b = cuda_ms(lambda: fc.color_bwd(spec_b, flat, *ins, cot), reps=5)
+    ms_b = cuda_ms(lambda: fc.color_bwd(spec_b, flat, *ins, cot, packed), reps=5)
     mem_k = torch.cuda.max_memory_allocated() / 2**30
-    ms_b = statistics.median([ms_b, cuda_ms(lambda: fc.color_bwd(spec_b, flat, *ins, cot), reps=5)])
+    ms_b = statistics.median([ms_b, cuda_ms(lambda: fc.color_bwd(spec_b, flat, *ins, cot, packed), reps=5)])
     plain_f, _ = time_plain(lambda *xs: fc.color_apply_plain(net, *xs), ins,
                             list(net.parameters()), [cot])
-    _, plain_b = time_plain(lambda *xs: fc.color_apply_plain(net_b, *xs), ins,
-                            list(net_b.parameters()), [cot])
+    plain_f_b, plain_b = time_plain(lambda *xs: fc.color_apply_plain(net_b, *xs), ins,
+                                    list(net_b.parameters()), [cot])
     fl_f, fl_b = fc.flops_per_point(spec)
     n_w, W = flat.numel(), spec.rgb_width
     n_in = 3 * spec.n_vectors + spec.d_feature  # the input floats a point the mode reads
-    b_f = bound(fl_f * P, 4 * (n_w + n_in * P + W * P))
+    b_f = bound_tc(fl_f * P, 4 * (n_w + n_in * P + W * P))
     b_b = bound_tc(fl_b * P, 4 * (n_w + n_in * P + W * P + n_in * P + n_w))
-    print(f"[B7] {P} points (path e's step), 2x256 no_view_dir + extra head: forward kernel (CUDA "
-          f"cores) {ms_f:.3f} ms, bf16 operand mode {ms_f_b:.3f} ms (plain {plain_f:.3f} ms, bound "
-          f"{b_f['bound_ms']:.3f} ms {b_f['bound_by']}, bf16 tensor-core bound "
-          f"{b_f['bound_ms_bf16_tc']:.3f} ms); {fl_f:.0f} / {fl_b:.0f} GEMM FLOPs per point")
+    print(f"[B7] {P} points (path e's step), 2x256 no_view_dir + extra head, {fl_f:.0f} / {fl_b:.0f} "
+          f"GEMM FLOPs per point forward / backward")
+    print(f"[B7] bf16 mode: forward kernel (tensor cores) {ms_f_b:.3f} ms, {fl_f * P / ms_f_b * 1e-9:.1f} "
+          f"TFLOP/s; {ms_f_b / b_f['bound_ms']:.2f}x its bf16 bound {b_f['bound_ms']:.3f} ms "
+          f"({b_f['bound_by']}; ops {b_f['flops'] / PEAK_BF16 * 1e3:.3f} ms, bytes "
+          f"{b_f['bytes'] / HBM * 1e3:.3f} ms), {ms_f_b / b_f['bound_ms_f32']:.2f}x the f32 CUDA-core "
+          f"bound {b_f['bound_ms_f32']:.3f} ms; plain bf16 {plain_f_b:.3f} ms; the f32 CUDA-core "
+          f"kernel {ms_f:.3f} ms (plain f32 {plain_f:.3f} ms)")
     print(f"[B7] bf16 mode: backward kernel (tensor cores) {ms_b:.3f} ms, "
           f"{fl_b * P / ms_b * 1e-9:.1f} TFLOP/s; plain bf16 {plain_b:.3f} ms "
           f"({'under' if ms_b < plain_b else 'NOT under'} it); f32 CUDA-core bound "
           f"{b_b['bound_ms_f32']:.3f} ms ({ms_b / b_b['bound_ms_f32']:.2f}x it: a reading, not a "
           f"check), bf16 tensor-core bound {b_b['bound_ms']:.3f} ms ({b_b['bound_by']}); the f32 "
           f"CUDA-core kernel {ms_b_f:.3f} ms; peak memory {mem_k:.2f} GiB")
-    common = {"route": "cuda", "library_ms": None, "bf16_rel_rms_err": worst_bf16}
+    common = {"route": "cuda", "library_ms": None, "bf16_rel_rms_err": worst_bf16,
+              "source": "avatarclip_torch/csrc/fused_neus_ray_tc.cu",
+              "source_f32": "avatarclip_torch/csrc/fused_color.cu"}
     return [
-        {"name": "color_fwd", **common, "source": "avatarclip_torch/csrc/fused_color.cu",
-         "replaces": "avatarclip_tpu/ops/fused_color.py:230",
-         "max_abs_err": worst_f, "ms": ms_f, "ms_bf16": ms_f_b, "plain_ms": plain_f, **b_f},
-        {"name": "color_bwd", **common, "source": "avatarclip_torch/csrc/fused_neus_ray_tc.cu",
-         "source_f32": "avatarclip_torch/csrc/fused_color.cu",
-         "replaces": "avatarclip_tpu/ops/fused_color.py:244",
+        {"name": "color_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_color.py:230",
+         "max_abs_err": worst_f, "ms": ms_f_b, "ms_f32": ms_f, "plain_ms": plain_f_b,
+         "plain_ms_f32": plain_f, "tflops": fl_f * P / ms_f_b * 1e-9, **b_f},
+        {"name": "color_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_color.py:244",
          "max_abs_err": worst_b, "ms": ms_b, "ms_f32": ms_b_f, "plain_ms": plain_b, **b_b},
     ]
 
@@ -1785,8 +1819,8 @@ def check_zbuffer_brute(runner, dev):
     import numpy as np
     import torch
 
-    from avatarclip_torch.pipelines import shape, synthetic
-    from avatarclip_torch.render import cameras, raster
+    from avatarclip_torch.pipelines import synthetic
+    from avatarclip_torch.render import raster
 
     template_v, faces = runner._template
     cases = []
@@ -1799,11 +1833,7 @@ def check_zbuffer_brute(runner, dev):
     soup_f = torch.as_tensor(g.integers(0, 700, (2000, 3)), device=dev)
     soup_pose = torch.as_tensor(runner_lookat(np.array([0.05, -0.1, 1.6], np.float32)), device=dev)
     cases.append(("triangle soup 200x232, 2,000 faces", soup_v, soup_f, soup_pose, (200, 232), 180.0))
-    v, f = synthetic.smpl_size_body()
-    body_v = torch.as_tensor(v @ cameras.BODY_TO_WORLD.T, device=dev)
-    body_f = torch.as_tensor(f, device=dev).long()
-    body_pose = shape._eye_pose(0.0, float(np.deg2rad(-20.0)), 2.2).to(dev)
-    body_focal = cameras.focal_from_fov(256, np.deg2rad(60.0))
+    body_v, body_f, body_pose, body_focal = synthetic.smpl_size_body_view(dev)
     cases.append(("13,441-face body 256^2", body_v, body_f, body_pose, (256, 256), body_focal))
     worst = 0.0
     for name, v, f, pose, (H, W), focal in cases:
@@ -1813,12 +1843,11 @@ def check_zbuffer_brute(runner, dev):
         worst = max(worst, gap)
         print(f"[#15] {name}: {cov} covered px; {n1} near-tie differences from the plain version, "
               f"{n2} from B2; equal elsewhere")
-    ms, plain_ms, b = time_zbuffer("256^2, the 13,441-face body", body_v, body_f, body_pose, 256, body_focal,
-                                   brute=True)
-    ms_b2, _, _ = time_zbuffer("256^2, the 13,441-face body", body_v, body_f, body_pose, 256, body_focal)
+    t = time_zbuffer("256^2, the 13,441-face body", body_v, body_f, body_pose, 256, body_focal, brute=True)
+    t_b2 = time_zbuffer("256^2, the 13,441-face body", body_v, body_f, body_pose, 256, body_focal)
     return {"name": "zbuffer_brute", "route": "cuda", "source": "avatarclip_torch/csrc/raster_zbuffer.cu",
-            "replaces": "avatarclip_tpu/ops/raster_zbuffer.py:104", "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None, **b, "ms_b2_same_render": ms_b2}
+            "replaces": "avatarclip_tpu/ops/raster_zbuffer.py:104", "max_abs_err": worst, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "library_ms": None, **t["bound"], "ms_b2_same_render": t_b2["ms"]}
 
 
 # ---------------------------------------------------------------------------

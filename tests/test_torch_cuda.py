@@ -22,24 +22,72 @@ def dev():
     return torch.device("cuda:0")
 
 
-def test_zbuffer_kernel_matches_plain(dev):
-    from avatarclip_torch.ops import raster_zbuffer as rz
+def _zbuffer_scene(name, dev):
+    """(coef, valid, face_sx, face_sy, H, W): a ragged 50 x 70 triangle soup,
+    or the 13,776-face body at a 224^2 scoring view or visualize's 512^2
+    camera."""
+    from avatarclip_torch.pipelines import synthetic, visualize
     from avatarclip_torch.render import cameras, raster
 
-    g = np.random.default_rng(0)
-    v = torch.as_tensor(g.normal(0, 0.4, (300, 3)).astype(np.float32), device=dev)
-    f = torch.as_tensor(g.integers(0, 300, (700, 3)), device=dev)
-    pose = torch.as_tensor(cameras.lookat_np(np.array([0.1, -0.2, 1.5], np.float32),
-                                             np.zeros(3, np.float32),
-                                             np.array([0, 1, 0], np.float32)), device=dev)
-    H, W = 50, 70
-    proj = raster.project_vertices(v, pose, H, W, 60.0)
+    if name == "soup 50x70":
+        g = np.random.default_rng(0)
+        v = torch.as_tensor(g.normal(0, 0.4, (300, 3)).astype(np.float32), device=dev)
+        f = torch.as_tensor(g.integers(0, 300, (700, 3)), device=dev)
+        pose = torch.as_tensor(cameras.lookat_np(np.array([0.1, -0.2, 1.5], np.float32),
+                                                 np.zeros(3, np.float32),
+                                                 np.array([0, 1, 0], np.float32)), device=dev)
+        H, W, focal = 50, 70, 60.0
+    else:
+        body_v, f, poses, focal = synthetic.humanoid_views(dev, elev_std=0.0)
+        v = body_v[0]
+        if name == "body 224^2":
+            pose, H, W = poses[2], 224, 224
+        else:
+            pose, focal = visualize.camera(dev, 512)
+            H = W = 512
+    proj = raster.project_vertices(v, pose, H, W, focal)
     coef, valid, _ = raster._face_coefficients(proj, f)
-    args = (coef, valid, proj.sx[f], proj.sy[f], H, W)
+    return coef, valid, proj.sx[f], proj.sy[f], H, W
+
+
+@pytest.mark.parametrize("scene", ["soup 50x70", "body 224^2", "body 512^2"])
+def test_zbuffer_kernel_matches_plain(dev, scene):
+    """B2 equals the plain version at every pixel with one counted launch a
+    call: on a ragged soup and on the 13,776-face body at 224^2 and 512^2."""
+    from avatarclip_torch.ops import raster_zbuffer as rz
+
+    coef, valid, sx, sy, H, W = _zbuffer_scene(scene, dev)
     n0 = rz.LAUNCHES["zbuffer_tiled"]
-    got = rz.zbuffer_select_tiled(*args)
+    got = rz.zbuffer_select_tiled(coef, valid, sx, sy, H, W)
     assert rz.LAUNCHES["zbuffer_tiled"] == n0 + 1
-    assert torch.equal(got, rz.zbuffer_select_plain(coef, valid, H, W))
+    want = rz.zbuffer_select_plain(coef, valid, H, W)
+    assert int((want >= 0).sum()) > 500
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_zbuffer_kernel_matches_plain_at_every_split(dev, split):
+    """B2's C call with each tile's faces split over a cluster of 1, 2 or 4
+    CTAs (every size the entry picks: 4 at 224^2) on the 224^2 body: the
+    plain version's winners, from a grid of that many CTAs a tile."""
+    from avatarclip_torch.ops import raster_zbuffer as rz
+
+    coef, valid, sx, sy, H, W = _zbuffer_scene("body 224^2", dev)
+    ranges = torch.empty(2 * coef.shape[0], dtype=torch.int32, device=dev)
+    out = torch.empty(H * W, dtype=torch.int32, device=dev)
+    rz.launch(coef, valid, sx, sy, ranges, out, H, W, split)
+    assert torch.equal(out, rz.zbuffer_select_plain(coef, valid, H, W))
+    n_ty, n_tx = rz.bin_grid(H, W)
+    assert rz._lib().zbuffer_ctas(H, W, split) == n_ty * n_tx * split
+    assert rz.grid(H, W) == (n_ty * n_tx, n_ty * n_tx * 4)
+
+
+def test_zbuffer_kernel_is_deterministic(dev):
+    """Two launches of B2 on the 512^2 body give the same bits."""
+    from avatarclip_torch.ops import raster_zbuffer as rz
+
+    args = _zbuffer_scene("body 512^2", dev)
+    assert torch.equal(rz.zbuffer_select_tiled(*args), rz.zbuffer_select_tiled(*args))
 
 
 def test_neus_kernel_pair_matches_plain(dev):
@@ -623,3 +671,44 @@ def test_b7_tensor_core_backward_holds_at_bf16(dev, width, mode, extra):
     for name, a, p, r in zip(names, ok + gk, op + gp, orf + grf):
         ek, ep, ok_ = hold.bf16_within(a, p, r)
         assert ok_, (name, ek, ep)
+
+
+@pytest.mark.parametrize("width,mode,extra", [(256, "no_view_dir", True), (256, "idr", False),
+                                              (128, "no_view_dir", True), (128, "idr", False)])
+def test_b7_tensor_core_forward_holds_at_bf16(dev, width, mode, extra):
+    """B7's forward in the bf16 operand mode (the tensor-core kernel, its
+    feature streamed by bulk copies) under no_grad on a ragged 32,767 points
+    at the path's inputs: the rgb against the f32 function in float64
+    beside the plain bf16 version (ops/hold.bf16_within), one forward launch
+    and no backward; two launches give the same bits."""
+    from avatarclip_torch.fields import networks as nets
+    from avatarclip_torch.ops import fused_color as fc
+    from avatarclip_torch.ops import hold
+
+    fields, (ro, rd, mid, _) = _neus_fields(width, 512, dev, "bfloat16", seed=13)
+    pts = (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3)
+    dirs = rd[:, None].expand(-1, mid.shape[1], -1).reshape(-1, 3)
+    with torch.no_grad():
+        _, feat, grad = fields.sdf.sdf_with_gradient(pts)
+    normals = grad / (grad.norm(dim=-1, keepdim=True) + 1e-6)
+    P = pts.shape[0] - 1
+    ins = [t[:P].contiguous() for t in (pts, normals, dirs, feat)]
+    g = torch.Generator().manual_seed(14)
+    net = nets.ColorNetwork(nets.ColorConfig(mode=mode, d_in=9 if mode == "idr" else 6,
+                                             d_feature=width, d_hidden=width,
+                                             n_layers=2 if width == 256 else 1, extra_color=extra,
+                                             weight_norm=False, dtype="bfloat16"), g)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    net = net.to(dev)
+    n0 = dict(fc.LAUNCHES)
+    with torch.no_grad():
+        got = fc.color_apply_fused(net, *ins)
+        again = fc.color_apply_fused(net, *ins)
+        plain = fc.color_apply_plain(net, *ins)
+        ref = fc.color_apply_plain(hold.f32_copy(net).double(), *[t.double() for t in ins])
+    assert fc.LAUNCHES == {"color_fwd": n0["color_fwd"] + 2, "color_bwd": n0["color_bwd"]}
+    assert got.shape == (P, 6 if extra else 3) and torch.equal(got, again)
+    ek, ep, ok = hold.bf16_within(got, plain, ref)
+    assert ok, (ek, ep)

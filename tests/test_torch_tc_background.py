@@ -1,5 +1,5 @@
 """The tensor-core kernels of the background step in the bf16 operand mode,
-B6's forward and B7's backward, on the CPU (the kernels themselves run only
+B6's forward and B7's pair, on the CPU (the kernels themselves run only
 on the card: tests/test_torch_cuda.py):
 
 * B7's packed bf16 weights of the colour layers alone
@@ -11,10 +11,13 @@ on the card: tests/test_torch_cuda.py):
   ``dense_weights``' per-input slices (``fused_color.slices_from_tc``), a
   zero slice for an input the mode does not read: on an index pattern, and
   on autograd's gradients of the two layouts;
-* the mode dispatch of ``fused_sdf.sdf_fwd`` and ``fused_color.color_bwd``:
-  the tensor-core library in the bf16 operand mode, the CUDA-core one in
-  f32 (checked without a launch: the library getters are replaced by ones
-  that name themselves and stop), and both wrappers raising without a card.
+* the mode dispatch of ``fused_sdf.sdf_fwd``, ``fused_color.color_fwd`` and
+  ``fused_color.color_bwd``: the tensor-core library in the bf16 operand
+  mode, the CUDA-core one in f32 (checked without a launch: the library
+  getters are replaced by ones that name themselves and stop), and the
+  wrappers raising without a card;
+* ``fused_color.tc_pack``, the colour weights packed once for both
+  tensor-core kernels.
 """
 
 import dataclasses
@@ -197,9 +200,38 @@ def test_colour_backward_takes_the_tensor_cores_in_bf16(pick_libs, mode, dtype, 
     ins = (x, x, x, torch.zeros(5, spec.d_feature))
     with pytest.raises(_Picked, match=want):
         fc.color_bwd(spec, flat, *ins, torch.zeros(5, spec.rgb_width))
-    # the forward stays on the CUDA cores in both modes
-    with pytest.raises(_Picked, match="B7 CUDA cores"):
+
+
+@pytest.mark.parametrize("dtype,want", [("bfloat16", "tensor cores"), ("float32", "B7 CUDA cores")])
+@pytest.mark.parametrize("mode", MODES)
+def test_colour_forward_takes_the_tensor_cores_in_bf16(pick_libs, mode, dtype, want):
+    _, spec, weights = _colour_spec(mode, 128, dtype)
+    flat = torch.cat([w.reshape(-1) for w in weights])
+    x = torch.zeros(5, 3)
+    ins = (x, x, x, torch.zeros(5, spec.d_feature))
+    with pytest.raises(_Picked, match=want):
         fc.color_fwd(spec, flat, *ins)
+    # with the weights packed once (ColorFunction's pack for both kernels)
+    if spec.bf16:
+        with pytest.raises(_Picked, match=want):
+            fc.color_fwd(spec, flat, *ins, fc.tc_pack(spec, flat))
+    # the operand mode is the spec's: the same net read at f32
+    with pytest.raises(_Picked, match="B7 CUDA cores"):
+        fc.color_fwd(dataclasses.replace(spec, bf16=False), flat, *ins)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_tc_pack_is_the_packing_of_the_joined_weights(mode):
+    """fc.tc_pack, made once a step by ColorFunction for both tensor-core
+    kernels: the joined flat buffer of tc_weights and pack_colour_tc of it,
+    the same bits as packing them apart."""
+    _, spec, weights = _colour_spec(mode, 128)
+    flat = torch.cat([w.reshape(-1) for w in weights])
+    flat_tc, pk, pack = fc.tc_pack(spec, flat)
+    tcw = fc.tc_weights(spec, weights)
+    assert torch.equal(flat_tc, torch.cat([w.reshape(-1) for w in tcw]))
+    pk2, pack2 = fn.pack_colour_tc(tcw)
+    assert torch.equal(pk, pk2) and list(pack.off) == list(pack2.off)
 
 
 def test_wrappers_raise_without_a_card():
@@ -219,5 +251,7 @@ def test_wrappers_raise_without_a_card():
     x = torch.zeros(5, 3)
     with pytest.raises((ValueError, RuntimeError)):
         fc.color_bwd(spec, flat, x, x, x, torch.zeros(5, 128), torch.zeros(5, 3))
+    with pytest.raises((ValueError, RuntimeError)):
+        fc.color_fwd(spec, flat, x, x, x, torch.zeros(5, 128))
     with pytest.raises(ValueError, match="CUDA"):
         fc.color_apply_fused(net, x, x, x, torch.zeros(5, 128))
