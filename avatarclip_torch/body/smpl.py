@@ -56,13 +56,16 @@ class SMPLModel:
         the beta blendshapes (posing a coarse-shape template mesh)."""
         if v_shaped is None:
             if betas is None:
-                betas = torch.zeros(1, self.num_betas, dtype=self.v_template.dtype)
+                betas = torch.zeros(1, self.num_betas, dtype=self.v_template.dtype,
+                                    device=self.v_template.device)
             v_shaped = self.v_template[None] + _lbs.blend_shapes(betas, self.shapedirs)
         N = v_shaped.shape[0]
-        eye = torch.eye(3, dtype=v_shaped.dtype)
+        # The defaults live where the model does (a model moved by .to(dev)).
+        like = dict(dtype=v_shaped.dtype, device=v_shaped.device)
+        eye = torch.eye(3, **like)
         if pose2rot:
-            body_pose = torch.zeros(N, NUM_JOINTS - 1, 3) if body_pose is None else body_pose
-            global_orient = torch.zeros(N, 3) if global_orient is None else global_orient
+            body_pose = torch.zeros(N, NUM_JOINTS - 1, 3, **like) if body_pose is None else body_pose
+            global_orient = torch.zeros(N, 3, **like) if global_orient is None else global_orient
             full = torch.cat([global_orient.reshape(N, 1, 3), body_pose.reshape(N, -1, 3)], 1)
         else:
             body_pose = eye.expand(N, NUM_JOINTS - 1, 3, 3) if body_pose is None else body_pose

@@ -13,23 +13,40 @@
 //   d rgb_k = w_k [cc, ce],  d grad_k = w_k cn
 // (no division by x_k, which may be ~1e-7).
 //
-// What bounds it on this card: device memory. Per sample it reads alpha,
-// rgb and grad (40 bytes with rgb 6 wide) and writes w (4 bytes); a few
-// dozen flops. The backward moves about twice that.
+// What bounds it on this card: device memory. Per sample the forward reads
+// alpha, rgb and grad (40 bytes with rgb 6 wide) and writes w (4 bytes); a
+// few dozen flops: 46.7 MB, 0.0139 ms at 3.35 TB/s, at the validation
+// chunk of 16,384 rays x 64. The backward moves about twice that.
 //
-// Design: one warp per ray, two adjacent samples per lane (lane l holds
-// samples 2l and 2l + 1), so a ray is one coalesced row of the inputs. The
-// exclusive transmittance product is a warp-shuffle scan (Hillis-Steele over
-// the 32 lanes' pair products); the weighted sums are butterfly reductions;
-// the backward's affine recursion for B is a reverse warp scan of the maps
-// B -> a + m B, composed pairwise. The Pallas version scanned along the
-// sample lanes of a (64 rays x S) VMEM block with static shifts; nothing
-// carries across rays, so there is no cross-CTA reduction.
+// Forward design: a CTA of 4 warps takes 4 consecutive rays, whose alpha,
+// rgb and grad rows are three contiguous spans of the inputs. It stages
+// the spans into shared memory with cp.async (16-byte copies on each span's
+// aligned interior, coalesced across the CTA, their L2 lines marked
+// evict-first; single floats at its two ends: stage(), whose Python twin is
+// ops/fused_composite.stage_plan), all issued at once, alpha in its own
+// group: the transmittance scan starts as soon as alpha has landed while
+// the rgb and grad rows are still in flight, and the other resident CTAs
+// (16 an SM, 10 KB of shared memory each) keep the memory busy while this
+// one computes. Then one warp a ray: lane l holds samples l and l + 32 (the
+// rows read from shared memory at a stride of W floats: conflict-free at W
+// 3, two-way at W 6), the exclusive transmittance product is two
+// warp-shuffle scans (Hillis-Steele) joined by the first half's total, w
+// is stored as one coalesced row, and the 9 channel sums are butterfly
+// reductions (its times, warm and with the L2 flushed: PERF.md). The
+// Pallas version scanned along the sample lanes of a (64 rays x S) VMEM
+// block with static shifts; nothing carries across rays, so there is no
+// cross-CTA reduction.
+//
+// Backward design: one warp per ray, two adjacent samples per lane (lane l
+// holds samples 2l and 2l + 1), its loads straight from device memory; the
+// exclusive product a warp-shuffle scan of the lanes' pair products; the
+// affine recursion for B a reverse warp scan of the maps B -> a + m B,
+// composed pairwise.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int WARPS = 8;  // warps (rays in flight) per CTA
+constexpr int WARPS = 8;  // the backward's warps a CTA, one ray each
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ inline float warp_sum(float v) {
@@ -62,38 +79,112 @@ __device__ inline Pair load_pair(const float* __restrict__ alpha, int S, int lan
   return p;
 }
 
-__global__ void __launch_bounds__(WARPS * 32) composite_fwd_kernel(
-    int R, int S, int W, const float* __restrict__ alpha, const float* __restrict__ rgb,
+// The forward's staging: cp.async global -> shared, 16 bytes (through L2
+// only, its lines marked to be evicted first: the rows are read once, and
+// the lines they take are the first to go, not lines another kernel left,
+// which may be dirty and cost a write-back) or 4
+__device__ inline unsigned long long evict_first_policy() {
+  unsigned long long pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+__device__ inline void cp_async16(float* dst, const float* src, unsigned long long pol) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "l"(pol));
+}
+__device__ inline void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+constexpr int RAYS = 4;  // rays a forward CTA, one a warp (16 CTAs an SM)
+constexpr int MAXS = 64;
+
+// Stage n floats src[0, n) into dst, float j at dst[m + j], where m is the
+// number of floats src lies past a 16-byte boundary: the first (4 - m) % 4
+// floats one at a time, then 16-byte copies (aligned at both ends), then
+// the last n - head - 4 n4 < 4 floats one at a time. Returns m. Every thread
+// of the CTA calls it; the copies complete at the caller's wait.
+// (ops/fused_composite.stage_plan is its twin.)
+__device__ inline int stage(float* dst, const float* __restrict__ src, int n,
+                            unsigned long long pol) {
+  const int m = (int)(((size_t)src >> 2) & 3);
+  const int head = min((4 - m) & 3, n);
+  const int n4 = (n - head) >> 2, tail0 = head + 4 * n4;
+  for (int i = threadIdx.x; i < n4; i += RAYS * 32)
+    cp_async16(dst + m + head + 4 * i, src + head + 4 * i, pol);
+  if ((int)threadIdx.x < head) cp_async4(dst + m + threadIdx.x, src + threadIdx.x);
+  if ((int)threadIdx.x < n - tail0) cp_async4(dst + m + tail0 + threadIdx.x, src + tail0 + threadIdx.x);
+  return m;
+}
+
+// lanes: samples k0 = lane and k1 = lane + 32 of a ray's S <= 64
+template <int W>
+__global__ void __launch_bounds__(RAYS * 32) composite_fwd_kernel(
+    int R, int S, const float* __restrict__ alpha, const float* __restrict__ rgb,
     const float* __restrict__ grad, float* __restrict__ w_out, float* __restrict__ color,
     float* __restrict__ extra, float* __restrict__ normals) {
-  const int lane = threadIdx.x & 31;
-  const int ray = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (ray >= R) return;  // whole warps exit together
-  const size_t base = (size_t)ray * S;
-  const Pair p = load_pair(alpha + base, S, lane);
-  const int k0 = 2 * lane, k1 = k0 + 1;
-  const float w0 = p.a0 * p.T0, w1 = p.a1 * p.T1;
-  if (k0 < S) w_out[base + k0] = w0;
-  if (k1 < S) w_out[base + k1] = w1;
-  float acc[9];
+  __shared__ __align__(16) float s_alpha[RAYS * MAXS + 4];
+  __shared__ __align__(16) float s_rgb[RAYS * MAXS * W + 4];
+  __shared__ __align__(16) float s_grad[RAYS * MAXS * 3 + 4];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * RAYS, nr = min(RAYS, R - r0);
+  const size_t base = (size_t)r0 * S;
+  const unsigned long long pol = evict_first_policy();
+  const int ma = stage(s_alpha, alpha + base, nr * S, pol);
+  cp_async_commit();
+  const int mr = stage(s_rgb, rgb + base * W, nr * S * W, pol);
+  const int mg = stage(s_grad, grad + base * 3, nr * S * 3, pol);
+  cp_async_commit();
+  cp_async_wait<1>();  // this thread's alpha copies
+  __syncthreads();     // everyone's
+  const int ray = r0 + warp;
+  const int k0 = lane, k1 = lane + 32;
+  const float* a = s_alpha + ma + warp * S;
+  const float a0 = warp < nr && k0 < S ? a[k0] : 0.f;
+  const float a1 = warp < nr && k1 < S ? a[k1] : 0.f;
+  float p0 = k0 < S ? 1.f - a0 + 1e-7f : 1.f, p1 = k1 < S ? 1.f - a1 + 1e-7f : 1.f;
 #pragma unroll
-  for (int c = 0; c < 9; ++c) acc[c] = 0.f;
-  const float* rg = rgb + base * W;
-  const float* gg = grad + base * 3;
-  if (k0 < S) {
-    for (int c = 0; c < W; ++c) acc[c] += w0 * rg[k0 * W + c];
-    for (int c = 0; c < 3; ++c) acc[6 + c] += w0 * gg[k0 * 3 + c];
+  for (int o = 1; o < 32; o <<= 1) {  // inclusive products over lanes <= lane
+    const float t0 = __shfl_up_sync(FULL, p0, o), t1 = __shfl_up_sync(FULL, p1, o);
+    if (lane >= o) {
+      p0 = t0 * p0;
+      p1 = t1 * p1;
+    }
   }
-  if (k1 < S) {
-    for (int c = 0; c < W; ++c) acc[c] += w1 * rg[k1 * W + c];
-    for (int c = 0; c < 3; ++c) acc[6 + c] += w1 * gg[k1 * 3 + c];
+  const float tot0 = __shfl_sync(FULL, p0, 31);
+  const float e0 = __shfl_up_sync(FULL, p0, 1), e1 = __shfl_up_sync(FULL, p1, 1);
+  const float w0 = a0 * (lane == 0 ? 1.f : e0);
+  const float w1 = a1 * (tot0 * (lane == 0 ? 1.f : e1));
+  if (warp < nr) {
+    if (k0 < S) w_out[base + warp * S + k0] = w0;
+    if (k1 < S) w_out[base + warp * S + k1] = w1;
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the rgb and grad rows
+  if (warp >= nr) return;
+  const float* rg = s_rgb + mr + warp * S * W;
+  const float* gd = s_grad + mg + warp * S * 3;
+  float acc[W + 3];
 #pragma unroll
-  for (int c = 0; c < 9; ++c) acc[c] = warp_sum(acc[c]);
+  for (int c = 0; c < W; ++c)
+    acc[c] = (k0 < S ? w0 * rg[k0 * W + c] : 0.f) + (k1 < S ? w1 * rg[k1 * W + c] : 0.f);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    acc[W + c] = (k0 < S ? w0 * gd[k0 * 3 + c] : 0.f) + (k1 < S ? w1 * gd[k1 * 3 + c] : 0.f);
+#pragma unroll
+  for (int c = 0; c < W + 3; ++c) acc[c] = warp_sum(acc[c]);
+  // lane c < 3 stores channel c of each sum (selected, not indexed: the
+  // sums stay in registers)
+  auto pick = [&](int c0) { return lane == 0 ? acc[c0] : lane == 1 ? acc[c0 + 1] : acc[c0 + 2]; };
   if (lane < 3) {
-    color[ray * 3 + lane] = acc[lane];
-    extra[ray * 3 + lane] = W == 6 ? acc[3 + lane] : 0.f;
-    normals[ray * 3 + lane] = acc[6 + lane];
+    color[ray * 3 + lane] = pick(0);
+    extra[ray * 3 + lane] = W == 6 ? pick(3) : 0.f;
+    normals[ray * 3 + lane] = pick(W);
   }
 }
 
@@ -156,7 +247,7 @@ __global__ void __launch_bounds__(WARPS * 32) composite_bwd_kernel(
   }
 }
 
-inline int n_blocks(int R) { return (R + WARPS - 1) / WARPS; }
+inline int bwd_blocks(int R) { return (R + WARPS - 1) / WARPS; }
 
 }  // namespace
 
@@ -167,7 +258,11 @@ extern "C" {
 int composite_fwd(int R, int S, int W, const float* alpha, const float* rgb, const float* grad,
                   float* w, float* color, float* extra, float* normals, void* stream) {
   if (R == 0) return 0;
-  composite_fwd_kernel<<<n_blocks(R), WARPS * 32, 0, (cudaStream_t)stream>>>(R, S, W, alpha, rgb, grad, w, color, extra, normals);
+  if (S < 1 || S > MAXS || (W != 3 && W != 6)) return (int)cudaErrorInvalidValue;
+  if (W == 6)
+    composite_fwd_kernel<6><<<(R + RAYS - 1) / RAYS, RAYS * 32, 0, (cudaStream_t)stream>>>(R, S, alpha, rgb, grad, w, color, extra, normals);
+  else
+    composite_fwd_kernel<3><<<(R + RAYS - 1) / RAYS, RAYS * 32, 0, (cudaStream_t)stream>>>(R, S, alpha, rgb, grad, w, color, extra, normals);
   return (int)cudaGetLastError();
 }
 
@@ -177,7 +272,7 @@ int composite_bwd(int R, int S, int W, const float* alpha, const float* rgb, con
                   const float* cw, const float* cc, const float* ce, const float* cn,
                   float* d_alpha, float* d_rgb, float* d_grad, void* stream) {
   if (R == 0) return 0;
-  composite_bwd_kernel<<<n_blocks(R), WARPS * 32, 0, (cudaStream_t)stream>>>(R, S, W, alpha, rgb, grad, cw, cc, ce, cn, d_alpha, d_rgb, d_grad);
+  composite_bwd_kernel<<<bwd_blocks(R), WARPS * 32, 0, (cudaStream_t)stream>>>(R, S, W, alpha, rgb, grad, cw, cc, ce, cn, d_alpha, d_rgb, d_grad);
   return (int)cudaGetLastError();
 }
 

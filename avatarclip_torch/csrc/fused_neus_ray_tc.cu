@@ -1,6 +1,6 @@
 // The NeuS kernels for Hopper (sm_90a) on the tensor cores, in the bf16
 // operand mode: B1's per-ray pair, forward and backward, B3's point-level
-// forward, B6's pair and B7's backward (each below).
+// forward, B6's pair, B7's pair and #12's sdf-only forward (each below).
 //
 // B1 replaces the Pallas kernels avatarclip_tpu/ops/fused_neus.py
 // `_fwd_kernel_ray` (:403) and `_bwd_kernel_ray` (:620) at their default
@@ -88,6 +88,16 @@
 // row is rounded, as JAX's sdf+gradient kernel rounds it. 918,016 GEMM
 // FLOPs a point against 1,040 bytes out (the f32 feature): bound by the
 // products, 0.75 ms at 802,816 points at the bf16 peak.
+//
+// #12, the sdf-only forward, in the bf16 mode (sdf_only_tc_fwd) replaces
+// avatarclip_tpu/ops/fused_sdf.py `_sdf_only_kernel` (:626, under
+// `_sdf_only_core` :682): a strict prefix of B6's forward (encode_points,
+// then sdf_primal_tc with no state kept for a gradient sweep and no head
+// product), then the head's sdf row summed in f32 from the unrounded a_s
+// and encoding, as JAX's sdf-only kernel sums it. 393,728 GEMM FLOPs a
+// point against 16 bytes (the point in, the sdf out) at 4x256: bound by the
+// products, 0.104 ms a 262,144-point grid chunk at the bf16 peak. Its
+// weights (the stack's forward forms alone) are packed per call.
 //
 // B7's backward in the bf16 mode (colour_tc_bwd) replaces
 // avatarclip_tpu/ops/fused_color.py `_bwd_kernel` (:244, launched by
@@ -205,7 +215,9 @@ __device__ inline const uint2* mat(const uint2* pk, const Pack& pp, int i) { ret
 // fout(r, c, value): into cin[:, 6:] as the colour net's bf16 operand
 // (CinFeat: B1, B3), or B6's f32 feature output (FeatOut). xlog(i, ptr, ld)
 // true: hidden output i (i < NH), and u (i = -1), are also copied to the
-// log at ptr (stride ld).
+// log at ptr (stride ld). STATES false (#12's sdf-only forward, which no
+// gradient sweep follows): no sigmoid factor is computed or kept (P, PS and
+// ts are not written), only the softplus values.
 struct NoLog {
   __device__ bool operator()(int, bf16*&, int&) const { return false; }
 };
@@ -223,7 +235,7 @@ struct CinFeat {
 __device__ inline void put(float* p, float v) { *p = v; }
 __device__ inline void put(f16* p, float v) { *p = __float2half_rn(v); }
 
-template <int NS, class Hout, class ASt, class XLog, class FOut>
+template <int NS, bool STATES = true, class Hout, class ASt, class XLog, class FOut>
 __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, unsigned char* sm, const float* wts,
                               const WeightOffsets& wo, const uint2* pk, const Pack& pp, f16* P,
                               ASt* AS, f16* PS, bf16* ts, Hout hout, XLog xlog, FOut fout) {
@@ -233,12 +245,17 @@ __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, un
   int ld_in = L.ldE;
   for (int i = 0; i < d.NH; ++i) {
     const float* bias = wts + wo.sb[i];
-    f16* Pi = P + (size_t)i * ROWS * H;
+    f16* Pi = STATES ? P + (size_t)i * ROWS * H : nullptr;
     bf16* out = hout(i);
     phase_tag(0);
     gemm_rows_pre<NS>(in, ld_in, sdf_in(d, i), mat(pk, pp, FS + i), H, ring,
                   [&](int, int c) { return c < H ? bias[c] : 0.f; },
                   [&](int r, int c, float v, float b) {
+      if (!STATES) {
+        const float sp = sp_fast(v + b);
+        if (c < H) out[r * ldX + c] = to_bf(sp);
+        return;
+      }
       float sp, sg;  // computed for every column, stored for c < H: no branch
       f16 sk;
       sp_sig_fast(v + b, sp, sg, sk);
@@ -260,6 +277,14 @@ __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, un
   gemm_rows_pre<NS>(in, ldX, H, mat(pk, pp, FS + d.NH), SW, ring,
                 [&](int, int c) { return c < SW ? make_float2(bs[c], w0[c]) : make_float2(0.f, 0.f); },
                 [&](int r, int c, float v, float2 bw) {
+    if (!STATES) {
+      if (c < SW) {
+        const float sp = sp_fast(v + bw.x);
+        u[r * ldX + c] = to_bf(sp);
+        put(AS + r * SW + c, sp);
+      }
+      return;
+    }
     float sp, sg;
     f16 sk;
     sp_sig_fast(v + bw.x, sp, sg, sk);
@@ -1150,6 +1175,63 @@ __global__ void __launch_bounds__(TNT, 1) sdf_tc_fwd_kernel(
   phase_end(PK_SDF_FWD);
 }
 
+// #12's sdf-only forward in the bf16 mode: B6's forward body up to the
+// skip-producing layer, with no state kept for a gradient sweep (sigmoid
+// factors, tangent operands) and no head product: the points read in tiles
+// of 64 (a ragged last tile zero-padded, its padded rows never stored),
+// encoded, the hidden layers and the skip layer on the tensor cores, then
+// the head's sdf row alone. That row is JAX's sdf-only kernel's f32 row
+// form, sum(a_s * wsa_row) + sum(e * wse_row) (fused_sdf.py:640-644), not
+// B6's rounded one: the f32 a_s (from the skip product's accumulators,
+// through the CTA's L2 scratch AS) and the f32 encoding ef against the f32
+// row w0 / sqrt2, four threads a row in a fixed order, as B1 and B3 take it.
+// Out goes sdf (P,) / scale.
+__global__ void __launch_bounds__(TNT, 1) sdf_only_tc_fwd_kernel(
+    Dims d, Pack pp, const float* __restrict__ wts, const uint2* __restrict__ pk,
+    const float* __restrict__ pts_in, int n_pts, float* __restrict__ sdf_out,
+    unsigned char* __restrict__ scr_all, long long scr_stride) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const Layout L = tc_layout(d, false);
+  const WeightOffsets wo = weight_offsets(d);
+  float* AS = (float*)(scr_all + (size_t)blockIdx.x * scr_stride + L.AS);
+  const int tid = threadIdx.x, SW = d.SW, E = d.E;
+  phase_start();
+  float* pts = (float*)(sm + L.pts);
+  const float* ef = (const float*)(sm + L.ef);
+  bf16* ha = (bf16*)(sm + L.ha);
+  bf16* hb = (bf16*)(sm + L.hb);
+  const float* w0 = wts + wo.sw[d.NH + 1];
+  const float b0 = wts[wo.sb[d.NH + 1]];
+  // every bf16 operand buffer starts zero: padding columns are never written
+  for (size_t e = tid; e < L.smem / 4; e += TNT) ((float*)sm)[e] = 0.f;
+  __syncthreads();
+  const int n_blk = (n_pts + ROWS - 1) / ROWS;
+  for (int blk = blockIdx.x; blk < n_blk; blk += gridDim.x) {
+    const long long row0 = (long long)blk * ROWS;
+    const int n = n_pts - row0 < ROWS ? (int)(n_pts - row0) : ROWS;
+    for (int e = tid; e < ROWS * 3; e += TNT) pts[e] = e < n * 3 ? pts_in[row0 * 3 + e] : 0.f;
+    __syncthreads();
+    encode_points(d, L, sm, true);
+    sdf_primal_tc<NSTAGE_FWD, false>(d, L, sm, wts, wo, pk, pp, (f16*)nullptr, AS, (f16*)nullptr,
+                                     (bf16*)nullptr, [&](int i) { return (i % 2) ? hb : ha; },
+                                     NoLog(), NoFeat());
+    phase_mark(PH_OTHER);
+    // the head's sdf row in f32: four threads a row, fixed order
+    if (tid < 4 * ROWS) {
+      const int r = tid >> 2, q = tid & 3;
+      float acc = 0.f;
+      for (int k = q; k < SW; k += 4) acc += AS[r * SW + k] * w0[k];
+      for (int j = q; j < E; j += 4) acc += ef[r * E + j] * w0[SW + j];
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (q == 0 && r < n) sdf_out[row0 + r] = (acc * RSQRT2 + b0) / d.scale;
+    }
+    __syncthreads();  // AS and ef are the next tile's
+    phase_mark(PH_COMPOSITE);
+  }
+  phase_end(PK_SDF_ONLY);
+}
+
 // B7's backward in the bf16 mode: tiles blk0 .. blk1 of 64 points (the
 // chunk's), each CTA walking them; the colour half of B1's backward with the
 // colour input read from memory. The first layer's input is one bf16 tile
@@ -1631,6 +1713,23 @@ int sdf_tc_fwd(Dims d, Pack pp, const float* wts, const void* pk, const float* p
                                       smem);
   if (err) return err;
   sdf_tc_fwd_kernel<<<n_cta, TNT, smem, st>>>(d, pp, wts, (const uint2*)pk, pts, n_pts, sdf, feat, grad, (unsigned char*)scr, scr_stride);
+  return (int)cudaGetLastError();
+}
+
+// #12's forward: as sdf_only_fwd (fused_sdf.cu), with the packed bf16
+// matrices of the SDF stack pk (offsets pp: the hidden and skip-producing
+// layers' forward forms, ops/fused_neus.py's pack_sdf_only_tc) beside the
+// flat f32 weights (Dims with no colour net; the head's sdf row and every
+// bias are read from there); scr an (n_cta, scr_stride)-byte scratch
+// (neus_tc_scratch_bytes(d, 0): the kernel uses its AS region).
+int sdf_only_tc_fwd(Dims d, Pack pp, const float* wts, const void* pk, const float* pts,
+                    int n_pts, float* sdf, void* scr, long long scr_stride, int n_cta,
+                    void* stream) {
+  const int smem = (int)tc_layout(d, false).smem;
+  int err = (int)cudaFuncSetAttribute(sdf_only_tc_fwd_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  sdf_only_tc_fwd_kernel<<<n_cta, TNT, smem, (cudaStream_t)stream>>>(d, pp, wts, (const uint2*)pk, pts, n_pts, sdf, (unsigned char*)scr, scr_stride);
   return (int)cudaGetLastError();
 }
 

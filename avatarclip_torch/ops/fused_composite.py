@@ -12,7 +12,10 @@ On a CUDA tensor :func:`composite` runs ``csrc/fused_composite.cu`` through
 :class:`CompositeFunction` (the backward is the second kernel; no fallback);
 on a CPU tensor it runs :func:`composite_plain`, differentiated by autograd.
 The kernels take S <= 64 samples (one warp per ray) and any ray count: the
-TPU version's padding to 64-ray blocks has no counterpart.
+TPU version's padding to 64-ray blocks has no counterpart. The forward
+kernel stages each CTA's RAYS_PER_CTA rays through shared memory by 16-byte
+copies; :func:`cta_span` and :func:`stage_plan` are the Python twins of its
+index map (tests/test_torch_composite_stage.py).
 """
 
 from __future__ import annotations
@@ -42,6 +45,30 @@ def composite_plain(alpha, rgb, grad):
         extra = torch.zeros_like(color)
     normals_w = (grad * weights[..., None]).sum(1)
     return weights, color, extra, normals_w
+
+
+RAYS_PER_CTA = 4  # csrc/fused_composite.cu's RAYS: the forward's rays a CTA, one a warp
+
+
+def cta_span(cta: int, R: int, S: int, width: int) -> tuple[int, int]:
+    """(first float, floats) of the forward CTA ``cta``'s rows of an (R, S,
+    width) input: its rays' rows, one contiguous span."""
+    r0 = cta * RAYS_PER_CTA
+    return r0 * S * width, min(RAYS_PER_CTA, R - r0) * S * width
+
+
+def stage_plan(m: int, n: int) -> list[tuple[int, int, int]]:
+    """Twin of fused_composite.cu's ``stage``: the copies that bring a span
+    of n floats, whose first lies m floats (0..3) past a 16-byte boundary,
+    into a shared buffer with float j at m + j, as (first float of the span,
+    first buffer float, floats): single floats up to the first boundary,
+    4-float (16-byte) copies, then the last < 4 floats one at a time."""
+    head = min((4 - m) % 4, n)
+    n4 = (n - head) // 4
+    tail0 = head + 4 * n4
+    return ([(j, m + j, 1) for j in range(head)] + [(head + 4 * i, m + head + 4 * i, 4)
+                                                   for i in range(n4)]
+            + [(j, m + j, 1) for j in range(tail0, n)])
 
 
 def _lib():

@@ -383,6 +383,17 @@ def pack_tc(spec, weights) -> tuple[torch.Tensor, Pack]:
     return _pack(slots | _colour_slots(col_w))
 
 
+def pack_sdf_only_tc(spec, weights) -> tuple[torch.Tensor, Pack]:
+    """#12's packed bf16 weights, from fused_sdf.dense_weights' list: the
+    SDF stack's matrices that the sdf-only kernel multiplies, the hidden
+    layers and the skip-producing layer, in their forward form (W^T) alone.
+    The head's sdf row and every bias stay in the flat f32 buffer; the
+    head's feature rows, the reverse forms and the colour slots are not
+    packed."""
+    mats = weights[0::2]
+    return _pack({_FS + i: mats[i].t() for i in range(spec.n_hidden + 1)})
+
+
 def pack_colour_tc(weights) -> tuple[torch.Tensor, Pack]:
     """B7's packed bf16 weights: the colour layers alone, from a dense
     weight list as (W, b) whose first layer is one (HC, CW) matrix over the
@@ -458,6 +469,8 @@ def type_tc(lib):
         lib.colour_tc_bwd.restype = I
         lib.colour_tc_fwd.argtypes = [Dims, Pack] + [P] * 6 + [I] * 4 + [P, I, P]
         lib.colour_tc_fwd.restype = I
+        lib.sdf_only_tc_fwd.argtypes = [Dims, Pack, P, P, P, I, P, P, L_, I, P]
+        lib.sdf_only_tc_fwd.restype = I
         lib.neus_tc_log_row.argtypes = [Dims]
         lib.neus_tc_log_row.restype = L_
         lib.neus_tc_wgrad_tiles.argtypes = [Dims]

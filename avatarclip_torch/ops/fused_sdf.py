@@ -28,10 +28,12 @@ backward.
 
 The sdf-only forward (twin of `sdf_value_fused` / `_sdf_only_core`, Pallas
 `_sdf_only_kernel`) returns sdf (P, 1) alone, for the sdf-only queries behind
-``fields.networks.sdf_value``'s ``_SWEEP_KERNEL`` hook. Its Function's forward
-is the kernel and its backward autograd of :func:`sdf_only_plain`, as the JAX
-package's ``_sdf_only_bwd`` differentiates its plain ``_dense_sdf_only``:
-there is no backward kernel.
+``fields.networks.sdf_value``'s ``_SWEEP_KERNEL`` hook: on the tensor cores in
+the bf16 mode (csrc/fused_neus_ray_tc.cu's ``sdf_only_tc_fwd``, the stack's
+matrices packed per call by ``fused_neus.pack_sdf_only_tc``), csrc/fused_sdf.cu's
+kernel in f32. Its Function's forward is the kernel and its backward autograd
+of :func:`sdf_only_plain`, as the JAX package's ``_sdf_only_bwd``
+differentiates its plain ``_dense_sdf_only``: there is no backward kernel.
 """
 
 from __future__ import annotations
@@ -162,12 +164,15 @@ def _lib():
 
 
 def _check(spec: FusedSDFSpec, lib, flat, pts, tc: bool = False):
-    if not pts.is_cuda or flat.device != pts.device:
-        raise ValueError("the SDF kernel takes points and weights on one CUDA device")
-    _build.check_f32(pts.device, (("pts", pts, (pts.shape[0], 3)), ("flat", flat, (flat.numel(),))))
+    """The flat weights against the library's own weight count (the
+    tensor-core one when ``tc``), then the inputs: f32, contiguous, on one
+    CUDA device."""
     count = lib.neus_tc_weight_count if tc else lib.sdf_weight_count
     if flat.numel() != count(spec.dims()):
         raise ValueError("flat weight buffer does not match the network dims")
+    if not pts.is_cuda or flat.device != pts.device:
+        raise ValueError("the SDF kernel takes points and weights on one CUDA device")
+    _build.check_f32(pts.device, (("pts", pts, (pts.shape[0], 3)), ("flat", flat, (flat.numel(),))))
     if pts.shape[0] >= 2**31:
         raise ValueError("the SDF kernel takes fewer than 2^31 points")
 
@@ -203,19 +208,33 @@ def sdf_fwd(spec: FusedSDFSpec, flat, pts, packed=None):
     return sdf, feat, grad
 
 
-def sdf_only_fwd(spec: FusedSDFSpec, flat, pts):
-    """Launch the sdf-only kernel. Returns sdf (P, 1)."""
-    lib = _lib()
-    _check(spec, lib, flat, pts)
+def sdf_only_fwd(spec: FusedSDFSpec, flat, pts, packed=None):
+    """Launch the sdf-only kernel: in the bf16 mode the tensor-core one
+    (``packed`` = fused_neus.pack_sdf_only_tc's (pk, pack), packed from
+    ``flat`` when None), in f32 fused_sdf.cu's. Returns sdf (P, 1)."""
+    lib = fused_neus._tc_lib() if spec.bf16 else _lib()
+    _check(spec, lib, flat, pts, tc=spec.bf16)
     d, dev, P = spec.dims(), pts.device, pts.shape[0]
     sdf = torch.empty(P, 1, device=dev)
     if P == 0:
         return sdf
-    n_cta = n_cta_for(dev, -(-P // BLOCK))
-    stride = int(lib.sdf_workspace_floats(d, 0))
-    ws = torch.empty(n_cta * stride, device=dev)
-    err = lib.sdf_only_fwd(d, _build.ptr(flat), _build.ptr(pts), P, _build.ptr(sdf), _build.ptr(ws),
-                           stride, n_cta, _build.stream_ptr(dev))
+    p = _build.ptr
+    if spec.bf16:
+        if packed is None:
+            packed = fused_neus.pack_sdf_only_tc(spec, split_flat(flat, fused_neus.flat_shapes(d)))
+        pk, pack = packed
+        fused_neus.check_packed(pk, dev)
+        n_cta = fused_neus.n_cta_tc(dev, -(-P // BLOCK))
+        stride = int(lib.neus_tc_scratch_bytes(d, 0))
+        scr = torch.empty(n_cta * stride, dtype=torch.uint8, device=dev)
+        err = lib.sdf_only_tc_fwd(d, pack, p(flat), p(pk), p(pts), P, p(sdf), p(scr), stride, n_cta,
+                                  _build.stream_ptr(dev))
+    else:
+        n_cta = n_cta_for(dev, -(-P // BLOCK))
+        stride = int(lib.sdf_workspace_floats(d, 0))
+        ws = torch.empty(n_cta * stride, device=dev)
+        err = lib.sdf_only_fwd(d, p(flat), p(pts), P, p(sdf), p(ws), stride, n_cta,
+                               _build.stream_ptr(dev))
     _build.check(err, "sdf_only_fwd launch")
     _build.count(LAUNCHES, "sdf_only_fwd")
     return sdf
@@ -321,14 +340,19 @@ def sdf_with_gradient_fused(sdf: SDFNetwork, pts: torch.Tensor):
 
 class SDFOnlyFunction(torch.autograd.Function):
     """(spec, net, pts, *net parameters) -> sdf (P, 1): the forward is the
-    sdf-only kernel; the backward differentiates :func:`sdf_only_plain`
-    (f32) with respect to the points and the net's parameters."""
+    sdf-only kernel (in the bf16 mode its weights packed here, from this
+    call's parameters: nothing is cached across calls); the backward
+    differentiates :func:`sdf_only_plain` (f32) with respect to the points
+    and the net's parameters."""
 
     @staticmethod
     def forward(ctx, spec, sdf, pts, *params):
-        flat = torch.cat([w.detach().reshape(-1) for w in dense_weights(sdf)])
+        weights = [w.detach() for w in dense_weights(sdf)]
+        flat = torch.cat([w.reshape(-1) for w in weights])
         ctx.sdf = sdf
         ctx.save_for_backward(pts)
+        if spec.bf16:
+            return sdf_only_fwd(spec, flat, pts, fused_neus.pack_sdf_only_tc(spec, weights))
         return sdf_only_fwd(spec, flat, pts)
 
     @staticmethod

@@ -44,7 +44,10 @@ kernel's plain version):
        forward's comparison with that bound printed, not checked);
      - B4, the compositing pair: rgb width 6 and 3 on 2,048 rays x 64 against
        float64, same tolerances, and its forward under no_grad at 16,384 and
-       16,347 rays; timed at 16,384 rays x 64;
+       16,347 rays, at S 64, 48 and 37, on inputs 0-3 floats past a 16-byte
+       boundary; timed at 16,384 rays x 64, the forward warm (the same
+       inputs back to back) and cold (the L2 flushed before each launch by
+       writing, or reading, 128 MB);
      - B5, the soft aggregation pair: forward and backward against the plain
        version in float64 (outputs to 1e-4 of their largest magnitude, the
        rgb and silhouette to 2e-4 absolute, the gradients of the x, y and
@@ -75,8 +78,11 @@ kernel's plain version):
        the plain version) against the plain version in float64 at 4x256
        and 3x128 on 2,048 rays x 56 sweep points and on a ragged 131,071
        points (the sdf to 1e-4, its VJP to 1e-3), and its forward at one
-       train_clip step's 12,544 x 56 points; timed there and on a
-       262,144-point grid chunk, in both operand modes;
+       train_clip step's 12,544 x 56 points and on a 262,144-point grid
+       chunk; in the bf16 mode (the tensor-core kernel) held as B1 is at
+       4x256 and 3x128 on a ragged 114,687 points and on the grid chunk;
+       timed on the step's points and the grid chunk in both operand modes,
+       with the bf16 kernel's pack timed alone;
      each kernel's bound is max(FLOPs / peak, bytes / 3.35 TB/s) for the
      work of that call (f32 CUDA-core peak 67 TFLOP/s, the type the kernels
      compute in; the bf16 tensor-core bound at 989 TFLOP/s is printed too);
@@ -100,12 +106,15 @@ kernel's plain version):
         checkpoint: 60 renders at resolution level 4 and their reversal as a
         120-frame MP4;
      h. the sweep hook (``networks._SWEEP_KERNEL``) on against off on (a)'s
-        checkpoint, computing in float32 as #12 does (the confs' bf16
+        checkpoint, computing in float32 (#12's f32 kernel; the confs' bf16
         operands would measure the precision gap, not the kernel): the
         validate_mesh mode's 512^3 extraction (grids within
         1e-5, vertex counts within 0.1%, #12 once a grid chunk) and one
         train_clip step at the same seed (losses within 1e-4, #12 four
-        times: the coarse query and three up-sample sweeps);
+        times: the coarse query and three up-sample sweeps); then the
+        extraction hook off and on at the conf's bf16 (#12 on the tensor
+        cores once a grid chunk), its wall seconds beside the hook-off
+        extraction's and the grids' gap printed as a reading;
      c. ``animate.main`` in pose mode on the procedural body at SMPL's
         13,776 faces (written as the template OBJ): PoseOptimizer, 2
         restarts x 8 steps at 224^2 with CLIP ViT-B/32, the candidates'
@@ -999,9 +1008,16 @@ def check_composite(dev):
         print(f"[B4] rgb width {W}, 2048 rays x 64 samples vs the plain version in f64: within "
               f"tolerance; max abs err fwd {worst_f:.3e}, bwd {worst_b:.3e}")
     # the forward alone under no_grad, as validation runs it, at the main
-    # path's chunk and at a ragged last chunk (not a multiple of a warp group)
-    for R, W in ((VAL_CHUNK, 6), (VAL_CHUNK - 37, 6), (VAL_CHUNK - 37, 3)):
-        ins, _ = composite_problem(R, 64, W, dev, seed=R + W)
+    # path's chunk and at a ragged last chunk (not a multiple of a CTA's 4
+    # rays), at S 64 and below, and on inputs that start 1-3 floats past a
+    # 16-byte boundary (the staging's single-float ends)
+    for R, S, W, shift in ((VAL_CHUNK, 64, 6, 0), (VAL_CHUNK - 37, 64, 6, 0),
+                           (VAL_CHUNK - 37, 64, 3, 0), (VAL_CHUNK - 37, 37, 6, 1),
+                           (VAL_CHUNK, 48, 3, 3), (VAL_CHUNK - 37, 64, 6, 2)):
+        ins, _ = composite_problem(R, S, W, dev, seed=R + S + W)
+        if shift:  # the same values, k floats into a buffer of their own
+            ins = [torch.cat([t.new_zeros(k), t.reshape(-1)])[k:].view(t.shape)
+                   for k, t in zip((shift, shift % 3 + 1, (shift + 1) % 3 + 1), ins)]
         with torch.no_grad():
             got = fc.composite(*ins)
             ref = fc.composite_plain(*[t.double() for t in ins])
@@ -1009,10 +1025,13 @@ def check_composite(dev):
         for nm, a, b in zip(("weights", "color", "extra", "normals_w"), got, ref):
             err, rel = rel_err(a, b)
             if not rel <= OUT_TOL:
-                fail(f"B4 forward at {R} rays, W={W}, {nm}: rel err {rel:.2e} > {OUT_TOL}")
+                fail(f"B4 forward at {R} rays x {S}, W={W}, {nm}: rel err {rel:.2e} > {OUT_TOL}")
             worst_f = max(worst_f, err)
-        print(f"[B4] forward under no_grad at {R} rays x 64 samples, rgb width {W}, vs the plain "
-              f"version in f64: within tolerance; max abs err fwd {worst_f:.3e}")
+        if W == 3 and got[2].any():
+            fail("B4 forward at rgb width 3: extra is not zero")
+        print(f"[B4] forward under no_grad at {R} rays x {S} samples, rgb width {W}, inputs "
+              f"{[t.data_ptr() % 16 // 4 for t in ins]} floats past 16 bytes, vs the plain version "
+              f"in f64: within tolerance; max abs err fwd {worst_f:.3e}")
     R, S, W = VAL_CHUNK, 64, 6
     ins, cots = composite_problem(R, S, W, dev, seed=1)
     cots = [c.contiguous() for c in cots]
@@ -1026,6 +1045,11 @@ def check_composite(dev):
     outs_b = [p(t) for t in fc.composite_bwd(*ins, *cots)]
     args = [p(t) for t in ins]
     ms_f = cuda_ms(lambda: lib.composite_fwd(R, S, W, *args, *outs_f, st), reps=50)
+    # cold: the L2 flushed before each launch by writing (or reading) 128 MB
+    from avatarclip_torch.tools.profile_b4_sdf_only import cuda_ms_cold
+
+    ms_cold = cuda_ms_cold(lambda: lib.composite_fwd(R, S, W, *args, *outs_f, st), 50, "write")
+    ms_cold_read = cuda_ms_cold(lambda: lib.composite_fwd(R, S, W, *args, *outs_f, st), 50, "read")
     ms_b = cuda_ms(lambda: lib.composite_bwd(R, S, W, *args, *[p(c) for c in cots], *outs_b, st),
                    reps=50)
     wrap_f = cuda_ms(lambda: fc.composite_fwd(*ins), reps=20)
@@ -1040,7 +1064,9 @@ def check_composite(dev):
     P = R * S
     b_f = bound(P * (4 + 2 * (W + 3)), 4 * (P * (1 + W + 3) + P + 9 * R))
     b_b = bound(P * (13 + 3 * (W + 3)), 4 * (P * (2 + W + 3) + 9 * R + P * (1 + W + 3)))
-    print(f"[B4] {R} rays x {S} samples, rgb width {W}: forward kernel {ms_f:.4f} ms (through "
+    print(f"[B4] {R} rays x {S} samples, rgb width {W}: forward kernel {ms_f:.4f} ms warm, "
+          f"{ms_cold:.4f} ms cold (L2 flushed by writing 128 MB before each launch; "
+          f"{b_f['bytes'] / ms_cold / 1e9:.3f} TB/s), {ms_cold_read:.4f} ms cold by reading (through "
           f"the wrapper {wrap_f:.4f} ms; plain {plain_f:.4f} ms, bound {b_f['bound_ms']:.4f} ms "
           f"{b_f['bound_by']}); backward kernel "
           f"{ms_b:.4f} ms (plain {plain_b:.4f} ms, bound "
@@ -1049,7 +1075,8 @@ def check_composite(dev):
               "library_ms": None}
     return [
         {"name": "composite_fwd", **common, "replaces": "avatarclip_tpu/ops/fused_composite.py:73",
-         "max_abs_err": worst_f, "ms": ms_f, "plain_ms": plain_f, **b_f},
+         "max_abs_err": worst_f, "ms": ms_f, "ms_cold": ms_cold, "ms_cold_read": ms_cold_read,
+         "plain_ms": plain_f, **b_f},
         {"name": "composite_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_composite.py:82",
          "max_abs_err": worst_b, "ms": ms_b, "plain_ms": plain_b, **b_b},
     ]
@@ -1730,13 +1757,19 @@ def sweep_points(inputs):
 
 def check_sdf_only(dev):
     """#12 through its entry (the kernel forward, autograd of the plain
-    version backward) against the plain version in f64: at 4x256 and 3x128
-    on 2,048 rays x 56 sweep points and at 4x256 on a ragged 131,071 points,
-    the sdf to OUT_TOL and its VJP into every parameter and the points to
-    GRAD_TOL; the forward at one train_clip step's 12,544 rays x 56 points.
-    Timed there and on one 262,144-point grid chunk."""
+    version backward) against the plain version in f64: in f32 (fused_sdf.cu)
+    at 4x256 and 3x128 on 2,048 rays x 56 sweep points and at 4x256 on a
+    ragged 131,071 points, the sdf to OUT_TOL and its VJP into every
+    parameter and the points to GRAD_TOL, the forward at one train_clip
+    step's 12,544 rays x 56 points and on a 262,144-point grid chunk; in
+    bf16 (the tensor-core kernel) at 4x256 and 3x128 on a ragged 114,687
+    sweep points and at 4x256 on the grid chunk (hold_net_bf16). Timed on
+    the step's points and the grid chunk: the bf16 kernel on a pack made
+    beforehand and through its entry (the pack included), the f32 kernel,
+    the plain version in both modes, both bounds, and the pack alone."""
     import torch
 
+    from avatarclip_torch.ops import fused_neus as fn
     from avatarclip_torch.ops import fused_sdf as fs
 
     worst_f = worst_b = 0.0
@@ -1767,36 +1800,67 @@ def check_sdf_only(dev):
     P = pts.shape[0]
     worst_f = max(worst_f, hold_forward(f"#12 4x256, {P} points (a train_clip step's sweeps)",
                                         fs.sdf_value_fused, fs.sdf_only_plain, sdf, [pts], ("sdf",)))
-    spec = fs.spec_from_config(sdf.cfg)
-    flat = torch.cat([w.detach().reshape(-1) for w in fs.dense_weights(sdf)])
+    # the same net at the confs' bf16 (the tensor-core kernel) and at f32
+    # (fused_sdf.cu's), on the step's sweep points and on one grid chunk
+    sdf_b = copy.deepcopy(sdf)
+    sdf_b.cfg = dataclasses.replace(sdf.cfg, dtype="bfloat16")
     grid = ((torch.rand(GRID_CHUNK, 3, generator=g) * 2 - 1) * 1.01).to(dev)
-    times = {}
-    spec_b = dataclasses.replace(spec, bf16=True)
-    with torch.no_grad():
-        ms_bf16 = cuda_ms(lambda: fs.sdf_only_fwd(spec_b, flat, pts), reps=5)
-        ms_bf16_g = cuda_ms(lambda: fs.sdf_only_fwd(spec_b, flat, grid), reps=5)
+    worst_f = max(worst_f, hold_forward(f"#12 4x256, {GRID_CHUNK}-point grid chunk", fs.sdf_value_fused,
+                                        fs.sdf_only_plain, sdf, [grid], ("sdf",)))
+    worst_bf16 = max(worst_bf16, hold_net_bf16(
+        f"#12 4x256, {GRID_CHUNK}-point grid chunk", fs.sdf_value_fused, fs.sdf_only_plain, sdf_b,
+        [grid], [(0.5 + torch.rand(GRID_CHUNK, 1, generator=g)).to(dev)], ("points",), ("sdf",)))
+    spec = fs.spec_from_config(sdf.cfg)
+    spec_b = fs.spec_from_config(sdf_b.cfg)
+    weights = [w.detach() for w in fs.dense_weights(sdf)]
+    flat = torch.cat([w.reshape(-1) for w in weights])
+    packed = fn.pack_sdf_only_tc(spec_b, weights)
+    flops_pt = fs.sdf_only_flops_per_point(spec)
+    t = {}
     for tag, x in (("step", pts), ("grid", grid)):
         n = x.shape[0]
         with torch.no_grad():
-            times[tag] = (cuda_ms(lambda: fs.sdf_only_fwd(spec, flat, x), reps=5),
-                          cuda_ms(lambda: fs.sdf_only_plain(sdf, x), reps=3),
-                          bound(fs.sdf_only_flops_per_point(spec) * n, 4 * (flat.numel() + 4 * n)))
-    (ms, plain_ms, b), (ms_g, plain_g, b_g) = times["step"], times["grid"]
-    print(f"[#12] sdf-only forward, 4x256, {fs.sdf_only_flops_per_point(spec):.0f} GEMM FLOPs a point: "
-          f"{P} points (a train_clip step's sweeps) kernel {ms:.3f} ms (plain, no grad, {plain_ms:.3f} ms; "
-          f"bound {b['bound_ms']:.3f} ms {b['bound_by']}, bf16 tensor-core {b['bound_ms_bf16_tc']:.3f} ms); "
-          f"{GRID_CHUNK}-point grid chunk kernel {ms_g:.3f} ms (plain {plain_g:.3f} ms, bound "
-          f"{b_g['bound_ms']:.3f} ms); the VJP (autograd of the plain version) max abs err {worst_b:.3e}; "
-          f"bf16 operand mode {ms_bf16:.3f} ms on the step's points, {ms_bf16_g:.3f} ms on the grid chunk "
-          f"(the shape of its bf16 launches)")
-    del fields, inputs
+            t[tag] = {
+                "bf16": cuda_ms(lambda: fs.sdf_only_fwd(spec_b, flat, x, packed), reps=10),
+                "bf16_entry": cuda_ms(lambda: fs.sdf_value_fused(sdf_b, x), reps=10),
+                "f32": cuda_ms(lambda: fs.sdf_only_fwd(spec, flat, x), reps=5),
+                "plain_bf16": cuda_ms(lambda: fs.sdf_only_plain(sdf_b, x), reps=3),
+                "plain_f32": cuda_ms(lambda: fs.sdf_only_plain(sdf, x), reps=3),
+                "bound": bound_tc(flops_pt * n, 4 * (4 * n)),
+                "bound_f32": bound(flops_pt * n, 4 * (flat.numel() + 4 * n))}
+
+    def pack():
+        ws = [w.detach() for w in fs.dense_weights(sdf_b)]
+        return torch.cat([w.reshape(-1) for w in ws]), fn.pack_sdf_only_tc(spec_b, ws)
+
+    pack_ms = cuda_ms(pack, reps=10)
+    for tag, what in (("step", f"{P} points (a train_clip step's sweeps)"),
+                      ("grid", f"{GRID_CHUNK}-point grid chunk")):
+        r = t[tag]
+        tflops = r["bound"]["flops"] / r["bf16"] / 1e9
+        print(f"[#12] sdf-only forward, 4x256, {flops_pt:.0f} GEMM FLOPs a point, {what}: bf16 "
+              f"tensor-core kernel {r['bf16']:.3f} ms ({tflops:.1f} TFLOP/s; through the entry, its "
+              f"pack included, {r['bf16_entry']:.3f} ms), f32 CUDA-core "
+              f"kernel {r['f32']:.3f} ms; plain bf16 {r['plain_bf16']:.3f} ms, plain f32 "
+              f"{r['plain_f32']:.3f} ms (no grad); bound bf16 tensor cores {r['bound']['bound_ms']:.3f} ms "
+              f"({r['bound']['bound_by']}), f32 CUDA cores {r['bound_f32']['bound_ms']:.3f} ms")
+    print(f"[#12] the pack of one call (dense weights, flat buffer, bf16 stack matrices): {pack_ms:.4f} ms; "
+          f"the VJP (autograd of the plain version) max abs err {worst_b:.3e}; bf16 worst rel RMS "
+          f"{worst_bf16:.3e}")
+    (rs, rg) = t["step"], t["grid"]
+    del fields, inputs, sdf_b, packed
     torch.cuda.empty_cache()
-    return {"name": "sdf_only_fwd", "route": "cuda", "source": "avatarclip_torch/csrc/fused_sdf.cu",
-            "replaces": "avatarclip_tpu/ops/fused_sdf.py:626", "max_abs_err": worst_f, "ms": ms,
-            "ms_bf16": ms_bf16, "bf16_rel_rms_err": worst_bf16,
-            "plain_ms": plain_ms, "library_ms": None, **b, "ms_grid_chunk": ms_g,
-            "plain_ms_grid_chunk": plain_g, "bound_ms_grid_chunk": b_g["bound_ms"],
-            "ms_bf16_grid_chunk": ms_bf16_g}
+    return {"name": "sdf_only_fwd", "route": "cuda", "source": "avatarclip_torch/csrc/fused_neus_ray_tc.cu",
+            "source_f32": "avatarclip_torch/csrc/fused_sdf.cu",
+            "replaces": "avatarclip_tpu/ops/fused_sdf.py:626", "max_abs_err": worst_f,
+            "ms": rs["bf16"], "ms_bf16": rs["bf16"], "ms_bf16_entry": rs["bf16_entry"], "ms_f32": rs["f32"],
+            "pack_ms": pack_ms, "bf16_rel_rms_err": worst_bf16, "plain_ms": rs["plain_bf16"],
+            "plain_ms_f32": rs["plain_f32"], "library_ms": None, **rs["bound"],
+            "ms_grid_chunk": rg["bf16"], "ms_bf16_grid_chunk": rg["bf16"],
+            "ms_bf16_entry_grid_chunk": rg["bf16_entry"], "ms_f32_grid_chunk": rg["f32"],
+            "plain_ms_grid_chunk": rg["plain_bf16"], "plain_ms_f32_grid_chunk": rg["plain_f32"],
+            "bound_ms_grid_chunk": rg["bound"]["bound_ms"],
+            "bound_ms_f32_grid_chunk": rg["bound_f32"]["bound_ms"]}
 
 
 def hold_brute(tag, coef, valid, sx, sy, H, W) -> tuple[float, int, int, int]:
@@ -2911,8 +2975,8 @@ def run_sweep_hook_path(conf_path: str, sets) -> dict:
           f"times); grid rel err {rel:.3e}, marching-cubes vertices {nv1} vs {nv0}")
     print(f"[main h] reading, not a hold: at the conf's compute_dtype ({conf_dtype}) the hook-off grid "
           f"({w_c:.3f} s, {c_c} chunks) is {rel_c:.3e} relative from the hook-on grid (#12 at its bf16 "
-          f"operands, {w_cb:.3f} s), marching-cubes vertices {nv_c} off vs {nv_cb} on "
-          f"({(nv_cb - nv_c) / nv_c * 100:+.3f}%)")
+          f"operands on the tensor cores, launched {k_cb['sdf_only_fwd']} times, {w_cb:.3f} s), "
+          f"marching-cubes vertices {nv_c} off vs {nv_cb} on ({(nv_cb - nv_c) / nv_c * 100:+.3f}%)")
     print(f"[main h] one train_clip step from the step-{N_STEPS} checkpoint ({S}^2 bucket): loss hook off "
           f"{l0:.7f}, on {l1:.7f} (rel {abs(l1 - l0) / abs(l0):.2e}); {t_0 * 1e3:.3f} / {t_1 * 1e3:.3f} ms "
           f"(first step of a runner); #12 launches {s1['sdf_only_fwd']}; launches hook on {s1}")

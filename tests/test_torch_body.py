@@ -1,6 +1,7 @@
 """Parity of the port's body model (avatarclip_torch/body) with the JAX package:
 rotations (also against scipy), LBS and the SMPL forward on the procedural
-humanoid. Tolerance 1e-5 (f32)."""
+humanoid. Tolerance 1e-5 (f32). The SMPL forward's default arguments are
+made where the model lives."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -62,5 +63,28 @@ def test_smpl_forward_on_procedural_humanoid(pose2rot):
                         global_orient=jp[:, :1], pose2rot=pose2rot)
     tv, tj = tm.forward(betas=torch.from_numpy(betas), body_pose=tp[:, 1:],
                         global_orient=tp[:, :1], pose2rot=pose2rot)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=TOL)
+    np.testing.assert_allclose(tj.numpy(), np.asarray(jj), atol=TOL)
+
+
+@pytest.mark.parametrize("pose2rot", [True, False])
+@pytest.mark.parametrize("given", ["none", "body_pose"])
+def test_smpl_forward_defaults_follow_the_model_device(pose2rot, given):
+    """forward() builds its default betas, pose and orientation on the
+    model's device: a model moved to ``meta`` (standing in for the card)
+    runs, and on the CPU the defaults equal JAX's."""
+    tm = tassets.load_smpl()
+    kw = {}
+    if given == "body_pose":
+        kw["body_pose"] = torch.zeros((1, 23, 3) if pose2rot else (1, 23, 3, 3))
+        if not pose2rot:
+            kw["body_pose"][..., [0, 1, 2], [0, 1, 2]] = 1.0
+    verts, joints = tm.to("meta").forward(
+        **{k: v.to("meta") for k, v in kw.items()}, pose2rot=pose2rot)
+    assert verts.device.type == joints.device.type == "meta"
+    assert verts.shape == (1, tm.v_template.shape[0], 3) and joints.shape == (1, 24, 3)
+    jv, jj = jassets.load_smpl().forward(
+        **{k: jnp.asarray(v.numpy()) for k, v in kw.items()}, pose2rot=pose2rot)
+    tv, tj = tm.forward(**kw, pose2rot=pose2rot)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=TOL)
     np.testing.assert_allclose(tj.numpy(), np.asarray(jj), atol=TOL)

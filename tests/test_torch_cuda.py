@@ -712,3 +712,63 @@ def test_b7_tensor_core_forward_holds_at_bf16(dev, width, mode, extra):
     assert got.shape == (P, 6 if extra else 3) and torch.equal(got, again)
     ek, ep, ok = hold.bf16_within(got, plain, ref)
     assert ok, (ek, ep)
+
+
+@pytest.mark.parametrize("W,R,S", [(6, 301, 64), (3, 301, 64), (6, 77, 37), (3, 19, 1)])
+def test_composite_forward_holds_at_any_alignment(dev, W, R, S):
+    """B4's forward (its rays' rows staged through shared memory by 16-byte
+    copies) under no_grad on inputs that start 0 to 3 floats past a 16-byte
+    boundary, a ragged ray count, S below 64 and W 6 and 3, against the
+    plain version in float64: each output to 1e-5 of its largest magnitude,
+    one launch each."""
+    from avatarclip_torch.ops import fused_composite as fc
+
+    g = torch.Generator().manual_seed(R + S + W)
+    shapes = ((R, S), (R, S, W), (R, S, 3))
+    for shift in ((0, 0, 0), (1, 2, 3), (3, 1, 2)):
+        ins = []
+        for shape, k in zip(shapes, shift):
+            n = int(np.prod(shape))
+            buf = torch.rand(n + k, generator=g).to(dev)
+            ins.append(buf[k:].view(shape))  # contiguous, k floats into its buffer
+        ins[0] = ins[0].mul_(0.3)
+        ins[0][::5, S // 2] = 1.0  # opaque samples
+        assert [t.data_ptr() % 16 // 4 for t in ins] == list(shift)
+        n0 = fc.LAUNCHES["composite_fwd"]
+        with torch.no_grad():
+            got = fc.composite(*ins)
+        assert fc.LAUNCHES["composite_fwd"] == n0 + 1
+        ref = fc.composite_plain(*[t.double() for t in ins])
+        for a, b in zip(got, ref):
+            assert (a.double() - b).abs().max() <= 1e-5 * max(float(b.abs().max()), 1e-6)
+        if W == 3:
+            assert not got[2].any()
+
+
+@pytest.mark.parametrize("width", [256, 128])
+def test_sdf_only_tensor_core_forward_holds_at_bf16(dev, width):
+    """#12 in the bf16 operand mode (the tensor-core kernel) through its
+    entry on a ragged 20,001 points: the sdf and its VJP (autograd of the
+    plain version) against the f32 function in float64 beside the plain
+    bf16 version (ops/hold.bf16_within), one launch; after an in-place
+    change of the weights the next call computes with the new ones (the
+    weights are packed each call)."""
+    from avatarclip_torch.ops import fused_sdf as fs
+    from avatarclip_torch.ops import hold
+
+    fields, (ro, rd, mid, _) = _neus_fields(width, 320, dev, "bfloat16", seed=15)
+    sdf = fields.sdf
+    pts = (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3)[:20001].contiguous()
+    cots = [torch.rand(pts.shape[0], 1, generator=torch.Generator().manual_seed(16)).to(dev)]
+    for step in range(2):
+        n0 = dict(fs.LAUNCHES)
+        ok, gk = hold.net_grads(fs.sdf_value_fused, sdf, [pts], cots)
+        assert fs.LAUNCHES == {**n0, "sdf_only_fwd": n0["sdf_only_fwd"] + 1}
+        op, gp = hold.net_grads(fs.sdf_only_plain, sdf, [pts], cots)
+        orf, grf = hold.net_grads(fs.sdf_only_plain, hold.f32_copy(sdf).double(), [pts.double()],
+                                  [cots[0].double()])
+        for i, (a, p, r) in enumerate(zip(ok + gk, op + gp, orf + grf)):
+            ek, ep, good = hold.bf16_within(a, p, r)
+            assert good, (step, i, ek, ep)
+        with torch.no_grad():
+            sdf.layers[1].w.mul_(1.5)
