@@ -138,6 +138,22 @@ def load_smpl_pkl(path: str) -> SMPLModel:
     return _from_dict({k: data[k] for k in data})
 
 
+def convert_pkl_to_npz(pkl_path: str, npz_path: str) -> None:
+    """One-time conversion of an official SMPL pkl to a clean npz archive
+    (the keys and arrays the JAX package's converter writes)."""
+    m = load_smpl_pkl(pkl_path)
+    np.savez_compressed(
+        npz_path,
+        v_template=m.v_template.numpy(),
+        shapedirs=m.shapedirs.numpy(),
+        posedirs=m.posedirs.numpy(),
+        J_regressor=m.J_regressor.numpy(),
+        weights=m.lbs_weights.numpy(),
+        kintree_table=np.stack([m.parents, np.arange(len(m.parents))]),
+        f=m.faces,
+    )
+
+
 def load_smpl_npz(path: str) -> SMPLModel:
     with np.load(path, allow_pickle=True) as data:
         return _from_dict({k: data[k] for k in data.files})

@@ -24,6 +24,8 @@ View interpolation: ``render_novel_image`` renders the camera between two
 stored views (rotation by Slerp, centre linearly) through
 ``render_rays_chunked``, and ``interpolate_view`` writes 60 such frames and
 their reversal at 30 fps as an MP4 with ``utils/mp4.write_mp4``.
+``profile_trace`` writes a torch.profiler Chrome trace of a few train_clip
+steps.
 """
 
 from __future__ import annotations
@@ -568,6 +570,13 @@ class Runner:
         metrics["loss"] = loss
         return loss, {k: v.detach() for k, v in metrics.items()}
 
+    def _clip_update(self, S: int, cam: dict, it: int) -> dict:
+        """One train_clip step's loss, backward and Adam update at bucket S;
+        the step's metrics."""
+        loss, metrics = self.clip_loss(S, cam, self.draw_clip(S), it)
+        self._update(loss)
+        return metrics
+
     def _update(self, loss: torch.Tensor) -> None:
         """Backward and one Adam update at lr = schedule(update count)."""
         self.optimizer.zero_grad(set_to_none=True)
@@ -679,17 +688,52 @@ class Runner:
                 break
             cam, S = self.sample_iteration_camera(self.iter_step, buckets)
             self.step_sil_res.append(S)
-
-            def step():
-                loss, metrics = self.clip_loss(S, cam, self.draw_clip(S), self.iter_step)
-                self._update(loss)
-                return metrics
-
-            metrics = self._timed(step)
+            metrics = self._timed(lambda: self._clip_update(S, cam, self.iter_step))
             self.iter_step += 1
             self._post_iter(metrics)
         self._drain_validations()
         self.logger.close()
+
+    def profile_trace(self, out_dir: str, n_iters: int = 3) -> str:
+        """A torch.profiler trace of ``n_iters`` train_clip steps (iterations
+        1..n_iters, one ``train_clip_step`` range each), after one warm-up
+        step (iteration 0) outside the window, synchronised at both ends;
+        written as the Chrome trace ``out_dir/trace.json``. Shapes and stacks
+        are not recorded. The fields, the optimizer and the update count are
+        restored afterwards, as JAX's functional steps leave the Runner's
+        parameters as they were; the step draws advance the generator, as
+        JAX's split advances its key."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        if self._clip is None:
+            self.init_clip()
+        if self._template is None:
+            self.init_smpl()
+        tc = self.tc
+        buckets = tuple(sorted(tc.sil_buckets)) or (tc.sil_res,)
+        saved = (copy.deepcopy(self.fields.state_dict()),
+                 copy.deepcopy(self.optimizer.state_dict()), self.update_count)
+
+        def step(it):
+            cam, S = self.sample_iteration_camera(it, buckets)
+            self._clip_update(S, cam, it)
+
+        step(0)
+        device_mod.sync(self.device)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities, record_shapes=False, with_stack=False) as prof:
+            for i in range(n_iters):
+                with record_function("train_clip_step"):
+                    step(i + 1)
+            device_mod.sync(self.device)
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+        self.fields.load_state_dict(saved[0])
+        self.optimizer.load_state_dict(saved[1])
+        self.update_count = saved[2]
+        return out_dir
 
     def _post_iter(self, metrics):
         it, tc = self.iter_step, self.tc

@@ -10,6 +10,9 @@ their nesting as dicts and lists of tensors: CLIP (clip/model.py), VPoser
 (body/vposer.py), the motion VAE (pipelines/motion_vae.py), the RealNVP
 blocks and masks and the codebook (pipelines/animate.py); the JAX pytree
 itself converts with ``params_from_jax(tree_flatten_paths(tree))``.
+:func:`params_to_jax` is the inverse for a module: the flat dict that, saved
+with ``np.savez``, the JAX package's ``load_pytree_npz`` reads back as its
+parameter tree.
 """
 
 from __future__ import annotations
@@ -31,6 +34,14 @@ def params_from_jax(flat: dict, module: nn.Module | None = None, prefix: str = "
     state = {k.replace("/", "."): torch.from_numpy(np.array(v, np.float32)) for k, v in sub.items()}
     module.load_state_dict(state, strict=True)
     return module
+
+
+def params_to_jax(module: nn.Module, prefix: str = "") -> dict:
+    """The module's state as a flattened JAX tree: ``prefix`` + the state
+    key with ``/`` for ``.``, float32 numpy (the inverse of
+    :func:`params_from_jax` with the same prefix)."""
+    return {prefix + k.replace(".", "/"): v.detach().cpu().numpy().astype(np.float32)
+            for k, v in module.state_dict().items()}
 
 
 def _to_torch(tree):

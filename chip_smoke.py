@@ -138,6 +138,25 @@ kernel's plain version):
         the decoder scaled to mm offsets), a seeded 256 x (16, 512) codebook
         and ViT-B/32 random init; ``render`` writes the 108 views at 256^2
         (B2, 1 + 108 launches), read back through the dataset loader;
+     i. the reference schedule's self-generated route through the user-stage
+        scripts (``avatarclip_torch.scripts.run_reference_schedule``'s stage
+        functions in-process, the experiment root in the run's temporary
+        directory, their ``make_runner`` wrapped to put ``train.end_iter`` =
+        ``train.save_freq`` = 8) on (f)'s coarse body and 108-view render:
+        pretrain (PRETRAIN_CONF's 4x256 / 2x256 nets, batch 5,120, 8
+        steps), ``eval_photometric`` on views 0, 27, 54 and 81 at level 1,
+        sculpt (SCULPT_CONF, ViT-B/32 random init, 8 train_clip steps, the
+        CLIP score of 8 views and the face camera before and after),
+        ``Runner.profile_trace`` of 3 steps on the sculpt checkpoint, extract
+        at 256^3 and export; checks the stage log's order, the evals'
+        numbers, the trace (B1's and B2's kernels at 3 steps' launches) and
+        the launches; then, outside the counts, ``clip_score`` through the
+        kernels against the plain path (``neus._FORCE_MEGA = False``) on the
+        sculpt checkpoint: one lattice view's image (65,536 rays) within
+        ``hold.bf16_within`` of the f32 function in f64 beside the plain bf16
+        version, on the samples the render took, the 9 views' cosines within
+        1e-3, two kernel-path calls equal; the stages' wall seconds, the
+        eval's renders per second and one eval under the profiler;
      g. the export: ``drive.main`` (a 60-frame .pc2) and ``rigged.main``
         (a GLB with the motion baked, an FBX ASCII) on (b)'s 512^3 mesh and
         (d)'s motion, with each phase's seconds;
@@ -145,7 +164,7 @@ kernel's plain version):
      the counts predicted from the ray, step and render counts (paths a-d
      launch B6 / B7 no time: the megakernels take those renders; no path
      launches #15, which no default path of the JAX package runs either);
-     c, d and e also profile a few steps (device time by kernel, busy share).
+     c, d, e and i also profile a few steps (device time by kernel, busy share).
 Prints a {"kernels": [...]} JSON line, then as the last line
 {"ok": true, "device": {...}}.
 """
@@ -180,6 +199,12 @@ PRETRAIN_L1 = 0.05  # the template fit's last mean |sdf - target| (CPU fits end 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -1378,8 +1403,7 @@ def check_soft(dev):
 
     # time at size 1: the kernels alone, on preallocated buffers
     t = {tag: time_soft(fp, tab, H, W, sigma) for tag, (fp, tab) in scenes.items()}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card()
     for tag, n_views in (("pose step", 5), ("motion step", 2)):
         r = t[tag]
         print(f"[B5] {tag} {n_views} x 224^2 x 13,824 padded faces: {r['kept']:.0f} pixel-face pairs in the "
@@ -2788,7 +2812,7 @@ def run_shape_path(tmp: str, dev):
           f"{float(eyes.mean()):.6f}, coverage {float(cover.min()):.4f}-{float(cover.max()):.4f}; launches "
           f"{launches}")
     del ds
-    return launches, views
+    return launches, views, {"obj": gen["obj"], "render_dir": render_dir}
 
 
 def hold_brute_on_views(views) -> float:
@@ -2983,6 +3007,262 @@ def run_sweep_hook_path(conf_path: str, sets) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# (i) the reference schedule's self-generated route
+# ---------------------------------------------------------------------------
+
+SCHED_ITERS = 8  # pretrain and sculpt steps (the schedules: 300,000 and 100,000)
+SCHED_MCUBE = 256  # the extraction's grid (path b runs the 512^3 mode)
+PHOTO_VIEWS = (0, 27, 54, 81)
+TRACE_STEPS = 3
+CLIP_COS_TOL = 1e-3  # kernel path against the plain path, absolute
+N_CALIB = 12 * 4 + 2  # coverage renders of the silhouette calibration
+SCHED_STAGES = ["pretrain", "sculpt_eval_before", "sculpt", "sculpt_eval_after", "extract", "export"]
+
+
+def cut_runner(make_runner, pretrain: str):
+    """The schedule twin's make_runner with its iteration counts cut:
+    ``train.end_iter`` and ``train.save_freq`` put to SCHED_ITERS, so each
+    run ends in a checkpoint that the evals, the trace and the extraction
+    resume; and the pretrain stage (mode ``train``) starts from ``pretrain``,
+    the SDF fitted to the template, in place of its 300,000 steps from the
+    geometric init (8 steps from that init leave a surface of wrinkles: 1.95
+    million vertices at 256^3, and the export's nearest-vertex search then
+    took minutes). No flag is added to the twin."""
+    from avatarclip_torch.pipelines import appearance
+
+    def make(conf_text, mode, is_continue=False, device=None):
+        if mode == "train":
+            conf_text = conf_text.replace("train {", f"train {{\n    pretrain = {pretrain}", 1)
+        r = make_runner(conf_text, mode, is_continue=is_continue, device=device)
+        for key in ("train.end_iter", "train.save_freq"):
+            r.conf.put(key, SCHED_ITERS)
+        r.tc = appearance.train_config_from_conf(r.conf)
+        return r
+
+    return make
+
+
+@contextlib.contextmanager
+def record_point_eval():
+    """Within the block, B3's entry (fused_neus.point_eval) records each
+    call's inputs (copies)."""
+    from avatarclip_torch.ops import fused_neus as fn
+
+    entry, rec = fn.point_eval, []
+
+    def call(sdf, color, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal):
+        rec.append(([t.detach().clone() for t in (rays_o, rays_d, mid_z, dists)],
+                    inv_s.detach().reshape(()).clone(), float(cos_anneal)))
+        return entry(sdf, color, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal)
+
+    fn.point_eval = call
+    try:
+        yield rec
+    finally:
+        fn.point_eval = entry
+
+
+def image_from_samples(fields, rec, dtype) -> "torch.Tensor":
+    """The validation render's extra-colour image on white from B3's
+    recorded inputs, through the plain point evaluation and the plain
+    compositing in ``dtype`` (B3_REF_RAYS rays at a time): (rays, 3)."""
+    import torch
+
+    from avatarclip_torch.ops import fused_composite, fused_neus as fn
+
+    out = []
+    for ins, inv_s, cos in rec:
+        for a in range(0, ins[0].shape[0], B3_REF_RAYS):
+            part = [t[a:a + B3_REF_RAYS].to(dtype) for t in ins]
+            R, S = part[2].shape
+            with torch.no_grad():
+                _, grad, rgb, alpha, _, _, _ = fn.point_eval_plain(fields.sdf, fields.color, *part,
+                                                                   inv_s.to(dtype), cos)
+                w, _, extra, _ = fused_composite.composite_plain(
+                    alpha.detach().reshape(R, S), rgb.detach().reshape(R, S, -1),
+                    grad.detach().reshape(R, S, 3))
+            out.append(extra + (1.0 - w.sum(-1, keepdim=True)))
+    return torch.cat(out)
+
+
+def trace_kernels(path: str) -> dict:
+    """Kernel events of a Chrome trace by the names of B1's and B2's kernels."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    keys = ("neus_tc_fwd_kernel", "neus_ray_tc_bwd_kernel", "wgrad_kernel", "face_ranges_kernel",
+            "zbuffer_binned_kernel")
+    out = {k: sum(k in n for n in names) for k in keys}
+    out["steps"] = sum(1 for e in events
+                       if e.get("name") == "train_clip_step" and e.get("cat") == "user_annotation")
+    out["kernel events"] = len(names)
+    return out
+
+
+def hold_clip_score(runner, dev) -> dict:
+    """clip_score through the kernels against clip_score through the plain
+    path (neus._FORCE_MEGA = False) on one runner: one lattice view's image
+    (65,536 rays at 256^2) within hold.bf16_within of the f32 function in
+    f64, beside the plain bf16 version, on the samples the kernel path took;
+    every cosine of the 9 views within CLIP_COS_TOL; two kernel-path calls
+    the same cosines; prints the evals' seconds."""
+    import numpy as np
+    import torch
+
+    from avatarclip_torch.ops import hold
+    from avatarclip_torch.pipelines import eval_clip
+    from avatarclip_torch.render import cameras, neus
+
+    runner.init_clip()
+    pose = eval_clip._pose(cameras.sphere_coord_np(0.0, 0.0, 1.5), np.zeros(3), dev)
+    rays_o, rays_d = runner.dataset.gen_rays_pose(pose, 1)
+    with record_point_eval() as rec:
+        got = runner.render_rays_chunked(rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
+                                         background_rgb=torch.ones(1, 3, device=dev),
+                                         keys=["extra_color_fine"])["extra_color_fine"]
+    plain = image_from_samples(runner.fields, rec, torch.float32)
+    ref = image_from_samples(hold.f32_copy(runner.fields).double(), rec, torch.float64)
+    ek, ep, ok = hold.bf16_within(torch.from_numpy(got), plain.cpu(), ref.cpu())
+    n_rays = got.shape[0]
+    print(f"[main i] one lattice view ({n_rays} rays, {len(rec)} chunks) through B3 / B4's forwards "
+          f"against the f32 function in f64 on the samples the render took: rel RMS {ek:.3e}, the plain "
+          f"bf16 version's {ep:.3e}")
+    if not ok or n_rays != 256 * 256:
+        fail(f"path i: the eval's image at rel RMS {ek:.3e} against the plain bf16 version's {ep:.3e}")
+    del plain, ref, rec
+
+    def score():
+        t0 = time.perf_counter()
+        rep = eval_clip.clip_score(runner, n_views=8)
+        torch.cuda.synchronize()
+        return rep, time.perf_counter() - t0
+
+    rep1, sec1 = score()
+    rep2, sec = score()
+    neus._FORCE_MEGA = False
+    try:
+        rep_p, sec_p = score()
+    finally:
+        neus._FORCE_MEGA = None
+    k = list(rep1.cosines) + [rep1.face_cosine, rep1.back_cosine]
+    p = list(rep_p.cosines) + [rep_p.face_cosine, rep_p.back_cosine]
+    gap = max(abs(a - b) for a, b in zip(k, p))
+    if not all(math.isfinite(c) for c in k) or gap > CLIP_COS_TOL:
+        fail(f"path i: kernel-path cosines {k} against the plain path's {p} ({gap:.2e} apart)")
+    if rep2.cosines != rep1.cosines or rep2.face_cosine != rep1.face_cosine:
+        fail(f"path i: two kernel-path evals differ: {rep1.cosines} / {rep2.cosines}")
+    views = rep1.n_views + (rep1.face_cosine is not None)
+    print(f"[main i] clip_score on the sculpt checkpoint, {views} views at 256^2 ({card()}): kernel path "
+          f"{sec:.3f} s warm ({views / sec:.2f} renders/s, {views * n_rays / sec:.0f} rays/s with the CLIP "
+          f"encode; the first call {sec1:.3f} s), plain path {sec_p:.3f} s; cosines "
+          f"{[round(c, 6) for c in k]}, {gap:.2e} from the plain path's; two kernel-path calls equal")
+    profile_steps("main i, clip_score through the kernels", lambda: eval_clip.clip_score(runner, n_views=8),
+                  n=1)
+
+
+def run_schedule_path(tmp: str, coarse_obj: str, render_dir: str, pretrain: str, dev) -> dict:
+    """The schedule twin's stages in-process (avatarclip_torch.scripts.
+    run_reference_schedule) on path (f)'s coarse body and 108-view render:
+    pretrain (8 steps from ``pretrain``, the fitted SDF), the photometric
+    eval of 4 views, sculpt (8 steps
+    with the CLIP score of 8 views and the face camera before and after),
+    profile_trace (3 steps), extract at 256^3 and export; the launches of
+    those stages. Then the CLIP-score hold and the trace's kernels."""
+    import types
+
+    import torch
+
+    from avatarclip_torch.scripts import eval_photometric
+    from avatarclip_torch.scripts import run_reference_schedule as rrs
+
+    root = os.path.join(tmp, "schedule")
+    base = ["--exp_root", root, "--data_dir", render_dir, "--sculpt_data_dir", "", "--template_obj",
+            coarse_obj, "--device", str(dev)]
+    args = types.SimpleNamespace(template_obj=coarse_obj, sculpt_data_dir="", data_dir=render_dir,
+                                 pose_type="stand_pose")
+    trace_dir = os.path.join(root, "trace")
+    walls, out = {}, {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+
+    def trace():
+        r = rrs.make_runner(rrs._sculpt_conf(args, "none"), "train_clip", is_continue=True, device=dev)
+        if r.iter_step != SCHED_ITERS:
+            fail(f"path i: the trace resumed step {r.iter_step}")
+        return r.profile_trace(trace_dir, n_iters=TRACE_STEPS)
+
+    make = rrs.make_runner
+    rrs.make_runner = cut_runner(make, pretrain)
+    zero_counts()
+    try:
+        stage("pretrain", lambda: rrs.main(["--stage", "pretrain", "--pretrain_iters", str(SCHED_ITERS),
+                                            "--val_freq", str(10 * SCHED_ITERS)] + base))
+        stage("photometric eval", lambda: eval_photometric.main(
+            ["--exp", os.path.join(root, "pretrain"), "--data_dir", render_dir, "--res_level", "1",
+             "--device", str(dev), "--views"] + [str(v) for v in PHOTO_VIEWS]))
+        stage("sculpt", lambda: rrs.main(["--stage", "sculpt"] + base))
+        stage("profile_trace", trace)
+        stage("extract", lambda: rrs.main(["--stage", "extract", "--mcube_resolution",
+                                           str(SCHED_MCUBE)] + base))
+        stage("export", lambda: rrs.main(["--stage", "export"] + base))
+    finally:
+        rrs.make_runner = make
+    launches = read_counts()
+
+    with open(os.path.join(root, "schedule_log.jsonl")) as f:
+        log = {r["stage"]: r for r in map(json.loads, f)}
+    if list(log) != SCHED_STAGES:
+        fail(f"path i: schedule_log.jsonl stages {list(log)}, expected {SCHED_STAGES}")
+    photo = out["photometric eval"]
+    if ([r["view"] for r in photo["views"]] != list(PHOTO_VIEWS)
+            or not all(math.isfinite(r["psnr_db"]) and 0.0 <= r["mask_iou"] <= 1.0 for r in photo["views"])):
+        fail(f"path i: photometric eval {photo}")
+    for name in ("sculpt_eval_before", "sculpt_eval_after"):
+        rep = log[name]
+        if (len(rep["cosines"]) != 8 or rep["face_cosine"] is None or rep["pretrained_clip"]
+                or not all(math.isfinite(c) for c in rep["cosines"] + [rep["face_cosine"]])):
+            fail(f"path i: {name} {rep}")
+    if log["pretrain"]["iters"] != SCHED_ITERS or log["sculpt"]["iters"] != SCHED_ITERS:
+        fail(f"path i: pretrain {log['pretrain']['iters']}, sculpt {log['sculpt']['iters']} steps")
+    nv = log["extract"]["n_vertices"]
+    if nv <= 0 or log["extract"]["n_faces"] <= 0 or log["export"]["pc2_bytes"] <= 0 or log["export"]["glb_bytes"] <= 0:
+        fail(f"path i: extract {log['extract']}, export {log['export']}")
+    cast = check_png(os.path.join(root, "sculpt", "cast_light_texture_head_black.png"))
+    eval_chunks = 2 * 9 * math.ceil(256 * 256 / VAL_CHUNK)  # before and after: 8 views + the face
+    photo_chunks = len(PHOTO_VIEWS) * math.ceil(256 * 256 / VAL_CHUNK)
+    bake_chunks = 6 * math.ceil(nv / VAL_CHUNK) + math.ceil(cast[0] * cast[1] / VAL_CHUNK)
+    steps = 2 * SCHED_ITERS + 1 + TRACE_STEPS  # pretrain, sculpt, the trace's warm-up and window
+    points = photo_chunks + eval_chunks + bake_chunks
+    want = want_counts(neus_ray_fwd=steps, neus_ray_bwd=steps,
+                       zbuffer_tiled=SCHED_ITERS + N_CALIB + 1 + TRACE_STEPS + N_CALIB,
+                       neus_point_fwd=points, composite_fwd=points)
+    if launches != want:
+        fail(f"path i: kernel launches {launches}, expected {want}")
+    tk = trace_kernels(os.path.join(trace_dir, "trace.json"))
+    if (tk["steps"] != TRACE_STEPS or tk["neus_tc_fwd_kernel"] != TRACE_STEPS
+            or tk["neus_ray_tc_bwd_kernel"] < TRACE_STEPS or tk["zbuffer_binned_kernel"] != TRACE_STEPS
+            or tk["face_ranges_kernel"] != TRACE_STEPS):
+        fail(f"path i: the trace's kernels {tk}, expected {TRACE_STEPS} steps' B1 and B2 launches")
+    cos0, cos1 = log["sculpt_eval_before"]["mean_cosine"], log["sculpt_eval_after"]["mean_cosine"]
+    print(f"[main i] schedule stages (run_reference_schedule in-process, EXP_ROOT in the run's temporary "
+          f"directory; {SCHED_ITERS} pretrain and sculpt steps; {card()}): wall s "
+          f"{ {k: round(v, 3) for k, v in walls.items()} }; photometric eval views {list(PHOTO_VIEWS)}: PSNR "
+          f"{[float(r['psnr_db']) for r in photo['views']]} dB, IoU {[r['mask_iou'] for r in photo['views']]}; mean "
+          f"cosine before {cos0:.6f}, after {cos1:.6f}; {SCHED_MCUBE}^3 mesh {nv} vertices, cast light {cast}; "
+          f"trace {tk}; launches {launches}")
+
+    runner = rrs.make_runner(rrs._sculpt_conf(args, "none"), "eval", is_continue=True, device=dev)
+    hold_clip_score(runner, dev)
+    del runner
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     kernels_only = "--kernels-only" in sys.argv[1:]
     body_dir = os.environ.get("AVATARCLIP_TPU_DATA")  # the body paths a, b and g use
@@ -2995,9 +3275,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"[device] {smi}")
+    print(f"[device] {card()}")
     dev = torch.device("cuda:0")
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -3067,12 +3345,14 @@ def main() -> None:
             for k in kernels:  # B6 / B7 held on path (e)'s own inputs too
                 k["max_abs_err"] = max(k["max_abs_err"], path_errs.get(k["name"], 0.0))
             torch.cuda.empty_cache()
-            counts, views = run_shape_path(tmp, dev)
+            counts, views, shape_out = run_shape_path(tmp, dev)
             add(counts)
             for k in kernels:  # #15 held on path (f)'s renders too
                 if k["name"] == "zbuffer_brute":
                     k["max_abs_err"] = max(k["max_abs_err"], hold_brute_on_views(views))
             del views
+            torch.cuda.empty_cache()
+            add(run_schedule_path(tmp, shape_out["obj"], shape_out["render_dir"], pretrain, dev))
             torch.cuda.empty_cache()
             add(run_export_path(tmp, os.path.join(tmp, "exp", "meshes", f"{N_STEPS:08d}.ply"),
                                 os.path.join(tmp, "exp_motion", "motion.npy"), body_dir))

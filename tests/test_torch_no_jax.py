@@ -1,8 +1,9 @@
 """The port never imports JAX nor the JAX package (nor optax, orbax, imageio
 or cv2): statically, no import statement of ``avatarclip_torch`` or
 ``chip_smoke.py`` reaches ``avatarclip_tpu``; and in a fresh interpreter,
-import every avatarclip_torch module, run one tiny train_clip step, one
-photometric step, ``validate_image``, ``validate_mesh``, one PoseOptimizer
+import every avatarclip_torch module (the user-stage scripts and the CLIP-score
+eval among them), run one tiny train_clip step, one photometric step,
+``validate_image``, a CLIP score, ``profile_trace``, ``validate_mesh``, one PoseOptimizer
 step, one MotionOptimizer step, ``visualize.render_pose``, one
 background (NeRF++, n_outside > 0) render step, ShapeGen's ``gen`` CLI (tiny
 CLIP, the no-asset fallbacks, on a 6,890-vertex body) and the export CLIs
@@ -58,6 +59,15 @@ def test_port_imports_no_jax_and_runs_a_step(tmp_path):
         loss, _ = r.photometric_loss(r.draw_photometric(), 0)
         loss.backward()
         r.validate_image(idx=1)
+        from avatarclip_torch.pipelines import eval_clip
+        assert len(eval_clip.clip_score(r, n_views=2, resolution_level=8).cosines) == 2
+        r.profile_trace({str(tmp_path / "trace")!r}, n_iters=1)
+        new = ["avatarclip_torch.pipelines.eval_clip", "avatarclip_torch.pipelines.idr_dataset",
+               "avatarclip_torch.clip.convert", "avatarclip_torch.scripts.eval_clip_score",
+               "avatarclip_torch.scripts.eval_photometric",
+               "avatarclip_torch.scripts.run_reference_schedule",
+               "avatarclip_torch.scripts.capture_trace"]
+        assert all(m in mods and m in sys.modules for m in new), new
         v, t, _ = r.validate_mesh(resolution=16)
         assert t.shape[0] > 0
         import torch
