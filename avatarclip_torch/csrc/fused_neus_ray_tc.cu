@@ -1,6 +1,6 @@
 // The NeuS kernels for Hopper (sm_90a) on the tensor cores, in the bf16
 // operand mode: B1's per-ray pair, forward and backward, B3's point-level
-// forward, B6's pair, B7's pair and #12's sdf-only forward (each below).
+// pair, B6's pair, B7's pair and #12's sdf-only forward (each below).
 //
 // B1 replaces the Pallas kernels avatarclip_tpu/ops/fused_neus.py
 // `_fwd_kernel_ray` (:403) and `_bwd_kernel_ray` (:620) at their default
@@ -68,6 +68,20 @@
 // (48 B a point at rgb width 6, beside 1,186,304 GEMM FLOPs: bound by the
 // products, 1.26 ms at 16,384 x 64 at the bf16 peak); alpha and the CDF from
 // the f32 sdf row and gradient, as the CUDA-core kernel's.
+//
+// B3's backward in the bf16 mode (neus_point_tc_bwd) replaces
+// avatarclip_tpu/ops/fused_neus.py `_bwd_kernel` (:534, launched by
+// `_run_bwd` :1024): B1's backward body (neus_tc_bwd_kernel<true>) with the
+// compositing VJP taken out. The per-point cotangents on sdf, alpha, cdf,
+// gradient and rgb are read from memory where B1's compositing reverse
+// produced them, and seed the same hand-written alpha-chain VJP, colour
+// reverse and forward-over-reverse SDF pass; the weight gradients go
+// through B1's log and wgrad_kernel. The work is B1's backward's, 3,558,912
+// GEMM FLOPs a point at 4x256 / 2x256 (3.77 ms at 16,384 x 64 at the bf16
+// peak), beside 80 bytes a point of cotangents and residuals read. Before
+// this design it ran fused_neus_point.cu's CUDA-core kernel (one ray a
+// block of its simple tiled GEMM, the states in a global workspace,
+// rounding each staged operand), which stays as the f32 mode.
 //
 // B6's backward in the bf16 mode (sdf_tc_bwd) replaces
 // avatarclip_tpu/ops/fused_sdf.py `_bwd_kernel` (:403, launched by
@@ -748,14 +762,24 @@ __device__ __forceinline__ void sdf_reverse_tc(const Dims& d, const Layout& L, u
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
+// The backward's cotangents: B1's on its per-ray outputs, or B3's on its
+// per-point outputs (P = R S points, ray-major), and the eikonal pair's.
+struct BwdCots {
+  const float *col, *nw, *ws;                     // B1: (R, W), (R, 3), (R, 1)
+  const float *sdf, *alpha, *cdf, *grad, *rgb;    // B3: (P,), (P,), (P,), (P, 3), (P, W)
+  const float* eik;                               // (2,): [num, den]
+};
+
+// The backward of B1 (POINT false: the compositing VJP seeds the alpha
+// chain, the colour and the gradient cotangents) and of B3 (POINT true: the
+// per-point cotangents read from memory seed them), one body.
+template <bool POINT>
+__global__ void __launch_bounds__(TNT, 1) neus_tc_bwd_kernel(
     Dims d, Pack pp, const float* __restrict__ wts, const uint2* __restrict__ pk,
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ mid_z, const float* __restrict__ dists,
     const float* __restrict__ inv_s_ptr, float cos_r, int R, const float* __restrict__ sdf_res,
-    const float* __restrict__ g_res, const float* __restrict__ c_col,
-    const float* __restrict__ c_nw, const float* __restrict__ c_ws,
-    const float* __restrict__ c_eik, float* __restrict__ d_o, float* __restrict__ d_d,
+    const float* __restrict__ g_res, BwdCots ct, float* __restrict__ d_o, float* __restrict__ d_d,
     float* __restrict__ d_z, float* __restrict__ d_t, float* __restrict__ gpart,
     unsigned char* __restrict__ scr_all, long long scr_stride, WLog lg, bf16* __restrict__ log,
     long long log_rows, int ray0, int ray1) {
@@ -768,7 +792,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
   const int E = d.E, F = d.F, HC = d.HC, CW = d.CW, W = d.W;
   const int ldX = L.ldX, ldE = L.ldE, ldC = L.ldC, ldF = L.ldF;
   const float inv_s = *inv_s_ptr;
-  const float c_num = c_eik[0];
+  const float c_num = ct.eik[0];
   phase_start();
   float* ray = (float*)(sm + L.ray);
   float* pts = (float*)(sm + L.pts);
@@ -838,7 +862,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
       const int r = e / 6, c = e % 6;
       cin[r * ldC + c] = to_bf(c < 3 ? pts[r * 3 + c] : g[r * 3 + c - 3]);
     }
-    for (int r = tid; r < S; r += TNT) {
+    for (int r = tid; r < S && !POINT; r += TNT) {
       const float* gr = g + r * 3;
       const float tc = ray[3] * gr[0] + ray[4] * gr[1] + ray[5] * gr[2];
       alpha[r] = alpha_chain(sdf_res[(size_t)rid * S + r], tc, dists[(size_t)rid * S + r], inv_s,
@@ -852,7 +876,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
     // dL/dalpha_k = T_k (u_k - B_k) with B_{k-1} = u_k alpha_k + x_k B_k
     // (an affine suffix scan), lane k holding samples k and k + 32
     phase_mark(PH_OTHER);
-    if (warp == 0) {
+    if (!POINT && warp == 0) {
       float x[2], a[2], uu[2], T[2], M[2], C[2];
       for (int h = 0; h < 2; ++h) {
         const int k = lane + 32 * h;
@@ -860,10 +884,10 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
         x[h] = ok ? 1.f - alpha[k] + 1e-7f : 1.f;
         float uk = 0.f;
         if (ok) {
-          uk = c_ws[rid];
+          uk = ct.ws[rid];
           for (int ch = 0; ch < W; ++ch)
-            uk += c_col[(size_t)rid * W + ch] * rgb_of(d, head[k * 8 + ch]);
-          for (int c = 0; c < 3; ++c) uk += c_nw[(size_t)rid * 3 + c] * g[k * 3 + c];
+            uk += ct.col[(size_t)rid * W + ch] * rgb_of(d, head[k * 8 + ch]);
+          for (int c = 0; c < 3; ++c) uk += ct.nw[(size_t)rid * 3 + c] * g[k * 3 + c];
         }
         uu[h] = uk;
         a[h] = ok ? uk * alpha[k] : 0.f;
@@ -909,25 +933,28 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
         continue;
       }
       const float* p = pts + r * 3;
+      const size_t pt = (size_t)rid * S + r;
       const float tc = ray[3] * gr[0] + ray[4] * gr[1] + ray[5] * gr[2];
-      const float dist = dists[(size_t)rid * S + r];
-      const Chain c = alpha_chain(sdf_res[(size_t)rid * S + r], tc, dist, inv_s, cos_r);
-      const AlphaCots ca = alpha_chain_vjp(c, calpha[r], 0.f, dist, inv_s, cos_r);
+      const float dist = dists[pt];
+      const Chain c = alpha_chain(sdf_res[pt], tc, dist, inv_s, cos_r);
+      const AlphaCots ca = POINT ? alpha_chain_vjp(c, ct.alpha[pt], ct.cdf[pt], dist, inv_s, cos_r)
+                                 : alpha_chain_vjp(c, calpha[r], 0.f, dist, inv_s, cos_r);
       civ += ca.civ;
-      d_t[(size_t)rid * S + r] = ca.ct;
+      d_t[pt] = ca.ct;
       const float relax = (p[0] * p[0] + p[1] * p[1] + p[2] * p[2]) < 1.44f ? 1.f : 0.f;
       const float ke = eik_factor(c_num, relax, gr);
-      const float w = wgt[r];
+      const float w = POINT ? 0.f : wgt[r];
       for (int k = 0; k < 3; ++k) {
-        cg[r * 3 + k] = w * c_nw[(size_t)rid * 3 + k] + ca.ctc * ray[3 + k] + ke * gr[k];
+        const float cgk = POINT ? ct.grad[pt * 3 + k] : w * ct.nw[(size_t)rid * 3 + k];
+        cg[r * 3 + k] = cgk + ca.ctc * ray[3 + k] + ke * gr[k];
         cdir[r * 3 + k] = ca.ctc * gr[k];
       }
-      cs[r] = ca.cs / d.scale;
+      cs[r] = (ca.cs + (POINT ? ct.sdf[pt] : 0.f)) / d.scale;
       for (int ch = 0; ch < ldHd; ++ch) {
         float ch_raw = 0.f;
         if (ch < W) {
           const float hv = head[r * 8 + ch];
-          const float crgb = w * c_col[(size_t)rid * W + ch];
+          const float crgb = POINT ? ct.rgb[pt * W + ch] : w * ct.col[(size_t)rid * W + ch];
           ch_raw = crgb;
           if (d.squeeze) {
             const float sg = sigmoidf(hv);
@@ -1009,7 +1036,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_ray_tc_bwd_kernel(
   }
   const float civ_sum = cta_sum_tc(civ, red);
   if (tid == 0) gp[wo.total] += civ_sum;
-  phase_end(PK_RAY_BWD);
+  phase_end(POINT ? PK_POINT_BWD : PK_RAY_BWD);
 }
 
 // B6's backward: tiles blk0 .. blk1 of 64 points (the chunk's), each CTA
@@ -1624,6 +1651,45 @@ int neus_tc_wgrad_tiles(Dims d) {
   return n;
 }
 
+}  // extern "C"
+
+namespace {
+
+// The chunked backward of B1 or B3 (POINT): per chunk the per-ray kernel,
+// then wgrad_kernel over the chunk's log; the partial rows summed at the end.
+template <bool POINT>
+int tc_bwd(Dims d, Pack pp, const float* wts, const void* pk, const float* rays_o,
+           const float* rays_d, const float* mid_z, const float* dists, const float* inv_s,
+           float cos_r, int R, const float* sdf_res, const float* g_res, const BwdCots& ct,
+           float* d_o, float* d_d, float* d_z, float* d_t, float* d_w, float* gpart, void* scr,
+           long long scr_stride, int n_cta, void* log, int chunk, int n_split, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int smem = (int)tc_layout(d, true).smem;
+  int err = (int)cudaFuncSetAttribute(neus_tc_bwd_kernel<POINT>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err) return err;
+  const WLog lg = wlog_layout(d);
+  const WProbs ps = wgrad_problems(d);
+  const long long stride = (long long)weight_offsets(d).total + 1;
+  const dim3 wgrid(neus_tc_wgrad_tiles(d), n_split);
+  for (int ray0 = 0; ray0 < R; ray0 += chunk) {
+    const int ray1 = ray0 + chunk < R ? ray0 + chunk : R;
+    neus_tc_bwd_kernel<POINT><<<n_cta, TNT, smem, st>>>(d, pp, wts, (const uint2*)pk, rays_o, rays_d, mid_z, dists, inv_s, cos_r, R, sdf_res, g_res, ct, d_o, d_d, d_z, d_t, gpart, (unsigned char*)scr, scr_stride, lg, (bf16*)log, (long long)(ray1 - ray0) * ROWS, ray0, ray1);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    wgrad_kernel<<<wgrid, WG_THREADS, WG_SMEM, st>>>(lg, ps, (const bf16*)log, (long long)(ray1 - ray0) * ROWS, n_split, gpart + (size_t)n_cta * stride, stride);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return reduce_partials(gpart, n_cta + 2 * n_split, stride, d_w, st);
+}
+
+}  // namespace
+
+extern "C" {
+
 // Backward: as neus_ray_bwd, d_w has weight_count + 1 floats (the inv_s
 // gradient last). The rays run in chunks of `chunk`: the per-ray kernel
 // (n_cta CTAs; scr an (n_cta, scr_stride)-byte scratch) writes the chunk's
@@ -1640,27 +1706,27 @@ int neus_ray_tc_bwd(Dims d, Pack pp, const float* wts, const void* pk, const flo
                     const float* c_eik, float* d_o, float* d_d, float* d_z, float* d_t,
                     float* d_w, float* gpart, void* scr, long long scr_stride, int n_cta,
                     void* log, int chunk, int n_split, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int smem = (int)tc_layout(d, true).smem;
-  int err = (int)cudaFuncSetAttribute(neus_ray_tc_bwd_kernel,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err) return err;
-  err = (int)cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-  if (err) return err;
-  const WLog lg = wlog_layout(d);
-  const WProbs ps = wgrad_problems(d);
-  const long long stride = (long long)weight_offsets(d).total + 1;
-  const dim3 wgrid(neus_tc_wgrad_tiles(d), n_split);
-  for (int ray0 = 0; ray0 < R; ray0 += chunk) {
-    const int ray1 = ray0 + chunk < R ? ray0 + chunk : R;
-    neus_ray_tc_bwd_kernel<<<n_cta, TNT, smem, st>>>(d, pp, wts, (const uint2*)pk, rays_o, rays_d, mid_z, dists, inv_s, cos_r, R, sdf_res, g_res, c_col, c_nw, c_ws, c_eik, d_o, d_d, d_z, d_t, gpart, (unsigned char*)scr, scr_stride, lg, (bf16*)log, (long long)(ray1 - ray0) * ROWS, ray0, ray1);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    wgrad_kernel<<<wgrid, WG_THREADS, WG_SMEM, st>>>(lg, ps, (const bf16*)log, (long long)(ray1 - ray0) * ROWS, n_split, gpart + (size_t)n_cta * stride, stride);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  return reduce_partials(gpart, n_cta + 2 * n_split, stride, d_w, st);
+  const BwdCots ct{c_col, c_nw, c_ws, nullptr, nullptr, nullptr, nullptr, nullptr, c_eik};
+  return tc_bwd<false>(d, pp, wts, pk, rays_o, rays_d, mid_z, dists, inv_s, cos_r, R, sdf_res,
+                       g_res, ct, d_o, d_d, d_z, d_t, d_w, gpart, scr, scr_stride, n_cta, log,
+                       chunk, n_split, stream);
+}
+
+// B3's backward: as neus_point_bwd (fused_neus_point.cu), on the tensor
+// cores, with the packed bf16 weights pk (offsets pp) beside the flat f32
+// ones; the chunks, log, scratch and partial rows as neus_ray_tc_bwd's.
+int neus_point_tc_bwd(Dims d, Pack pp, const float* wts, const void* pk, const float* rays_o,
+                      const float* rays_d, const float* mid_z, const float* dists,
+                      const float* inv_s, float cos_r, int R, const float* sdf_res,
+                      const float* g_res, const float* c_sdf, const float* c_alpha,
+                      const float* c_cdf, const float* c_grad, const float* c_rgb,
+                      const float* c_eik, float* d_o, float* d_d, float* d_z, float* d_t,
+                      float* d_w, float* gpart, void* scr, long long scr_stride, int n_cta,
+                      void* log, int chunk, int n_split, void* stream) {
+  const BwdCots ct{nullptr, nullptr, nullptr, c_sdf, c_alpha, c_cdf, c_grad, c_rgb, c_eik};
+  return tc_bwd<true>(d, pp, wts, pk, rays_o, rays_d, mid_z, dists, inv_s, cos_r, R, sdf_res,
+                      g_res, ct, d_o, d_d, d_z, d_t, d_w, gpart, scr, scr_stride, n_cta, log,
+                      chunk, n_split, stream);
 }
 
 // B6's backward: as sdf_bwd (fused_sdf.cu), with the packed bf16 SDF

@@ -1,5 +1,5 @@
 // Tensor-core building blocks of the bf16 NeuS kernels (fused_neus_ray_tc.cu:
-// B1's per-ray pair, B3's point-level forward, B6's pair, B7's pair, #12's
+// B1's per-ray pair, B3's point-level pair, B6's pair, B7's pair, #12's
 // sdf-only forward): the packed
 // bf16 weight layout, the CTA-level GEMM forms on mma.sync.m16n8k16 (bf16
 // operands, f32 accumulators: gemm_rows_pre and gemm_fused over a tile,
@@ -47,7 +47,7 @@ typedef __half f16;
 enum { PH_OTHER = 0, PH_GEMM, PH_WGRAD, PH_COLPASS = 4, PH_COMPOSITE, PH_EPI, PH_LOG,
        PH_TAGS = 8, PH_N = 24, PH_MAXCTA = 1024 };
 enum { PK_RAY_FWD = 0, PK_RAY_BWD, PK_WGRAD, PK_POINT_FWD, PK_SDF_BWD, PK_SDF_FWD, PK_COL_BWD,
-       PK_COL_FWD, PK_SDF_ONLY, PK_N };
+       PK_COL_FWD, PK_SDF_ONLY, PK_POINT_BWD, PK_N };
 #if defined(NEUS_TC_PROF) && defined(__CUDACC__)
 __device__ long long g_phase[PK_N][PH_MAXCTA][PH_N];
 __device__ inline long long* phase_slots() {

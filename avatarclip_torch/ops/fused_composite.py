@@ -12,10 +12,12 @@ On a CUDA tensor :func:`composite` runs ``csrc/fused_composite.cu`` through
 :class:`CompositeFunction` (the backward is the second kernel; no fallback);
 on a CPU tensor it runs :func:`composite_plain`, differentiated by autograd.
 The kernels take S <= 64 samples (one warp per ray) and any ray count: the
-TPU version's padding to 64-ray blocks has no counterpart. The forward
-kernel stages each CTA's RAYS_PER_CTA rays through shared memory by 16-byte
-copies; :func:`cta_span` and :func:`stage_plan` are the Python twins of its
-index map (tests/test_torch_composite_stage.py).
+TPU version's padding to 64-ray blocks has no counterpart. Both kernels
+stage each CTA's RAYS_PER_CTA rays through shared memory by 16-byte copies,
+and the backward writes its d rgb and d grad spans back by 16-byte stores;
+:func:`cta_span`, :func:`stage_plan` and :func:`unstage_plan` are the Python
+twins of their index maps (tests/test_torch_composite_stage.py,
+tests/test_torch_backward_plans.py).
 """
 
 from __future__ import annotations
@@ -47,12 +49,12 @@ def composite_plain(alpha, rgb, grad):
     return weights, color, extra, normals_w
 
 
-RAYS_PER_CTA = 4  # csrc/fused_composite.cu's RAYS: the forward's rays a CTA, one a warp
+RAYS_PER_CTA = 4  # csrc/fused_composite.cu's RAYS: either pass's rays a CTA, one a warp
 
 
 def cta_span(cta: int, R: int, S: int, width: int) -> tuple[int, int]:
-    """(first float, floats) of the forward CTA ``cta``'s rows of an (R, S,
-    width) input: its rays' rows, one contiguous span."""
+    """(first float, floats) of CTA ``cta``'s rows of an (R, S, width) input
+    or output of either pass: its rays' rows, one contiguous span."""
     r0 = cta * RAYS_PER_CTA
     return r0 * S * width, min(RAYS_PER_CTA, R - r0) * S * width
 
@@ -71,14 +73,25 @@ def stage_plan(m: int, n: int) -> list[tuple[int, int, int]]:
             + [(j, m + j, 1) for j in range(tail0, n)])
 
 
+def unstage_plan(m_src: int, m_dst: int, n: int) -> list[tuple[int, int, int]]:
+    """Twin of fused_composite.cu's ``unstage``: the stores that write a span
+    of n floats, held in a shared buffer with float j at m_src + j, to a
+    destination whose first float lies m_dst floats (0..3) past a 16-byte
+    boundary, as (first float of the span, first buffer float, floats):
+    single floats up to the destination's first boundary, 4-float (16-byte)
+    stores, then the last < 4 floats one at a time."""
+    return [(j, m_src + j, k) for j, _, k in stage_plan(m_dst, n)]
+
+
 def _lib():
     lib = _build.load("fused_composite", "fused_composite.cu")
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.composite_fwd.argtypes = [I, I, I] + [P] * 8
         lib.composite_fwd.restype = I
-        lib.composite_bwd.argtypes = [I, I, I] + [P] * 11
-        lib.composite_bwd.restype = I
+        for fn in (lib.composite_bwd, lib.composite_bwd_warp):
+            fn.argtypes = [I, I, I] + [P] * 11
+            fn.restype = I
         lib._typed = True
     return lib
 

@@ -7,14 +7,19 @@ Two pairs, twins of avatarclip_tpu/ops/fused_neus.py:
   (R, S) samples it evaluates the SDF MLP with its analytic spatial
   gradient, the colour MLP, the cos-annealed alpha and the in-ray
   compositing, and returns only per-ray quantities
-  ``(colorW (R, 3|6), normals_w (R, 3), weight_sum (R, 1), gradient_error)``;
+  ``(colorW (R, 3|6), normals_w (R, 3), weight_sum (R, 1), eik)``;
   the training steps use it.
 * per point (B3): `point_eval_fused`, `_fused_core`, Pallas `_fwd_kernel` /
   `_bwd_kernel`. The same network pass without the compositing, returning
   every per-point quantity ``(sdf (P, 1), grad (P, 3), rgb (P, 3|6),
-  alpha (P,), cdf (P,), inside (P,), gradient_error)`` with P = R * S; the
+  alpha (P,), cdf (P,), inside (P,), eik)`` with P = R * S; the
   validation and extraction renders use it, followed by the compositing
   kernel (ops/fused_composite.py).
+
+Both return the eikonal loss as its partial sums ``eik = [num, den]``
+(the JAX entries' ``eik`` before their ratio), which a sharded render sums
+over the ranks; :func:`eik_ratio` turns them into the loss, as render_core
+does.
 
 Operand mode: the nets' ``cfg.dtype`` picks it (fields.networks.operand_bf16,
 carried as ``spec.bf16`` and ``Dims::bf16``), where the JAX package fixes
@@ -31,10 +36,10 @@ On a CUDA tensor :func:`point_eval_ray` runs, through
 :class:`NeuSRayFunction`, the tensor-core pair ``csrc/fused_neus_ray_tc.cu``
 in the bf16 mode and ``csrc/fused_neus_ray.cu`` in the f32 mode;
 :func:`point_eval` runs, through :class:`NeuSPointFunction`, the
-tensor-core forward of ``csrc/fused_neus_ray_tc.cu`` in the bf16 mode and
-``csrc/fused_neus_point.cu``'s in the f32 mode, and the backward of
-``csrc/fused_neus_point.cu`` (CUDA cores, the bf16 mode as rounding) in
-both. The backward is the second kernel; nothing falls back. On a CPU
+tensor-core pair of ``csrc/fused_neus_ray_tc.cu`` in the bf16 mode (its
+backward B1's backward body seeded by the per-point cotangents) and
+``csrc/fused_neus_point.cu``'s pair in the f32 mode. The backward is the
+second kernel; nothing falls back. On a CPU
 tensor they run the plain versions at the kernels' rounding points, whose
 backward is autograd through the plain graph (create_graph=True for the
 spatial gradient).
@@ -164,6 +169,21 @@ def _fields_plain(sdf, color, pts, dirs):
     return s, g, kernel_color_forward(color, pts, g, dirs, feat)
 
 
+def eik_ratio(eik: torch.Tensor) -> torch.Tensor:
+    """The eikonal loss from its partial sums [num, den] (JAX's
+    ``eik[0, 0] / (eik[0, 1] + 1e-5)``)."""
+    return eik[0] / (eik[1] + 1e-5)
+
+
+def eikonal(relax, ge):
+    """The eikonal loss as its partial sums [num, den] (2,): the squared
+    gradient-norm errors ``ge`` summed over the points where ``relax`` is 1,
+    and their count. A sharded render sums them over the ranks; the loss is
+    their :func:`eik_ratio`."""
+    num = (relax * ge).sum()
+    return torch.stack([num, relax.sum().to(num.dtype)])
+
+
 def point_eval_ray_plain(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d,
                          mid_z, dists, inv_s, cos_anneal):
     """Plain PyTorch version of the kernel pair (same maths, the kernels'
@@ -185,8 +205,7 @@ def point_eval_ray_plain(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d,
     weight_sum = w.sum(1)
     relax = ((pts * pts).sum(-1) < 1.44).float()
     ge = (torch.sqrt((g * g).sum(-1) + 1e-12) - 1.0) ** 2
-    gradient_error = (relax * ge).sum() / (relax.sum() + 1e-5)
-    return col_w, normals_w, weight_sum, gradient_error
+    return col_w, normals_w, weight_sum, eikonal(relax, ge)
 
 
 def point_eval_plain(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z, dists,
@@ -194,7 +213,7 @@ def point_eval_plain(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z
     """Plain PyTorch version of the point-level kernel pair (same maths, the
     operand mode as :func:`point_eval_ray_plain`), in the inputs' dtype.
     Returns (sdf (P, 1), grad (P, 3), rgb (P, 3|6), alpha (P,), cdf (P,),
-    inside (P,), gradient_error)."""
+    inside (P,), eik [num, den])."""
     R, S = mid_z.shape
     pts = (rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., None]).reshape(-1, 3)
     dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
@@ -205,8 +224,7 @@ def point_eval_plain(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z
     inside = (r2 < 1.0).to(mid_z.dtype)
     relax = (r2 < 1.44).to(mid_z.dtype)
     ge = (torch.sqrt((g * g).sum(-1) + 1e-12) - 1.0) ** 2
-    gradient_error = (relax * ge).sum() / (relax.sum() + 1e-5)
-    return s, g, rgb, alpha, cdf, inside, gradient_error
+    return s, g, rgb, alpha, cdf, inside, eikonal(relax, ge)
 
 
 # ---------------------------------------------------------------------------
@@ -459,6 +477,8 @@ def type_tc(lib):
         lib.neus_ray_tc_fwd.restype = I
         lib.neus_ray_tc_bwd.argtypes = [Dims, Pack] + [P] * 7 + [F_, I] + [P] * 13 + [L_, I, P, I, I, P]
         lib.neus_ray_tc_bwd.restype = I
+        lib.neus_point_tc_bwd.argtypes = [Dims, Pack] + [P] * 7 + [F_, I] + [P] * 15 + [L_, I, P, I, I, P]
+        lib.neus_point_tc_bwd.restype = I
         lib.neus_point_tc_fwd.argtypes = [Dims, Pack] + [P] * 7 + [F_, I] + [P] * 9 + [L_, I, P]
         lib.neus_point_tc_fwd.restype = I
         lib.sdf_tc_bwd.argtypes = [Dims, Pack, P, P, P, I] + [P] * 7 + [L_, I, P, I, I, P]
@@ -488,15 +508,37 @@ def n_cta_tc(device, R: int) -> int:
 RAYS_PER_CTA_CHUNK = 8  # the backward's chunk: this many rays a CTA (its log: ~0.7 MB a ray at 256 wide)
 
 
-def tc_bwd_chunking(device, lib, d, R: int) -> tuple[int, int, int]:
+def tc_bwd_plan(sms: int, tiles: int, R: int) -> tuple[int, int, int]:
     """(CTAs, tiles a chunk, point splits of the weight-gradient pass) of a
-    tensor-core backward over R tiles of 64 rows (B1's rays, B6's and B7's
-    blocks of points): the pass's CTAs (one an SM) fill about two waves."""
-    n_cta = n_cta_tc(device, R)
+    tensor-core backward over R tiles of 64 rows (B1's and B3's rays, B6's
+    and B7's blocks of points) on a card of ``sms`` SMs, whose
+    weight-gradient pass has ``tiles`` output tiles: a persistent CTA an SM
+    (at most one a tile), RAYS_PER_CTA_CHUNK tiles a CTA a chunk, and the
+    pass's CTAs (tiles x splits) about two waves."""
+    n_cta = max(1, min(R, sms))
     chunk = min(R, n_cta * RAYS_PER_CTA_CHUNK)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = int(lib.neus_tc_wgrad_tiles(d))
     return n_cta, chunk, max(1, min(chunk, 2 * sms // tiles))
+
+
+def tc_bwd_chunking(device, lib, d, R: int) -> tuple[int, int, int]:
+    """:func:`tc_bwd_plan` on ``device`` for the network dims ``d``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return tc_bwd_plan(sms, int(lib.neus_tc_wgrad_tiles(d)), R)
+
+
+def tc_bwd_buffers(lib, d: Dims, device, R: int) -> dict:
+    """The chunked tensor-core backward's launch plan and buffers over R rays
+    (B1's and B3's): CTAs, rays a chunk, point splits (tc_bwd_chunking), the
+    per-CTA scratch and its stride, the zeroed partial rows and the chunk's
+    bf16 weight-gradient log."""
+    n_w = int(lib.neus_tc_weight_count(d))
+    n_cta, chunk, n_split = tc_bwd_chunking(device, lib, d, R)
+    stride = int(lib.neus_tc_scratch_bytes(d, 1))
+    return {"n_w": n_w, "n_cta": n_cta, "chunk": chunk, "n_split": n_split, "stride": stride,
+            "scr": torch.empty(n_cta * stride, dtype=torch.uint8, device=device),
+            "gpart": torch.zeros((n_cta + 2 * n_split) * (n_w + 1), device=device),
+            "log": torch.empty(chunk * MAX_SAMPLES * int(lib.neus_tc_log_row(d)),
+                               dtype=torch.bfloat16, device=device)}
 
 
 def neus_ray_tc_fwd(spec: NeuSRaySpec, flat, pk, pack, rays_o, rays_d, mid_z, dists, inv_s,
@@ -546,13 +588,8 @@ def neus_ray_tc_bwd(spec: NeuSRaySpec, flat, pk, pack, rays_o, rays_d, mid_z, di
                                     ("sdf_res", sdf_res, (R * S,)), ("g_res", g_res, (R * S, 3))))
     check_packed(pk, mid_z.device)
     dev = mid_z.device
-    n_w = int(lib.neus_tc_weight_count(d))
-    n_cta, chunk, n_split = tc_bwd_chunking(dev, lib, d, R)
-    stride = int(lib.neus_tc_scratch_bytes(d, 1))
-    scr = torch.empty(n_cta * stride, dtype=torch.uint8, device=dev)
-    gpart = torch.zeros((n_cta + 2 * n_split) * (n_w + 1), device=dev)
-    log = torch.empty(chunk * MAX_SAMPLES * int(lib.neus_tc_log_row(d)), dtype=torch.bfloat16,
-                      device=dev)
+    b = tc_bwd_buffers(lib, d, dev, R)
+    n_w = b["n_w"]
     d_o = torch.empty(R, 3, device=dev)
     d_d = torch.empty(R, 3, device=dev)
     d_z = torch.empty(R, S, device=dev)
@@ -562,8 +599,8 @@ def neus_ray_tc_bwd(spec: NeuSRaySpec, flat, pk, pack, rays_o, rays_d, mid_z, di
     err = lib.neus_ray_tc_bwd(
         d, pack, p(flat), p(pk), p(rays_o), p(rays_d), p(mid_z), p(dists), p(inv_s),
         float(cos_anneal), R, p(sdf_res), p(g_res), p(c_col), p(c_nw), p(c_ws), p(c_eik),
-        p(d_o), p(d_d), p(d_z), p(d_t), p(d_w), p(gpart), p(scr), stride, n_cta, p(log), chunk,
-        n_split, _build.stream_ptr(dev),
+        p(d_o), p(d_d), p(d_z), p(d_t), p(d_w), p(b["gpart"]), p(b["scr"]), b["stride"],
+        b["n_cta"], p(b["log"]), b["chunk"], b["n_split"], _build.stream_ptr(dev),
     )
     _build.check(err, "neus_ray_tc_bwd launch")
     _build.count(LAUNCHES, "neus_ray_bwd")
@@ -615,8 +652,9 @@ class NeuSRayFunction(torch.autograd.Function):
 def point_eval_ray(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z, dists,
                    inv_s, cos_anneal):
     """Per-ray NeuS evaluation: (colorW (R, 3|6), normals_w (R, 3),
-    weight_sum (R, 1), gradient_error scalar). CPU tensors take the plain
-    version; CUDA tensors take the kernel pair, or raise."""
+    weight_sum (R, 1), eik [num, den], the eikonal loss's partial sums,
+    :func:`eik_ratio`). CPU tensors take the plain version; CUDA tensors
+    take the kernel pair, or raise."""
     if not mid_z.is_cuda:
         return point_eval_ray_plain(sdf, color, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal)
     R, S = mid_z.shape
@@ -624,11 +662,10 @@ def point_eval_ray(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z, 
     if spec is None:
         raise ValueError("network configuration not supported by the NeuS kernel")
     c = lambda t: t.float().contiguous()
-    col_w, normals_w, wsum, eik = NeuSRayFunction.apply(
+    return NeuSRayFunction.apply(
         spec, float(cos_anneal), c(rays_o), c(rays_d), c(mid_z), c(dists), c(inv_s.reshape(())),
         *dense_weights(sdf, color),
     )
-    return col_w, normals_w, wsum, eik[0] / (eik[1] + 1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -700,11 +737,13 @@ def neus_point_fwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s,
 
 
 def neus_point_bwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal,
-                   sdf_res, g_res, c_sdf, c_alpha, c_cdf, c_grad, c_rgb, c_eik):
-    """Launch the point-level backward kernel (+ its partial-sum pass).
-    Returns (d_o, d_d, d_z, d_t, d_flat, d_inv_s). Both operand modes run
-    these CUDA-core kernels (the bf16 one rounding each staged operand)."""
-    lib = _point_lib()
+                   sdf_res, g_res, c_sdf, c_alpha, c_cdf, c_grad, c_rgb, c_eik, packed=None):
+    """Launch the point-level backward: in the bf16 mode the tensor-core
+    kernel of fused_neus_ray_tc.cu (rays in chunks, its weight gradients a
+    GEMM over the chunk's log; ``packed`` as :func:`neus_point_fwd`'s), in
+    f32 fused_neus_point.cu's CUDA-core kernel; each with its partial-sum
+    pass. Returns (d_o, d_d, d_z, d_t, d_flat, d_inv_s)."""
+    lib = _tc_lib() if spec.bf16 else _point_lib()
     _check_inputs(spec, flat, rays_o, rays_d, mid_z, dists, inv_s)
     d = spec.dims()
     R, S = mid_z.shape
@@ -714,23 +753,33 @@ def neus_point_bwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s,
                               ("c_cdf", c_cdf, (P,)), ("c_grad", c_grad, (P, 3)),
                               ("c_rgb", c_rgb, (P, spec.rgb_width)), ("c_eik", c_eik, (2,))))
     dev = mid_z.device
-    n_w = int(lib.neus_point_weight_count(d))
-    n_cta = n_cta_for(dev, R)
-    stride = int(lib.neus_point_workspace_floats(d, 1))
-    ws = torch.empty(n_cta * stride, device=dev)
-    gpart = torch.empty(n_cta * (n_w + 1), device=dev)
     d_o = torch.empty(R, 3, device=dev)
     d_d = torch.empty(R, 3, device=dev)
     d_z = torch.empty(R, S, device=dev)
     d_t = torch.empty(R, S, device=dev)
-    d_w = torch.empty(n_w + 1, device=dev)
     p = _build.ptr
-    err = lib.neus_point_bwd(
-        d, p(flat), p(rays_o), p(rays_d), p(mid_z), p(dists), p(inv_s), float(cos_anneal), R,
-        p(sdf_res), p(g_res), p(c_sdf), p(c_alpha), p(c_cdf), p(c_grad), p(c_rgb), p(c_eik),
-        p(d_o), p(d_d), p(d_z), p(d_t), p(d_w), p(gpart), p(ws), stride, n_cta,
-        _build.stream_ptr(dev),
-    )
+    head = (p(flat), p(rays_o), p(rays_d), p(mid_z), p(dists), p(inv_s), float(cos_anneal), R,
+            p(sdf_res), p(g_res), p(c_sdf), p(c_alpha), p(c_cdf), p(c_grad), p(c_rgb), p(c_eik),
+            p(d_o), p(d_d), p(d_z), p(d_t))
+    if spec.bf16:
+        pk, pack = pack_flat(spec, flat) if packed is None else packed
+        check_packed(pk, dev)
+        b = tc_bwd_buffers(lib, d, dev, R)
+        n_w = b["n_w"]
+        d_w = torch.empty(n_w + 1, device=dev)
+        err = lib.neus_point_tc_bwd(
+            d, pack, head[0], p(pk), *head[1:], p(d_w), p(b["gpart"]), p(b["scr"]), b["stride"],
+            b["n_cta"], p(b["log"]), b["chunk"], b["n_split"], _build.stream_ptr(dev),
+        )
+    else:
+        n_w = int(lib.neus_point_weight_count(d))
+        n_cta = n_cta_for(dev, R)
+        stride = int(lib.neus_point_workspace_floats(d, 1))
+        ws = torch.empty(n_cta * stride, device=dev)
+        gpart = torch.empty(n_cta * (n_w + 1), device=dev)
+        d_w = torch.empty(n_w + 1, device=dev)
+        err = lib.neus_point_bwd(d, *head, p(d_w), p(gpart), p(ws), stride, n_cta,
+                                 _build.stream_ptr(dev))
     _build.check(err, "neus_point_bwd launch")
     _build.count(LAUNCHES, "neus_point_bwd")
     return d_o, d_d, d_z, d_t, d_w[:n_w], d_w[n_w].reshape(())
@@ -739,28 +788,31 @@ def neus_point_bwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s,
 class NeuSPointFunction(torch.autograd.Function):
     """(spec, cos_anneal, keep, rays, mid_z, dists, inv_s, *dense weights) ->
     (sdf (P, 1), grad, rgb, alpha, cdf, inside, eik (2,)); forward and
-    backward are the CUDA kernels: the tensor-core forward in the bf16
-    operand mode, fused_neus_point.cu's in f32, and fused_neus_point.cu's
-    backward in both. ``inside`` is not differentiable. Residuals are kept
-    only when ``keep`` (the caller's grad mode), so the validation renders
-    under no_grad hold none."""
+    backward are the CUDA kernels: the tensor-core pair in the bf16 operand
+    mode (the weights packed once for both), fused_neus_point.cu's in f32.
+    ``inside`` is not differentiable. Residuals are kept only when ``keep``
+    (the caller's grad mode), so the validation renders under no_grad hold
+    none."""
 
     @staticmethod
     def forward(ctx, spec, cos_anneal, keep, rays_o, rays_d, mid_z, dists, inv_s, *weights):
         flat = torch.cat([w.detach().reshape(-1) for w in weights])
+        packed = pack_tc(spec, weights) if spec.bf16 else None
         sdf_o, alpha, cdf, grad, inside, rgb, eik = neus_point_fwd(
-            spec, flat, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal
+            spec, flat, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal, packed
         )
         ctx.mark_non_differentiable(inside)
         if keep and any(ctx.needs_input_grad):
-            ctx.save_for_backward(flat, rays_o, rays_d, mid_z, dists, inv_s, sdf_o, grad)
+            pk = flat.new_empty(0) if packed is None else packed[0]
+            ctx.save_for_backward(flat, pk, rays_o, rays_d, mid_z, dists, inv_s, sdf_o, grad)
             ctx.spec, ctx.cos_anneal = spec, cos_anneal
+            ctx.pack = None if packed is None else packed[1]
             ctx.shapes = [w.shape for w in weights]
         return sdf_o.reshape(-1, 1), grad, rgb, alpha, cdf, inside, eik
 
     @staticmethod
     def backward(ctx, c_sdf, c_grad, c_rgb, c_alpha, c_cdf, c_inside, c_eik):
-        flat, rays_o, rays_d, mid_z, dists, inv_s, sdf_o, grad = ctx.saved_tensors
+        flat, pk, rays_o, rays_d, mid_z, dists, inv_s, sdf_o, grad = ctx.saved_tensors
         P = mid_z.numel()
         dev = mid_z.device
 
@@ -771,6 +823,7 @@ class NeuSPointFunction(torch.autograd.Function):
             ctx.spec, flat, rays_o, rays_d, mid_z, dists, inv_s, ctx.cos_anneal, sdf_o, grad,
             cot(c_sdf, (P,)), cot(c_alpha, (P,)), cot(c_cdf, (P,)), cot(c_grad, (P, 3)),
             cot(c_rgb, (P, ctx.spec.rgb_width)), cot(c_eik, (2,)),
+            None if ctx.pack is None else (pk, ctx.pack),
         )
         return (None, None, None, d_o, d_d, d_z, d_t, d_inv_s, *split_flat(d_flat, ctx.shapes))
 
@@ -778,8 +831,9 @@ class NeuSPointFunction(torch.autograd.Function):
 def point_eval(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z, dists, inv_s,
                cos_anneal):
     """Per-point NeuS evaluation: (sdf (P, 1), grad (P, 3), rgb (P, 3|6),
-    alpha (P,), cdf (P,), inside (P,), gradient_error scalar). CPU tensors
-    take the plain version; CUDA tensors take the kernel pair, or raise."""
+    alpha (P,), cdf (P,), inside (P,), eik [num, den], the eikonal loss's
+    partial sums, :func:`eik_ratio`). CPU tensors take the plain version;
+    CUDA tensors take the kernel pair, or raise."""
     if not mid_z.is_cuda:
         return point_eval_plain(sdf, color, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal)
     R, S = mid_z.shape
@@ -787,8 +841,7 @@ def point_eval(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z, dist
     if spec is None:
         raise ValueError("network configuration not supported by the NeuS kernel")
     c = lambda t: t.float().contiguous()
-    sdf_o, grad, rgb, alpha, cdf, inside, eik = NeuSPointFunction.apply(
+    return NeuSPointFunction.apply(
         spec, float(cos_anneal), torch.is_grad_enabled(), c(rays_o), c(rays_d), c(mid_z), c(dists), c(inv_s.reshape(())),
         *dense_weights(sdf, color),
     )
-    return sdf_o, grad, rgb, alpha, cdf, inside, eik[0] / (eik[1] + 1e-5)

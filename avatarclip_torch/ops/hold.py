@@ -166,34 +166,29 @@ def ray_grads(fn, fields, inputs, probes, cos_anneal: float = 0.4, chunk: int | 
     version) on rays (rays_o, rays_d, mid_z, dists): its outputs (colorW,
     normals_w, weight_sum, gradient_error) and the gradients (parameters,
     then the four inputs) of sum(probe * out), ``chunk`` rays at a time.
-    gradient_error is a mean over every point inside the relaxed sphere, so
-    a chunk's share is weighted by its count of those points (plus 1e-5, in
-    float32 as the function counts them): the chunks sum to one pass's
-    numbers."""
+    gradient_error is a mean over every point inside the relaxed sphere:
+    each chunk's partial sum of the errors is taken over the whole pass's
+    count of those points (plus 1e-5, in float32 as the function counts
+    them), so the chunks sum to one pass's numbers."""
     rays_o, rays_d, mid, _ = inputs
     R = mid.shape[0]
     pts = rays_o[:, None] + rays_d[:, None] * mid[..., None]
-    relax = ((pts * pts).sum(-1) < 1.44).float()
-
-    def count(sl):
-        return float(relax[sl].sum() + 1e-5)
-
-    den = count(slice(0, R))
+    den = float(((pts * pts).sum(-1) < 1.44).float().sum() + 1e-5)
     params = list(fields.parameters())
     outs, d_ins, d_params, ge = [], [], None, 0.0
     for sl in _chunks(R, chunk):
         xs = [t[sl].clone().requires_grad_(True) for t in inputs]
-        col, nw, ws, ge_c = fn(fields.sdf, fields.color, *xs, fields.variance.inv_s(), cos_anneal)
-        share = count(sl) / den
+        col, nw, ws, eik = fn(fields.sdf, fields.color, *xs, fields.variance.inv_s(), cos_anneal)
+        ge_c = eik[0] / den
         loss = ((col * probes[0][sl]).sum() + (nw * probes[1][sl]).sum()
-                + (ws * probes[2][sl]).sum() + ge_c * share * probes[3])
+                + (ws * probes[2][sl]).sum() + ge_c * probes[3])
         g = torch.autograd.grad(loss, params + xs)
         gp = list(g[:len(params)])
         d_params = gp if d_params is None else [a + b for a, b in zip(d_params, gp)]
         d_ins.append(g[len(params):])
         outs.append([col.detach(), nw.detach(), ws.detach()])
-        ge = ge + ge_c.detach() * share
-        del col, nw, ws, ge_c, loss, g
+        ge = ge + ge_c.detach()
+        del col, nw, ws, eik, ge_c, loss, g
     return ([torch.cat(c) for c in zip(*outs)] + [ge],
             d_params + [torch.cat(c) for c in zip(*d_ins)])
 

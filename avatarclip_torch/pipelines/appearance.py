@@ -26,6 +26,16 @@ stored views (rotation by Slerp, centre linearly) through
 their reversal at 30 fps as an MP4 with ``utils/mp4.write_mp4``.
 ``profile_trace`` writes a torch.profiler Chrome trace of a few train_clip
 steps.
+
+Data parallel (twin of the JAX Runner under a data mesh): ``Runner(mesh=)``
+with a mesh of N > 1 ranks (parallel/mesh.py) draws every random number of
+a step for the whole batch on every rank, renders its slice of the rays
+(``neus.render(mesh=)``), gathers the per-ray outputs and computes the
+dense scatter, the CLIP encode and the losses replicated; ``_backward``
+sums the gradients over the ranks before Adam. Only rank 0 writes logs,
+checkpoints and validations, and the others wait at a barrier while it
+does. ``main`` builds the mesh when ``torchrun`` starts it (WORLD_SIZE >
+1). With one rank the step is exactly the single-device one.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from ..clip import tokenizer as clip_tokenizer
 from ..export import marching_cubes as mc
 from ..export import mesh_io
 from ..fields import networks as nets
+from ..parallel import mesh as pmesh
 from ..render import cameras, neus, raster
 from ..utils import device as device_mod
 from ..utils.logging import MetricsLogger
@@ -277,14 +288,22 @@ def latest_checkpoint(base_dir: str, end_iter: int | None = None) -> str | None:
 
 class Runner:
     """``device``: the card (the default, ``"cuda"``), or the CPU only when
-    asked for (``"cpu"``). Asking for CUDA without a card raises."""
+    asked for (``"cpu"``). Asking for CUDA without a card raises. ``mesh``:
+    a data group (parallel/mesh.py) to train over; its device is the
+    Runner's (a ``device`` that differs raises)."""
 
     def __init__(self, conf_path: str | None, mode: str = "train", case: str = "CASE_NAME",
-                 is_continue: bool = False, conf=None, device=None):
+                 is_continue: bool = False, conf=None, device=None,
+                 mesh: pmesh.DataMesh | None = None):
         self.conf_path = conf_path
         self.conf = conf if conf is not None else config_mod.parse_file(conf_path, case=case)
         conf = self.conf
-        self.device = device_mod.resolve(device, "Runner")
+        if mesh is None:
+            mesh = pmesh.single(device_mod.resolve(device, "Runner"))
+        elif device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"Runner: device {device} is not the mesh's {mesh.device}")
+        self.mesh = mesh
+        self.device = mesh.device
         self.base_exp_dir = conf.get_string("general.base_exp_dir")
         os.makedirs(self.base_exp_dir, exist_ok=True)
         self.dataset = SMPLViewDataset(conf["dataset"], self.device)
@@ -328,6 +347,7 @@ class Runner:
             if latest is not None:
                 print(f"Find checkpoint: {latest}")
                 self.load_checkpoint(latest)
+        pmesh.broadcast_(self.fields.parameters(), self.mesh)  # the replicas start equal
 
         self.logger = None
         self._clip = None
@@ -337,7 +357,7 @@ class Runner:
         self._val_futures: list = []
         self._val_dropped = 0
         self.val_seconds: list[tuple[str, int, float]] = []  # (name, iter, s), synchronised
-        if mode.startswith("train"):
+        if mode.startswith("train") and self.mesh.writer:
             self.file_backup()
 
     # -- setup ------------------------------------------------------------
@@ -434,7 +454,8 @@ class Runner:
         mask_sum = mask.sum() + 1e-5
         out = neus.render(self.fields, self.ncfg, rays_o, rays_d, near, far,
                           generator=self.gen, background_rgb=background_rgb,
-                          cos_anneal_ratio=cos_anneal_ratio(tc, it), per_ray=True)
+                          cos_anneal_ratio=cos_anneal_ratio(tc, it), per_ray=True,
+                          mesh=self.mesh)
         color_fine = out["color_fine"]
         color_loss = ((color_fine - true_rgb) * mask).abs().sum() / mask_sum
         psnr = 20.0 * torch.log10(
@@ -499,7 +520,7 @@ class Runner:
 
         out = neus.render(self.fields, ncfg, rays_o, rays_d, near, far, generator=self.gen,
                           background_rgb=bg_rays, cos_anneal_ratio=cos_anneal_ratio(tc, it),
-                          per_ray=True)
+                          per_ray=True, mesh=self.mesh)
         color_fine = out["color_fine"]
         extra = out["extra_color_fine"] if self.extra_color else color_fine
         ws = out["weight_sum"].reshape(-1)
@@ -579,8 +600,17 @@ class Runner:
 
     def _update(self, loss: torch.Tensor) -> None:
         """Backward and one Adam update at lr = schedule(update count)."""
+        self._backward(loss)
+        self._step()
+
+    def _backward(self, loss: torch.Tensor) -> None:
+        """The parameters' gradients of ``loss``, summed over the mesh's ranks."""
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        pmesh.all_reduce_grads(self.fields.parameters(), self.mesh)
+
+    def _step(self) -> None:
+        """One Adam update at lr = schedule(update count)."""
         lr = self.lr_schedule(self.update_count)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -657,8 +687,16 @@ class Runner:
         self.step_seconds.append(time.perf_counter() - t0)
         return metrics
 
+    def _open_logger(self):
+        if self.mesh.writer:
+            self.logger = MetricsLogger(os.path.join(self.base_exp_dir, "logs"))
+
+    def _close_logger(self):
+        if self.logger is not None:
+            self.logger.close()
+
     def train(self):
-        self.logger = MetricsLogger(os.path.join(self.base_exp_dir, "logs"))
+        self._open_logger()
 
         def step():
             loss, metrics = self.photometric_loss(self.draw_photometric(), self.iter_step)
@@ -670,10 +708,10 @@ class Runner:
             self.iter_step += 1
             self._post_iter(metrics)
         self._drain_validations()
-        self.logger.close()
+        self._close_logger()
 
     def train_clip(self):
-        self.logger = MetricsLogger(os.path.join(self.base_exp_dir, "logs"))
+        self._open_logger()
         if self._clip is None:
             self.init_clip()
         if self._template is None:
@@ -692,7 +730,7 @@ class Runner:
             self.iter_step += 1
             self._post_iter(metrics)
         self._drain_validations()
-        self.logger.close()
+        self._close_logger()
 
     def profile_trace(self, out_dir: str, n_iters: int = 3) -> str:
         """A torch.profiler trace of ``n_iters`` train_clip steps (iterations
@@ -736,6 +774,16 @@ class Runner:
         return out_dir
 
     def _post_iter(self, metrics):
+        """Rank 0's logs, report, checkpoint and validations of iteration
+        iter_step; the other ranks wait at a barrier while it writes."""
+        it, tc = self.iter_step, self.tc
+        writes = it % tc.save_freq == 0 or it % tc.val_freq == 0 or it % tc.val_mesh_freq == 0
+        if self.mesh.writer:
+            self._write_iter(metrics)
+        if writes:
+            pmesh.barrier(self.mesh)
+
+    def _write_iter(self, metrics):
         it, tc = self.iter_step, self.tc
         if self.logger is not None and (it % 10 == 0 or it < 10):
             self.logger.log(it, {k: float(v) for k, v in metrics.items()})
@@ -1049,9 +1097,14 @@ def main(argv=None):
     parser.add_argument("--mode", type=str, default="train",
                         choices=("train", "train_clip", "validate_mesh", "render_geometry_cast_light"))
     parser.add_argument("--mcube_threshold", type=float, default=0.0)
-    parser.add_argument("--gpu", type=int, default=0, help="the card's index")
+    parser.add_argument("--gpu", type=int, default=0,
+                        help="the card's index (under torchrun: each rank's LOCAL_RANK)")
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
                         help="run on the card (default) or, when asked, on the CPU")
+    parser.add_argument("--backend", type=str, default=None, choices=("nccl", "gloo"),
+                        help="under torchrun: the process group's backend (nccl on the "
+                             "card, one card a rank; gloo on the CPU or for ranks sharing "
+                             "a card)")
     parser.add_argument("--is_continue", default=False, action="store_true")
     parser.add_argument("--case", type=str, default="smpl")
     parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
@@ -1064,19 +1117,27 @@ def main(argv=None):
         key, _, value = kv.partition("=")
         conf.put(key, config_mod._parse_value(value))
     device = f"cuda:{args.gpu}" if args.device == "cuda" else "cpu"
-    runner = Runner(args.conf, args.mode, args.case, args.is_continue, conf=conf,
-                    device=device)
-    if args.mode == "train":
-        runner.train()
-    elif args.mode == "train_clip":
-        runner.init_clip()
-        runner.init_smpl()
-        runner.train_clip()
-    elif args.mode == "validate_mesh":
-        runner.validate_mesh(world_space=True, resolution=512, threshold=args.mcube_threshold)
-        runner.render_geometry_cast_light()
-    else:
-        runner.render_geometry_cast_light()
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # under torchrun: one process a rank
+        mesh, device = pmesh.from_env(args.device, args.backend), None
+    try:
+        runner = Runner(args.conf, args.mode, args.case, args.is_continue, conf=conf,
+                        device=device, mesh=mesh)
+        if args.mode == "train":
+            runner.train()
+        elif args.mode == "train_clip":
+            runner.init_clip()
+            runner.init_smpl()
+            runner.train_clip()
+        elif runner.mesh.writer:  # the validation modes: rank 0 renders and writes
+            if args.mode == "validate_mesh":
+                runner.validate_mesh(world_space=True, resolution=512,
+                                     threshold=args.mcube_threshold)
+            runner.render_geometry_cast_light()
+        pmesh.barrier(runner.mesh)
+    finally:
+        if mesh is not None:
+            pmesh.close(mesh)
     return runner
 
 

@@ -278,9 +278,10 @@ def fit_template_pretrain(runner, path: str, steps: int = 500, batch: int = 1638
 
 
 def make_runner(tmp_dir: str, scale: str = "tiny", res: int = 64, n_views: int = 4,
-                device=None):
+                device=None, mesh=None):
     """Self-contained Runner at the requested scale, on ``device`` (the card
-    unless the caller asks for the CPU)."""
+    unless the caller asks for the CPU), or on the data group ``mesh``
+    (parallel/mesh.py) and its device."""
     from .. import config as config_mod
     from .appearance import Runner
 
@@ -288,4 +289,4 @@ def make_runner(tmp_dir: str, scale: str = "tiny", res: int = 64, n_views: int =
     conf = config_mod.parse_string(
         make_conf_text(os.path.join(tmp_dir, "exp"), data_dir, scale)
     )
-    return Runner(None, mode="none", conf=conf, device=device)
+    return Runner(None, mode="none", conf=conf, device=device, mesh=mesh)

@@ -21,6 +21,15 @@ the inner samples by index in that union, its last ``dists`` is
 ``sample_dist``, the compositing runs over all S + n_outside samples, and
 with ``extra_color`` only the main colour is blended (the extra colour
 composites over ``weights[:, :S]``).
+
+Data parallel (``mesh``, parallel/mesh.py, of more than one rank): `render`
+and `render_core` pad the rays to ``pad_to_multiple(R, mesh)`` with JAX's
+|o| = 10, d = 0 rays, each rank renders its equal slice (the up-sample
+sweeps and the kernels alike), the per-ray and per-sample outputs are
+gathered and the padding sliced off, and the eikonal partial sums [num,
+den] are summed over the ranks before their ratio (JAX's psum,
+ops/fused_neus.py:1219). The stratified jitter is drawn for every ray on
+every rank before the split, so ray i sees the same numbers at any N.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch.nn.functional as F
 
 from ..fields import networks as nets
 from ..ops import fused_composite, fused_neus
+from ..parallel import mesh as pmesh
 
 # test hook: None = gate on device / config; True / False forces the
 # megakernel path on / off (on a CPU tensor it runs the kernels' plain versions)
@@ -144,9 +154,45 @@ def _use_mega(fields: nets.NeuSFields, rays_o, S: int, background_alpha=None) ->
     return use and fused_neus.spec_from_configs(fields.sdf.cfg, fields.color.cfg, S) is not None
 
 
+def _eik_loss(out: dict) -> dict:
+    """``out`` with its gradient_error partial sums [num, den] turned into
+    the eikonal loss."""
+    out["gradient_error"] = fused_neus.eik_ratio(out["gradient_error"])
+    return out
+
+
+def _on_shards(mesh, n_rays: int, fn, rows: dict, **kw) -> dict:
+    """``fn(**local rows, **kw)`` on this rank's rays (rows: name -> (tensor
+    with n_rays rows, pad value)), then every output with rows a multiple
+    of the rank's rays gathered (the padding sliced off), the eikonal
+    partial sums summed over the ranks into their ratio, and any other
+    output (a function of the parameters alone) replicated."""
+    local = pmesh.shard_rays(mesh, n_rays, *rows.values())
+    k = local[0].shape[0]
+    out = fn(**dict(zip(rows, local)), **kw)
+    res = {}
+    for key, v in out.items():
+        if key == "gradient_error":
+            res[key] = fused_neus.eik_ratio(pmesh.sum_over_ranks(v, mesh))
+        elif v is None:
+            res[key] = None
+        elif v.dim() and v.shape[0] % k == 0:
+            res[key] = pmesh.gather_rays(v, mesh, n_rays)
+        else:
+            res[key] = pmesh.replicated(v, mesh)
+    return res
+
+
+def _per_ray(bg, n_rays: int):
+    """(bg, pad) when a background colour is given per ray, else None (a
+    single colour, shared by every rank as it is)."""
+    return (bg, 0.0) if bg is not None and bg.shape[0] == n_rays and bg.shape[0] != 1 else None
+
+
 def render_core(fields: nets.NeuSFields, cfg: NeuSConfig, rays_o, rays_d, z_vals,
                 sample_dist: float, background_alpha=None, background_sampled_color=None,
-                background_rgb=None, cos_anneal_ratio: float = 0.0, per_ray: bool = False):
+                background_rgb=None, cos_anneal_ratio: float = 0.0, per_ray: bool = False,
+                mesh: pmesh.DataMesh | None = None):
     """Core SDF -> alpha -> composite pass (renderer.py:195-300).
 
     ``per_ray=True`` (training steps) takes the per-ray megakernel path when
@@ -155,7 +201,31 @@ def render_core(fields: nets.NeuSFields, cfg: NeuSConfig, rays_o, rays_d, z_vals
     and ``per_ray=False`` (validation renders) the point-level pair and the
     compositing pair carry the pass; the dict has every key plus
     ``normals_weighted``. A background (``background_alpha``, (R, S +
-    n_outside)) closes the gate."""
+    n_outside)) closes the gate. ``mesh`` of more than one rank: the rays
+    split over the ranks (module docstring)."""
+    R = z_vals.shape[0]
+    if mesh is not None and mesh.size > 1:
+        rows = {"rays_o": (rays_o, pmesh.PAD_ORIGIN), "rays_d": (rays_d, 0.0),
+                "z_vals": (z_vals, 0.0), "background_alpha": (background_alpha, 0.0),
+                "background_sampled_color": (background_sampled_color, 0.0)}
+        bg_row, kw = _per_ray(background_rgb, R), {}
+        if bg_row:
+            rows["background_rgb"] = bg_row
+        else:
+            kw["background_rgb"] = background_rgb
+        return _on_shards(mesh, R, functools.partial(
+            _render_core, fields, cfg, sample_dist=sample_dist,
+            cos_anneal_ratio=cos_anneal_ratio, per_ray=per_ray), rows, **kw)
+    return _eik_loss(_render_core(fields, cfg, rays_o, rays_d, z_vals, sample_dist,
+                                  background_alpha, background_sampled_color, background_rgb,
+                                  cos_anneal_ratio, per_ray))
+
+
+def _render_core(fields: nets.NeuSFields, cfg: NeuSConfig, rays_o, rays_d, z_vals,
+                 sample_dist: float, background_alpha=None, background_sampled_color=None,
+                 background_rgb=None, cos_anneal_ratio: float = 0.0, per_ray: bool = False):
+    """render_core on one rank's rays, gradient_error as its partial sums
+    [num, den]."""
     R, S = z_vals.shape
     dists = z_vals[:, 1:] - z_vals[:, :-1]
     dists = torch.cat([dists, torch.full_like(dists[:, :1], sample_dist)], -1)
@@ -231,10 +301,7 @@ def render_core(fields: nets.NeuSFields, cfg: NeuSConfig, rays_o, rays_d, z_vals
             color = color + background_rgb * (1.0 - weights_sum)
 
     gradients = gradients.reshape(R, S, 3)
-    gradient_error = (gradients.norm(dim=-1) - 1.0) ** 2
-    gradient_error = (relax_inside_sphere * gradient_error).sum() / (
-        relax_inside_sphere.sum() + 1e-5
-    )
+    gradient_error = fused_neus.eikonal(relax_inside_sphere, (gradients.norm(dim=-1) - 1.0) ** 2)
     return {
         "color": color, "extra_color": extra_color, "sdf": sdf, "dists": dists,
         "gradients": gradients, "s_val": 1.0 / inv_s, "mid_z_vals": mid_z,
@@ -273,33 +340,60 @@ def _render_core_points(fields, cfg, rays_o, rays_d, mid_z, dists, inv_s, cos_an
 def render(fields: nets.NeuSFields, cfg: NeuSConfig, rays_o, rays_d, near, far,
            generator: torch.Generator | None = None, background_rgb=None,
            cos_anneal_ratio: float = 0.0, perturb_overwrite: int = -1,
-           per_ray: bool = False):
+           per_ray: bool = False, mesh: pmesh.DataMesh | None = None):
     """Full hierarchical render (renderer.py:302-397). The stratified jitter
     is drawn from ``generator`` (on the CPU) when perturb > 0, the outside
     samples' after the inner samples'; without a generator there is no
-    jitter. ``n_outside > 0`` needs a NeRF in the fields."""
+    jitter. ``n_outside > 0`` needs a NeRF in the fields. ``mesh`` of more
+    than one rank: the rays split over the ranks after the jitter is drawn
+    for all of them (module docstring)."""
     R = rays_o.shape[0]
-    dev = rays_o.device
     n_out = cfg.n_outside
     if n_out > 0 and fields.nerf is None:
         raise ValueError("n_outside > 0 renders the NeRF++ background: the fields need a NeRF "
                          "(NeuSFields(..., nerf_cfg=...))")
+    perturb = cfg.perturb if perturb_overwrite < 0 else perturb_overwrite
+    t_in = t_out = None
+    if perturb > 0 and generator is not None:
+        t_in = torch.rand((R, 1), generator=generator)
+        if n_out > 0:
+            t_out = torch.rand((R, n_out), generator=generator)
+    kw = {"cos_anneal_ratio": cos_anneal_ratio, "per_ray": per_ray}
+    if mesh is None or mesh.size == 1:
+        return _eik_loss(_render(fields, cfg, rays_o, rays_d, near, far, t_in, t_out,
+                                 background_rgb, **kw))
+    rows = {"rays_o": (rays_o, pmesh.PAD_ORIGIN), "rays_d": (rays_d, 0.0), "near": (near, 0.0),
+            "far": (far, 0.0), "t_in": (t_in, 0.5), "t_out": (t_out, 0.5)}
+    bg_row = _per_ray(background_rgb, R)
+    if bg_row:
+        rows["background_rgb"] = bg_row
+    else:
+        kw["background_rgb"] = background_rgb
+    return _on_shards(mesh, R, functools.partial(_render, fields, cfg), rows, **kw)
+
+
+def _render(fields: nets.NeuSFields, cfg: NeuSConfig, rays_o, rays_d, near, far, t_in, t_out,
+            background_rgb=None, cos_anneal_ratio: float = 0.0, per_ray: bool = False):
+    """`render` on drawn jitter: t_in (R, 1) and t_out (R, n_outside),
+    uniform in [0, 1) on the CPU, or None (no jitter); gradient_error as its
+    partial sums [num, den]."""
+    R = rays_o.shape[0]
+    dev = rays_o.device
+    n_out = cfg.n_outside
     sample_dist = 2.0 / cfg.n_samples
     z_vals = torch.linspace(0.0, 1.0, cfg.n_samples, device=dev)
     z_vals = near + (far - near) * z_vals[None, :]
     z_out = None
     if n_out > 0:
         z_out = torch.linspace(1e-3, 1.0 - 1.0 / (n_out + 1.0), n_out, device=dev)
-    perturb = cfg.perturb if perturb_overwrite < 0 else perturb_overwrite
-    if perturb > 0 and generator is not None:
-        t_rand = torch.rand((R, 1), generator=generator).to(dev) - 0.5
+    if t_in is not None:
+        t_rand = t_in.to(dev) - 0.5
         z_vals = z_vals + t_rand * 2.0 / cfg.n_samples
         if n_out > 0:
             mids = 0.5 * (z_out[1:] + z_out[:-1])
             upper = torch.cat([mids, z_out[-1:]])
             lower = torch.cat([z_out[:1], mids])
-            t_rand = torch.rand((R, n_out), generator=generator).to(dev)
-            z_out = lower[None, :] + (upper - lower)[None, :] * t_rand
+            z_out = lower[None, :] + (upper - lower)[None, :] * t_out.to(dev)
     if n_out > 0:
         z_out = far / torch.flip(z_out, dims=[-1]) + 1.0 / cfg.n_samples
 
@@ -323,11 +417,11 @@ def render(fields: nets.NeuSFields, cfg: NeuSConfig, rays_o, rays_d, near, far,
         background_alpha = ret_out["alpha"]
         background_sampled_color = ret_out["sampled_color"]
 
-    ret = render_core(fields, cfg, rays_o, rays_d, z_vals, sample_dist,
-                      background_alpha=background_alpha,
-                      background_sampled_color=background_sampled_color,
-                      background_rgb=background_rgb, cos_anneal_ratio=cos_anneal_ratio,
-                      per_ray=per_ray)
+    ret = _render_core(fields, cfg, rays_o, rays_d, z_vals, sample_dist,
+                       background_alpha=background_alpha,
+                       background_sampled_color=background_sampled_color,
+                       background_rgb=background_rgb, cos_anneal_ratio=cos_anneal_ratio,
+                       per_ray=per_ray)
     weights = ret["weights"]
     if weights is None:
         weight_sum, weight_max = ret["weight_sum"], None

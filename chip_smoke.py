@@ -32,8 +32,8 @@ kernel's plain version):
        the plain version evaluated in float64, outputs to 1e-4 and gradients
        to 1e-3 of their largest magnitude; B3's forward also under no_grad
        at the validation chunk of 16,384 rays x 64 and at a ragged 16,347
-       (4x256 / 2x256 nets); in the bf16 operand mode (B1: the tensor-core
-       pair; B3: the tensor-core forward, the CUDA-core backward) each is
+       (4x256 / 2x256 nets); in the bf16 operand mode (B1 and B3: the
+       tensor-core pairs) each is
        held against the plain version in float64 of the f32 function beside
        its plain bf16 version (relative RMS), B3's forward again under
        no_grad at 16,384 and 16,347 rays, and B1 again at the training
@@ -41,13 +41,16 @@ kernel's plain version):
        chunks, by relative RMS and by its worst ray; B1's kernels timed there
        (the median of 5 calls; the bf16 forward must be below its f32
        CUDA-core bound), B3 at 16,384 rays x 64 in both modes (its bf16
-       forward's comparison with that bound printed, not checked);
+       forward's and backward's comparisons with that bound printed, not
+       checked; the backward's two calls equal);
      - B4, the compositing pair: rgb width 6 and 3 on 2,048 rays x 64 against
-       float64, same tolerances, and its forward under no_grad at 16,384 and
-       16,347 rays, at S 64, 48 and 37, on inputs 0-3 floats past a 16-byte
-       boundary; timed at 16,384 rays x 64, the forward warm (the same
-       inputs back to back) and cold (the L2 flushed before each launch by
-       writing, or reading, 128 MB);
+       float64, same tolerances, and its forward under no_grad and its
+       backward at 16,384 and 16,347 rays, at S 64, 48 and 37, on inputs 0-3
+       floats past a 16-byte boundary (the backward also onto outputs at
+       another offset, and twice: the same bits); timed at 16,384 rays x 64,
+       warm (the same inputs back to back) and cold (the L2 flushed before
+       each launch by writing, or reading, 128 MB), the backward beside the
+       warp-per-ray kernel it replaced;
      - B5, the soft aggregation pair: forward and backward against the plain
        version in float64 (outputs to 1e-4 of their largest magnitude, the
        rgb and silhouette to 2e-4 absolute, the gradients of the x, y and
@@ -160,10 +163,22 @@ kernel's plain version):
      g. the export: ``drive.main`` (a 60-frame .pc2) and ``rigged.main``
         (a GLB with the motion baked, an FBX ASCII) on (b)'s 512^3 mesh and
         (d)'s motion, with each phase's seconds;
+     j. data-parallel training (``avatarclip_torch.parallel.dryrun``) on 2
+        gloo ranks sharing the card, each rank a process counting its own
+        launches, against N = 1 in this process: one train_clip step (12,544
+        rays, 6,272 a rank) and one photometric step of the full-scale
+        runner, the summed gradients before Adam, the parameters after it
+        and the metrics at JAX's tolerances, the replicas equal to the bit,
+        six more steps timed; the kernel-path gradient (JAX's dryrun check)
+        at 4,096 rays x 64 through render_core per_ray False (B3's and B4's
+        backward: #5 and #7) and True, in bf16 (held by hold.bf16_within at
+        N and at 1) and f32 (N against 1 and each against f64); then
+        ``graft_entry.entry()``;
      and checks the losses, the artifacts, and the launch counts against
      the counts predicted from the ray, step and render counts (paths a-d
-     launch B6 / B7 no time: the megakernels take those renders; no path
-     launches #15, which no default path of the JAX package runs either);
+     launch B6 / B7 no time: the megakernels take those renders; path j
+     launches #5 and #7 twice a rank and twice at N = 1; no path launches
+     #15, which no default path of the JAX package runs either);
      c, d, e and i also profile a few steps (device time by kernel, busy share).
 Prints a {"kernels": [...]} JSON line, then as the last line
 {"ok": true, "device": {...}}.
@@ -177,6 +192,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -478,11 +494,15 @@ def neus_gemm_flops(spec) -> tuple[float, float]:
 
 
 def neus_grads(fn, fields, inputs, probes, n_out):
-    """Outputs and gradients (parameters, then inputs) of sum(probe * out)."""
+    """Outputs and gradients (parameters, then inputs) of sum(probe * out),
+    the last output (the eikonal partial sums) as the eikonal loss."""
     import torch
 
+    from avatarclip_torch.ops import fused_neus as fn_mod
+
     ins = [t.clone().requires_grad_(True) for t in inputs]
-    outs = fn(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4)
+    outs = list(fn(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4))
+    outs[-1] = fn_mod.eik_ratio(outs[-1])
     used = [o for i, o in enumerate(outs) if i in n_out]
     loss = sum((o * p).sum() for o, p in zip(used, probes))
     grads = torch.autograd.grad(loss, list(fields.parameters()) + ins)
@@ -784,8 +804,11 @@ def check_neus_ray(dev):
 
 
 def neus_grads_loss(fn, fields, inputs, probes):
-    col, nw, ws, ge = fn(fields.sdf, fields.color, *inputs, fields.variance.inv_s(), 0.4)
-    return (col * probes[0]).sum() + (nw * probes[1]).sum() + (ws * probes[2]).sum() + ge * probes[3]
+    from avatarclip_torch.ops import fused_neus
+
+    col, nw, ws, eik = fn(fields.sdf, fields.color, *inputs, fields.variance.inv_s(), 0.4)
+    return ((col * probes[0]).sum() + (nw * probes[1]).sum() + (ws * probes[2]).sum()
+            + fused_neus.eik_ratio(eik) * probes[3])
 
 
 def hold_point_fwd_at_chunk(fields, inputs) -> float:
@@ -804,6 +827,7 @@ def hold_point_fwd_at_chunk(fields, inputs) -> float:
         ins = [t[:R].contiguous() for t in inputs]
         with torch.no_grad():
             got = fn.point_eval(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4)
+            got = (*got[:6], fn.eik_ratio(got[6]))
             ref = [[] for _ in names]
             for a in range(0, R, 4096):
                 part = fn.point_eval_plain(f64.sdf, f64.color, *[t[a:a + 4096].double() for t in ins],
@@ -868,6 +892,7 @@ def hold_point_fwd_bf16_at_chunk(fields, inputs) -> float:
         ins = [t[:R].contiguous() for t in inputs]
         with torch.no_grad():
             got = fn.point_eval(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4)
+            got = (*got[:6], fn.eik_ratio(got[6]))
             plain, _ = chunked(fields, ins)
             ref, inside = chunked(f64, [t.double() for t in ins])
         torch.cuda.synchronize()
@@ -931,10 +956,20 @@ def check_neus_point(dev):
     P = R * 64
     cots = [probes[0].reshape(P), probes[3], probes[4], probes[1], probes[2],
             torch.stack([probes[5], torch.zeros((), device=dev)])]
-    bwd = lambda sp: fn.neus_point_bwd(sp, flat, ro, rd, mid, dists, inv_s, 0.4, sdf_o, grad, *cots)
+    # the backward: bf16 the tensor-core kernel on the weights packed once
+    # (as NeuSPointFunction packs them for both passes), f32 the CUDA-core
+    # kernel, the design both modes ran before
+    bwd = lambda sp, pkd=None: fn.neus_point_bwd(sp, flat, ro, rd, mid, dists, inv_s, 0.4, sdf_o,
+                                                 grad, *cots, pkd)
     torch.cuda.reset_peak_memory_stats()
     ms_f, ms_f_f, ms_f2 = cuda_ms(fwd, reps=5), cuda_ms(fwd_f, reps=3), cuda_ms(fwd, reps=5)
-    ms_b, ms_b_f = cuda_ms(lambda: bwd(spec), reps=3), cuda_ms(lambda: bwd(spec_f), reps=3)
+    first, second = bwd(spec, packed), bwd(spec, packed)
+    same_b = all(torch.equal(a, b) for a, b in zip(first, second))
+    del first, second
+    if not same_b:
+        fail("B3 backward (tensor cores): two calls on the same inputs differ")
+    ms_b = statistics.median([cuda_ms_once(lambda: bwd(spec, packed)) for _ in range(5)])
+    ms_b_f = cuda_ms(lambda: bwd(spec_f), reps=2)
     mem_k = torch.cuda.max_memory_allocated() / 2**30
     del sdf_o, grad
     with torch.no_grad():
@@ -946,7 +981,7 @@ def check_neus_point(dev):
     for _ in range(2):
         ins = [t.clone().requires_grad_(True) for t in inputs]
         outs = fn.point_eval_plain(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4)
-        used = [outs[i] for i in (0, 1, 2, 3, 4, 6)]
+        used = [outs[i] for i in (0, 1, 2, 3, 4)] + [fn.eik_ratio(outs[6])]
         loss = sum((o * p).sum() for o, p in zip(used, probes))
         torch.cuda.synchronize()
         plain_b += cuda_ms_once(lambda: torch.autograd.grad(loss, list(fields.parameters()) + ins))
@@ -957,8 +992,8 @@ def check_neus_point(dev):
     n_w, Wd = flat.numel(), spec.rgb_width
     fl_f, fl_b = neus_gemm_flops(spec)
     b_f = bound_tc(fl_f * P, 4 * (n_w + 6 * R + 2 * P + (7 + Wd) * P + 2))
-    b_b = bound(fl_b * P, 4 * (n_w + 6 * R + 2 * P + 4 * P + (6 + Wd) * P + 2
-                               + 6 * R + 2 * P + n_w + 1))
+    b_b = bound_tc(fl_b * P, 4 * (n_w + 6 * R + 2 * P + 4 * P + (6 + Wd) * P + 2
+                                  + 6 * R + 2 * P + n_w + 1))
     ms_f = statistics.median([ms_f, ms_f2])
     print(f"[B3] {R} rays x 64 samples, 4x256/2x256, bf16 mode: forward kernel (tensor cores) "
           f"{ms_f:.3f} ms, {fl_f * P / ms_f * 1e-9:.1f} TFLOP/s; f32 CUDA-core bound "
@@ -966,9 +1001,13 @@ def check_neus_point(dev):
           f"it: a reading, not a check), bf16 tensor-core bound {b_f['bound_ms']:.3f} ms "
           f"({b_f['bound_by']}); plain {plain_f:.3f} ms; the f32 CUDA-core kernel (the design "
           f"both modes ran before) {ms_f_f:.3f} ms")
-    print(f"[B3] backward kernel (CUDA cores, on no path): bf16 {ms_b:.3f} ms, f32 {ms_b_f:.3f} ms "
-          f"(plain {plain_b:.3f} ms, bound {b_b['bound_ms']:.3f} ms {b_b['bound_by']}, bf16 "
-          f"{b_b['bound_ms_bf16_tc']:.3f} ms); peak memory kernels {mem_k:.2f} GiB, plain "
+    print(f"[B3] backward kernel, bf16 mode (#5, tensor cores; launched on path j): "
+          f"{ms_b:.3f} ms (median of 5), {fl_b * P / ms_b * 1e-9:.1f} TFLOP/s, two calls equal; "
+          f"the f32 CUDA-core kernel (the design both modes ran before) {ms_b_f:.3f} ms; plain "
+          f"{plain_b:.3f} ms ({'below' if ms_b < plain_b else 'NOT below'} it); bound "
+          f"{b_b['bound_ms']:.3f} ms (bf16 tensor cores, {b_b['bound_by']}), f32 CUDA-core bound "
+          f"{b_b['bound_ms_f32']:.3f} ms ({'below' if ms_b < b_b['bound_ms_f32'] else 'NOT below'} "
+          f"it: a reading, not a check); peak memory kernels {mem_k:.2f} GiB, plain "
           f"{mem_p:.2f} GiB")
     common = {"route": "cuda", "library_ms": None, "bf16_rel_rms_err": worst_bf16}
     return [
@@ -976,7 +1015,8 @@ def check_neus_point(dev):
          "source_f32": "avatarclip_torch/csrc/fused_neus_point.cu",
          "replaces": "avatarclip_tpu/ops/fused_neus.py:258", "max_abs_err": worst_f, "ms": ms_f,
          "ms_f32": ms_f_f, "plain_ms": plain_f, **b_f},
-        {"name": "neus_point_bwd", **common, "source": "avatarclip_torch/csrc/fused_neus_point.cu",
+        {"name": "neus_point_bwd", **common, "source": "avatarclip_torch/csrc/fused_neus_ray_tc.cu",
+         "source_f32": "avatarclip_torch/csrc/fused_neus_point.cu",
          "replaces": "avatarclip_tpu/ops/fused_neus.py:534", "max_abs_err": worst_b, "ms": ms_b,
          "ms_f32": ms_b_f, "plain_ms": plain_b, **b_b},
     ]
@@ -1006,6 +1046,51 @@ def composite_grads(fn, ins, cots):
     outs = fn(*xs)
     return [o.detach() for o in outs], torch.autograd.grad(
         sum((o * c).sum() for o, c in zip(outs, cots)), xs)
+
+
+def hold_composite_bwd(R, S, W, shift, dev) -> float:
+    """#7 at R rays x S samples, rgb width W, through its wrapper on inputs
+    and cotangents ``shift`` floats (0-3) past a 16-byte boundary, against
+    the plain version's VJP in f64 (GRAD_TOL of each gradient's largest
+    magnitude); two calls equal; and the same launch through its C entry
+    onto outputs (shift + 1) % 4 floats past a boundary, equal to the
+    wrapper's. The max abs error."""
+    import torch
+
+    from avatarclip_torch.ops import _build
+    from avatarclip_torch.ops import fused_composite as fc
+
+    ins, cots = composite_problem(R, S, W, dev, seed=R + S + W + 1)
+
+    def at(k, t):  # the same values, k floats into a buffer of their own
+        return torch.cat([t.new_zeros(k), t.reshape(-1)])[k:].view(t.shape) if k else t
+
+    ins = [at((shift + i) % 4, t) for i, t in enumerate(ins)]
+    cots = [at((shift + i) % 4, t) for i, t in enumerate(cots)]
+    got = fc.composite_bwd(*ins, *cots)
+    again = fc.composite_bwd(*ins, *cots)
+    shifted = [at((shift + 1) % 4, torch.full_like(t, float("nan"))) for t in got]
+    p = _build.ptr
+    _build.check(fc._lib().composite_bwd(R, S, W, *[p(t) for t in ins + cots],
+                                         *[p(t) for t in shifted], _build.stream_ptr(dev)),
+                 "composite_bwd launch")
+    xs = [t.double().requires_grad_(True) for t in ins]
+    ref = torch.autograd.grad(sum((o * c.double()).sum() for o, c in
+                                  zip(fc.composite_plain(*xs), cots)), xs)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for nm, a, b, c, d in zip(("alpha", "rgb", "grad"), got, ref, again, shifted):
+        err, rel = rel_err(a, b)
+        if not rel <= GRAD_TOL or not torch.isfinite(a).all():
+            fail(f"B4 backward at {R} rays x {S}, W={W}, d/d {nm}: rel err {rel:.2e} > {GRAD_TOL}")
+        if not torch.equal(a, c) or not torch.equal(a, d):
+            fail(f"B4 backward at {R} rays x {S}, W={W}, d/d {nm}: two calls, or the output "
+                 f"{(shift + 1) % 4} floats past 16 bytes, differ")
+        worst = max(worst, err)
+    print(f"[B4] backward at {R} rays x {S} samples, rgb width {W}, inputs {shift} floats past 16 "
+          f"bytes, vs the plain version's VJP in f64: within tolerance, max abs err {worst:.3e}; two "
+          f"calls and outputs {(shift + 1) % 4} floats past 16 bytes equal")
+    return worst
 
 
 def check_composite(dev):
@@ -1057,6 +1142,7 @@ def check_composite(dev):
         print(f"[B4] forward under no_grad at {R} rays x {S} samples, rgb width {W}, inputs "
               f"{[t.data_ptr() % 16 // 4 for t in ins]} floats past 16 bytes, vs the plain version "
               f"in f64: within tolerance; max abs err fwd {worst_f:.3e}")
+        worst_b = max(worst_b, hold_composite_bwd(R, S, W, shift, dev))
     R, S, W = VAL_CHUNK, 64, 6
     ins, cots = composite_problem(R, S, W, dev, seed=1)
     cots = [c.contiguous() for c in cots]
@@ -1075,8 +1161,14 @@ def check_composite(dev):
 
     ms_cold = cuda_ms_cold(lambda: lib.composite_fwd(R, S, W, *args, *outs_f, st), 50, "write")
     ms_cold_read = cuda_ms_cold(lambda: lib.composite_fwd(R, S, W, *args, *outs_f, st), 50, "read")
-    ms_b = cuda_ms(lambda: lib.composite_bwd(R, S, W, *args, *[p(c) for c in cots], *outs_b, st),
-                   reps=50)
+    # the backward (#7), staged, and the kept warp-per-ray kernel it replaced,
+    # warm and with the L2 flushed both ways
+    bw = {}
+    for name, call in (("staged", lib.composite_bwd), ("warp", lib.composite_bwd_warp)):
+        launch = lambda call=call: call(R, S, W, *args, *[p(c) for c in cots], *outs_b, st)
+        bw[name] = (cuda_ms(launch, reps=50), cuda_ms_cold(launch, 50, "write"),
+                    cuda_ms_cold(launch, 50, "read"))
+    ms_b = bw["staged"][0]
     wrap_f = cuda_ms(lambda: fc.composite_fwd(*ins), reps=20)
     plain_f = cuda_ms(lambda: fc.composite_plain(*ins), reps=20)
     # the plain backward alone: the graph is built first, then each rep
@@ -1093,9 +1185,14 @@ def check_composite(dev):
           f"{ms_cold:.4f} ms cold (L2 flushed by writing 128 MB before each launch; "
           f"{b_f['bytes'] / ms_cold / 1e9:.3f} TB/s), {ms_cold_read:.4f} ms cold by reading (through "
           f"the wrapper {wrap_f:.4f} ms; plain {plain_f:.4f} ms, bound {b_f['bound_ms']:.4f} ms "
-          f"{b_f['bound_by']}); backward kernel "
-          f"{ms_b:.4f} ms (plain {plain_b:.4f} ms, bound "
-          f"{b_b['bound_ms']:.4f} ms {b_b['bound_by']})")
+          f"{b_f['bound_by']})")
+    print(f"[B4] backward kernel (#7, staged; launched on path j): warm {bw['staged'][0]:.4f} ms, "
+          f"L2 flushed by writing {bw['staged'][1]:.4f} ms, by reading {bw['staged'][2]:.4f} ms "
+          f"({b_b['bytes'] / bw['staged'][2] / 1e9:.3f} TB/s); the warp-per-ray kernel it replaced "
+          f"warm {bw['warp'][0]:.4f} ms, flushed {bw['warp'][1]:.4f} / {bw['warp'][2]:.4f} ms; "
+          f"plain {plain_b:.4f} ms; bound {b_b['bound_ms']:.4f} ms {b_b['bound_by']} "
+          f"({b_b['bytes'] / 1e6:.1f} MB; the aim, half the bound's rate, is "
+          f"{2 * b_b['bound_ms']:.4f} ms)")
     common = {"route": "cuda", "source": "avatarclip_torch/csrc/fused_composite.cu",
               "library_ms": None}
     return [
@@ -1103,7 +1200,10 @@ def check_composite(dev):
          "max_abs_err": worst_f, "ms": ms_f, "ms_cold": ms_cold, "ms_cold_read": ms_cold_read,
          "plain_ms": plain_f, **b_f},
         {"name": "composite_bwd", **common, "replaces": "avatarclip_tpu/ops/fused_composite.py:82",
-         "max_abs_err": worst_b, "ms": ms_b, "plain_ms": plain_b, **b_b},
+         "max_abs_err": worst_b, "ms": ms_b, "ms_cold": bw["staged"][1],
+         "ms_cold_read": bw["staged"][2], "ms_replaced": bw["warp"][0],
+         "ms_replaced_cold": bw["warp"][1], "ms_replaced_cold_read": bw["warp"][2],
+         "plain_ms": plain_b, **b_b},
     ]
 
 
@@ -2131,7 +2231,8 @@ STEP_UPDATE_TOL = 1e-2  # relative RMS, the first step's Adam update (resumed mo
 def record_b1():
     """Within the block, B1's entry (fused_neus.point_eval_ray) records its
     largest call with grad: copies of the nets and of the inputs, inv_s,
-    cos_anneal, and the cotangents its outputs receive in the backward."""
+    cos_anneal, its eikonal partial sums, and the cotangents its outputs
+    receive in the backward."""
     import torch
 
     from avatarclip_torch.ops import fused_neus as fn
@@ -2146,7 +2247,8 @@ def record_b1():
             rec.update(rays=mid_z.shape[0], sdf=copy.deepcopy(sdf), color=copy.deepcopy(color),
                        inv_s=inv_s.detach().float().reshape(()).clone(), cos=float(cos_anneal),
                        ins=[t.detach().float().contiguous().clone() for t in (rays_o, rays_d, mid_z, dists)],
-                       cots=[None] * 4, shapes=[o.shape for o in outs])
+                       eik=outs[3].detach().clone(), cots=[None] * 4,
+                       shapes=[o.shape for o in outs])
             for i, o in enumerate(outs):
                 if o.requires_grad:
                     o.register_hook(lambda g, i=i: rec["cots"].__setitem__(i, g.detach().float().clone()))
@@ -2163,7 +2265,8 @@ def hold_b1_recorded(rec) -> None:
     """B1 held (hold_b1_full) on path (a)'s own largest step: its rays,
     samples, nets (dense copies: the weight columns are the dense gradients
     the kernel computes), inv_s (a leaf here), cos_anneal and the cotangents
-    the step gave its outputs."""
+    the step gave its outputs (the eikonal partial sums' as the loss's:
+    d/d num times den + 1e-5)."""
     import torch
 
     from avatarclip_torch.fields import networks as nets
@@ -2188,6 +2291,7 @@ def hold_b1_recorded(rec) -> None:
     dev = rec["ins"][0].device
     cots = [torch.zeros(s, device=dev) if c is None else c.reshape(s)
             for c, s in zip(rec["cots"], rec["shapes"])]
+    cots[3] = cots[3][0] * (rec["eik"][1] + 1e-5)
     hold_b1_full(f"B1 path a step, {B1_RAYS} rays x {rec['ins'][2].shape[1]}", fields, rec["ins"],
                  cots, rec["cos"])
     rec.clear()
@@ -2889,6 +2993,88 @@ def run_export_path(tmp: str, mesh: str, motion: str, body_dir: str | None) -> d
     return launches
 
 
+PARALLEL_RANKS = 2  # path (j): gloo ranks sharing the one card
+PARALLEL_RAYS, PARALLEL_SAMPLES = 4096, 64  # (j2): graft_entry's rays x 64 samples
+PARALLEL_TIMED = 6  # (j1): train_clip steps timed after the checked ones (the buckets repeat)
+
+
+def run_parallel_path() -> dict:
+    """Path (j), data-parallel training (avatarclip_torch.parallel.dryrun) on
+    PARALLEL_RANKS gloo ranks sharing the card, each rank a process of its
+    own, against N = 1 in this process: (j1) one train_clip step (12,544
+    rays, 6,272 a rank) and one photometric step of the scale="full" runner
+    from the same parameters, optimizer state and seed, then PARALLEL_TIMED
+    more train_clip steps timed; (j2) the kernel-path gradient (JAX's
+    ``_kernel_path_1_vs_n``) at 4,096 rays x 64 samples, 2,048 a rank,
+    through render_core with per_ray False (B3's and B4's pairs: #5 and #7
+    launch here) and True (B1), in bf16 (held by hold.bf16_within against
+    the f32 function in f64 at N and at 1) and in f32 (N against 1 at JAX's
+    rtol, its atol of each gradient's scale, and each against f64); (j3)
+    ``graft_entry.entry()`` once. Returns the launches:
+    each rank's own, summed, plus this process's."""
+    import torch
+
+    from avatarclip_torch import graft_entry
+    from avatarclip_torch.parallel import dryrun
+
+    zero_counts()
+    t0 = time.perf_counter()
+    rep = dryrun.run(PARALLEL_RANKS, device="cuda", backend="gloo", scale="full", res=256,
+                     rays=PARALLEL_RAYS, samples=PARALLEL_SAMPLES,
+                     dtypes=("bfloat16", "float32"), timed_steps=PARALLEL_TIMED)
+    wall = time.perf_counter() - t0
+    tr = rep["train"]
+    med = lambda xs: statistics.median(xs)
+    print(f"[main j] {PARALLEL_RANKS} gloo ranks on one card, {wall:.3f} s with the N = 1 runs and "
+          f"the checks: (j1) scale full, train_clip at {tr['sil_res']}^2 with {tr['rays']} rays "
+          f"({tr['rays'] // PARALLEL_RANKS} a rank), photometric {tr['batch']} rays: replicas "
+          f"equal, max abs diff N vs 1: grads {tr['grads_clip']:.3e} / {tr['grads_photo']:.3e}, "
+          f"params {tr['params_clip']:.3e} / {tr['params']:.3e}; loss N {tr['metrics']['loss'][0]:.6f}"
+          f", 1 {tr['metrics']['loss'][1]:.6f}")
+    print(f"[main j] (j1) step seconds (synchronised; gloo stages every collective through the "
+          f"host, so N = {PARALLEL_RANKS} on one card is no multi-card speed): first train_clip "
+          f"and photometric at N: {tr['first_seconds']['N']}, at 1: {tr['first_seconds']['1']}; "
+          f"{PARALLEL_TIMED} more train_clip steps at N: {tr['step_seconds']['N']} (median of rank 0 "
+          f"{med(tr['step_seconds']['N'][0]):.4f} s), at 1: {tr['step_seconds']['1']} (median "
+          f"{med(tr['step_seconds']['1']):.4f} s)")
+    for row in rep["kernel"]:
+        held = (f"N vs 1 max abs diff {row['max_abs_N_vs_1']:.3e} (rtol 1e-4, atol 1e-5 of "
+                f"max(1, |largest|)), from f64 N {row['rel_f64_N']:.2e} / 1 "
+                f"{row['rel_f64_1']:.2e} of the largest"
+                if "max_abs_N_vs_1" in row else
+                f"held at N and at 1 by hold.bf16_within, worst {row['bf16_worst_ratio']:.2f}x "
+                f"the plain bf16 version's")
+        print(f"[main j] (j2) {row['dtype']} {row['rays']} x {row['samples']} per_ray="
+              f"{row['per_ray']}: rel RMS N vs 1 {row['rel_N_vs_1']:.3e}, {held}; gradient s: "
+              f"ranks {[round(x, 4) for x in row['seconds_N']]}, N = 1 {row['seconds_1']:.4f}")
+    ranks, one = rep["launches_ranks_sum"], rep["launches_1"]
+    want = PARALLEL_RANKS * 2  # a backward a rank in each operand mode
+    for k in ("neus_point_bwd", "composite_bwd", "neus_point_fwd", "composite_fwd"):
+        if ranks[k] != want or one[k] != 2:
+            fail(f"path j: {k} launched {ranks[k]} times on the ranks, {one[k]} at N = 1; "
+                 f"expected {want} and 2")
+    print(f"[main j] launches, each rank its own: {rep['launches_ranks']}; N = 1: {one}")
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    with torch.no_grad():
+        col, extra, ws = fn(*args)
+    torch.cuda.synchronize()
+    wall_e = time.perf_counter() - t0
+    R = graft_entry.ENTRY_RAYS
+    for nm, t, shape in (("color", col, (R, 3)), ("extra", extra, (R, 3)), ("weight_sum", ws, (R, 1))):
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            fail(f"path j3: entry()'s {nm} {tuple(t.shape)}, finite {bool(torch.isfinite(t).all())}")
+    if not (ws.min() >= 0 and ws.max() <= 1 + 1e-5):
+        fail(f"path j3: entry()'s weight_sum in [{float(ws.min())}, {float(ws.max())}]")
+    launches = read_counts()
+    print(f"[main j] (j3) graft_entry.entry(): {R} rays, 32 + 32 samples, 4 up-sample steps, "
+          f"4x256 / 2x256 at bf16: {wall_e:.3f} s with the set-up, outputs finite, weight_sum "
+          f"{float(ws.mean()):.4f} on average; launches in this process {launches}")
+    for k in launches:
+        launches[k] += ranks[k]
+    return launches
+
+
 def run_sweep_hook_path(conf_path: str, sets) -> dict:
     """networks._SWEEP_KERNEL on against off on (a)'s step-8 checkpoint: the
     validate_mesh mode's 512^3 extraction (its grid query through
@@ -3087,13 +3273,18 @@ def image_from_samples(fields, rec, dtype) -> "torch.Tensor":
 
 
 def trace_kernels(path: str) -> dict:
-    """Kernel events of a Chrome trace by the names of B1's and B2's kernels."""
+    """Kernel events of a Chrome trace by the names of B1's and B2's kernels
+    (B1's, the tensor-core pair's per-ray instantiations, apart from B3's
+    point-level ones)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
-    keys = ("neus_tc_fwd_kernel", "neus_ray_tc_bwd_kernel", "wgrad_kernel", "face_ranges_kernel",
-            "zbuffer_binned_kernel")
-    out = {k: sum(k in n for n in names) for k in keys}
+    keys = {"B1 fwd": r"neus_tc_fwd_kernel<(false|\(bool\)0)>",
+            "B1 bwd": r"neus_tc_bwd_kernel<(false|\(bool\)0)>",
+            "B3 bwd": r"neus_tc_bwd_kernel<(true|\(bool\)1)>",
+            "wgrad_kernel": "wgrad_kernel", "face_ranges_kernel": "face_ranges_kernel",
+            "zbuffer_binned_kernel": "zbuffer_binned_kernel"}
+    out = {k: sum(bool(re.search(pat, n)) for n in names) for k, pat in keys.items()}
     out["steps"] = sum(1 for e in events
                        if e.get("name") == "train_clip_step" and e.get("cat") == "user_annotation")
     out["kernel events"] = len(names)
@@ -3244,8 +3435,8 @@ def run_schedule_path(tmp: str, coarse_obj: str, render_dir: str, pretrain: str,
     if launches != want:
         fail(f"path i: kernel launches {launches}, expected {want}")
     tk = trace_kernels(os.path.join(trace_dir, "trace.json"))
-    if (tk["steps"] != TRACE_STEPS or tk["neus_tc_fwd_kernel"] != TRACE_STEPS
-            or tk["neus_ray_tc_bwd_kernel"] < TRACE_STEPS or tk["zbuffer_binned_kernel"] != TRACE_STEPS
+    if (tk["steps"] != TRACE_STEPS or tk["B1 fwd"] != TRACE_STEPS or tk["B3 bwd"]
+            or tk["B1 bwd"] < TRACE_STEPS or tk["zbuffer_binned_kernel"] != TRACE_STEPS
             or tk["face_ranges_kernel"] != TRACE_STEPS):
         fail(f"path i: the trace's kernels {tk}, expected {TRACE_STEPS} steps' B1 and B2 launches")
     cos0, cos1 = log["sculpt_eval_before"]["mean_cosine"], log["sculpt_eval_after"]["mean_cosine"]
@@ -3356,6 +3547,8 @@ def main() -> None:
             torch.cuda.empty_cache()
             add(run_export_path(tmp, os.path.join(tmp, "exp", "meshes", f"{N_STEPS:08d}.ply"),
                                 os.path.join(tmp, "exp_motion", "motion.npy"), body_dir))
+            torch.cuda.empty_cache()
+            add(run_parallel_path())
     if len(kernels) != 15:
         fail(f"{len(kernels)} kernels checked, expected 15")
     for k in kernels:

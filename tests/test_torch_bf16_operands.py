@@ -116,7 +116,8 @@ def _hold_neus(jax_fn, plain_fn, n_out, probes, seed, names):
         {"sdf": params["sdf"], "color": params["color"]}, inv_s, *map(jnp.asarray, arrays))
     ins = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
     tinv = torch.tensor(float(inv_s), requires_grad=True)
-    touts = plain_fn(fields.sdf, fields.color, *ins, tinv, cos_r)
+    touts = list(plain_fn(fields.sdf, fields.color, *ins, tinv, cos_r))
+    touts[-1] = tfn.eik_ratio(touts[-1])  # the eikonal partial sums as JAX's loss
     touts = [touts[i] for i in n_out]
     sum((o * torch.as_tensor(p)).sum() for o, p in zip(touts, probes)).backward()
     for nm, a, b in zip(names, touts, jouts):
@@ -171,6 +172,7 @@ def test_b1_scalars_at_bf16_scatter_as_the_jax_kernel_does(one_device, seed):
         ins = [torch.from_numpy(a).to(dt) for a in arrays]
         inv = torch.tensor(float(inv_s), dtype=dt, requires_grad=True)
         outs = tfn.point_eval_ray_plain(flds.sdf, flds.color, *ins, inv, cos_r)
+        outs = (*outs[:3], tfn.eik_ratio(outs[3]))
         loss = sum(((o * o).sum() if o.dim() else o) for o in outs[:4])
         (g,) = torch.autograd.grad(loss, [inv])
         return float(outs[3].detach()), float(g)

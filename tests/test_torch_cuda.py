@@ -109,7 +109,8 @@ def test_neus_kernel_pair_matches_plain(dev):
 
     def run(f):
         xs = [t.clone().requires_grad_(True) for t in ins]
-        col, nw, ws, ge = f(fields.sdf, fields.color, *xs, fields.variance.inv_s(), 0.4)
+        col, nw, ws, eik = f(fields.sdf, fields.color, *xs, fields.variance.inv_s(), 0.4)
+        ge = fn.eik_ratio(eik)
         loss = col.sum() + nw.sum() + ws.sum() + ge
         return [col, nw, ws, ge], torch.autograd.grad(loss, list(fields.parameters()) + xs)
 
@@ -143,6 +144,7 @@ def test_neus_point_kernel_pair_matches_plain(dev):
     def run(f):
         xs = [t.clone().requires_grad_(True) for t in ins]
         outs = f(fields.sdf, fields.color, *xs, fields.variance.inv_s(), 0.4)
+        outs = (*outs[:6], fn.eik_ratio(outs[6]))
         loss = sum((o * p).sum() for o, p in zip(outs[:5], probes)) + outs[6]
         return outs, torch.autograd.grad(loss, list(fields.parameters()) + xs)
 
@@ -491,7 +493,7 @@ def test_bf16_operand_mode_holds_against_the_f32_function(dev, kernel):
         def run(f, flds, xs_in):
             xs = [t.clone().requires_grad_(True) for t in xs_in]
             outs = f(flds.sdf, flds.color, *xs, flds.variance.inv_s(), 0.4)
-            outs = [outs[i] for i in used]
+            outs = [outs[i] for i in used[:-1]] + [fn.eik_ratio(outs[used[-1]])]
             loss = sum(((o * o).sum() if o.dim() else o) for o in outs)
             return outs + list(torch.autograd.grad(loss, list(flds.parameters()) + xs))
 
@@ -528,9 +530,9 @@ def test_bf16_operand_mode_holds_against_the_f32_function(dev, kernel):
         assert ok_, (kernel, i, ek, ep)
 
 
-def _neus_fields(width: int, n_rays: int, dev, dtype: str, seed: int):
+def _neus_fields(width: int, n_rays: int, dev, dtype: str, seed: int, S: int = 64):
     """Nets of the conf's shapes (4x256 / 2x256, or 3x128 / 1x128; extra
-    head, no weight norm, perturbed) at ``dtype``, and n_rays rays of 64
+    head, no weight norm, perturbed) at ``dtype``, and n_rays rays of S
     samples through the unit sphere."""
     from avatarclip_torch.fields import networks as nets
 
@@ -544,7 +546,6 @@ def _neus_fields(width: int, n_rays: int, dev, dtype: str, seed: int):
     with torch.no_grad():
         for p in fields.parameters():
             p.add_(0.02 * torch.randn(p.shape, generator=g))
-    S = 64
     eye = torch.tensor([0.0, 0.2, 2.2])
     rd = 0.5 * (torch.rand(n_rays, 3, generator=g) - 0.5) - eye
     rd = rd / rd.norm(dim=-1, keepdim=True)
@@ -573,7 +574,8 @@ def test_b3_tensor_core_forward_holds_at_bf16(dev, width, n_rays):
         ref = fn.point_eval_plain(f64.sdf, f64.color, *[t.double() for t in ins],
                                   f64.variance.inv_s(), 0.4)
     for i in (0, 1, 2, 3, 4, 6):
-        ek, ep, ok = hold.bf16_within(got[i], plain[i].detach(), ref[i].detach())
+        pick = fn.eik_ratio if i == 6 else (lambda t: t)
+        ek, ep, ok = hold.bf16_within(pick(got[i]), pick(plain[i]).detach(), pick(ref[i]).detach())
         assert ok, (i, ek, ep)
     # inside: exact but at points within rounding of |x|^2 = 1
     ro, rd, mid = (t.double() for t in ins[:3])
@@ -772,3 +774,80 @@ def test_sdf_only_tensor_core_forward_holds_at_bf16(dev, width):
             assert good, (step, i, ek, ep)
         with torch.no_grad():
             sdf.layers[1].w.mul_(1.5)
+
+
+@pytest.mark.parametrize("width,n_rays,S", [(256, 1201, 64), (128, 1201, 64), (256, 301, 37),
+                                            (128, 77, 8), (256, 40, 1)])
+def test_b3_tensor_core_backward_holds_at_bf16(dev, width, n_rays, S):
+    """#5, B3's backward in the bf16 operand mode (the tensor-core kernel,
+    rays in chunks: 1,201 rays run in two), through point_eval with a
+    cotangent on every output, at S 64 and below (37, the 8 of the dry
+    run's kernel check, 1): every parameter's and input's gradient against
+    the f32 function in float64 beside the plain bf16 version
+    (ops/hold.bf16_within), one launch of each kernel; two backwards give
+    the same bits."""
+    from avatarclip_torch.ops import fused_neus as fn
+    from avatarclip_torch.ops import hold
+
+    fields, ins = _neus_fields(width, n_rays, dev, "bfloat16", seed=21, S=S)
+    g = torch.Generator().manual_seed(22)
+    P = n_rays * S
+    probes = [(0.5 + torch.rand(P, k, generator=g)).to(dev) for k in (1, 3, 6)]
+    probes += [(0.5 + torch.rand(P, generator=g)).to(dev) for _ in range(2)] + [1.3]
+
+    def grads(f, flds, xs_in):
+        xs = [t.clone().requires_grad_(True) for t in xs_in]
+        outs = f(flds.sdf, flds.color, *xs, flds.variance.inv_s(), 0.4)
+        used = [outs[i] for i in (0, 1, 2, 3, 4)] + [fn.eik_ratio(outs[6])]
+        loss = sum((o * p).sum() for o, p in zip(used, probes))
+        return list(torch.autograd.grad(loss, list(flds.parameters()) + xs))
+
+    n0 = dict(fn.LAUNCHES)
+    got = grads(fn.point_eval, fields, ins)
+    assert fn.LAUNCHES["neus_point_bwd"] == n0["neus_point_bwd"] + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, grads(fn.point_eval, fields, ins)))
+    plain = grads(fn.point_eval_plain, fields, ins)
+    probes = [p.double() if torch.is_tensor(p) else p for p in probes]
+    ref = grads(fn.point_eval_plain, hold.f32_copy(fields).double(), [t.double() for t in ins])
+    for i, (a, p, r) in enumerate(zip(got, plain, ref)):
+        ek, ep, ok = hold.bf16_within(a, p, r)
+        assert ok, (i, ek, ep)
+
+
+@pytest.mark.parametrize("W,R,S", [(6, 301, 64), (3, 301, 64), (6, 77, 37), (3, 19, 1)])
+def test_composite_backward_holds_at_any_alignment(dev, W, R, S):
+    """#7, B4's backward (rays staged through shared memory, d rgb and d
+    grad written back by 16-byte stores), on inputs and cotangents that start
+    0 to 3 floats past a 16-byte boundary, a ragged ray count, S below 64,
+    W 6 and 3, against the plain version's VJP in float64 (each gradient to
+    1e-5 of its largest magnitude); the C entry onto outputs at another
+    offset gives the wrapper's bits."""
+    from avatarclip_torch.ops import _build
+    from avatarclip_torch.ops import fused_composite as fc
+
+    g = torch.Generator().manual_seed(R + S + W + 7)
+
+    def at(shape, k):
+        n = int(np.prod(shape))
+        return torch.rand(n + k, generator=g).to(dev)[k:].view(shape)
+
+    for shift in (0, 1, 2, 3):
+        ins = [at(s, (shift + i) % 4) for i, s in enumerate(((R, S), (R, S, W), (R, S, 3)))]
+        ins[0] = ins[0].mul_(0.3)
+        ins[0][::5, S // 2] = 1.0  # opaque samples
+        cots = [at(s, (shift + i) % 4) for i, s in enumerate(((R, S), (R, 3), (R, 3), (R, 3)))]
+        n0 = fc.LAUNCHES["composite_bwd"]
+        got = fc.composite_bwd(*ins, *cots)
+        assert fc.LAUNCHES["composite_bwd"] == n0 + 1
+        xs = [t.double().requires_grad_(True) for t in ins]
+        ref = torch.autograd.grad(sum((o * c.double()).sum() for o, c in
+                                      zip(fc.composite_plain(*xs), cots)), xs)
+        for a, b in zip(got, ref):
+            assert (a.double() - b).abs().max() <= 1e-5 * max(float(b.abs().max()), 1e-6)
+        outs = [at(t.shape, (shift + 1) % 4).fill_(float("nan")) for t in got]
+        p = _build.ptr
+        _build.check(fc._lib().composite_bwd(R, S, W, *[p(t) for t in ins + cots],
+                                             *[p(t) for t in outs], _build.stream_ptr(dev)),
+                     "composite_bwd launch")
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, outs))

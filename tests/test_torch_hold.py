@@ -88,9 +88,9 @@ def _fields(dtype: str = "float32"):
 
 
 def test_ray_grads_chunked_equal_one_pass():
-    """The chunked per-ray reference (the eikonal mean weighted by each
-    chunk's points in the relaxed sphere) sums to one pass's outputs and
-    gradients."""
+    """The chunked per-ray reference (each chunk's eikonal partial sum over
+    the whole pass's count of points in the relaxed sphere) sums to one
+    pass's outputs and gradients."""
     from avatarclip_torch.ops import fused_neus as fn
 
     fields, g = _fields()

@@ -91,6 +91,7 @@ def test_plain_matches_pallas_per_ray_kernel(one_device_f32):
     ins = [torch.from_numpy(a).requires_grad_(True) for a in (ro, rd, mid, dists)]
     tinv = torch.tensor(float(inv_s), requires_grad=True)
     touts = tfn.point_eval_ray_plain(fields.sdf, fields.color, *ins, tinv, cos_r)
+    touts = (*touts[:3], tfn.eik_ratio(touts[3]))
     loss = sum((o * torch.from_numpy(p)).sum() for o, p in zip(touts[:3], probes[:3]))
     loss = loss + touts[3] * probes[3]
     loss.backward()

@@ -74,6 +74,7 @@ def test_point_plain_matches_jax_point_kernel(one_device_f32, width):
     ins = [torch.from_numpy(a).requires_grad_(True) for a in (ro, rd, mid, dists)]
     tinv = torch.tensor(float(inv_s), requires_grad=True)
     touts = tfn.point_eval_plain(fields.sdf, fields.color, *ins, tinv, cos_r)
+    touts = (*touts[:6], tfn.eik_ratio(touts[6]))
     loss = sum((o * torch.from_numpy(p)).sum() for o, p in zip(touts[:5], probes[:5]))
     (loss + touts[6] * probes[5]).backward()
     for nm, a, b in zip(("sdf", "grad", "rgb", "alpha", "cdf", "inside", "gradient_error"),

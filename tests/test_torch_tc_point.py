@@ -111,8 +111,8 @@ def test_point_forward_takes_the_tensor_cores_in_bf16(pick_libs, dtype, want):
     with pytest.raises(_Picked, match=want):
         fn.neus_point_fwd(spec, flat, rays, rays, torch.zeros(4, 8), torch.zeros(4, 8),
                           torch.ones(()), 0.4)
-    # the backward stays on the CUDA cores in both modes
-    with pytest.raises(_Picked, match="B3 CUDA cores"):
+    # the backward takes the forward's library: the tensor cores in bf16
+    with pytest.raises(_Picked, match=want):
         fn.neus_point_bwd(spec, flat, rays, rays, torch.zeros(4, 8), torch.zeros(4, 8),
                           torch.ones(()), 0.4, *[None] * 8)
 
