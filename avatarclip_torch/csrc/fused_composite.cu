@@ -53,46 +53,16 @@
 // width 6 (alpha, cw, rgb, grad read; d alpha, d rgb, d grad written) and
 // 36 a ray (the colour, extra and normal cotangents): 88.7 MB, 0.0265 ms at
 // 3.35 TB/s at 16,384 rays x 64.
-//
-// composite_bwd_warp_kernel is the backward this design replaced (one warp
-// a ray, two adjacent samples a lane, loads and stores straight from device
-// memory, rows 24 and 12 bytes apart a lane), kept as the yardstick that
-// chip_smoke.py times the redesign against in the same run.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int WARPS = 8;  // the replaced backward's warps a CTA, one ray each
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ inline float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
-}
-
-// per lane: its two samples' alpha, x, and exclusive transmittances
-struct Pair {
-  float a0, a1, x0, x1, T0, T1;
-};
-
-__device__ inline Pair load_pair(const float* __restrict__ alpha, int S, int lane) {
-  const int k0 = 2 * lane, k1 = k0 + 1;
-  Pair p;
-  p.a0 = k0 < S ? alpha[k0] : 0.f;
-  p.a1 = k1 < S ? alpha[k1] : 0.f;
-  p.x0 = k0 < S ? 1.f - p.a0 + 1e-7f : 1.f;
-  p.x1 = k1 < S ? 1.f - p.a1 + 1e-7f : 1.f;
-  float incl = p.x0 * p.x1;  // inclusive product over lanes <= lane
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float t = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl = t * incl;
-  }
-  const float excl = __shfl_up_sync(FULL, incl, 1);
-  p.T0 = lane == 0 ? 1.f : excl;
-  p.T1 = p.T0 * p.x0;
-  return p;
 }
 
 // The forward's staging: cp.async global -> shared, 16 bytes (through L2
@@ -201,65 +171,6 @@ __global__ void __launch_bounds__(RAYS * 32) composite_fwd_kernel(
     color[ray * 3 + lane] = pick(0);
     extra[ray * 3 + lane] = W == 6 ? pick(3) : 0.f;
     normals[ray * 3 + lane] = pick(W);
-  }
-}
-
-__global__ void __launch_bounds__(WARPS * 32) composite_bwd_warp_kernel(
-    int R, int S, int W, const float* __restrict__ alpha, const float* __restrict__ rgb,
-    const float* __restrict__ grad, const float* __restrict__ cw, const float* __restrict__ cc,
-    const float* __restrict__ ce, const float* __restrict__ cn, float* __restrict__ d_alpha,
-    float* __restrict__ d_rgb, float* __restrict__ d_grad) {
-  const int lane = threadIdx.x & 31;
-  const int ray = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (ray >= R) return;
-  const size_t base = (size_t)ray * S;
-  const Pair p = load_pair(alpha + base, S, lane);
-  const int k0 = 2 * lane, k1 = k0 + 1;
-  float cot[9];  // [cc, ce, cn] of this ray
-  for (int c = 0; c < 3; ++c) {
-    cot[c] = cc[ray * 3 + c];
-    cot[3 + c] = W == 6 ? ce[ray * 3 + c] : 0.f;
-    cot[6 + c] = cn[ray * 3 + c];
-  }
-  const float* rg = rgb + base * W;
-  const float* gg = grad + base * 3;
-  float u0 = 0.f, u1 = 0.f;
-  if (k0 < S) {
-    u0 = cw[base + k0];
-    for (int c = 0; c < W; ++c) u0 += cot[c] * rg[k0 * W + c];
-    for (int c = 0; c < 3; ++c) u0 += cot[6 + c] * gg[k0 * 3 + c];
-  }
-  if (k1 < S) {
-    u1 = cw[base + k1];
-    for (int c = 0; c < W; ++c) u1 += cot[c] * rg[k1 * W + c];
-    for (int c = 0; c < 3; ++c) u1 += cot[6 + c] * gg[k1 * 3 + c];
-  }
-  // f_k(B) = u_k alpha_k + x_k B maps B_k to B_{k-1}; this lane's pair map
-  // F = f_k0 o f_k1 is B -> a + m B. Inclusive suffix composition over
-  // lanes: lane l ends with F_l o ... o F_31, whose value at 0 is B_{k0-1}.
-  float a = p.a0 * u0 + p.x0 * p.a1 * u1, m = p.x0 * p.x1;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float a2 = __shfl_down_sync(FULL, a, o);
-    const float m2 = __shfl_down_sync(FULL, m, o);
-    if (lane + o < 32) {
-      a = a + m * a2;
-      m = m * m2;
-    }
-  }
-  float B1 = __shfl_down_sync(FULL, a, 1);  // B_{k1} = (F_{l+1} o ...)(0)
-  if (lane == 31) B1 = 0.f;
-  const float B0 = p.a1 * u1 + p.x1 * B1;  // B_{k0}
-  const float w0 = p.a0 * p.T0, w1 = p.a1 * p.T1;
-  if (k0 < S) {
-    d_alpha[base + k0] = p.T0 * (u0 - B0);
-    for (int c = 0; c < W; ++c) d_rgb[(base + k0) * W + c] = w0 * cot[c];
-    for (int c = 0; c < 3; ++c) d_grad[(base + k0) * 3 + c] = w0 * cot[6 + c];
-  }
-  if (k1 < S) {
-    d_alpha[base + k1] = p.T1 * (u1 - B1);
-    for (int c = 0; c < W; ++c) d_rgb[(base + k1) * W + c] = w1 * cot[c];
-    for (int c = 0; c < 3; ++c) d_grad[(base + k1) * 3 + c] = w1 * cot[6 + c];
   }
 }
 
@@ -388,8 +299,6 @@ __global__ void __launch_bounds__(RAYS * 32) composite_bwd_kernel(
   unstage(d_grad + base * 3, s_grad, mg, nr * S * 3);
 }
 
-inline int bwd_blocks(int R) { return (R + WARPS - 1) / WARPS; }
-
 }  // namespace
 
 extern "C" {
@@ -419,17 +328,6 @@ int composite_bwd(int R, int S, int W, const float* alpha, const float* rgb, con
     composite_bwd_kernel<6><<<blocks, RAYS * 32, 0, (cudaStream_t)stream>>>(R, S, alpha, rgb, grad, cw, cc, ce, cn, d_alpha, d_rgb, d_grad);
   else
     composite_bwd_kernel<3><<<blocks, RAYS * 32, 0, (cudaStream_t)stream>>>(R, S, alpha, rgb, grad, cw, cc, ce, cn, d_alpha, d_rgb, d_grad);
-  return (int)cudaGetLastError();
-}
-
-// The replaced backward (composite_bwd_warp_kernel), same arguments: the
-// yardstick the redesign is timed against.
-int composite_bwd_warp(int R, int S, int W, const float* alpha, const float* rgb,
-                       const float* grad, const float* cw, const float* cc, const float* ce,
-                       const float* cn, float* d_alpha, float* d_rgb, float* d_grad,
-                       void* stream) {
-  if (R == 0) return 0;
-  composite_bwd_warp_kernel<<<bwd_blocks(R), WARPS * 32, 0, (cudaStream_t)stream>>>(R, S, W, alpha, rgb, grad, cw, cc, ce, cn, d_alpha, d_rgb, d_grad);
   return (int)cudaGetLastError();
 }
 

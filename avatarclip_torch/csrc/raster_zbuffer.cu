@@ -1,5 +1,5 @@
 // Hard z-buffer winner selection for Hopper (sm_90a): the binned kernel (B2)
-// and the brute-force kernel (B8's #15).
+// and the brute-force kernel (#15).
 //
 // B2 replaces the Pallas kernel avatarclip_tpu/ops/raster_zbuffer.py
 // `_zbuffer_kernel_tiled` (:266), launched by `zbuffer_select_tiled` (:304)
@@ -50,15 +50,45 @@
 //   flags and (F, 3) corners are read in place, ragged face counts and edge
 //   tiles masked.
 //
-// The brute-force kernel replaces avatarclip_tpu/ops/raster_zbuffer.py
-// `_zbuffer_kernel` (:104, entry `zbuffer_select` :144): every (pixel, face)
-// pair with no culling, the same winner rule, the same (px * c0 + py * c1)
-// + c2 evaluation and the same increasing face order, so its winners are
-// B2's exactly. What bounds it: the full pair count, about 17 f32 operations
-// a pair. Design: one CTA a 32 x 32 tile, one thread a pixel, the faces
-// staged FBLOCK at a time in shared memory, read in place from the caller's
-// coefficients and bool flags (the ragged last block masked by F, the
-// ragged edge tiles by H and W).
+// The brute-force kernel (#15) replaces avatarclip_tpu/ops/raster_zbuffer.py
+// `_zbuffer_kernel` (:104, entry `zbuffer_select` :144): the same winner
+// rule and (px * c0 + py * c1) + c2 evaluation over EVERY (pixel, face)
+// pair. It has no bbox, range, tile or table culling of any kind and shares
+// nothing with B2's face_ranges_kernel (or its twin tile_faces): it is the
+// check of B2's culling that B2's culling code cannot pass by construction.
+// What bounds it: the pairs, H W F of them, each 16 unfused f32 operations
+// (four edge values of 2 products and 2 sums) and the tests: 8.81e8 pairs
+// at 256^2 x 13,441 faces, ~0.42 ms at 132 SMs x 128 lanes x 1.98 GHz.
+// Design:
+// - the work is split two ways (ops/raster_zbuffer.py's `brute_plan` is
+//   the Python twin): 32 x 32 pixel tiles times K contiguous face slices,
+//   one CTA a (tile, slice), K the most that keeps the grid within BR_CTAS
+//   (2 waves of 8 CTAs an SM: 64 tiles x 33 slices at 256^2, 256 x 8 at
+//   512^2, 49 x 43 at 224^2), with at least BR_FBLOCK faces a slice;
+// - a CTA is 8 x 8 threads, each holding 4 x 4 pixels 8 apart (register
+//   blocked): a face's 12 coefficients come as three 16-byte broadcast
+//   shared loads for 16 pairs, and the products px * c0 of a column and
+//   py * c1 of a row are made once for the 4 pixels that share them (the
+//   same rounded products, so the same bits): 8 sums and 2 products a pair;
+// - the slice's faces are staged BR_FBLOCK at a time (one a thread) by
+//   cp.async into two shared buffers, block b + 1 in flight while block b
+//   is evaluated. The thread that copied a face folds its `valid` flag into
+//   it: an invalid face's edge-0 constant becomes NaN, so its b0 is NaN at
+//   every pixel and fails ">= 0" (`fold_valid` is the twin). The inner loop
+//   has no validity load or branch;
+// - a slice's faces are walked in increasing id with ">=" on iz, from a
+//   running iz of the least positive float (the denormal 2^-149; nothing is
+//   flushed, so iz >= it iff iz > 0, NaN failing both): ties go to the
+//   higher id and iz > 0 needs no test of its own. "Inside" is three
+//   ">= 0" compares: not sign bits (an edge value can be -0.0, which is
+//   inside) and not fminf (which drops a NaN). No FMA (__fmul_rn /
+//   __fadd_rn): contraction would change the last bit of an edge value
+//   near 0. No tensor cores: K is 3 and the dots stay in f32;
+// - the K slices' winners merge by a 64-bit atomicMax of (iz bits << 32 |
+//   id) into a zeroed (H W) scratch: valid winners have iz > 0, whose bits
+//   order as unsigned integers, so the max is the lexicographic max of (iz,
+//   id), the same bits in any order of arrival (a max is exact; the
+//   port's one atomic). A last pass writes the id, or -1 where no key came.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -66,8 +96,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TILE = 32;  // the brute-force kernel's screen tile
-constexpr int FBLOCK = 512;
+constexpr int BR_TILE = 32;               // #15's screen tile (pixels a side) ...
+constexpr int BR_TX = 8;                  // ... its CTA's threads 8 x 8 ...
+constexpr int BR_THREADS = BR_TX * BR_TX;
+constexpr int BR_PX = BR_TILE / BR_TX;    // ... each 4 x 4 pixels, 8 apart
+constexpr int BR_FBLOCK = BR_THREADS;     // faces a staged block, one a thread
+constexpr int BR_CTAS = 2112;             // the face split's most CTAs: 2 waves of 8 an SM of 132
 
 constexpr int BIN = 16;                // the binned kernel's screen tile (pixels a side)
 constexpr int BT = BIN * BIN;          // its threads: one a pixel
@@ -258,49 +292,158 @@ __global__ void __launch_bounds__(BT) zbuffer_binned_kernel(
   cluster.sync();  // every rank's shared memory stays until the merge has read it
 }
 
-__global__ void __launch_bounds__(TILE * TILE) zbuffer_brute_kernel(
-    const float* __restrict__ coef,           // (F, 3, 4)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// One CTA a (32 x 32 pixel tile, face slice): tile blockIdx.x % n_tiles,
+// slice blockIdx.x / n_tiles, faces [slice F / K, (slice + 1) F / K). A16:
+// coef 16-byte aligned (three 16-byte copies a face; else twelve of 4).
+template <bool A16>
+__global__ void __launch_bounds__(BR_THREADS, 8) zbuffer_brute_kernel(
+    const float* __restrict__ coef,           // (F, 3, 4): [pixel term k][b0, b1, b2, iz]
     const unsigned char* __restrict__ valid,  // (F,) bool
-    int* __restrict__ face_id,                // (H * W,) row-major
-    int F, int H, int W, int n_tx) {
-  __shared__ float s_coef[FBLOCK * 12];
-  __shared__ int s_valid[FBLOCK];
-  const int ty = blockIdx.x / n_tx, tx = blockIdx.x % n_tx;
-  const int py = ty * TILE + threadIdx.x / TILE;
-  const int px = tx * TILE + threadIdx.x % TILE;
-  const float fx = (float)px, fy = (float)py;
-  float best_iz = -1.f;
-  int best = -1;
-  for (int f0 = 0; f0 < F; f0 += FBLOCK) {
-    const int nf = min(FBLOCK, F - f0);
-    __syncthreads();
-    const float* src = coef + (size_t)f0 * 12;
-    for (int e = threadIdx.x; e < nf * 12; e += blockDim.x) s_coef[e] = src[e];
-    for (int e = threadIdx.x; e < nf; e += blockDim.x) s_valid[e] = valid[f0 + e];
-    __syncthreads();
-    for (int f = 0; f < nf; ++f) {
-      if (!s_valid[f]) continue;
-      const float* c = s_coef + f * 12;
-      const float b0 = lin(fx, fy, c[0], c[4], c[8]);
-      const float b1 = lin(fx, fy, c[1], c[5], c[9]);
-      const float b2 = lin(fx, fy, c[2], c[6], c[10]);
-      const float iz = lin(fx, fy, c[3], c[7], c[11]);
-      if (b0 >= 0.f && b1 >= 0.f && b2 >= 0.f && iz > 0.f && iz >= best_iz) {
-        best_iz = iz;
-        best = f0 + f;
-      }
-    }
+    unsigned long long* __restrict__ key,     // (H * W,) zeroed: the merge's max
+    int F, int H, int W, int n_tx, int n_tiles, int K) {
+  __shared__ __align__(16) float4 s_face[2][BR_FBLOCK * 3];
+  const int tile = blockIdx.x % n_tiles, slice = blockIdx.x / n_tiles;
+  const int f_lo = (int)((long long)slice * F / K), f_hi = (int)((long long)(slice + 1) * F / K);
+  const int tid = threadIdx.x;
+  const int x0 = (tile % n_tx) * BR_TILE + tid % BR_TX, y0 = (tile / n_tx) * BR_TILE + tid / BR_TX;
+  float fx[BR_PX], fy[BR_PX];
+#pragma unroll
+  for (int j = 0; j < BR_PX; ++j) {
+    fx[j] = (float)(x0 + BR_TX * j);
+    fy[j] = (float)(y0 + BR_TX * j);
   }
-  if (py < H && px < W) face_id[py * W + px] = best;
+  float best_iz[BR_PX][BR_PX];
+  int best[BR_PX][BR_PX];
+#pragma unroll
+  for (int i = 0; i < BR_PX; ++i)
+#pragma unroll
+    for (int j = 0; j < BR_PX; ++j) {
+      best_iz[i][j] = __int_as_float(1);  // 2^-149: iz >= it iff iz > 0
+      best[i][j] = -1;
+    }
+  // copy face f0 + tid (if in the slice) into buffer b; its valid flag
+  auto stage = [&](int b, int f0) -> bool {
+    const int f = f0 + tid;
+    if (f >= f_hi) return true;
+    float* dst = reinterpret_cast<float*>(&s_face[b][3 * tid]);
+    const float* src = coef + (size_t)f * 12;
+    if (A16) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) cp_async16(dst + 4 * q, src + 4 * q);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 12; ++q) cp_async4(dst + q, src + q);
+    }
+    return valid[f] != 0;
+  };
+  bool ok_next = stage(0, f_lo);
+  cp_async_commit();
+  for (int f0 = f_lo, b = 0; f0 < f_hi; f0 += BR_FBLOCK, b ^= 1) {
+    const bool ok = ok_next;
+    if (f0 + BR_FBLOCK < f_hi) ok_next = stage(b ^ 1, f0 + BR_FBLOCK);
+    cp_async_commit();  // (empty after the last block)
+    cp_async_wait1();   // this thread's copies of block b are in
+    if (!ok) s_face[b][3 * tid + 2].x = __int_as_float(0x7fc00000);  // b0 = NaN: never inside
+    __syncthreads();
+    const int n = min(BR_FBLOCK, f_hi - f0);
+    for (int j = 0; j < n; ++j) {
+      const float4 cx = s_face[b][3 * j], cy = s_face[b][3 * j + 1], cc = s_face[b][3 * j + 2];
+      const int id = f0 + j;
+      float mx[4][BR_PX], my[4][BR_PX];  // px * c0 of each column, py * c1 of each row
+#pragma unroll
+      for (int q = 0; q < BR_PX; ++q) {
+        mx[0][q] = __fmul_rn(fx[q], cx.x);
+        mx[1][q] = __fmul_rn(fx[q], cx.y);
+        mx[2][q] = __fmul_rn(fx[q], cx.z);
+        mx[3][q] = __fmul_rn(fx[q], cx.w);
+        my[0][q] = __fmul_rn(fy[q], cy.x);
+        my[1][q] = __fmul_rn(fy[q], cy.y);
+        my[2][q] = __fmul_rn(fy[q], cy.z);
+        my[3][q] = __fmul_rn(fy[q], cy.w);
+      }
+#pragma unroll
+      for (int i = 0; i < BR_PX; ++i)
+#pragma unroll
+        for (int q = 0; q < BR_PX; ++q) {
+          const float b0 = __fadd_rn(__fadd_rn(mx[0][q], my[0][i]), cc.x);
+          const float b1 = __fadd_rn(__fadd_rn(mx[1][q], my[1][i]), cc.y);
+          const float b2 = __fadd_rn(__fadd_rn(mx[2][q], my[2][i]), cc.z);
+          const float iz = __fadd_rn(__fadd_rn(mx[3][q], my[3][i]), cc.w);
+          if ((b0 >= 0.f) & (b1 >= 0.f) & (b2 >= 0.f) & (iz >= best_iz[i][q])) {
+            best_iz[i][q] = iz;
+            best[i][q] = id;
+          }
+        }
+    }
+    __syncthreads();  // buffer b is free for block b + 2
+  }
+#pragma unroll
+  for (int i = 0; i < BR_PX; ++i)
+#pragma unroll
+    for (int q = 0; q < BR_PX; ++q) {
+      const int px = x0 + BR_TX * q, py = y0 + BR_TX * i;
+      if (best[i][q] >= 0 && px < W && py < H)
+        atomicMax(key + (size_t)py * W + px,
+                  (unsigned long long)__float_as_uint(best_iz[i][q]) << 32 | (unsigned)best[i][q]);
+    }
+}
+
+__global__ void zbuffer_brute_ids(const unsigned long long* __restrict__ key, int* __restrict__ face_id,
+                                  int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const unsigned long long k = key[i];
+    face_id[i] = k ? (int)(unsigned)k : -1;
+  }
 }
 
 }  // namespace
 
-extern "C" int zbuffer_brute(const float* coef, const unsigned char* valid, int* face_id, int F,
-                             int H, int W, void* stream) {
-  const int n_tx = (W + TILE - 1) / TILE, n_ty = (H + TILE - 1) / TILE;
-  zbuffer_brute_kernel<<<n_tx * n_ty, TILE * TILE, 0, (cudaStream_t)stream>>>(coef, valid, face_id, F,
-                                                                               H, W, n_tx);
+// #15's grid for an (H, W) image of F faces: the 32 x 32 tiles times the K
+// face slices, K `split` if it is > 0, else the most that keeps the grid
+// within BR_CTAS (two full waves: a third wave's few CTAs would leave most
+// SMs idle), at most F / BR_FBLOCK and at least 1; 0 for a negative split
+// (ops/raster_zbuffer.py's brute_plan is the twin)
+extern "C" int zbuffer_brute_ctas(int H, int W, int F, int split) {
+  const int n_tiles = ((W + BR_TILE - 1) / BR_TILE) * ((H + BR_TILE - 1) / BR_TILE);
+  if (split != 0) return split > 0 ? n_tiles * split : 0;
+  int k = n_tiles > 0 ? BR_CTAS / n_tiles : 1;
+  if (k > F / BR_FBLOCK) k = F / BR_FBLOCK;
+  return n_tiles * (k > 1 ? k : 1);
+}
+
+// #15: zero key ((H * W,) 8-byte aligned scratch), launch the (tile, slice)
+// CTAs, then the ids from the keys; split as zbuffer_brute_ctas takes it
+// (0: the entry's choice; > 0: a seam for the tests of the merge).
+extern "C" int zbuffer_brute(const float* coef, const unsigned char* valid, void* key, int* face_id,
+                             int F, int H, int W, int split, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int ctas = zbuffer_brute_ctas(H, W, F, split);
+  if (split < 0) return (int)cudaErrorInvalidValue;
+  const int n = H * W, n_tx = (W + BR_TILE - 1) / BR_TILE, n_tiles = n_tx * ((H + BR_TILE - 1) / BR_TILE);
+  if (n == 0) return 0;
+  const int K = ctas / n_tiles;
+  int err = (int)cudaMemsetAsync(key, 0, (size_t)n * 8, st);
+  if (err) return err;
+  unsigned long long* k = (unsigned long long*)key;
+  if (((size_t)coef & 15) == 0)
+    zbuffer_brute_kernel<true><<<ctas, BR_THREADS, 0, st>>>(coef, valid, k, F, H, W, n_tx, n_tiles, K);
+  else
+    zbuffer_brute_kernel<false><<<ctas, BR_THREADS, 0, st>>>(coef, valid, k, F, H, W, n_tx, n_tiles, K);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  zbuffer_brute_ids<<<(n + 255) / 256, 256, 0, st>>>(k, face_id, n);
   return (int)cudaGetLastError();
 }
 

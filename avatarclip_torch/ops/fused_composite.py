@@ -89,9 +89,8 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.composite_fwd.argtypes = [I, I, I] + [P] * 8
         lib.composite_fwd.restype = I
-        for fn in (lib.composite_bwd, lib.composite_bwd_warp):
-            fn.argtypes = [I, I, I] + [P] * 11
-            fn.restype = I
+        lib.composite_bwd.argtypes = [I, I, I] + [P] * 11
+        lib.composite_bwd.restype = I
         lib._typed = True
     return lib
 

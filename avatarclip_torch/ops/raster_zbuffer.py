@@ -1,5 +1,6 @@
 """Hard z-buffer winner selection: the binned CUDA kernel (B2) and the
-brute-force one (B8's #15), their plain version, the culling twins.
+brute-force one (#15), their plain version, the culling twins and the
+brute-force kernel's work split.
 
 Twin of avatarclip_tpu/ops/raster_zbuffer.py (`zbuffer_select_tiled`,
 `overlap_table`, the `_select_update` winner rule, and the untiled
@@ -17,7 +18,9 @@ the 16 x 16 screen tiles, and within a tile the warps' 8 x 4 pixels, that
 meet its pixel bbox (:func:`tile_faces` is the Python twin of the faces a
 tile evaluates). :func:`overlap_table` stays as the twin of
 the JAX package's table. The brute-force kernel, as in the JAX package, is
-held against B2 and timed beside it.
+held against B2 and timed beside it: it evaluates every (pixel, face) pair,
+over the pixel tiles and face slices of :func:`brute_plan`, and merges the
+slices' winners by the largest (iz, id).
 """
 
 from __future__ import annotations
@@ -33,6 +36,10 @@ TILE_W = 32
 FBLOCK_T = 512  # ... against 512-face blocks
 BIN = 16  # B2's screen tile (pixels a side; csrc/raster_zbuffer.cu's BIN)
 MARGIN = 1.0  # the float margin (pixels) around a face's bbox, the JAX table's
+# #15's work split (csrc/raster_zbuffer.cu's BR_TILE, BR_FBLOCK, BR_CTAS)
+BRUTE_TILE = 32  # its screen tile (pixels a side), one CTA a (tile, face slice)
+BRUTE_FBLOCK = 64  # faces a staged block; a slice holds at least one block's worth
+BRUTE_CTAS = 2112  # the face split's most CTAs: 2 waves of 8 an SM of the H100's 132
 
 # kernel launches, counted by the wrapper (reset by callers that measure)
 LAUNCHES = {"zbuffer_tiled": 0, "zbuffer_brute": 0}
@@ -136,12 +143,44 @@ def zbuffer_select_plain(coef: torch.Tensor, valid: torch.Tensor, H: int, W: int
     return best
 
 
+def brute_plan(H: int, W: int, F: int, split: int = 0):
+    """Twin of #15's work split (csrc/raster_zbuffer.cu's
+    ``zbuffer_brute_ctas`` and the kernel's tile and slice of a CTA):
+    (tiles, slices, ctas). tiles: the BRUTE_TILE x BRUTE_TILE pixel tiles,
+    row-major, each (y0, y1, x0, x1) clipped to the image; slices: the K
+    contiguous face ranges (f0, f1),
+    slice s holding faces [s F // K, (s + 1) F // K); ctas: tiles x K, one
+    CTA a (tile, slice). K is ``split`` if it is > 0, else the most that
+    keeps the grid within BRUTE_CTAS, at most F // BRUTE_FBLOCK and at
+    least 1."""
+    n_ty, n_tx = -(-H // BRUTE_TILE), -(-W // BRUTE_TILE)
+    tiles = [(y, min(y + BRUTE_TILE, H), x, min(x + BRUTE_TILE, W))
+             for y in range(0, n_ty * BRUTE_TILE, BRUTE_TILE)
+             for x in range(0, n_tx * BRUTE_TILE, BRUTE_TILE)]
+    if split < 0:
+        raise ValueError("split must be 0 (the entry's choice) or positive")
+    K = split or max(1, min(BRUTE_CTAS // max(len(tiles), 1), F // BRUTE_FBLOCK))
+    slices = [(s * F // K, (s + 1) * F // K) for s in range(K)]
+    return tiles, slices, len(tiles) * K
+
+
+def fold_valid(coef: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Twin of #15's staging: coef with every invalid face's edge-0
+    constant set to NaN, which makes its b0 NaN at every pixel, and NaN >=
+    0 is false: the face is never inside, as a False flag makes it."""
+    out = coef.clone()
+    out[:, 2, 0] = torch.where(valid, out[:, 2, 0], torch.full_like(out[:, 2, 0], float("nan")))
+    return out
+
+
 def _lib():
     lib = _build.load("raster_zbuffer", "raster_zbuffer.cu")
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.zbuffer_brute.argtypes = [P] * 3 + [I] * 3 + [P]
+        lib.zbuffer_brute.argtypes = [P] * 4 + [I] * 4 + [P]
         lib.zbuffer_brute.restype = I
+        lib.zbuffer_brute_ctas.argtypes = [I] * 4
+        lib.zbuffer_brute_ctas.restype = I
         lib.zbuffer_binned.argtypes = [P] * 6 + [I] * 4 + [P]
         lib.zbuffer_binned.restype = I
         lib.zbuffer_ctas.argtypes = [I] * 3
@@ -164,18 +203,37 @@ def _check_faces(coef: torch.Tensor, valid: torch.Tensor) -> int:
 def zbuffer_select(coef: torch.Tensor, valid: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """Winner face id per pixel by the brute-force kernel, (H*W,) int32
     row-major, -1 = background; coef (F, 3, 4) f32 from
-    raster._face_coefficients, valid (F,) bool."""
+    raster._face_coefficients, valid (F,) bool. One allocation (the ids and
+    the merge's 8-byte key a pixel) and one call (the keys zeroed, the
+    kernel, the ids from the keys)."""
     if not coef.is_cuda:
         return zbuffer_select_plain(coef, valid, H, W)
-    F = _check_faces(coef, valid)
-    out = torch.empty(H * W, dtype=torch.int32, device=coef.device)
+    _check_faces(coef, valid)
+    buf = torch.empty(3 * H * W, dtype=torch.int32, device=coef.device)
+    out = buf[2 * H * W:]
     if H * W == 0:
         return out
-    err = _lib().zbuffer_brute(_build.ptr(coef), _build.ptr(valid), _build.ptr(out), F, H, W,
-                               _build.stream_ptr(coef.device))
-    _build.check(err, "zbuffer_brute launch")
+    brute_launch(coef, valid, buf, out, H, W)
     _build.count(LAUNCHES, "zbuffer_brute")
     return out
+
+
+def brute_launch(coef, valid, keys, out, H: int, W: int, split: int = 0) -> None:
+    """#15's C call on checked inputs: the merge's keys into keys (at least
+    2 H W int32, 8-byte aligned), the winners into out (H W int32).
+    ``split`` is 0 as the entry calls it (K from :func:`brute_plan`); > 0
+    forces K face slices, a seam for the tests of the merge. Not counted:
+    zbuffer_select counts its calls."""
+    err = _lib().zbuffer_brute(_build.ptr(coef), _build.ptr(valid), _build.ptr(keys), _build.ptr(out),
+                               coef.shape[0], H, W, split, _build.stream_ptr(coef.device))
+    _build.check(err, "zbuffer_brute launch")
+
+
+def brute_ctas(H: int, W: int, F: int, split: int = 0) -> int:
+    """The CTAs of #15's launch (tiles x K face slices), from the function
+    that sets the C call's grid: what :func:`brute_plan`'s third item
+    twins."""
+    return _lib().zbuffer_brute_ctas(H, W, F, split)
 
 
 def zbuffer_select_tiled(coef: torch.Tensor, valid: torch.Tensor,

@@ -1,10 +1,11 @@
 """Time the hard z-buffer's entry (``raster_zbuffer.zbuffer_select_tiled``,
-B2) on the card at the shapes the paths give it: the train_clip GT render
-(the template at 256^2), an animate scoring view (the 13,776-face body at
-224^2), visualize's 512^2 picture of that body, and a ShapeGen render (the
+B2, or with ``--brute`` the brute-force ``zbuffer_select``, #15) on the card
+at the shapes the paths give it: the train_clip GT render (the template at
+256^2), an animate scoring view (the 13,776-face body at 224^2),
+visualize's 512^2 picture of that body, and a ShapeGen render (the
 13,441-face body at 256^2).
 
-    python3 avatarclip_torch/tools/profile_zbuffer.py [--root DIR] [--reps 200]
+    python3 avatarclip_torch/tools/profile_zbuffer.py [--root DIR] [--reps 200] [--brute]
 
 Run as a script from the root of a checkout on a CUDA card. ``--root DIR``
 imports ``avatarclip_torch`` from another checkout (a commit unpacked into
@@ -53,6 +54,7 @@ def main() -> None:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--brute", action="store_true", help="time #15 instead of B2")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -76,6 +78,8 @@ def main() -> None:
         sx, sy = proj.sx[f], proj.sy[f]
 
         def call():
+            if args.brute:
+                return rz.zbuffer_select(coef, valid, res, res)
             return rz.zbuffer_select_tiled(coef, valid, sx, sy, res, res)
 
         got = call()
@@ -91,7 +95,7 @@ def main() -> None:
         torch.cuda.synchronize()
         dev_ms, kernels = _device_ms(call)
         print(json.dumps({"root": os.path.abspath(args.root),
-                          "scene": name, "faces": int(f.shape[0]), "res": res,
+                          "kernel": "zbuffer_brute" if args.brute else "zbuffer_tiled", "scene": name, "faces": int(f.shape[0]), "res": res,
                           "pixels_differing_from_plain": differ,
                           "entry_ms": start.elapsed_time(end) / args.reps, "device_ms": dev_ms,
                           "device_kernels_a_call": kernels, "device": smi}), flush=True)

@@ -392,28 +392,56 @@ def test_sdf_only_kernel_matches_plain(dev):
     assert torch.equal(got, ok[0].detach())
 
 
-def test_zbuffer_brute_kernel_matches_plain_and_tiled(dev):
-    """#15 (the brute-force z-buffer) on a ragged 200 x 136 screen and 1,100
-    faces (a ragged last face block): equal to the plain version and to B2's
-    winners, exactly."""
-    from avatarclip_torch.ops import raster_zbuffer as rz
-    from avatarclip_torch.render import cameras, raster
+@pytest.mark.parametrize("name", ["soup", "ties", "negzero", "nan", "all invalid", "empty"])
+@pytest.mark.parametrize("split", [1, 2, 0], ids=["split1", "split2", "entry"])
+@pytest.mark.parametrize("shape", [(200, 136), (224, 224), (256, 256), (512, 512)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_zbuffer_brute_kernel_matches_plain_and_tiled(dev, shape, split, name):
+    """#15 (the brute-force z-buffer) on tests/torch_zbuffer_scenes.py's
+    scenes (1,100 soup faces: a ragged last face block; exact duplicates,
+    -0.0 edge values, NaN coefficients, every face invalid, no face) at a
+    ragged 200 x 136 and at 224^2, 256^2 and 512^2: through its entry (one
+    counted launch) and at a forced face split of 1 or 2 (the C call's
+    seam), equal to the plain version and to B2's winners, exactly; its
+    grid is brute_plan's."""
+    import torch_zbuffer_scenes as zs
 
-    g = np.random.default_rng(1)
-    v = torch.as_tensor(g.normal(0, 0.4, (400, 3)).astype(np.float32), device=dev)
-    f = torch.as_tensor(g.integers(0, 400, (1100, 3)), device=dev)
-    pose = torch.as_tensor(cameras.lookat_np(np.array([0.05, -0.1, 1.6], np.float32),
-                                             np.zeros(3, np.float32),
-                                             np.array([0, 1, 0], np.float32)), device=dev)
-    H, W = 200, 136
-    proj = raster.project_vertices(v, pose, H, W, 150.0)
-    coef, valid, _ = raster._face_coefficients(proj, f)
+    from avatarclip_torch.ops import raster_zbuffer as rz
+
+    H, W = shape
+    coef, valid, sx, sy = (torch.from_numpy(x).to(dev) for x in zs.scene(name, H, W))
+    F = coef.shape[0]
+    want = rz.zbuffer_select_plain(coef, valid, H, W)
+    if name in ("all invalid", "empty"):
+        assert bool((want == -1).all())
+    else:
+        assert int((want >= 0).sum()) > 1000
     n0 = dict(rz.LAUNCHES)
     got = rz.zbuffer_select(coef, valid, H, W)
     assert rz.LAUNCHES == {**n0, "zbuffer_brute": n0["zbuffer_brute"] + 1}
-    assert int((got >= 0).sum()) > 1000
-    assert torch.equal(got, rz.zbuffer_select_plain(coef, valid, H, W))
-    assert torch.equal(got, rz.zbuffer_select_tiled(coef, valid, proj.sx[f], proj.sy[f], H, W))
+    if split:
+        keys = torch.full((3 * H * W,), 7, dtype=torch.int32, device=dev)
+        rz.brute_launch(coef, valid, keys, keys[2 * H * W:], H, W, split)
+        assert torch.equal(keys[2 * H * W:], got)
+    assert torch.equal(got, want)
+    assert torch.equal(got, rz.zbuffer_select_tiled(coef, valid, sx, sy, H, W))
+    assert rz.brute_ctas(H, W, F, split) == rz.brute_plan(H, W, F, split)[2]
+
+
+def test_zbuffer_brute_kernel_takes_unaligned_coefficients(dev):
+    """#15 on coefficients 4 bytes past a 16-byte boundary (its 4-byte
+    staging copies): the plain version's winners."""
+    import torch_zbuffer_scenes as zs
+
+    from avatarclip_torch.ops import raster_zbuffer as rz
+
+    H, W = 200, 136
+    coef, valid, _, _ = (torch.from_numpy(x).to(dev) for x in zs.scene("nan", H, W))
+    buf = torch.empty(coef.numel() + 1, device=dev)
+    shifted = buf[1:].view(coef.shape)
+    shifted.copy_(coef)
+    assert shifted.data_ptr() % 16 == 4
+    assert torch.equal(rz.zbuffer_select(shifted, valid, H, W), rz.zbuffer_select_plain(coef, valid, H, W))
 
 
 @pytest.mark.parametrize("mode,extra", [("no_view_dir", True), ("idr", False)])
