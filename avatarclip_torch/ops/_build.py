@@ -33,7 +33,6 @@ HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 _loaded: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
 _lock = threading.Lock()  # the validation worker thread may load a library too
-_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -121,13 +120,6 @@ def load_host(name: str, source: str) -> ctypes.CDLL:
                 _build([(name, ["g++", *HOST_FLAGS, str(src)], so)])
             _loaded[name] = ctypes.CDLL(str(so))
         return _loaded[name]
-
-
-def count(launches: dict, name: str) -> None:
-    """Add one to a wrapper's launch count (the validation worker thread
-    launches kernels too)."""
-    with _count_lock:
-        launches[name] += 1
 
 
 def check(err: int, what: str) -> None:

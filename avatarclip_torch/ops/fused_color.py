@@ -34,12 +34,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from ..utils import trace
 from . import fused_neus
 from .fused_neus import Dims, n_cta_for, split_flat
 from .fused_sdf import BLOCK, LANE
 from ..fields.networks import ColorNetwork, kernel_color_forward, operand_bf16
 
-LAUNCHES = {"color_fwd": 0, "color_bwd": 0}
 MAX_LAYERS = 8  # neus_mlp.cuh's MAXNHC
 # first-layer input columns (points, normals, view dirs, feature) per mode,
 # in the order of the colour net's concatenation
@@ -227,7 +227,7 @@ def color_fwd(spec: FusedColorSpec, flat, x, n, v, f, packed=None):
     err = lib.colour_fwd(d, p(flat), p(x), p(n), p(v), p(f), P, p(out), p(ws), stride, n_cta,
                          _build.stream_ptr(dev))
     _build.check(err, "colour_fwd launch")
-    _build.count(LAUNCHES, "color_fwd")
+    trace.count("color_fwd")
     return out
 
 
@@ -254,7 +254,7 @@ def color_bwd(spec: FusedColorSpec, flat, x, n, v, f, c_out, packed=None):
     err = lib.colour_bwd(d, p(flat), p(x), p(n), p(v), p(f), P, p(c_out), p(dx), p(dn), p(dv),
                          p(df), p(d_w), p(gpart), p(ws), stride, n_cta, _build.stream_ptr(dev))
     _build.check(err, "colour_bwd launch")
-    _build.count(LAUNCHES, "color_bwd")
+    trace.count("color_bwd")
     return dx, dn, dv, df, d_w
 
 
@@ -285,7 +285,7 @@ def _color_tc_fwd(spec, lib, packed, x, n, v, f):
                             p(out), fused_neus.n_cta_tc(dev, -(-P // BLOCK)),
                             _build.stream_ptr(dev))
     _build.check(err, "colour_tc_fwd launch")
-    _build.count(LAUNCHES, "color_fwd")
+    trace.count("color_fwd")
     return out
 
 
@@ -314,7 +314,7 @@ def _color_tc_bwd(spec, lib, packed, x, n, v, f, c_out):
                             p(c_out), p(dx), p(dn), p(dv), p(df), p(d_tc), p(gpart), n_cta, p(log),
                             chunk, n_split, _build.stream_ptr(dev))
     _build.check(err, "colour_tc_bwd launch")
-    _build.count(LAUNCHES, "color_bwd")
+    trace.count("color_bwd")
     return dx, dn, dv, df, slices_from_tc(spec, d_tc)
 
 

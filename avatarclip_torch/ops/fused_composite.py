@@ -27,9 +27,8 @@ import ctypes
 import torch
 
 from . import _build
+from ..utils import trace
 
-# kernel launches, counted by the wrappers (reset by callers that measure)
-LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0}
 MAX_SAMPLES = 64
 
 
@@ -121,7 +120,7 @@ def composite_fwd(alpha, rgb, grad):
     err = _lib().composite_fwd(R, S, W, p(alpha), p(rgb), p(grad), p(w), p(color), p(extra),
                                p(normals), _build.stream_ptr(dev))
     _build.check(err, "composite_fwd launch")
-    _build.count(LAUNCHES, "composite_fwd")
+    trace.count("composite_fwd")
     return w, color, extra, normals
 
 
@@ -139,7 +138,7 @@ def composite_bwd(alpha, rgb, grad, c_w, c_color, c_extra, c_normals):
                                p(c_extra), p(c_normals), p(d_alpha), p(d_rgb), p(d_grad),
                                _build.stream_ptr(dev))
     _build.check(err, "composite_bwd launch")
-    _build.count(LAUNCHES, "composite_bwd")
+    trace.count("composite_bwd")
     return d_alpha, d_rgb, d_grad
 
 

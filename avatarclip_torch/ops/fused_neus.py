@@ -59,11 +59,10 @@ import dataclasses
 import torch
 
 from . import _build
+from ..utils import trace
 from ..fields.networks import (ColorNetwork, SDFNetwork, kernel_color_forward,
                                kernel_sdf_with_gradient, operand_bf16)
 
-# kernel launches, counted by the wrappers (reset by callers that measure)
-LAUNCHES = {"neus_ray_fwd": 0, "neus_ray_bwd": 0, "neus_point_fwd": 0, "neus_point_bwd": 0}
 MAX_SAMPLES = 64  # one ray is one GEMM row block of the kernel
 
 
@@ -306,7 +305,7 @@ def neus_ray_fwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s, c
         stride, n_cta, _build.stream_ptr(dev),
     )
     _build.check(err, "neus_ray_fwd launch")
-    _build.count(LAUNCHES, "neus_ray_fwd")
+    trace.count("neus_ray_fwd")
     return col_w, normals_w, wsum, sdf_res, g_res, eik
 
 
@@ -341,7 +340,7 @@ def neus_ray_bwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s, c
         _build.stream_ptr(dev),
     )
     _build.check(err, "neus_ray_bwd launch")
-    _build.count(LAUNCHES, "neus_ray_bwd")
+    trace.count("neus_ray_bwd")
     return d_o, d_d, d_z, d_t, d_w[:n_w], d_w[n_w].reshape(())
 
 
@@ -570,7 +569,7 @@ def neus_ray_tc_fwd(spec: NeuSRaySpec, flat, pk, pack, rays_o, rays_d, mid_z, di
         p(eik_part), p(scr), stride, n_cta, _build.stream_ptr(dev),
     )
     _build.check(err, "neus_ray_tc_fwd launch")
-    _build.count(LAUNCHES, "neus_ray_fwd")
+    trace.count("neus_ray_fwd")
     return col_w, normals_w, wsum, sdf_res, g_res, eik
 
 
@@ -603,7 +602,7 @@ def neus_ray_tc_bwd(spec: NeuSRaySpec, flat, pk, pack, rays_o, rays_d, mid_z, di
         b["n_cta"], p(b["log"]), b["chunk"], b["n_split"], _build.stream_ptr(dev),
     )
     _build.check(err, "neus_ray_tc_bwd launch")
-    _build.count(LAUNCHES, "neus_ray_bwd")
+    trace.count("neus_ray_bwd")
     return d_o, d_d, d_z, d_t, d_w[:n_w], d_w[n_w].reshape(())
 
 
@@ -631,22 +630,23 @@ class NeuSRayFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, c_col, c_nw, c_ws, c_eik):
-        flat, pk, rays_o, rays_d, mid_z, dists, inv_s, sdf_res, g_res = ctx.saved_tensors
-        R = mid_z.shape[0]
-        dev = mid_z.device
+        with trace.span("backward.neus_core"):
+            flat, pk, rays_o, rays_d, mid_z, dists, inv_s, sdf_res, g_res = ctx.saved_tensors
+            R = mid_z.shape[0]
+            dev = mid_z.device
 
-        def cot(t, shape):
-            return torch.zeros(shape, device=dev) if t is None else t.float().contiguous()
+            def cot(t, shape):
+                return torch.zeros(shape, device=dev) if t is None else t.float().contiguous()
 
-        args = (rays_o, rays_d, mid_z, dists, inv_s, ctx.cos_anneal, sdf_res, g_res,
-                cot(c_col, (R, ctx.spec.rgb_width)), cot(c_nw, (R, 3)), cot(c_ws, (R, 1)),
-                cot(c_eik, (2,)))
-        if ctx.spec.bf16:
-            outs = neus_ray_tc_bwd(ctx.spec, flat, pk, ctx.pack, *args)
-        else:
-            outs = neus_ray_bwd(ctx.spec, flat, *args)
-        d_o, d_d, d_z, d_t, d_flat, d_inv_s = outs
-        return (None, None, d_o, d_d, d_z, d_t, d_inv_s, *split_flat(d_flat, ctx.shapes))
+            args = (rays_o, rays_d, mid_z, dists, inv_s, ctx.cos_anneal, sdf_res, g_res,
+                    cot(c_col, (R, ctx.spec.rgb_width)), cot(c_nw, (R, 3)), cot(c_ws, (R, 1)),
+                    cot(c_eik, (2,)))
+            if ctx.spec.bf16:
+                outs = neus_ray_tc_bwd(ctx.spec, flat, pk, ctx.pack, *args)
+            else:
+                outs = neus_ray_bwd(ctx.spec, flat, *args)
+            d_o, d_d, d_z, d_t, d_flat, d_inv_s = outs
+            return (None, None, d_o, d_d, d_z, d_t, d_inv_s, *split_flat(d_flat, ctx.shapes))
 
 
 def point_eval_ray(sdf: SDFNetwork, color: ColorNetwork, rays_o, rays_d, mid_z, dists,
@@ -732,7 +732,7 @@ def neus_point_fwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s,
             stride, n_cta, _build.stream_ptr(dev),
         )
     _build.check(err, "neus_point_fwd launch")
-    _build.count(LAUNCHES, "neus_point_fwd")
+    trace.count("neus_point_fwd")
     return sdf_o, alpha, cdf, grad, inside, rgb, eik
 
 
@@ -781,7 +781,7 @@ def neus_point_bwd(spec: NeuSRaySpec, flat, rays_o, rays_d, mid_z, dists, inv_s,
         err = lib.neus_point_bwd(d, *head, p(d_w), p(gpart), p(ws), stride, n_cta,
                                  _build.stream_ptr(dev))
     _build.check(err, "neus_point_bwd launch")
-    _build.count(LAUNCHES, "neus_point_bwd")
+    trace.count("neus_point_bwd")
     return d_o, d_d, d_z, d_t, d_w[:n_w], d_w[n_w].reshape(())
 
 

@@ -45,12 +45,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from ..utils import trace
 from . import fused_neus
 from .fused_neus import Dims, n_cta_for, split_flat
 from ..fields.networks import (SDFNetwork, kernel_sdf_forward, kernel_sdf_with_gradient,
                                operand_bf16)
 
-LAUNCHES = {"sdf_fwd": 0, "sdf_bwd": 0, "sdf_only_fwd": 0}
 BLOCK = 64  # points per CTA iteration (neus_mlp.cuh's MAXS)
 LANE = 128  # the JAX family's width granule, kept so both packages take one family
 MAX_HIDDEN = 8  # neus_mlp.cuh's MAXNH
@@ -204,7 +204,7 @@ def sdf_fwd(spec: FusedSDFSpec, flat, pts, packed=None):
         err = lib.sdf_fwd(d, p(flat), p(pts), P, p(sdf), p(feat), p(grad), p(ws), stride, n_cta,
                           _build.stream_ptr(dev))
     _build.check(err, "sdf_fwd launch")
-    _build.count(LAUNCHES, "sdf_fwd")
+    trace.count("sdf_fwd")
     return sdf, feat, grad
 
 
@@ -236,7 +236,7 @@ def sdf_only_fwd(spec: FusedSDFSpec, flat, pts, packed=None):
         err = lib.sdf_only_fwd(d, p(flat), p(pts), P, p(sdf), p(ws), stride, n_cta,
                                _build.stream_ptr(dev))
     _build.check(err, "sdf_only_fwd launch")
-    _build.count(LAUNCHES, "sdf_only_fwd")
+    trace.count("sdf_only_fwd")
     return sdf
 
 
@@ -263,7 +263,7 @@ def sdf_bwd(spec: FusedSDFSpec, flat, pts, c_sdf, c_feat, c_grad, packed=None):
     err = lib.sdf_bwd(d, p(flat), p(pts), P, p(c_sdf), p(c_feat), p(c_grad), p(d_pts), p(d_w),
                       p(gpart), p(ws), stride, n_cta, _build.stream_ptr(dev))
     _build.check(err, "sdf_bwd launch")
-    _build.count(LAUNCHES, "sdf_bwd")
+    trace.count("sdf_bwd")
     return d_pts, d_w
 
 
@@ -287,7 +287,7 @@ def _sdf_tc_bwd(spec, lib, flat, pts, c_sdf, c_feat, c_grad, packed):
                          p(d_pts), p(d_w), p(gpart), p(scr), stride, n_cta, p(log), chunk, n_split,
                          _build.stream_ptr(dev))
     _build.check(err, "sdf_tc_bwd launch")
-    _build.count(LAUNCHES, "sdf_bwd")
+    trace.count("sdf_bwd")
     return d_pts, d_w
 
 

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import _build
+from ..utils import trace
 
 TILE_H = 32
 TILE_W = 32
@@ -63,10 +64,6 @@ CTAS_PER_SM = 64  # the splits aim at this many CTAs an SM, at 2 views as at 5
 # background's weight of 1 (avatarclip_tpu/ops/fused_soft.py:64-73).
 _MARGIN_LOGITS = 104.0
 PLAIN_CHUNK = 256  # faces per checkpointed chunk of the plain version
-
-# kernel launches, counted by the wrappers (reset by callers that measure);
-# each pass is followed by the kernel that sums its partials
-LAUNCHES = {"soft_fwd": 0, "soft_bwd": 0, "soft_fwd_reduce": 0, "soft_bwd_reduce": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -256,10 +253,10 @@ def soft_fwd(faces, tab, H: int, W: int, inv_sigma: float):
     err = lib.soft_fwd(p(faces), p(tab), p(part), B, H, W, Fp // FBLOCK, K, inv_sigma,
                        cull_threshold(inv_sigma), st)
     _build.check(err, "soft_fwd launch")
-    _build.count(LAUNCHES, "soft_fwd")
+    trace.count("soft_fwd")
     err = lib.soft_fwd_reduce(p(part), p(sil), p(num), p(den), B, P, K, st)
     _build.check(err, "soft_fwd_reduce launch")
-    _build.count(LAUNCHES, "soft_fwd_reduce")
+    trace.count("soft_fwd_reduce")
     return sil, num, den
 
 
@@ -277,10 +274,10 @@ def soft_bwd(faces, tab, dsil, dnum, dden, H: int, W: int, inv_sigma: float):
     err = lib.soft_bwd(p(faces), p(tab), p(dsil), p(dnum), p(dden), p(part), B, H, W,
                        Fp // FBLOCK, K, inv_sigma, cull_threshold(inv_sigma), st)
     _build.check(err, "soft_bwd launch")
-    _build.count(LAUNCHES, "soft_bwd")
+    trace.count("soft_bwd")
     err = lib.soft_bwd_reduce(p(part), p(dfaces), B * Fp, K, st)
     _build.check(err, "soft_bwd_reduce launch")
-    _build.count(LAUNCHES, "soft_bwd_reduce")
+    trace.count("soft_bwd_reduce")
     return dfaces
 
 
@@ -299,11 +296,12 @@ class SoftAggregateFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dsil, dnum, dden):
-        faces, tab = ctx.saved_tensors
-        H, W, inv_sigma = ctx.dims
-        c = lambda t: t.float().contiguous()
-        return (None, soft_bwd(faces, tab, c(dsil), c(dnum), c(dden), H, W, inv_sigma),
-                None, None, None, None)
+        with trace.span("backward.soft"):
+            faces, tab = ctx.saved_tensors
+            H, W, inv_sigma = ctx.dims
+            c = lambda t: t.float().contiguous()
+            return (None, soft_bwd(faces, tab, c(dsil), c(dnum), c(dden), H, W, inv_sigma),
+                    None, None, None, None)
 
 
 def aggregate(faces: torch.Tensor, tab: torch.Tensor, H: int, W: int, inv_sigma: float):

@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..utils import trace
 
 TILE_H = 32  # the JAX package's culling table: 32 x 32 tiles ...
 TILE_W = 32
@@ -40,9 +41,6 @@ MARGIN = 1.0  # the float margin (pixels) around a face's bbox, the JAX table's
 BRUTE_TILE = 32  # its screen tile (pixels a side), one CTA a (tile, face slice)
 BRUTE_FBLOCK = 64  # faces a staged block; a slice holds at least one block's worth
 BRUTE_CTAS = 2112  # the face split's most CTAs: 2 waves of 8 an SM of the H100's 132
-
-# kernel launches, counted by the wrapper (reset by callers that measure)
-LAUNCHES = {"zbuffer_tiled": 0, "zbuffer_brute": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -214,7 +212,7 @@ def zbuffer_select(coef: torch.Tensor, valid: torch.Tensor, H: int, W: int) -> t
     if H * W == 0:
         return out
     brute_launch(coef, valid, buf, out, H, W)
-    _build.count(LAUNCHES, "zbuffer_brute")
+    trace.count("zbuffer_brute")
     return out
 
 
@@ -264,7 +262,7 @@ def zbuffer_select_tiled(coef: torch.Tensor, valid: torch.Tensor,
     if H * W == 0:
         return out
     launch(coef, valid, face_sx, face_sy, buf, out, H, W)
-    _build.count(LAUNCHES, "zbuffer_tiled")
+    trace.count("zbuffer_tiled")
     return out
 
 

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from . import mesh as pmesh
+from ..utils import trace
 
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5  # JAX's dryrun.py:248
 F64_TOL = 1e-3  # f32 kernel gradients against f64: of each gradient's largest magnitude
@@ -69,23 +70,6 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def kernel_modules():
-    from ..ops import (fused_color, fused_composite, fused_neus, fused_sdf, fused_soft,
-                       raster_zbuffer)
-
-    return (raster_zbuffer, fused_neus, fused_composite, fused_soft, fused_sdf, fused_color)
-
-
-def zero_launches() -> None:
-    for m in kernel_modules():
-        for k in m.LAUNCHES:
-            m.LAUNCHES[k] = 0
-
-
-def read_launches() -> dict:
-    return {k: v for m in kernel_modules() for k, v in m.LAUNCHES.items()}
-
-
 def _rank_main(rank, n, port, fn, kwargs, device, backend, threads, out_dir):
     """One rank: join the group, run ``fn(mesh, **kwargs)`` with the launch
     counts from 0, save its result (and this rank's launches) for the
@@ -95,9 +79,9 @@ def _rank_main(rank, n, port, fn, kwargs, device, backend, threads, out_dir):
         if threads:
             torch.set_num_threads(threads)
         mesh = pmesh.init(n, rank, device, backend, init_method=f"tcp://127.0.0.1:{port}")
-        zero_launches()
+        trace.reset_counters()
         res = fn(mesh, **kwargs)
-        res["launches"] = read_launches()
+        res["launches"] = trace.launches()
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
@@ -450,11 +434,11 @@ def run(n: int, device=None, backend: str | None = None, scale: str | None = "ti
     problems = [kernel_path_problem(dt) + (rays, samples) for dt in dtypes]
     res_n = run_ranks(n, _rank_checks, {"scale": scale, "res": res, "problems": problems,
                                         "timed_steps": timed_steps}, device, backend, threads)
-    before = read_launches()
+    before = trace.launches()
     one = pmesh.single(dev)
     res_1 = {"train": train_steps(one, scale, res, timed_steps) if scale else None,
              "kernel": kernel_path_grads(one, problems)}
-    after = read_launches()
+    after = trace.launches()
     report = {"ranks": n, "backend": backend, "device": str(dev),
               "launches_ranks": [r["launches"] for r in res_n],
               "launches_1": {k: after[k] - before[k] for k in after}}

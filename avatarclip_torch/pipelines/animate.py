@@ -40,6 +40,7 @@ from ..clip import model as clip_model
 from ..clip import tokenizer as clip_tokenizer
 from ..render import cameras, raster
 from ..utils import device as device_mod
+from ..utils import trace
 from . import motion_vae
 
 # every screen-space dot is K = 3 and must stay full f32 (thin faces decide
@@ -113,30 +114,33 @@ class AnimateContext:
         """(N, 69) -> (N, V, 3) world-frame vertices with the fixed global
         orient x = pi/2 (pose_generation.py:70-75) and the render frame
         rotation (models/render.py:26-29)."""
-        N = pose69.shape[0]
-        go = torch.zeros(N, 3, device=self.device)
-        go[:, 0] = np.pi / 2
-        verts, _ = self.smpl.forward(betas=torch.zeros(N, self.smpl.num_betas, device=self.device),
-                                     body_pose=pose69.reshape(N, 23, 3), global_orient=go)
-        return verts @ torch.from_numpy(cameras.BODY_TO_WORLD).to(verts).t()
+        with trace.span("render.smpl"):
+            N = pose69.shape[0]
+            go = torch.zeros(N, 3, device=self.device)
+            go[:, 0] = np.pi / 2
+            verts, _ = self.smpl.forward(betas=torch.zeros(N, self.smpl.num_betas, device=self.device),
+                                         body_pose=pose69.reshape(N, 23, 3), global_orient=go)
+            return verts @ torch.from_numpy(cameras.BODY_TO_WORLD).to(verts).t()
 
     def render_views(self, verts: torch.Tensor, elevs: torch.Tensor, angles: torch.Tensor,
                      soft: bool) -> torch.Tensor:
         """(N, V, 3) bodies x the views (elevs, angles) -> (views * N, res,
         res, 3) images, view-major. Soft: one batched soft render (one
         kernel launch each way); hard: one z-buffer render per image."""
-        n_view, N = angles.shape[0], verts.shape[0]
-        poses = view_poses(elevs, angles)
-        res = self.render_res
-        vb = verts[None].expand(n_view, -1, -1, -1).reshape(n_view * N, *verts.shape[1:])
-        pb = poses[:, None].expand(-1, N, -1, -1).reshape(n_view * N, 4, 4)
-        if soft:
-            return raster.soft_render_mesh(vb, self.faces, pb, res, res, self.focal, sigma=SOFT_SIGMA)["rgb"]
-        kw = {}
-        if self.uv_texture is not None:
-            kw = {"face_uvs": self.uv_texture[0], "texture": self.uv_texture[1]}
-        return torch.stack([raster.render_mesh(v, self.faces, p, res, res, self.focal, **kw)["rgb"]
-                            for v, p in zip(vb, pb)])
+        with trace.span("render.soft" if soft else "render.hard"):
+            n_view, N = angles.shape[0], verts.shape[0]
+            poses = view_poses(elevs, angles)
+            res = self.render_res
+            vb = verts[None].expand(n_view, -1, -1, -1).reshape(n_view * N, *verts.shape[1:])
+            pb = poses[:, None].expand(-1, N, -1, -1).reshape(n_view * N, 4, 4)
+            if soft:
+                return raster.soft_render_mesh(vb, self.faces, pb, res, res, self.focal,
+                                               sigma=SOFT_SIGMA)["rgb"]
+            kw = {}
+            if self.uv_texture is not None:
+                kw = {"face_uvs": self.uv_texture[0], "texture": self.uv_texture[1]}
+            return torch.stack([raster.render_mesh(v, self.faces, p, res, res, self.focal, **kw)["rgb"]
+                                for v, p in zip(vb, pb)])
 
     def pose_feature(self, pose: torch.Tensor, elevs: torch.Tensor, angles: torch.Tensor,
                      soft: bool) -> torch.Tensor:
@@ -145,9 +149,10 @@ class AnimateContext:
         if pose.dim() == 1:
             pose = pose[None]
         imgs = self.render_views(self._pose_vertices(pose), elevs, angles, soft)
-        imgs = clip_model.resize_to_clip(imgs, self.clip_cfg.image_size)
-        emb = clip_model.encode_image(self.clip_params, self.clip_cfg, clip_model.normalize_image(imgs))
-        return emb.reshape(angles.shape[0], -1, emb.shape[-1]).mean(0)
+        with trace.span("clip.image"):
+            imgs = clip_model.resize_to_clip(imgs, self.clip_cfg.image_size)
+            emb = clip_model.encode_image(self.clip_params, self.clip_cfg, clip_model.normalize_image(imgs))
+            return emb.reshape(angles.shape[0], -1, emb.shape[-1]).mean(0)
 
     def get_pose_feature(self, pose: torch.Tensor, elevs: torch.Tensor | None = None,
                          angles=ANGLES, differentiable: bool = False) -> torch.Tensor:
@@ -180,14 +185,15 @@ class _Timed:
     step's synchronised seconds in ``step_s``."""
 
     def _clock(self, t0: float) -> None:
-        device_mod.sync(self.ctx.device)
-        t = time.perf_counter()
-        self.timing.setdefault("step_s", []).append(t - t0)
-        if "first_step_s" not in self.timing:
-            self.timing["first_step_s"] = t - t0
-        else:
-            self.timing["steady_s"] = self.timing.get("steady_s", 0.0) + t - t0
-            self.timing["steady_steps"] = self.timing.get("steady_steps", 0) + 1
+        with trace.span("loop.sync"):
+            device_mod.sync(self.ctx.device)
+            t = time.perf_counter()
+            self.timing.setdefault("step_s", []).append(t - t0)
+            if "first_step_s" not in self.timing:
+                self.timing["first_step_s"] = t - t0
+            else:
+                self.timing["steady_s"] = self.timing.get("steady_s", 0.0) + t - t0
+                self.timing["steady_steps"] = self.timing.get("steady_steps", 0) + 1
 
     def median_step_s(self) -> float:
         return statistics.median(self.timing["step_s"][1:] or self.timing["step_s"])
@@ -209,7 +215,8 @@ class BasePoseGenerator(_Timed):
 
 class _OptimizerPoseGenerator(BasePoseGenerator):
     """Adam (or SGD) on a pose variable, the gradient through the soft
-    rasterizer and CLIP (pose_generation.py:102-173)."""
+    rasterizer and CLIP (pose_generation.py:102-173). ``steps`` counts the
+    steps taken: the id of the next step's spans (utils/trace.py)."""
 
     dim = 0
 
@@ -221,6 +228,7 @@ class _OptimizerPoseGenerator(BasePoseGenerator):
         self.optim_cfg = optim_cfg or {"lr": 0.01}
         self.num_iteration = num_iteration
         self.losses: list[torch.Tensor] = []  # every step's loss, on the device
+        self.steps = 0
 
     def make_optimizer(self, var: torch.Tensor):
         lr = self.optim_cfg.get("lr", 0.01)
@@ -232,7 +240,8 @@ class _OptimizerPoseGenerator(BasePoseGenerator):
         return torch.randn(self.dim, generator=self.gen)
 
     def draw_step(self) -> dict:
-        return {"elevs": torch.randn(len(ANGLES), generator=self.gen) * 0.3}
+        with trace.span("loop.draws", self.steps):
+            return {"elevs": torch.randn(len(ANGLES), generator=self.gen) * 0.3}
 
     def _decode(self, var: torch.Tensor) -> torch.Tensor:  # var -> (1, 63) body pose
         raise NotImplementedError
@@ -240,14 +249,19 @@ class _OptimizerPoseGenerator(BasePoseGenerator):
     def loss(self, var: torch.Tensor, text_feature: torch.Tensor, elevs: torch.Tensor):
         angles = torch.tensor(ANGLES, device=self.ctx.device)
         pf = self.ctx.pose_feature(self._decode(var), elevs.to(self.ctx.device), angles, soft=True)[0]
-        return 1.0 - clip_model.cosine_similarity(pf, text_feature)
+        with trace.span("clip.image"):
+            return 1.0 - clip_model.cosine_similarity(pf, text_feature)
 
     def step(self, var: torch.Tensor, opt, text_feature: torch.Tensor, draws: dict) -> torch.Tensor:
         """One Adam step on ``var`` (in place); the loss before it."""
-        opt.zero_grad(set_to_none=True)
-        loss = self.loss(var, text_feature, draws["elevs"])
-        loss.backward()
-        opt.step()
+        with trace.span("loop.step", self.steps):
+            opt.zero_grad(set_to_none=True)
+            loss = self.loss(var, text_feature, draws["elevs"])
+            with trace.span("backward"):
+                loss.backward()
+            with trace.span("loop.adam"):
+                opt.step()
+        self.steps += 1
         return loss.detach()
 
     def get_pose(self, text_feature: torch.Tensor) -> torch.Tensor:

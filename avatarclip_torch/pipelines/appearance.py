@@ -66,6 +66,7 @@ from ..fields import networks as nets
 from ..parallel import mesh as pmesh
 from ..render import cameras, neus, raster
 from ..utils import device as device_mod
+from ..utils import trace
 from ..utils.logging import MetricsLogger
 from ..utils.mp4 import write_mp4
 from ..utils.png import write_png
@@ -419,16 +420,17 @@ class Runner:
     def draw_clip(self, S: int) -> dict:
         """Every random draw of one train_clip step (main.py:375-453)."""
         g = self.gen
-        return {
-            "shift": int(torch.randint(0, S * S, (), generator=g)),
-            "choice": int(torch.randint(0, 4, (), generator=g)) if self.tc.use_bg_aug else 3,
-            "noise": torch.randn((S, S, 1), generator=g),
-            "chess_n": int(torch.randint(10, 20, (), generator=g)),
-            "chess_sigma": self._uniform(0.1, 2.0),
-            "light_dtheta": self._uniform(-np.pi / 4, np.pi / 4),
-            "light_dphi": self._uniform(-np.pi / 4, np.pi / 4),
-            "ambience": self._uniform(0.0, 0.2),
-        }
+        with trace.span("loop.draws"):
+            return {
+                "shift": int(torch.randint(0, S * S, (), generator=g)),
+                "choice": int(torch.randint(0, 4, (), generator=g)) if self.tc.use_bg_aug else 3,
+                "noise": torch.randn((S, S, 1), generator=g),
+                "chess_n": int(torch.randint(10, 20, (), generator=g)),
+                "chess_sigma": self._uniform(0.1, 2.0),
+                "light_dtheta": self._uniform(-np.pi / 4, np.pi / 4),
+                "light_dphi": self._uniform(-np.pi / 4, np.pi / 4),
+                "ambience": self._uniform(0.0, 0.2),
+            }
 
     def draw_photometric(self) -> dict:
         g, ds, B = self.gen, self.dataset, self.tc.batch_size
@@ -480,35 +482,37 @@ class Runner:
         R = min((R + 7) // 8 * 8, S * S)
         dil_iters = max(1, round(10 * S / 256))
         focal = ds.focal
-        pose = torch.as_tensor(cam["pose"], dtype=torch.float32, device=dev)
 
-        with torch.no_grad():  # GT template render (main.py:360)
+        with trace.span("render.gt_raster"), torch.no_grad():  # GT template render (main.py:360)
+            pose = torch.as_tensor(cam["pose"], dtype=torch.float32, device=dev)
             gt = raster.render_mesh(
                 template_v, template_f, pose, GT, GT, focal * GT / SENSOR,
                 normals=self._template_normals, face_normals=self._template_face_normals,
             )
             gt_rgb = gt["rgb"] if GT == S else clip_model.resize_image(gt["rgb"][None], S, S)[0]
-        mask_img = (gt_rgb.sum(-1) > 1e-6).float()
 
-        rays_o_g, rays_d_g = cameras.pixel_grid_rays(pose, S, S, focal, SENSOR, SENSOR)
-        if tc.use_silhouettes:
-            idx, _, _ = cameras.select_silhouette_rays(mask_img > 0.5, R, dil_iters, draws["shift"])
-        else:
-            idx = torch.arange(R, device=dev)
-        rays_o = rays_o_g.reshape(-1, 3)[idx]
-        rays_d = rays_d_g.reshape(-1, 3)[idx]
-        near, far = cameras.near_far_from_sphere(rays_o, rays_d)
+        with trace.span("render.rays"):
+            mask_img = (gt_rgb.sum(-1) > 1e-6).float()
+            rays_o_g, rays_d_g = cameras.pixel_grid_rays(pose, S, S, focal, SENSOR, SENSOR)
+            if tc.use_silhouettes:
+                idx, _, _ = cameras.select_silhouette_rays(mask_img > 0.5, R, dil_iters,
+                                                           draws["shift"])
+            else:
+                idx = torch.arange(R, device=dev)
+            rays_o = rays_o_g.reshape(-1, 3)[idx]
+            rays_d = rays_d_g.reshape(-1, 3)[idx]
+            near, far = cameras.near_far_from_sphere(rays_o, rays_d)
 
-        bg_img = sample_background(S, draws, dev)
-        bg_rays = bg_img.reshape(-1, 1)[idx]
-        mask = mask_img.reshape(-1, 1)
-        mask = (mask > 0.5).float() if tc.mask_weight > 0.0 else torch.ones_like(mask)
-        mask_sum = mask.sum() + 1e-5
-        true_rgb = gt_rgb.reshape(-1, 3)
+            bg_img = sample_background(S, draws, dev)
+            bg_rays = bg_img.reshape(-1, 1)[idx]
+            mask = mask_img.reshape(-1, 1)
+            mask = (mask > 0.5).float() if tc.mask_weight > 0.0 else torch.ones_like(mask)
+            mask_sum = mask.sum() + 1e-5
+            true_rgb = gt_rgb.reshape(-1, 3)
 
-        light_theta = torch.tensor(float(cam["theta"]) + draws["light_dtheta"], device=dev)
-        light_phi = torch.tensor(float(cam["phi"]) + draws["light_dphi"], device=dev)
-        light_dir = cameras.sphere_coord(light_theta, light_phi)
+            light_theta = torch.tensor(float(cam["theta"]) + draws["light_dtheta"], device=dev)
+            light_phi = torch.tensor(float(cam["phi"]) + draws["light_dphi"], device=dev)
+            light_dir = cameras.sphere_coord(light_theta, light_phi)
         ambience = draws["ambience"]
         if cam["face_iter"]:
             text_idx = 1
@@ -521,74 +525,77 @@ class Runner:
         out = neus.render(self.fields, ncfg, rays_o, rays_d, near, far, generator=self.gen,
                           background_rgb=bg_rays, cos_anneal_ratio=cos_anneal_ratio(tc, it),
                           per_ray=True, mesh=self.mesh)
-        color_fine = out["color_fine"]
-        extra = out["extra_color_fine"] if self.extra_color else color_fine
-        ws = out["weight_sum"].reshape(-1)
 
-        normals = out.get("normals_weighted")
-        if normals is None:
-            n_total = ncfg.n_samples + ncfg.n_importance
-            normals = (out["gradients"] * out["weights"][:, :n_total, None]).sum(1)
-        normals = normals / (normals.norm(dim=-1, keepdim=True) + 1e-7)
-        shading = (normals * light_dir).sum(-1, keepdim=True).clamp(0.0, 1.0)
-        shading = torch.nan_to_num(shading, nan=1.0)
-        rand_shading = ambience + (1.0 - ambience) * shading
-        lowws = (ws < 0.5)[:, None]
-        shading_rgb = torch.where(lowws, extra, rand_shading.expand(-1, 3))
-        rand_shading_full = torch.where(lowws, torch.ones_like(rand_shading), rand_shading)
-        texture_shading = (extra * rand_shading_full).clamp(0.0, 1.0)
+        with trace.span("render.shade"):
+            color_fine = out["color_fine"]
+            extra = out["extra_color_fine"] if self.extra_color else color_fine
+            ws = out["weight_sum"].reshape(-1)
 
-        # dense scatter (main.py:461-487); unrendered body pixels take the GT
-        # colour so the CLIP images have no holes and the losses see only
-        # rendered pixels
-        choice = draws["choice"]
-        if choice == 0:
-            bg3 = torch.ones(S * S, 3, device=dev)
-        elif choice == 3:
-            bg3 = torch.zeros(S * S, 3, device=dev)
-        else:
-            bg3 = bg_img.reshape(-1, 1).expand(-1, 3)
-        body = mask_img.reshape(-1, 1) > 0.5
-        clip_fill = torch.where(body, true_rgb, bg3)
-        chans = [
-            (color_fine, true_rgb),
-            (ws[:, None], body.float()),
-            (texture_shading if tc.texture_cast_light else extra, clip_fill),
-        ]
-        if tc.add_no_texture:
-            chans.append((shading_rgb, clip_fill))
-        dense = torch.cat([f for _, f in chans], 1).index_copy(
-            0, idx, torch.cat([v for v, _ in chans], 1)
-        )
-        color_dense, ws_dense, clip_src = dense[:, 0:3], dense[:, 3:4], dense[:, 4:7]
+            normals = out.get("normals_weighted")
+            if normals is None:
+                n_total = ncfg.n_samples + ncfg.n_importance
+                normals = (out["gradients"] * out["weights"][:, :n_total, None]).sum(1)
+            normals = normals / (normals.norm(dim=-1, keepdim=True) + 1e-7)
+            shading = (normals * light_dir).sum(-1, keepdim=True).clamp(0.0, 1.0)
+            shading = torch.nan_to_num(shading, nan=1.0)
+            rand_shading = ambience + (1.0 - ambience) * shading
+            lowws = (ws < 0.5)[:, None]
+            shading_rgb = torch.where(lowws, extra, rand_shading.expand(-1, 3))
+            rand_shading_full = torch.where(lowws, torch.ones_like(rand_shading), rand_shading)
+            texture_shading = (extra * rand_shading_full).clamp(0.0, 1.0)
 
-        color_loss = ((color_dense - true_rgb) * mask).abs().sum() / mask_sum
-        psnr = 20.0 * torch.log10(
-            1.0 / torch.sqrt(((color_dense - true_rgb) ** 2 * mask).sum() / (mask_sum * 3.0))
-        )
-        eikonal_loss = out["gradient_error"]
-        wsc = ws_dense.clamp(1e-3, 1.0 - 1e-3)
-        mask_loss = (-(mask * torch.log(wsc) + (1 - mask) * torch.log(1 - wsc))).mean()
+            # dense scatter (main.py:461-487); unrendered body pixels take the GT
+            # colour so the CLIP images have no holes and the losses see only
+            # rendered pixels
+            choice = draws["choice"]
+            if choice == 0:
+                bg3 = torch.ones(S * S, 3, device=dev)
+            elif choice == 3:
+                bg3 = torch.zeros(S * S, 3, device=dev)
+            else:
+                bg3 = bg_img.reshape(-1, 1).expand(-1, 3)
+            body = mask_img.reshape(-1, 1) > 0.5
+            clip_fill = torch.where(body, true_rgb, bg3)
+            chans = [
+                (color_fine, true_rgb),
+                (ws[:, None], body.float()),
+                (texture_shading if tc.texture_cast_light else extra, clip_fill),
+            ]
+            if tc.add_no_texture:
+                chans.append((shading_rgb, clip_fill))
+            dense = torch.cat([f for _, f in chans], 1).index_copy(
+                0, idx, torch.cat([v for v, _ in chans], 1)
+            )
+            color_dense, ws_dense, clip_src = dense[:, 0:3], dense[:, 3:4], dense[:, 4:7]
 
-        # both CLIP views ride one batch-2 ViT forward
-        clip_in = clip_model.resize_to_clip(clip_src.reshape(1, S, S, 3), clip_cfg.image_size)
-        if tc.add_no_texture:
-            shade_in = clip_model.resize_to_clip(dense[:, 7:10].reshape(1, S, S, 3),
-                                                 clip_cfg.image_size)
-            clip_in = torch.cat([clip_in, shade_in], 0)
-        emb = clip_model.encode_image(clip_params, clip_cfg, clip_model.normalize_image(clip_in))
-        cosine = clip_model.cosine_similarity(emb[0], text_emb)
-        clip_w = tc.clip_weight or 0.0
-        loss = (color_loss + eikonal_loss * tc.igr_weight + mask_loss * tc.mask_weight
-                + (1.0 - cosine) * clip_w)
-        metrics = {"color_loss": color_loss, "eikonal_loss": eikonal_loss,
-                   "mask_loss": mask_loss, "cosine": cosine, "psnr": psnr,
-                   "s_val": out["s_val"].mean()}
-        if tc.add_no_texture:
-            cosine_shading = clip_model.cosine_similarity(emb[1], text_emb)
-            loss = loss + (1.0 - cosine_shading) * clip_w
-            metrics["cosine_shading"] = cosine_shading
-        metrics["loss"] = loss
+            color_loss = ((color_dense - true_rgb) * mask).abs().sum() / mask_sum
+            psnr = 20.0 * torch.log10(
+                1.0 / torch.sqrt(((color_dense - true_rgb) ** 2 * mask).sum() / (mask_sum * 3.0))
+            )
+            eikonal_loss = out["gradient_error"]
+            wsc = ws_dense.clamp(1e-3, 1.0 - 1e-3)
+            mask_loss = (-(mask * torch.log(wsc) + (1 - mask) * torch.log(1 - wsc))).mean()
+
+        with trace.span("clip.image"):
+            # both CLIP views ride one batch-2 ViT forward
+            clip_in = clip_model.resize_to_clip(clip_src.reshape(1, S, S, 3), clip_cfg.image_size)
+            if tc.add_no_texture:
+                shade_in = clip_model.resize_to_clip(dense[:, 7:10].reshape(1, S, S, 3),
+                                                     clip_cfg.image_size)
+                clip_in = torch.cat([clip_in, shade_in], 0)
+            emb = clip_model.encode_image(clip_params, clip_cfg, clip_model.normalize_image(clip_in))
+            cosine = clip_model.cosine_similarity(emb[0], text_emb)
+            clip_w = tc.clip_weight or 0.0
+            loss = (color_loss + eikonal_loss * tc.igr_weight + mask_loss * tc.mask_weight
+                    + (1.0 - cosine) * clip_w)
+            metrics = {"color_loss": color_loss, "eikonal_loss": eikonal_loss,
+                       "mask_loss": mask_loss, "cosine": cosine, "psnr": psnr,
+                       "s_val": out["s_val"].mean()}
+            if tc.add_no_texture:
+                cosine_shading = clip_model.cosine_similarity(emb[1], text_emb)
+                loss = loss + (1.0 - cosine_shading) * clip_w
+                metrics["cosine_shading"] = cosine_shading
+            metrics["loss"] = loss
         return loss, {k: v.detach() for k, v in metrics.items()}
 
     def _clip_update(self, S: int, cam: dict, it: int) -> dict:
@@ -605,17 +612,19 @@ class Runner:
 
     def _backward(self, loss: torch.Tensor) -> None:
         """The parameters' gradients of ``loss``, summed over the mesh's ranks."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        pmesh.all_reduce_grads(self.fields.parameters(), self.mesh)
+        with trace.span("backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            pmesh.all_reduce_grads(self.fields.parameters(), self.mesh)
 
     def _step(self) -> None:
         """One Adam update at lr = schedule(update count)."""
-        lr = self.lr_schedule(self.update_count)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.update_count += 1
+        with trace.span("loop.adam"):
+            lr = self.lr_schedule(self.update_count)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+            self.update_count += 1
 
     # -- silhouette-resolution buckets ----------------------------------------
 
@@ -662,29 +671,35 @@ class Runner:
 
     def sample_iteration_camera(self, it: int, buckets=None):
         """Host-side camera + bucket of iteration ``it`` (seeded
-        np.random.default_rng([seed, it]), face camera every 4th iteration)."""
+        np.random.default_rng([seed, it]), face camera every 4th iteration);
+        its span, the step's first, notes the bucket and the camera's kind."""
         tc = self.tc
-        if buckets is None:
-            buckets = tuple(sorted(tc.sil_buckets)) or (tc.sil_res,)
-        face_iter = bool(tc.use_face_prompt) and (it % 4 == 0)
-        rng = np.random.default_rng([self._camera_seed, it])
-        cam = cameras.sample_training_camera(rng, face_iter, tc.head_height)
-        if len(buckets) > 1:
-            if not hasattr(self, "_sil_cov_table"):
-                self._calibrate_sil_coverage()
-            S = self._pick_sil_bucket(buckets, cam)
-        else:
-            S = buckets[0]
+        with trace.span("loop.camera", it) as sp:
+            if buckets is None:
+                buckets = tuple(sorted(tc.sil_buckets)) or (tc.sil_res,)
+            face_iter = bool(tc.use_face_prompt) and (it % 4 == 0)
+            rng = np.random.default_rng([self._camera_seed, it])
+            cam = cameras.sample_training_camera(rng, face_iter, tc.head_height)
+            if len(buckets) > 1:
+                if not hasattr(self, "_sil_cov_table"):
+                    self._calibrate_sil_coverage()
+                S = self._pick_sil_bucket(buckets, cam)
+            else:
+                S = buckets[0]
+            if sp is not trace.NULL:
+                sp.note(S=S, face=face_iter)
         return cam, S
 
     # -- train loops --------------------------------------------------------
 
     def _timed(self, fn):
         t0 = time.perf_counter()
-        metrics = fn()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.step_seconds.append(time.perf_counter() - t0)
+        with trace.span("loop.step", self.iter_step):
+            metrics = fn()
+        with trace.span("loop.sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.step_seconds.append(time.perf_counter() - t0)
         return metrics
 
     def _open_logger(self):
@@ -734,14 +749,15 @@ class Runner:
 
     def profile_trace(self, out_dir: str, n_iters: int = 3) -> str:
         """A torch.profiler trace of ``n_iters`` train_clip steps (iterations
-        1..n_iters, one ``train_clip_step`` range each), after one warm-up
+        1..n_iters; each the ``loop.camera`` and ``loop.step`` spans, the
+        step's layers nested in the latter, utils/trace.py), after one warm-up
         step (iteration 0) outside the window, synchronised at both ends;
         written as the Chrome trace ``out_dir/trace.json``. Shapes and stacks
         are not recorded. The fields, the optimizer and the update count are
         restored afterwards, as JAX's functional steps leave the Runner's
         parameters as they were; the step draws advance the generator, as
         JAX's split advances its key."""
-        from torch.profiler import ProfilerActivity, profile, record_function
+        from torch.profiler import ProfilerActivity, profile
 
         if self._clip is None:
             self.init_clip()
@@ -754,7 +770,8 @@ class Runner:
 
         def step(it):
             cam, S = self.sample_iteration_camera(it, buckets)
-            self._clip_update(S, cam, it)
+            with trace.span("loop.step", it):
+                self._clip_update(S, cam, it)
 
         step(0)
         device_mod.sync(self.device)
@@ -763,8 +780,7 @@ class Runner:
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities, record_shapes=False, with_stack=False) as prof:
             for i in range(n_iters):
-                with record_function("train_clip_step"):
-                    step(i + 1)
+                step(i + 1)
             device_mod.sync(self.device)
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))

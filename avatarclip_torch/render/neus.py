@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from ..fields import networks as nets
 from ..ops import fused_composite, fused_neus
 from ..parallel import mesh as pmesh
+from ..utils import trace
 
 # test hook: None = gate on device / config; True / False forces the
 # megakernel path on / off (on a CPU tensor it runs the kernels' plain versions)
@@ -226,88 +227,89 @@ def _render_core(fields: nets.NeuSFields, cfg: NeuSConfig, rays_o, rays_d, z_val
                  background_rgb=None, cos_anneal_ratio: float = 0.0, per_ray: bool = False):
     """render_core on one rank's rays, gradient_error as its partial sums
     [num, den]."""
-    R, S = z_vals.shape
-    dists = z_vals[:, 1:] - z_vals[:, :-1]
-    dists = torch.cat([dists, torch.full_like(dists[:, :1], sample_dist)], -1)
-    mid_z = z_vals + dists * 0.5
-    inv_s = fields.variance.inv_s().clamp(1e-6, 1e6)
+    with trace.span("render.neus_core"):
+        R, S = z_vals.shape
+        dists = z_vals[:, 1:] - z_vals[:, :-1]
+        dists = torch.cat([dists, torch.full_like(dists[:, :1], sample_dist)], -1)
+        mid_z = z_vals + dists * 0.5
+        inv_s = fields.variance.inv_s().clamp(1e-6, 1e6)
 
-    use_mega = _use_mega(fields, rays_o, S, background_alpha)
-    if use_mega and not per_ray:
-        return _render_core_points(fields, cfg, rays_o, rays_d, mid_z, dists, inv_s,
-                                   cos_anneal_ratio, background_rgb, R, S)
-    if use_mega:
-        col_w, normals_w, weight_sum, gradient_error = fused_neus.point_eval_ray(
-            fields.sdf, fields.color, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal_ratio
+        use_mega = _use_mega(fields, rays_o, S, background_alpha)
+        if use_mega and not per_ray:
+            return _render_core_points(fields, cfg, rays_o, rays_d, mid_z, dists, inv_s,
+                                       cos_anneal_ratio, background_rgb, R, S)
+        if use_mega:
+            col_w, normals_w, weight_sum, gradient_error = fused_neus.point_eval_ray(
+                fields.sdf, fields.color, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal_ratio
+            )
+            color = col_w[:, :3]
+            extra_color = col_w[:, 3:6] if cfg.extra_color else None
+            if background_rgb is not None:
+                if cfg.extra_color:
+                    extra_color = extra_color + background_rgb * (1.0 - weight_sum)
+                else:
+                    color = color + background_rgb * (1.0 - weight_sum)
+            return {
+                "color": color, "extra_color": extra_color, "sdf": None, "dists": dists,
+                "gradients": None, "s_val": 1.0 / inv_s, "mid_z_vals": mid_z, "weights": None,
+                "weight_sum": weight_sum, "cdf": None, "gradient_error": gradient_error,
+                "inside_sphere": None, "normals_weighted": normals_w,
+            }
+
+        pts = (rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., None]).reshape(-1, 3)
+        dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
+        sdf, feature, gradients = nets.sdf_with_gradient(fields.sdf, pts)
+        raw_color = nets.color_eval(fields.color, pts, gradients, dirs, feature)
+        if cfg.extra_color:
+            raw_color = raw_color.reshape(R, S, 6)
+            sampled_color, extra_sampled_color = raw_color[..., :3], raw_color[..., 3:]
+        else:
+            sampled_color, extra_sampled_color = raw_color.reshape(R, S, 3), None
+
+        true_cos = (dirs * gradients).sum(-1, keepdim=True)
+        r = cos_anneal_ratio
+        iter_cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - r) + torch.relu(-true_cos) * r)
+        est_next_sdf = sdf + iter_cos * dists.reshape(-1, 1) * 0.5
+        est_prev_sdf = sdf - iter_cos * dists.reshape(-1, 1) * 0.5
+        prev_cdf = torch.sigmoid(est_prev_sdf * inv_s)
+        next_cdf = torch.sigmoid(est_next_sdf * inv_s)
+        p, c = prev_cdf - next_cdf, prev_cdf
+        alpha = ((p + 1e-5) / (c + 1e-5)).reshape(R, S).clamp(0.0, 1.0)
+
+        pts_norm = pts.norm(dim=-1).reshape(R, S)
+        inside_sphere = (pts_norm < 1.0).float().detach()
+        relax_inside_sphere = (pts_norm < 1.2).float().detach()
+
+        if background_alpha is not None:
+            alpha = alpha * inside_sphere + background_alpha[:, :S] * (1.0 - inside_sphere)
+            alpha = torch.cat([alpha, background_alpha[:, S:]], -1)
+            sampled_color = (sampled_color * inside_sphere[..., None]
+                             + background_sampled_color[:, :S] * (1.0 - inside_sphere)[..., None])
+            sampled_color = torch.cat([sampled_color, background_sampled_color[:, S:]], 1)
+
+        trans = torch.cumprod(
+            torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha + 1e-7], -1), -1
+        )[:, :-1]
+        weights = alpha * trans
+        weights_sum = weights.sum(-1, keepdim=True)
+        color = (sampled_color * weights[..., None]).sum(1)
+        extra_color = (
+            (extra_sampled_color * weights[:, :S, None]).sum(1) if cfg.extra_color else None
         )
-        color = col_w[:, :3]
-        extra_color = col_w[:, 3:6] if cfg.extra_color else None
         if background_rgb is not None:
             if cfg.extra_color:
-                extra_color = extra_color + background_rgb * (1.0 - weight_sum)
+                extra_color = extra_color + background_rgb * (1.0 - weights_sum)
             else:
-                color = color + background_rgb * (1.0 - weight_sum)
+                color = color + background_rgb * (1.0 - weights_sum)
+
+        gradients = gradients.reshape(R, S, 3)
+        gradient_error = fused_neus.eikonal(relax_inside_sphere, (gradients.norm(dim=-1) - 1.0) ** 2)
         return {
-            "color": color, "extra_color": extra_color, "sdf": None, "dists": dists,
-            "gradients": None, "s_val": 1.0 / inv_s, "mid_z_vals": mid_z, "weights": None,
-            "weight_sum": weight_sum, "cdf": None, "gradient_error": gradient_error,
-            "inside_sphere": None, "normals_weighted": normals_w,
+            "color": color, "extra_color": extra_color, "sdf": sdf, "dists": dists,
+            "gradients": gradients, "s_val": 1.0 / inv_s, "mid_z_vals": mid_z,
+            "weights": weights, "cdf": c.reshape(R, S), "gradient_error": gradient_error,
+            "inside_sphere": inside_sphere,
         }
-
-    pts = (rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., None]).reshape(-1, 3)
-    dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
-    sdf, feature, gradients = nets.sdf_with_gradient(fields.sdf, pts)
-    raw_color = nets.color_eval(fields.color, pts, gradients, dirs, feature)
-    if cfg.extra_color:
-        raw_color = raw_color.reshape(R, S, 6)
-        sampled_color, extra_sampled_color = raw_color[..., :3], raw_color[..., 3:]
-    else:
-        sampled_color, extra_sampled_color = raw_color.reshape(R, S, 3), None
-
-    true_cos = (dirs * gradients).sum(-1, keepdim=True)
-    r = cos_anneal_ratio
-    iter_cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - r) + torch.relu(-true_cos) * r)
-    est_next_sdf = sdf + iter_cos * dists.reshape(-1, 1) * 0.5
-    est_prev_sdf = sdf - iter_cos * dists.reshape(-1, 1) * 0.5
-    prev_cdf = torch.sigmoid(est_prev_sdf * inv_s)
-    next_cdf = torch.sigmoid(est_next_sdf * inv_s)
-    p, c = prev_cdf - next_cdf, prev_cdf
-    alpha = ((p + 1e-5) / (c + 1e-5)).reshape(R, S).clamp(0.0, 1.0)
-
-    pts_norm = pts.norm(dim=-1).reshape(R, S)
-    inside_sphere = (pts_norm < 1.0).float().detach()
-    relax_inside_sphere = (pts_norm < 1.2).float().detach()
-
-    if background_alpha is not None:
-        alpha = alpha * inside_sphere + background_alpha[:, :S] * (1.0 - inside_sphere)
-        alpha = torch.cat([alpha, background_alpha[:, S:]], -1)
-        sampled_color = (sampled_color * inside_sphere[..., None]
-                         + background_sampled_color[:, :S] * (1.0 - inside_sphere)[..., None])
-        sampled_color = torch.cat([sampled_color, background_sampled_color[:, S:]], 1)
-
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha + 1e-7], -1), -1
-    )[:, :-1]
-    weights = alpha * trans
-    weights_sum = weights.sum(-1, keepdim=True)
-    color = (sampled_color * weights[..., None]).sum(1)
-    extra_color = (
-        (extra_sampled_color * weights[:, :S, None]).sum(1) if cfg.extra_color else None
-    )
-    if background_rgb is not None:
-        if cfg.extra_color:
-            extra_color = extra_color + background_rgb * (1.0 - weights_sum)
-        else:
-            color = color + background_rgb * (1.0 - weights_sum)
-
-    gradients = gradients.reshape(R, S, 3)
-    gradient_error = fused_neus.eikonal(relax_inside_sphere, (gradients.norm(dim=-1) - 1.0) ** 2)
-    return {
-        "color": color, "extra_color": extra_color, "sdf": sdf, "dists": dists,
-        "gradients": gradients, "s_val": 1.0 / inv_s, "mid_z_vals": mid_z,
-        "weights": weights, "cdf": c.reshape(R, S), "gradient_error": gradient_error,
-        "inside_sphere": inside_sphere,
-    }
 
 
 def _render_core_points(fields, cfg, rays_o, rays_d, mid_z, dists, inv_s, cos_anneal_ratio,
@@ -381,34 +383,35 @@ def _render(fields: nets.NeuSFields, cfg: NeuSConfig, rays_o, rays_d, near, far,
     dev = rays_o.device
     n_out = cfg.n_outside
     sample_dist = 2.0 / cfg.n_samples
-    z_vals = torch.linspace(0.0, 1.0, cfg.n_samples, device=dev)
-    z_vals = near + (far - near) * z_vals[None, :]
-    z_out = None
-    if n_out > 0:
-        z_out = torch.linspace(1e-3, 1.0 - 1.0 / (n_out + 1.0), n_out, device=dev)
-    if t_in is not None:
-        t_rand = t_in.to(dev) - 0.5
-        z_vals = z_vals + t_rand * 2.0 / cfg.n_samples
+    with trace.span("render.neus_sweeps"):
+        z_vals = torch.linspace(0.0, 1.0, cfg.n_samples, device=dev)
+        z_vals = near + (far - near) * z_vals[None, :]
+        z_out = None
         if n_out > 0:
-            mids = 0.5 * (z_out[1:] + z_out[:-1])
-            upper = torch.cat([mids, z_out[-1:]])
-            lower = torch.cat([z_out[:1], mids])
-            z_out = lower[None, :] + (upper - lower)[None, :] * t_out.to(dev)
-    if n_out > 0:
-        z_out = far / torch.flip(z_out, dims=[-1]) + 1.0 / cfg.n_samples
+            z_out = torch.linspace(1e-3, 1.0 - 1.0 / (n_out + 1.0), n_out, device=dev)
+        if t_in is not None:
+            t_rand = t_in.to(dev) - 0.5
+            z_vals = z_vals + t_rand * 2.0 / cfg.n_samples
+            if n_out > 0:
+                mids = 0.5 * (z_out[1:] + z_out[:-1])
+                upper = torch.cat([mids, z_out[-1:]])
+                lower = torch.cat([z_out[:1], mids])
+                z_out = lower[None, :] + (upper - lower)[None, :] * t_out.to(dev)
+        if n_out > 0:
+            z_out = far / torch.flip(z_out, dims=[-1]) + 1.0 / cfg.n_samples
 
-    if cfg.n_importance > 0:
-        with torch.no_grad():
-            sdf_fn = functools.partial(nets.sdf_value, fields.sdf)
-            pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-            sdf = sdf_fn(pts.reshape(-1, 3)).reshape(R, cfg.n_samples)
-            zi = z_vals
-            for i in range(cfg.up_sample_steps):
-                new_z = up_sample(rays_o, rays_d, zi, sdf,
-                                  cfg.n_importance // cfg.up_sample_steps, 64 * 2**i)
-                zi, sdf = cat_z_vals(sdf_fn, rays_o, rays_d, zi, new_z, sdf,
-                                     last=(i + 1 == cfg.up_sample_steps))
-        z_vals = zi.detach()
+        if cfg.n_importance > 0:
+            with torch.no_grad():
+                sdf_fn = functools.partial(nets.sdf_value, fields.sdf)
+                pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+                sdf = sdf_fn(pts.reshape(-1, 3)).reshape(R, cfg.n_samples)
+                zi = z_vals
+                for i in range(cfg.up_sample_steps):
+                    new_z = up_sample(rays_o, rays_d, zi, sdf,
+                                      cfg.n_importance // cfg.up_sample_steps, 64 * 2**i)
+                    zi, sdf = cat_z_vals(sdf_fn, rays_o, rays_d, zi, new_z, sdf,
+                                         last=(i + 1 == cfg.up_sample_steps))
+            z_vals = zi.detach()
 
     background_alpha = background_sampled_color = None
     if n_out > 0:

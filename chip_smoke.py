@@ -315,10 +315,10 @@ def check_zbuffer(runner, dev):
         coef, valid, _ = raster._face_coefficients(proj, f)
         args = (coef, valid, proj.sx[f], proj.sy[f], H, W)
         want = rz.zbuffer_select_plain(coef, valid, H, W)
-        n0 = rz.LAUNCHES["zbuffer_tiled"]
+        n0 = read_counts()["zbuffer_tiled"]
         got = rz.zbuffer_select_tiled(*args)
-        if rz.LAUNCHES["zbuffer_tiled"] != n0 + 1:
-            fail(f"B2 {name}: {rz.LAUNCHES['zbuffer_tiled'] - n0} counted launches for one call")
+        if read_counts()["zbuffer_tiled"] != n0 + 1:
+            fail(f"B2 {name}: {read_counts()['zbuffer_tiled'] - n0} counted launches for one call")
         _, n = same_winners(f"z-buffer {name}", got, want, coef, W)
         if n:
             fail(f"B2 {name}: {n} pixels differ from the plain version (near-ties included)")
@@ -2005,10 +2005,10 @@ def hold_brute(tag, coef, valid, sx, sy, H, W) -> int:
 
     from avatarclip_torch.ops import raster_zbuffer as rz
 
-    n0 = rz.LAUNCHES["zbuffer_brute"]
+    n0 = read_counts()["zbuffer_brute"]
     got = rz.zbuffer_select(coef, valid, H, W)
-    if rz.LAUNCHES["zbuffer_brute"] != n0 + 1:
-        fail(f"#15 {tag}: {rz.LAUNCHES['zbuffer_brute'] - n0} counted launches for one call")
+    if read_counts()["zbuffer_brute"] != n0 + 1:
+        fail(f"#15 {tag}: {read_counts()['zbuffer_brute'] - n0} counted launches for one call")
     for what, want in (("the plain version", rz.zbuffer_select_plain(coef, valid, H, W)),
                        ("B2", rz.zbuffer_select_tiled(coef, valid, sx, sy, H, W))):
         if not torch.equal(got, want):
@@ -2075,21 +2075,16 @@ def check_zbuffer_brute(runner, dev):
 # ---------------------------------------------------------------------------
 
 
-def counted_modules():
-    from avatarclip_torch.ops import (fused_color, fused_composite, fused_neus, fused_sdf,
-                                      fused_soft, raster_zbuffer)
-
-    return (raster_zbuffer, fused_neus, fused_composite, fused_soft, fused_sdf, fused_color)
-
-
 def zero_counts():
-    for m in counted_modules():
-        for k in m.LAUNCHES:
-            m.LAUNCHES[k] = 0
+    from avatarclip_torch.utils import trace
+
+    trace.reset_counters()
 
 
 def read_counts() -> dict:
-    return {k: v for m in counted_modules() for k, v in m.LAUNCHES.items()}
+    from avatarclip_torch.utils import trace
+
+    return trace.launches()
 
 
 def want_counts(**nonzero) -> dict:
@@ -3316,7 +3311,7 @@ def trace_kernels(path: str) -> dict:
             "zbuffer_binned_kernel": "zbuffer_binned_kernel"}
     out = {k: sum(bool(re.search(pat, n)) for n in names) for k, pat in keys.items()}
     out["steps"] = sum(1 for e in events
-                       if e.get("name") == "train_clip_step" and e.get("cat") == "user_annotation")
+                       if e.get("name") == "loop.step" and e.get("cat") == "user_annotation")
     out["kernel events"] = len(names)
     return out
 

@@ -13,6 +13,21 @@ import torch
 
 pytestmark = pytest.mark.cuda
 
+_KEYS = {"raster_zbuffer": ("zbuffer_tiled", "zbuffer_brute"),
+         "fused_neus": ("neus_ray_fwd", "neus_ray_bwd", "neus_point_fwd", "neus_point_bwd"),
+         "fused_composite": ("composite_fwd", "composite_bwd"),
+         "fused_soft": ("soft_fwd", "soft_bwd", "soft_fwd_reduce", "soft_bwd_reduce"),
+         "fused_sdf": ("sdf_fwd", "sdf_bwd", "sdf_only_fwd"),
+         "fused_color": ("color_fwd", "color_bwd")}
+
+
+def launches(module) -> dict:
+    """The launch registry's counts of one kernel module's wrappers."""
+    from avatarclip_torch.utils import trace
+
+    counts = trace.launches()
+    return {k: counts[k] for k in _KEYS[module.__name__.rsplit(".", 1)[1]]}
+
 
 @pytest.fixture
 def dev():
@@ -57,9 +72,9 @@ def test_zbuffer_kernel_matches_plain(dev, scene):
     from avatarclip_torch.ops import raster_zbuffer as rz
 
     coef, valid, sx, sy, H, W = _zbuffer_scene(scene, dev)
-    n0 = rz.LAUNCHES["zbuffer_tiled"]
+    n0 = launches(rz)["zbuffer_tiled"]
     got = rz.zbuffer_select_tiled(coef, valid, sx, sy, H, W)
-    assert rz.LAUNCHES["zbuffer_tiled"] == n0 + 1
+    assert launches(rz)["zbuffer_tiled"] == n0 + 1
     want = rz.zbuffer_select_plain(coef, valid, H, W)
     assert int((want >= 0).sum()) > 500
     assert torch.equal(got, want)
@@ -148,10 +163,10 @@ def test_neus_point_kernel_pair_matches_plain(dev):
         loss = sum((o * p).sum() for o, p in zip(outs[:5], probes)) + outs[6]
         return outs, torch.autograd.grad(loss, list(fields.parameters()) + xs)
 
-    n0 = dict(fn.LAUNCHES)
+    n0 = launches(fn)
     ok, gk = run(fn.point_eval)
-    assert fn.LAUNCHES["neus_point_fwd"] == n0["neus_point_fwd"] + 1
-    assert fn.LAUNCHES["neus_point_bwd"] == n0["neus_point_bwd"] + 1
+    assert launches(fn)["neus_point_fwd"] == n0["neus_point_fwd"] + 1
+    assert launches(fn)["neus_point_bwd"] == n0["neus_point_bwd"] + 1
     op, gp = run(fn.point_eval_plain)
     for a, b in zip(ok, op):
         assert (a.detach() - b.detach()).abs().max() <= 1e-4 * max(b.detach().abs().max(), 1e-6)
@@ -178,10 +193,10 @@ def test_composite_kernel_pair_matches_plain(dev, W, R, S):
         outs = f(*xs)
         return outs, torch.autograd.grad(sum((o * c).sum() for o, c in zip(outs, cots)), xs)
 
-    n0 = dict(fc.LAUNCHES)
+    n0 = launches(fc)
     ok, gk = run(fc.composite)
-    assert fc.LAUNCHES["composite_fwd"] == n0["composite_fwd"] + 1
-    assert fc.LAUNCHES["composite_bwd"] == n0["composite_bwd"] + 1
+    assert launches(fc)["composite_fwd"] == n0["composite_fwd"] + 1
+    assert launches(fc)["composite_bwd"] == n0["composite_bwd"] + 1
     op, gp = run(fc.composite_plain)
     for a, b in zip(list(ok) + list(gk), list(op) + list(gp)):
         assert (a.detach() - b.detach()).abs().max() <= 1e-5 * max(b.detach().abs().max(), 1e-6)
@@ -258,9 +273,9 @@ def _hold_soft(faces, tab, H, W, inv_sigma, cot, reference=None):
         return [o.detach() for o in outs], torch.autograd.grad(
             sum((o * c).sum() for o, c in zip(outs, cots)), [x])[0]
 
-    n0 = dict(fs.LAUNCHES)
+    n0 = launches(fs)
     ok, gk = run(lambda x: fs.aggregate(x, tab, H, W, inv_sigma), faces, cot)
-    assert {k: fs.LAUNCHES[k] - n0[k] for k in n0} == {k: 1 for k in n0}
+    assert {k: launches(fs)[k] - n0[k] for k in n0} == {k: 1 for k in n0}
     op, gp = run(reference, faces.double(), [c.double() for c in cot])
     for a, b in zip(ok, op):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
@@ -344,9 +359,9 @@ def test_sdf_kernel_pair_matches_plain(dev):
     P = 1000
     pts = (0.6 * torch.randn(P, 3, generator=g)).to(dev)
     cots = [(0.5 + torch.rand(P, k, generator=g)).to(dev) for k in (1, 256, 3)]
-    n0 = dict(fs.LAUNCHES)
+    n0 = launches(fs)
     ok, gk = hold.net_grads(fs.sdf_with_gradient_fused, sdf, [pts], cots)
-    assert fs.LAUNCHES == {**n0, "sdf_fwd": n0["sdf_fwd"] + 1, "sdf_bwd": n0["sdf_bwd"] + 1}
+    assert launches(fs) == {**n0, "sdf_fwd": n0["sdf_fwd"] + 1, "sdf_bwd": n0["sdf_bwd"] + 1}
     ref = copy.deepcopy(sdf).double()
     orf, grf = hold.net_grads(fs.sdf_with_gradient_plain, ref, [pts.double()], [c.double() for c in cots])
     assert max(hold.rel_errors(ok, orf)) <= 1e-4
@@ -375,9 +390,9 @@ def test_sdf_only_kernel_matches_plain(dev):
     P = 1000
     pts = (0.6 * torch.randn(P, 3, generator=g)).to(dev)
     cots = [(0.5 + torch.rand(P, 1, generator=g)).to(dev)]
-    n0 = dict(fs.LAUNCHES)
+    n0 = launches(fs)
     ok, gk = hold.net_grads(fs.sdf_value_fused, sdf, [pts], cots)
-    assert fs.LAUNCHES == {**n0, "sdf_only_fwd": n0["sdf_only_fwd"] + 1}
+    assert launches(fs) == {**n0, "sdf_only_fwd": n0["sdf_only_fwd"] + 1}
     ref = copy.deepcopy(sdf).double()
     orf, grf = hold.net_grads(fs.sdf_only_plain, ref, [pts.double()], [cots[0].double()])
     assert max(hold.rel_errors(ok, orf)) <= 1e-4
@@ -388,7 +403,7 @@ def test_sdf_only_kernel_matches_plain(dev):
             got = nets.sdf_value(sdf, pts)
     finally:
         nets._SWEEP_KERNEL = False
-    assert fs.LAUNCHES["sdf_only_fwd"] == n0["sdf_only_fwd"] + 2
+    assert launches(fs)["sdf_only_fwd"] == n0["sdf_only_fwd"] + 2
     assert torch.equal(got, ok[0].detach())
 
 
@@ -416,9 +431,9 @@ def test_zbuffer_brute_kernel_matches_plain_and_tiled(dev, shape, split, name):
         assert bool((want == -1).all())
     else:
         assert int((want >= 0).sum()) > 1000
-    n0 = dict(rz.LAUNCHES)
+    n0 = launches(rz)
     got = rz.zbuffer_select(coef, valid, H, W)
-    assert rz.LAUNCHES == {**n0, "zbuffer_brute": n0["zbuffer_brute"] + 1}
+    assert launches(rz) == {**n0, "zbuffer_brute": n0["zbuffer_brute"] + 1}
     if split:
         keys = torch.full((3 * H * W,), 7, dtype=torch.int32, device=dev)
         rz.brute_launch(coef, valid, keys, keys[2 * H * W:], H, W, split)
@@ -465,9 +480,9 @@ def test_color_kernel_pair_matches_plain(dev, mode, extra):
     ins = [t.to(dev) for t in ins]
     cots = [(0.5 + torch.rand(P, 6 if extra else 3, generator=g)).to(dev)]
 
-    n0 = dict(fc.LAUNCHES)
+    n0 = launches(fc)
     ok, gk = hold.net_grads(fc.color_apply_fused, color, ins, cots)
-    assert fc.LAUNCHES == {"color_fwd": n0["color_fwd"] + 1, "color_bwd": n0["color_bwd"] + 1}
+    assert launches(fc) == {"color_fwd": n0["color_fwd"] + 1, "color_bwd": n0["color_bwd"] + 1}
     ref = copy.deepcopy(color).double()
     ins64 = [t.double() for t in ins]
     orf, grf = hold.net_grads(fc.color_apply_plain, ref, ins64, [c.double() for c in cots])
@@ -525,9 +540,9 @@ def test_bf16_operand_mode_holds_against_the_f32_function(dev, kernel):
             loss = sum(((o * o).sum() if o.dim() else o) for o in outs)
             return outs + list(torch.autograd.grad(loss, list(flds.parameters()) + xs))
 
-        launches = fn.LAUNCHES["neus_ray_fwd" if kernel == "B1" else "neus_point_fwd"]
+        before = launches(fn)["neus_ray_fwd" if kernel == "B1" else "neus_point_fwd"]
         got = run(kernel_fn, fields, ins)
-        assert fn.LAUNCHES["neus_ray_fwd" if kernel == "B1" else "neus_point_fwd"] == launches + 1
+        assert launches(fn)["neus_ray_fwd" if kernel == "B1" else "neus_point_fwd"] == before + 1
         plain = run(plain_fn, fields, ins)
         ref = run(plain_fn, f64, [t.double() for t in ins])
     else:
@@ -594,10 +609,10 @@ def test_b3_tensor_core_forward_holds_at_bf16(dev, width, n_rays):
 
     fields, ins = _neus_fields(width, n_rays, dev, "bfloat16", seed=7)
     f64 = hold.f32_copy(fields).double()
-    n0 = fn.LAUNCHES["neus_point_fwd"]
+    n0 = launches(fn)["neus_point_fwd"]
     with torch.no_grad():
         got = fn.point_eval(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4)
-        assert fn.LAUNCHES["neus_point_fwd"] == n0 + 1
+        assert launches(fn)["neus_point_fwd"] == n0 + 1
         plain = fn.point_eval_plain(fields.sdf, fields.color, *ins, fields.variance.inv_s(), 0.4)
         ref = fn.point_eval_plain(f64.sdf, f64.color, *[t.double() for t in ins],
                                   f64.variance.inv_s(), 0.4)
@@ -625,9 +640,9 @@ def test_b6_tensor_core_backward_holds_at_bf16(dev):
     P = pts.shape[0]
     g = torch.Generator().manual_seed(9)
     cots = [(0.5 + torch.rand(P, k, generator=g)).to(dev) for k in (1, 256, 3)]
-    n0 = dict(fs.LAUNCHES)
+    n0 = launches(fs)
     ok, gk = hold.net_grads(fs.sdf_with_gradient_fused, fields.sdf, [pts], cots)
-    assert fs.LAUNCHES == {**n0, "sdf_fwd": n0["sdf_fwd"] + 1, "sdf_bwd": n0["sdf_bwd"] + 1}
+    assert launches(fs) == {**n0, "sdf_fwd": n0["sdf_fwd"] + 1, "sdf_bwd": n0["sdf_bwd"] + 1}
     op, gp = hold.net_grads(fs.sdf_with_gradient_plain, fields.sdf, [pts], cots)
     orf, grf = hold.net_grads(fs.sdf_with_gradient_plain, hold.f32_copy(fields.sdf).double(),
                               [pts.double()], [c.double() for c in cots])
@@ -647,10 +662,10 @@ def test_b6_tensor_core_forward_holds_at_bf16(dev, width):
 
     fields, (ro, rd, mid, _) = _neus_fields(width, 2048, dev, "bfloat16", seed=10)
     pts = (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3)[:-1].contiguous()
-    n0 = dict(fs.LAUNCHES)
+    n0 = launches(fs)
     with torch.no_grad():
         got = fs.sdf_with_gradient_fused(fields.sdf, pts)
-    assert fs.LAUNCHES == {**n0, "sdf_fwd": n0["sdf_fwd"] + 1}
+    assert launches(fs) == {**n0, "sdf_fwd": n0["sdf_fwd"] + 1}
     plain = [t.detach() for t in fs.sdf_with_gradient_plain(fields.sdf, pts)]
     ref = [t.detach() for t in fs.sdf_with_gradient_plain(hold.f32_copy(fields.sdf).double(),
                                                           pts.double())]
@@ -690,9 +705,9 @@ def test_b7_tensor_core_backward_holds_at_bf16(dev, width, mode, extra):
             p.add_(0.02 * torch.randn(p.shape, generator=g))
     net = net.to(dev)
     cots = [(0.5 + torch.rand(P, 6 if extra else 3, generator=g)).to(dev)]
-    n0 = dict(fc.LAUNCHES)
+    n0 = launches(fc)
     ok, gk = hold.net_grads(fc.color_apply_fused, net, ins, cots)
-    assert fc.LAUNCHES == {"color_fwd": n0["color_fwd"] + 1, "color_bwd": n0["color_bwd"] + 1}
+    assert launches(fc) == {"color_fwd": n0["color_fwd"] + 1, "color_bwd": n0["color_bwd"] + 1}
     op, gp = hold.net_grads(fc.color_apply_plain, net, ins, cots)
     orf, grf = hold.net_grads(fc.color_apply_plain, hold.f32_copy(net).double(),
                               [t.double() for t in ins], [c.double() for c in cots])
@@ -732,13 +747,13 @@ def test_b7_tensor_core_forward_holds_at_bf16(dev, width, mode, extra):
         for p in net.parameters():
             p.add_(0.02 * torch.randn(p.shape, generator=g))
     net = net.to(dev)
-    n0 = dict(fc.LAUNCHES)
+    n0 = launches(fc)
     with torch.no_grad():
         got = fc.color_apply_fused(net, *ins)
         again = fc.color_apply_fused(net, *ins)
         plain = fc.color_apply_plain(net, *ins)
         ref = fc.color_apply_plain(hold.f32_copy(net).double(), *[t.double() for t in ins])
-    assert fc.LAUNCHES == {"color_fwd": n0["color_fwd"] + 2, "color_bwd": n0["color_bwd"]}
+    assert launches(fc) == {"color_fwd": n0["color_fwd"] + 2, "color_bwd": n0["color_bwd"]}
     assert got.shape == (P, 6 if extra else 3) and torch.equal(got, again)
     ek, ep, ok = hold.bf16_within(got, plain, ref)
     assert ok, (ek, ep)
@@ -764,10 +779,10 @@ def test_composite_forward_holds_at_any_alignment(dev, W, R, S):
         ins[0] = ins[0].mul_(0.3)
         ins[0][::5, S // 2] = 1.0  # opaque samples
         assert [t.data_ptr() % 16 // 4 for t in ins] == list(shift)
-        n0 = fc.LAUNCHES["composite_fwd"]
+        n0 = launches(fc)["composite_fwd"]
         with torch.no_grad():
             got = fc.composite(*ins)
-        assert fc.LAUNCHES["composite_fwd"] == n0 + 1
+        assert launches(fc)["composite_fwd"] == n0 + 1
         ref = fc.composite_plain(*[t.double() for t in ins])
         for a, b in zip(got, ref):
             assert (a.double() - b).abs().max() <= 1e-5 * max(float(b.abs().max()), 1e-6)
@@ -791,9 +806,9 @@ def test_sdf_only_tensor_core_forward_holds_at_bf16(dev, width):
     pts = (ro[:, None] + rd[:, None] * mid[..., None]).reshape(-1, 3)[:20001].contiguous()
     cots = [torch.rand(pts.shape[0], 1, generator=torch.Generator().manual_seed(16)).to(dev)]
     for step in range(2):
-        n0 = dict(fs.LAUNCHES)
+        n0 = launches(fs)
         ok, gk = hold.net_grads(fs.sdf_value_fused, sdf, [pts], cots)
-        assert fs.LAUNCHES == {**n0, "sdf_only_fwd": n0["sdf_only_fwd"] + 1}
+        assert launches(fs) == {**n0, "sdf_only_fwd": n0["sdf_only_fwd"] + 1}
         op, gp = hold.net_grads(fs.sdf_only_plain, sdf, [pts], cots)
         orf, grf = hold.net_grads(fs.sdf_only_plain, hold.f32_copy(sdf).double(), [pts.double()],
                                   [cots[0].double()])
@@ -830,9 +845,9 @@ def test_b3_tensor_core_backward_holds_at_bf16(dev, width, n_rays, S):
         loss = sum((o * p).sum() for o, p in zip(used, probes))
         return list(torch.autograd.grad(loss, list(flds.parameters()) + xs))
 
-    n0 = dict(fn.LAUNCHES)
+    n0 = launches(fn)
     got = grads(fn.point_eval, fields, ins)
-    assert fn.LAUNCHES["neus_point_bwd"] == n0["neus_point_bwd"] + 1
+    assert launches(fn)["neus_point_bwd"] == n0["neus_point_bwd"] + 1
     assert all(torch.equal(a, b) for a, b in zip(got, grads(fn.point_eval, fields, ins)))
     plain = grads(fn.point_eval_plain, fields, ins)
     probes = [p.double() if torch.is_tensor(p) else p for p in probes]
@@ -864,9 +879,9 @@ def test_composite_backward_holds_at_any_alignment(dev, W, R, S):
         ins[0] = ins[0].mul_(0.3)
         ins[0][::5, S // 2] = 1.0  # opaque samples
         cots = [at(s, (shift + i) % 4) for i, s in enumerate(((R, S), (R, 3), (R, 3), (R, 3)))]
-        n0 = fc.LAUNCHES["composite_bwd"]
+        n0 = launches(fc)["composite_bwd"]
         got = fc.composite_bwd(*ins, *cots)
-        assert fc.LAUNCHES["composite_bwd"] == n0 + 1
+        assert launches(fc)["composite_bwd"] == n0 + 1
         xs = [t.double().requires_grad_(True) for t in ins]
         ref = torch.autograd.grad(sum((o * c.double()).sum() for o, c in
                                       zip(fc.composite_plain(*xs), cots)), xs)

@@ -24,6 +24,7 @@ from avatarclip_tpu.ops import fused_sdf as jfs
 from avatarclip_tpu.utils.pytree import tree_flatten_paths
 from avatarclip_torch.fields import networks as tnets
 from avatarclip_torch.ops import fused_color as tfc
+from avatarclip_torch.utils import trace
 from avatarclip_torch.utils.convert import params_from_jax
 
 OUT_TOL, GRAD_TOL = 1e-4, 1e-3
@@ -124,7 +125,7 @@ def test_gate_takes_the_plain_module_on_the_cpu():
     g = torch.Generator().manual_seed(2)
     xs = [torch.randn(40, k, generator=g) for k in (3, 3, 3, 256)]
     torch.testing.assert_close(tnets.color_eval(color, *xs), color(*xs), rtol=0, atol=0)
-    n0 = dict(tfc.LAUNCHES)
+    n0 = trace.launches()
     with pytest.raises(ValueError, match="CUDA"):
         tfc.color_apply_fused(color, *xs)
-    assert tfc.LAUNCHES == n0
+    assert trace.launches() == n0

@@ -22,6 +22,7 @@ from avatarclip_tpu.ops import fused_sdf as jfs
 from avatarclip_tpu.utils.pytree import tree_flatten_paths
 from avatarclip_torch.fields import networks as tnets
 from avatarclip_torch.ops import fused_sdf as tfs
+from avatarclip_torch.utils import trace
 from avatarclip_torch.utils.convert import params_from_jax
 
 OUT_TOL, GRAD_TOL = 1e-4, 1e-3
@@ -110,7 +111,7 @@ def test_gate_takes_the_plain_module_on_the_cpu():
     want = sdf.sdf_with_gradient(pts)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    n0 = dict(tfs.LAUNCHES)
+    n0 = trace.launches()
     with pytest.raises(ValueError, match="CUDA"):
         tfs.sdf_with_gradient_fused(sdf, pts)
-    assert tfs.LAUNCHES == n0
+    assert trace.launches() == n0

@@ -432,7 +432,7 @@ def test_schedule_pose_motion_sequencing(sched, monkeypatch):
 def _trace_steps(out_dir) -> int:
     with open(os.path.join(out_dir, "trace.json")) as f:
         trace = json.load(f)
-    return sum(1 for e in trace["traceEvents"] if e.get("name") == "train_clip_step")
+    return sum(1 for e in trace["traceEvents"] if e.get("name") == "loop.step")
 
 
 def test_profile_trace_writes_n_steps_and_leaves_the_fields(tmp_path):

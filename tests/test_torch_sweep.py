@@ -26,6 +26,7 @@ from avatarclip_torch.fields import networks as tnets
 from avatarclip_torch.ops import fused_sdf as tfs
 from avatarclip_torch.ops import raster_zbuffer as trz
 from avatarclip_torch.render import raster as traster
+from avatarclip_torch.utils import trace
 from avatarclip_torch.utils.convert import params_from_jax
 from test_torch_raster import _assert_same_winners, _pose
 
@@ -106,14 +107,14 @@ def test_sdf_only_vjp_matches_jax(nets, monkeypatch):
 def test_sweep_hook_on_a_cpu_tensor_is_the_module(nets, monkeypatch):
     _, _, sdf, pts = nets
     x = torch.from_numpy(pts)
-    n0 = dict(tfs.LAUNCHES)
+    n0 = trace.launches()
     assert tnets._SWEEP_KERNEL is False  # the JAX package's default
     for hook in (False, True):
         monkeypatch.setattr(tnets, "_SWEEP_KERNEL", hook)
         torch.testing.assert_close(tnets.sdf_value(sdf, x), sdf.sdf(x), rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA"):
         tfs.sdf_value_fused(sdf, x)
-    assert tfs.LAUNCHES == n0
+    assert trace.launches() == n0
 
 
 def test_sdf_only_queries_go_through_sdf_value(tmp_path, monkeypatch):
@@ -153,8 +154,8 @@ def test_zbuffer_select_plain_matches_pallas_interpret(H, W):
     want = np.asarray(jrz.zbuffer_select(jnp.asarray(pix), coef, valid, interpret=True))
     tproj = traster.project_vertices(torch.from_numpy(v), torch.from_numpy(_pose()), H, W, 60.0)
     tcoef, tvalid, _ = traster._face_coefficients(tproj, torch.from_numpy(f).long())
-    n0 = dict(trz.LAUNCHES)
+    n0 = trace.launches()
     got = trz.zbuffer_select(tcoef, tvalid, H, W).numpy()  # a CPU tensor: the plain version
-    assert trz.LAUNCHES == n0
+    assert trace.launches() == n0
     assert (want >= 0).sum() > 500
     assert _assert_same_winners(got, want, coef, W) <= 5
