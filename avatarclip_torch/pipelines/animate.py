@@ -151,7 +151,7 @@ class AnimateContext:
         imgs = self.render_views(self._pose_vertices(pose), elevs, angles, soft)
         with trace.span("clip.image"):
             imgs = clip_model.resize_to_clip(imgs, self.clip_cfg.image_size)
-            emb = clip_model.encode_image(self.clip_params, self.clip_cfg, clip_model.normalize_image(imgs))
+            emb = clip_model.encode_image_graphed(self.clip_params, self.clip_cfg, imgs)
             return emb.reshape(angles.shape[0], -1, emb.shape[-1]).mean(0)
 
     def get_pose_feature(self, pose: torch.Tensor, elevs: torch.Tensor | None = None,

@@ -583,7 +583,7 @@ class Runner:
                 shade_in = clip_model.resize_to_clip(dense[:, 7:10].reshape(1, S, S, 3),
                                                      clip_cfg.image_size)
                 clip_in = torch.cat([clip_in, shade_in], 0)
-            emb = clip_model.encode_image(clip_params, clip_cfg, clip_model.normalize_image(clip_in))
+            emb = clip_model.encode_image_graphed(clip_params, clip_cfg, clip_in)
             cosine = clip_model.cosine_similarity(emb[0], text_emb)
             clip_w = tc.clip_weight or 0.0
             loss = (color_loss + eikonal_loss * tc.igr_weight + mask_loss * tc.mask_weight

@@ -894,3 +894,197 @@ def test_composite_backward_holds_at_any_alignment(dev, W, R, S):
                      "composite_bwd launch")
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, outs))
+
+
+# ---------------------------------------------------------------------------
+# CLIP's image tower replayed from CUDA graphs (clip/model.encode_image_graphed)
+# ---------------------------------------------------------------------------
+
+_CLIP_COUNTERS = ("clip_graph_eager", "clip_graph_capture", "clip_graph_replay")
+
+
+def _clip_counts() -> dict:
+    from avatarclip_torch.utils import trace
+
+    c = trace.counters()
+    return {k: c.get(k, 0) for k in _CLIP_COUNTERS}
+
+
+def _vit_b32_visual(dev, dtype):
+    """ViT-B/32's image tower from a seeded draw (the text tower dropped)."""
+    import dataclasses
+
+    from avatarclip_torch.clip import model as clip_model
+
+    cfg = dataclasses.replace(clip_model.VIT_B32, compute_dtype=dtype, vocab_size=8, text_layers=0)
+    params = clip_model.init_params(cfg, torch.Generator().manual_seed(7))
+    return cfg, {"visual": clip_model.tree_to(params["visual"], dev)}
+
+
+def _clip_eager(params, cfg, img, gy):
+    from avatarclip_torch.clip import model as clip_model
+
+    x = img.clone().requires_grad_(True)
+    y = clip_model.encode_image(params, cfg, clip_model.normalize_image(x))
+    return y.detach(), torch.autograd.grad(y, x, gy)[0]
+
+
+def _clip_graphed(params, cfg, img, gy, **grad_kw):
+    from avatarclip_torch.clip import model as clip_model
+
+    x = img.clone().requires_grad_(True)
+    y = clip_model.encode_image_graphed(params, cfg, x)
+    return y.detach(), torch.autograd.grad(y, x, gy, **grad_kw)[0]
+
+
+@pytest.mark.parametrize("dtype,n", [("float32", 5), ("bfloat16", 2)])
+def test_clip_graph_matches_eager_bit_for_bit(dev, dtype, n):
+    """At ViT-B/32's widths, (n, 224, 224, 3) images as the pose (f32, 5
+    views) and sculpting (bf16, 2 images) steps give them: two eager calls,
+    one capture, then replays, each with fresh images and output gradient,
+    give the eager tower's output and input gradient bit for bit."""
+    cfg, params = _vit_b32_visual(dev, dtype)
+    gen = torch.Generator().manual_seed(11)
+    c0 = _clip_counts()
+    for k in range(8):
+        img = torch.rand(n, 224, 224, 3, generator=gen).to(dev)
+        gy = torch.randn(n, cfg.embed_dim, generator=gen).to(dev)
+        got_y, got_g = _clip_graphed(params, cfg, img, gy)
+        want_y, want_g = _clip_eager(params, cfg, img, gy)
+        assert torch.equal(got_y, want_y), (k, float((got_y - want_y).abs().max()))
+        assert torch.equal(got_g, want_g), (k, float((got_g - want_g).abs().max()))
+        c = {key: v - c0[key] for key, v in _clip_counts().items()}
+        assert c == {"clip_graph_eager": min(k + 1, 2), "clip_graph_capture": int(k >= 2),
+                     "clip_graph_replay": max(k - 2, 0)}, (k, c)
+
+
+def test_clip_graph_pending_replay_and_stale_backward(dev):
+    """Two forwards then two backwards of one key: the second forward runs
+    eager (its graph's replay still pending), both gradients right. A
+    backward whose activations a later replay overwrote, or that an earlier
+    backward spent, raises."""
+    cfg, params = _vit_b32_visual(dev, "float32")
+    from avatarclip_torch.clip import model as clip_model
+
+    gen = torch.Generator().manual_seed(12)
+    imgs = [torch.rand(5, 224, 224, 3, generator=gen).to(dev) for _ in range(3)]
+    gy = torch.randn(5, cfg.embed_dim, generator=gen).to(dev)
+    for _ in range(3):  # eager, eager, capture
+        _clip_graphed(params, cfg, imgs[0], gy)
+    c0 = _clip_counts()
+    x1, x2 = (imgs[i].clone().requires_grad_(True) for i in (1, 2))
+    y1 = clip_model.encode_image_graphed(params, cfg, x1)
+    y2 = clip_model.encode_image_graphed(params, cfg, x2)
+    c = {key: v - c0[key] for key, v in _clip_counts().items()}
+    assert c == {"clip_graph_eager": 1, "clip_graph_capture": 0, "clip_graph_replay": 1}
+    (g2,) = torch.autograd.grad(y2, x2, gy)
+    (g1,) = torch.autograd.grad(y1, x1, gy, retain_graph=True)
+    for y, g, img in ((y1, g1, imgs[1]), (y2, g2, imgs[2])):
+        want_y, want_g = _clip_eager(params, cfg, img, gy)
+        assert torch.equal(y.detach(), want_y) and torch.equal(g, want_g)
+    with pytest.raises(RuntimeError, match="spent"):
+        torch.autograd.grad(y1, x1, gy, retain_graph=True)
+    x3 = imgs[0].clone().requires_grad_(True)
+    y3 = clip_model.encode_image_graphed(params, cfg, x3)
+    (g3,) = torch.autograd.grad(y3, x3, gy, retain_graph=True)
+    clip_model.encode_image_graphed(params, cfg, imgs[1].clone().requires_grad_(True))
+    with pytest.raises(RuntimeError, match="overwritten"):
+        torch.autograd.grad(y3, x3, gy)
+    assert torch.equal(g3, _clip_eager(params, cfg, imgs[0], gy)[1])
+
+
+def test_clip_graph_bypasses_no_grad_and_trainable_weights(dev):
+    """No grad mode, images without grad, or a tower weight that requires
+    grad: the eager ops, no counter moved."""
+    cfg, params = _vit_b32_visual(dev, "float32")
+    from avatarclip_torch.clip import model as clip_model
+
+    img = torch.rand(2, 224, 224, 3, generator=torch.Generator().manual_seed(13)).to(dev)
+    want = clip_model.encode_image(params, cfg, clip_model.normalize_image(img))
+    c0 = _clip_counts()
+    with torch.no_grad():
+        assert torch.equal(clip_model.encode_image_graphed(params, cfg, img.requires_grad_(True)), want)
+    img = img.detach()
+    assert torch.equal(clip_model.encode_image_graphed(params, cfg, img), want)
+    params["visual"]["proj"].requires_grad_(True)
+    try:
+        for _ in range(4):
+            y = clip_model.encode_image_graphed(params, cfg, img.clone().requires_grad_(True))
+            assert torch.equal(y.detach(), want) and y.grad_fn is not None
+    finally:
+        params["visual"]["proj"].requires_grad_(False)
+    assert _clip_counts() == c0
+
+
+def test_pose_step_graphed_equals_eager(dev):
+    """One PoseOptimizer step at ViT-B/32 in float32 on 5 views, CLIP
+    replayed after its warm-up, against the same step with CLIP eager (the
+    weights under a new key): the same loss and pose gradient, bit for bit."""
+    from avatarclip_torch.clip import model as clip_model
+    from avatarclip_torch.pipelines import animate
+
+    ctx = animate.AnimateContext(clip_size="tiny", render_res=64, device=dev)
+    ctx.clip_cfg, ctx.clip_params = _vit_b32_visual(dev, "float32")
+    text = torch.randn(ctx.clip_cfg.embed_dim, generator=torch.Generator().manual_seed(14)).to(dev)
+    g = animate.PoseOptimizer(ctx=ctx, seed=3, num_iteration=100)
+    var = g.draw_init().to(dev).requires_grad_(True)
+    opt = g.make_optimizer(var)
+    for _ in range(3):  # eager, eager, capture
+        g.step(var, opt, text, g.draw_step())
+    v0, s0, draws = var.detach().clone(), {k: dict(v) for k, v in opt.state.items()}, g.draw_step()
+
+    def step():
+        with torch.no_grad():
+            var.copy_(v0)
+        opt.state.clear()
+        opt.state.update({k: {n: t.clone() for n, t in v.items()} for k, v in s0.items()})
+        loss = g.step(var, opt, text, draws)
+        return loss, var.grad.clone(), var.detach().clone()
+
+    c0 = _clip_counts()
+    graphed = step()
+    assert _clip_counts()["clip_graph_replay"] == c0["clip_graph_replay"] + 1
+    ctx.clip_params = dict(ctx.clip_params)  # a new key: its first call is eager
+    eager = step()
+    assert _clip_counts()["clip_graph_eager"] == c0["clip_graph_eager"] + 1
+    for a, b in zip(graphed, eager):
+        assert torch.equal(a, b)
+
+
+def test_sculpt_step_graphed_equals_eager(dev, tmp_path):
+    """One train_clip step of a tiny Runner on the card, CLIP replayed after
+    its warm-up, against the same step with CLIP eager (the weights under a
+    new key): the same loss and every parameter gradient, bit for bit."""
+    from avatarclip_torch.pipelines import synthetic
+
+    r = synthetic.make_runner(str(tmp_path), "tiny", res=32, device=dev)
+    r.init_clip()
+    r.init_smpl()
+    for _ in range(3):  # eager, eager, capture
+        cam, S = r.sample_iteration_camera(r.iter_step)
+        r._clip_update(S, cam, r.iter_step)
+        r.iter_step += 1
+    it = r.iter_step
+    cam, S = r.sample_iteration_camera(it)
+    w0 = {k: v.detach().clone() for k, v in r.fields.state_dict().items()}
+    g0 = r.gen.get_state()
+
+    def step():
+        r.fields.load_state_dict(w0)
+        r.gen.set_state(g0)
+        loss, _ = r.clip_loss(S, cam, r.draw_clip(S), it)
+        r._backward(loss)
+        return loss.detach(), {n: p.grad.clone() for n, p in r.fields.named_parameters()
+                               if p.grad is not None}
+
+    c0 = _clip_counts()
+    loss_g, grads_g = step()
+    assert _clip_counts()["clip_graph_replay"] == c0["clip_graph_replay"] + 1
+    params, cfg = r._clip
+    r._clip = (dict(params), cfg)  # a new key: its first call is eager
+    loss_e, grads_e = step()
+    assert _clip_counts()["clip_graph_eager"] == c0["clip_graph_eager"] + 1
+    assert torch.equal(loss_g, loss_e)
+    assert grads_g.keys() == grads_e.keys() and grads_g
+    for n in grads_g:
+        assert torch.equal(grads_g[n], grads_e[n]), n
