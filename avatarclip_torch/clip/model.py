@@ -15,16 +15,13 @@ packages round at the same places.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
-import threading
-import weakref
 
 import numpy as np
 import torch
 
-from ..utils import trace
+from ..utils import graphs
 
 CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -194,102 +191,15 @@ def cosine_similarity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the image tower replayed from CUDA graphs
+# the image tower replayed from CUDA graphs (utils/graphs.py)
 # ---------------------------------------------------------------------------
 
-WARMUP_CALLS = 2  # eager calls of a key before its capture, on the capture's stream
-GRAPH_KEYS = 8  # keys kept at once; each holds its two graphs and their memory pool
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, list):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
-
-
-class _ImageGraph:
-    """One key's image tower as two CUDA graphs: ``normalize_image`` then
-    ``encode_image`` from a static image buffer to a static output, and the
-    gradient of that output with respect to the images, from a static output
-    gradient to a static input gradient, sharing one memory pool.
-
-    ``generation`` counts the forward replays and the spent backwards: a
-    backward replays only over the activations of its own forward. ``live``
-    weakly references the pending replay's autograd context while its
-    backward has not run."""
-
-    def __init__(self, leaves: list, device: torch.device):
-        self.leaves = leaves  # held: the graphs read these tensors' memory
-        self.stream = torch.cuda.Stream(device)
-        self.calls = 0
-        self.fwd = self.bwd = None
-        self.generation = 0
-        self.live = None
-
-    def busy(self) -> bool:
-        return self.live is not None and self.live() is not None
-
-    def warm(self, params, cfg: CLIPConfig, images: torch.Tensor) -> torch.Tensor:
-        """An eager call on the capture's stream (its backward runs there too)."""
-        cur = torch.cuda.current_stream(images.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            out = encode_image(params, cfg, normalize_image(images))
-        cur.wait_stream(self.stream)
-        return out
-
-    def capture(self, params, cfg: CLIPConfig, images: torch.Tensor) -> None:
-        self.x = torch.empty(images.shape, dtype=images.dtype, device=images.device).requires_grad_(True)
-        pool = torch.cuda.graph_pool_handle()
-        # thread_local: another thread's CUDA calls (a validation worker's)
-        # neither fail nor break the capture
-        fwd = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(fwd, pool=pool, stream=self.stream, capture_error_mode="thread_local"):
-            y = encode_image(params, cfg, normalize_image(self.x))
-        self.gy = torch.empty_like(y)
-        bwd = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(bwd, pool=pool, stream=self.stream, capture_error_mode="thread_local"):
-            (self.gx,) = torch.autograd.grad(y, self.x, self.gy)
-        self.y = y.detach()
-        self.fwd, self.bwd = fwd, bwd
-
-    def forward(self, images: torch.Tensor) -> int:
-        self.x.copy_(images)
-        self.fwd.replay()
-        self.generation += 1
-        return self.generation
-
-    def backward(self, generation: int, gy: torch.Tensor) -> torch.Tensor:
-        with _lock:
-            if generation != self.generation:
-                raise RuntimeError(
-                    "CLIP's graphed image tower: this backward's activations were overwritten by a "
-                    "later replay or spent by an earlier backward")
-            self.gy.copy_(gy)
-            self.bwd.replay()
-            self.generation += 1  # the backward frees the activations it reads
-            self.live = None
-            return self.gx.clone()
-
-
-class _Replay(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, graph: _ImageGraph, images: torch.Tensor) -> torch.Tensor:
-        ctx.graph, ctx.generation = graph, graph.forward(images)
-        graph.live = weakref.ref(ctx)  # dead once autograd drops the node unrun
-        return graph.y.clone()
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, gy: torch.Tensor):
-        with trace.span("backward.clip"):
-            return None, ctx.graph.backward(ctx.generation, gy)
-
-
-_graphs: collections.OrderedDict = collections.OrderedDict()
-_lock = threading.RLock()
+WARMUP_CALLS = graphs.WARMUP_CALLS
+_leaves = graphs.leaves
+_Replay = graphs.Replay
+_ImageGraph = graphs.Graph  # one key's graphs: normalize_image then encode_image, and its input gradient
+_cache = graphs.Cache("clip_graph", "backward.clip")
+_graphs = _cache.graphs
 
 
 def encode_image_graphed(params, cfg: CLIPConfig, images: torch.Tensor) -> torch.Tensor:
@@ -307,32 +217,8 @@ def encode_image_graphed(params, cfg: CLIPConfig, images: torch.Tensor) -> torch
     (grad-mode CUDA calls that ran eager: warm-up and pending replays),
     ``clip_graph_capture``, ``clip_graph_replay`` (calls that replayed an
     earlier capture)."""
-    if not (images.is_cuda and images.requires_grad and torch.is_grad_enabled()):
-        return encode_image(params, cfg, normalize_image(images))
-    leaves = _leaves(params["visual"])
-    if any(t.requires_grad for t in leaves):
-        return encode_image(params, cfg, normalize_image(images))
-    key = (tuple(images.shape), images.dtype, images.device, cfg, id(params))
-    with _lock:
-        g = _graphs.get(key)
-        if g is None or len(g.leaves) != len(leaves) or any(a is not b for a, b in zip(g.leaves, leaves)):
-            g = _graphs[key] = _ImageGraph(leaves, images.device)
-            while len(_graphs) > GRAPH_KEYS:
-                _graphs.popitem(last=False)
-        _graphs.move_to_end(key)
-        if g.fwd is None and g.calls < WARMUP_CALLS:
-            g.calls += 1
-            trace.count("clip_graph_eager")
-            return g.warm(params, cfg, images)
-        if g.busy():
-            trace.count("clip_graph_eager")
-            return encode_image(params, cfg, normalize_image(images))
-        if g.fwd is None:
-            g.capture(params, cfg, images)
-            trace.count("clip_graph_capture")
-        else:
-            trace.count("clip_graph_replay")
-        return _Replay.apply(g, images)
+    return _cache(lambda x: encode_image(params, cfg, normalize_image(x)), (cfg, id(params)),
+                  _leaves(params["visual"]), images)
 
 
 def init_params(cfg: CLIPConfig, generator: torch.Generator):

@@ -40,7 +40,7 @@ from ..clip import model as clip_model
 from ..clip import tokenizer as clip_tokenizer
 from ..render import cameras, raster
 from ..utils import device as device_mod
-from ..utils import trace
+from ..utils import graphs, trace
 from . import motion_vae
 
 # every screen-space dot is K = 3 and must stay full f32 (thin faces decide
@@ -479,12 +479,17 @@ class MotionInterpolation(BaseMotionGenerator):
             return pose_padding(vposer_mod.decode(self.ctx.vposer, torch.stack(latents)))
 
 
+_decoder_graphs = graphs.Cache("motion_graph", "backward.motion")
+
+
 class MotionOptimizer(BaseMotionGenerator):
     """Latent optimization against the motion VAE decoder (motion_generation.py:
     249-358): a rank-weighted min-over-frames 6d reconstruction of the
     candidates, a frame-position-weighted CLIP term on strided frames (one
     soft render of n_part frames at azimuth 150 per step) and a negative
-    delta loss."""
+    delta loss. ``steps`` counts the steps taken: the id of the next step's
+    spans (utils/trace.py). On the card a training step's decoder replays
+    from CUDA graphs (utils/graphs.py: counters ``motion_graph_*``)."""
 
     def __init__(self, latent_dim=256, num_layers=4, num_heads=4, ckpt_path="data/motion_vae.pth",
                  optim_name="Adam", optim_cfg=None, num_iteration=5000,
@@ -508,48 +513,83 @@ class MotionOptimizer(BaseMotionGenerator):
         self.clip_num_part = clip_num_part
         self.n_part = -(-self.num_frame // clip_num_part)  # frames scored per CLIP pass
         self.losses: list[torch.Tensor] = []  # every step's loss, on the device
+        self.steps = 0
+        self._resident: dict = {}
 
-    def decode(self, latent: torch.Tensor) -> torch.Tensor:
-        """(latent,) -> (T, 63) via 6d -> matrix -> quaternion -> axis-angle."""
+    def _decode_6d(self, latent: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(latent,) -> (T, 63) via 6d -> matrix -> quaternion -> axis-angle,
+        and the (T, 21, 6) 6d rotations of those joints."""
         if latent.dim() == 1:
             latent = latent[None]
         rot6d = motion_vae.decode(self.vae, self.cfg, latent)  # (1, T, 55, 6)
         mats = rotations.rotation_6d_to_matrix(rot6d.reshape(-1, 6))
         aa = rotations.quaternion_to_axis_angle(rotations.matrix_to_quaternion(mats)).reshape(-1, 165)
-        return aa[:, 3:66]
+        motion = aa[:, 3:66]
+        return motion, rotations.matrix_to_rotation_6d(rotations.axis_angle_to_matrix(motion.reshape(-1, 21, 3)))
+
+    def decode_6d(self, latent: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``_decode_6d``, replayed from CUDA graphs where the call is a
+        training step's (utils/graphs.py; the backward's span
+        ``backward.motion``)."""
+        return _decoder_graphs(self._decode_6d, (self.cfg, id(self.vae)), graphs.leaves(self.vae), latent)
+
+    def decode(self, latent: torch.Tensor) -> torch.Tensor:
+        """(latent,) -> (T, 63) via 6d -> matrix -> quaternion -> axis-angle."""
+        return self.decode_6d(latent)[0]
+
+    def _constants(self) -> tuple:
+        """The step's constants on the device, built once a default dtype:
+        the reconstruction's coefficients, the strided frames' offsets, the
+        CLIP view's elevation and azimuth."""
+        dt = torch.get_default_dtype()
+        if dt not in self._resident:
+            dev = self.ctx.device
+            self._resident[dt] = (torch.tensor(self.recon_coef, device=dev),
+                                  torch.arange(self.n_part, device=dev),
+                                  torch.zeros(1, device=dev), torch.tensor([150.0], device=dev))
+        return self._resident[dt]
 
     def draw_init(self) -> torch.Tensor:
         return torch.randn(self.cfg.latent_dim, generator=self.gen)
 
     def draw_step(self) -> dict:
-        return {"st_idx": int(torch.randint(0, self.clip_num_part, (), generator=self.gen))}
+        with trace.span("loop.draws", self.steps):
+            return {"st_idx": int(torch.randint(0, self.clip_num_part, (), generator=self.gen))}
 
     def loss(self, latent, poses63, text_feature, st_idx: int):
-        T, P, dev = self.num_frame, self.clip_num_part, self.ctx.device
-        motion = self.decode(latent)  # (T, 63)
-        # rank-weighted min-over-frames 6d reconstruction (motion_generation.py:319-332)
-        gen6 = rotations.matrix_to_rotation_6d(rotations.axis_angle_to_matrix(motion.reshape(T, 21, 3)))
-        ori6 = rotations.matrix_to_rotation_6d(rotations.axis_angle_to_matrix(poses63.reshape(-1, 21, 3)))
-        value = ((gen6[None] - ori6[:, None]) ** 2).mean((-1, -2)).amin(1)  # (K,)
-        coefs = torch.tensor(self.recon_coef, device=dev)[: value.shape[0]]
-        loss = (value * coefs).sum()
+        T, P = self.num_frame, self.clip_num_part
+        coefs, offsets, elev, azim = self._constants()
+        with trace.span("motion.decode"):
+            motion, gen6 = self.decode_6d(latent)  # (T, 63), (T, 21, 6)
+        with trace.span("motion.loss"):
+            # rank-weighted min-over-frames 6d reconstruction (motion_generation.py:319-332)
+            ori6 = rotations.matrix_to_rotation_6d(rotations.axis_angle_to_matrix(poses63.reshape(-1, 21, 3)))
+            value = ((gen6[None] - ori6[:, None]) ** 2).mean((-1, -2)).amin(1)  # (K,)
+            loss = (value * coefs[: value.shape[0]]).sum()
+            if self.delta_coef > 0:  # motion intensity (motion_generation.py:347-352)
+                delta = ((motion[1:] - motion[:-1]) ** 2).mean() * self.delta_coef
         if self.clip_coef > 0:  # CLIP on strided frames (motion_generation.py:334-345)
-            raw = st_idx + P * torch.arange(self.n_part, device=dev)
+            raw = st_idx + P * offsets
             frame_ids = raw.clamp(0, T - 1)
-            pf = self.ctx.pose_feature(motion[frame_ids], torch.zeros(1, device=dev),
-                                       torch.tensor([150.0], device=dev), soft=True)
-            lc = 1.0 - clip_model.cosine_similarity(pf, text_feature[None])
+            pf = self.ctx.pose_feature(motion[frame_ids], elev, azim, soft=True)
+            with trace.span("clip.image"):
+                lc = 1.0 - clip_model.cosine_similarity(pf, text_feature[None])
             w = frame_ids.float() / T * (raw < T).float()
             loss = loss + (w * lc).sum() * self.clip_coef
-        if self.delta_coef > 0:  # motion intensity (motion_generation.py:347-352)
-            loss = loss - ((motion[1:] - motion[:-1]) ** 2).mean() * self.delta_coef
+        if self.delta_coef > 0:
+            loss = loss - delta
         return loss
 
     def step(self, latent, opt, poses63, text_feature, draws: dict) -> torch.Tensor:
-        opt.zero_grad(set_to_none=True)
-        loss = self.loss(latent, poses63, text_feature, draws["st_idx"])
-        loss.backward()
-        opt.step()
+        """One Adam step on ``latent`` (in place); the loss before it."""
+        with trace.span("loop.step", self.steps):
+            opt.zero_grad(set_to_none=True)
+            loss = self.loss(latent, poses63, text_feature, draws["st_idx"])
+            with trace.span("backward"):
+                loss.backward()
+            with trace.span("loop.adam"):
+                opt.step()
+        self.steps += 1
         return loss.detach()
 
     def get_motion(self, text: str, poses) -> torch.Tensor:

@@ -16,10 +16,13 @@ clock kineto stamps its events with. ``spans()`` reads the store and
 A span given ``step`` makes that id the current step of every thread, so
 the spans that autograd's worker thread opens in a backward share it. A
 name's first segment is its layer: ``loop``, ``render``, ``clip``,
-``backward``.
+``motion`` (the motion decoder: ``motion.decode``, ``motion.loss``),
+``backward`` (``backward.clip``, ``backward.motion``: a graph's input
+gradient).
 
 ``count(name, n=1)`` is the registry of the port's kernel launches (and of
-any other count): always on, thread-safe. ``counters()`` reads it,
+any other count: the graphs' ``clip_graph_*`` and ``motion_graph_*``,
+utils/graphs.py): always on, thread-safe. ``counters()`` reads it,
 ``reset_counters()`` empties it, and ``launches()`` gives every kernel
 wrapper's count under :data:`KERNELS`, 0 where none ran.
 """

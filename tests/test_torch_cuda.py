@@ -1088,3 +1088,74 @@ def test_sculpt_step_graphed_equals_eager(dev, tmp_path):
     assert grads_g.keys() == grads_e.keys() and grads_g
     for n in grads_g:
         assert torch.equal(grads_g[n], grads_e[n]), n
+
+
+# ---------------------------------------------------------------------------
+# the motion decoder replayed from CUDA graphs (utils/graphs.py through
+# pipelines/animate.MotionOptimizer.decode_6d)
+# ---------------------------------------------------------------------------
+
+_MOTION_COUNTERS = ("motion_graph_eager", "motion_graph_capture", "motion_graph_replay")
+
+
+def _motion_counts() -> dict:
+    from avatarclip_torch.utils import trace
+
+    c = trace.counters()
+    return {k: c.get(k, 0) for k in _MOTION_COUNTERS}
+
+
+def test_motion_decoder_graph_matches_eager_bit_for_bit(dev):
+    """At the published widths (60 frames, latent 256, 4 layers of 4
+    heads), the decoder and the rotation chain (the motion and its 6d):
+    two eager calls, one capture, then replays, each with a fresh latent
+    and output gradients, give the eager function's outputs and latent
+    gradient bit for bit; CPU and no-grad calls move no counter."""
+    from avatarclip_torch.pipelines import animate
+
+    ctx = animate.AnimateContext(clip_size="tiny", render_res=64, device=dev)
+    m = animate.MotionOptimizer(ctx=ctx, seed=3)
+    assert (m.cfg.seq_len, m.cfg.latent_dim, m.cfg.num_layers, m.cfg.num_heads) == (60, 256, 4, 4)
+    gen = torch.Generator().manual_seed(21)
+    c0 = _motion_counts()
+    for k in range(8):
+        lat = torch.randn(256, generator=gen).to(dev)
+        gys = (torch.randn(60, 63, generator=gen).to(dev), torch.randn(60, 21, 6, generator=gen).to(dev))
+        x1, x2 = lat.clone().requires_grad_(True), lat.clone().requires_grad_(True)
+        got = m.decode_6d(x1)
+        want = m._decode_6d(x2)
+        for a, b in zip(got, want):
+            assert torch.equal(a.detach(), b.detach()), (k, float((a - b).abs().max()))
+        (g1,), (g2,) = torch.autograd.grad(got, x1, gys), torch.autograd.grad(want, x2, gys)
+        assert torch.equal(g1, g2), (k, float((g1 - g2).abs().max()))
+        c = {key: v - c0[key] for key, v in _motion_counts().items()}
+        assert c == {"motion_graph_eager": min(k + 1, 2), "motion_graph_capture": int(k >= 2),
+                     "motion_graph_replay": max(k - 2, 0)}, (k, c)
+    c1 = _motion_counts()
+    with torch.no_grad():
+        assert torch.equal(m.decode(lat), m._decode_6d(lat)[0])
+    assert _motion_counts() == c1
+
+
+def test_motion_step_matches_the_reference(dev):
+    """The motion cell's checked steps at the published widths on the card
+    (after the driver's throwaway steps warm up and capture the decoder's
+    graphs, every checked step replays them), against the plain float32
+    reference (benchmark/reference/motion.py), within the cell's limits."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmark.harness import registry
+
+    wl = registry.workload("motion-optimizer.adam")
+    d = registry.driver(wl["driver"])(registry.config(wl["config"]), wl, 2**31 + 41, dev, {})
+    d.setup()
+    c0 = _motion_counts()
+    d.first_steps()
+    c = {key: v - c0[key] for key, v in _motion_counts().items()}
+    assert c == {"motion_graph_eager": 2, "motion_graph_capture": 1,
+                 "motion_graph_replay": int(wl["traffic"]["checked_steps"])}, c
+    d.release()
+    checks = d.check()
+    assert all(v["value"] <= v["limit"] for v in checks.values()), checks
