@@ -19,22 +19,38 @@
 // What bounds it on this card: the GEMMs, 1,186,304 FLOPs a point forward
 // and 3,558,912 backward at 4x256 / 2x256 (0.96 / 2.89 ms at 12,544 x 64 at
 // the 989 TFLOP/s bf16 tensor-core peak); f32 FMAs on the CUDA cores could
-// not go below 14.2 / 42.6 ms. Measured (PERF.md, tools/profile_b1.py's
-// phase counts), both kernels are far from it: the product loops run at a
-// fraction of the tensor cores' rate (mma.sync's operands through shared
-// memory and the register file, a barrier every two k-steps), and the
-// epilogues (activations, the 16-bit scratch states) take as long again.
+// not go below 14.2 / 42.6 ms. Under those, two floors the design does not
+// remove (PERF.md, tools/profile_b1.py's phase counts): the epilogues
+// (activations, the 16-bit scratch states, the log stores), which took as
+// long as the product loops on mma.sync, and the weight stream: every
+// product reads its packed weights from L2 for every tile, 1.20 MB a ray
+// forward and 2.41 MB backward at 4x256 / 2x256 (the pack's k-steps x
+// n-tiles x 256 bytes), 15.1 / 30.2 GB a call at 12,544 rays.
 //
 // Design (neus_tc.cuh):
 // - one ray (64 rows) per tile, persistent CTAs (one per SM, 512 threads,
 //   210-227 KB of dynamic shared memory at 256 wide) walking the rays;
-// - every product on mma.sync.m16n8k16 (bf16 x bf16 -> f32), warps in a
-//   2 x 8 grid of 32-row x 32-column tiles. Activations stay in shared
-//   memory (bf16, padded stride: conflict-free ldmatrix); the weights,
-//   pre-packed as B-fragments, stream from L2 through a cp.async ring of
-//   two-k-step stages (three deep); warps without columns in a product skip
-//   its fragment loads;
-// - epilogues read their inputs for a 16-row slab (or an n-tile) at once,
+// - every product on Hopper's warpgroup MMA (wgmma.mma_async.m64n64k16,
+//   bf16 x bf16 -> f32): the 4 warpgroups each multiply the 64 rows by their
+//   own 64 columns of a 256-column pass (a product too narrow for all four,
+//   as the colour head's 8, goes to fewer). Activations stay in shared
+//   memory (bf16, padded stride) and reach the products as register
+//   fragments by ldmatrix; the weights, pre-packed in wgmma's K-major layout
+//   with each warpgroup's slice of a pass contiguous, reach shared memory by
+//   bulk copies completed on mbarriers, two k-steps a copy, into a ring of 3
+//   slots a warpgroup. Each warpgroup's first thread is its producer: it
+//   walks the kernel's fixed sequence of products (its plan) ahead of its
+//   warpgroup, across product and ray boundaries, so the ring holds the
+//   next product's first k-steps while an epilogue runs, and refills a slot
+//   once its own warpgroup's wgmma on it has retired. No barrier inside a
+//   k-loop and no hand-off between warpgroups there (on this card an
+//   mbarrier hand-off between warps, or issuing a copy, costs more than a
+//   k-step's products): one barrier after a product's epilogue (its output
+//   is the next product's operand), and one before an epilogue that writes
+//   over its own operand (gemm_fused's in-place case). Left as they were:
+//   the epilogues and the L2 weight stream; a cluster of 2 CTAs that
+//   multicasts each weight chunk would halve the stream;
+// - epilogues read their inputs for four n-tiles (gemm_fused: one) at once,
 //   then apply bias and activation and write the next layer's bf16 operand;
 // - the states the later sweeps read (sigmoid factors, tangent
 //   pre-activations, a_s) go to a per-CTA global scratch in 16 bits: a
@@ -220,8 +236,6 @@ __device__ __forceinline__ void ray_points(const Dims& d, const Layout& L, unsig
   encode_points(d, L, sm, keep_f32);
 }
 
-__device__ inline const uint2* mat(const uint2* pk, const Pack& pp, int i) { return pk + pp.off[i]; }
-
 // SDF primal stack of the tile: hidden layers (outputs to hout(i), sigmoid
 // factors to P), the skip-producing layer (u[:, :SW] = bf16(a_s), f32 a_s
 // to AS, sigmoid to PS when given; ts = bf16(wsa * p_s) when given), the
@@ -249,12 +263,12 @@ struct CinFeat {
 __device__ inline void put(float* p, float v) { *p = v; }
 __device__ inline void put(f16* p, float v) { *p = __float2half_rn(v); }
 
-template <int NS, bool STATES = true, class Hout, class ASt, class XLog, class FOut>
-__device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, unsigned char* sm, const float* wts,
-                              const WeightOffsets& wo, const uint2* pk, const Pack& pp, f16* P,
-                              ASt* AS, f16* PS, bf16* ts, Hout hout, XLog xlog, FOut fout) {
+template <bool STATES = true, class Hout, class ASt, class XLog, class FOut>
+__device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, unsigned char* sm,
+                                              Ring& rg, const float* wts, const WeightOffsets& wo,
+                                              f16* P, ASt* AS, f16* PS, bf16* ts, Hout hout,
+                                              XLog xlog, FOut fout) {
   const int H = d.H, SW = d.SW, ldX = L.ldX;
-  uint2* ring = (uint2*)(sm + L.ring);
   const bf16* in = (const bf16*)(sm + L.eb);
   int ld_in = L.ldE;
   for (int i = 0; i < d.NH; ++i) {
@@ -262,7 +276,7 @@ __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, un
     f16* Pi = STATES ? P + (size_t)i * ROWS * H : nullptr;
     bf16* out = hout(i);
     phase_tag(0);
-    gemm_rows_pre<NS>(in, ld_in, sdf_in(d, i), mat(pk, pp, FS + i), H, ring,
+    gemm_rows_pre(rg, in, ld_in, sdf_in(d, i), FS + i, H,
                   [&](int, int c) { return c < H ? bias[c] : 0.f; },
                   [&](int r, int c, float v, float b) {
       if (!STATES) {
@@ -288,7 +302,7 @@ __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, un
   const float* bs = wts + wo.sb[d.NH];
   const float* w0 = wts + wo.sw[d.NH + 1];  // the head's sdf row
   phase_tag(1);
-  gemm_rows_pre<NS>(in, ldX, H, mat(pk, pp, FS + d.NH), SW, ring,
+  gemm_rows_pre(rg, in, ldX, H, FS + d.NH, SW,
                 [&](int, int c) { return c < SW ? make_float2(bs[c], w0[c]) : make_float2(0.f, 0.f); },
                 [&](int r, int c, float v, float2 bw) {
     if (!STATES) {
@@ -324,7 +338,7 @@ __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, un
   if (!FOut::on) return;
   const float* bf = wts + wo.sb[d.NH + 1] + 1;
   phase_tag(2);
-  gemm_rows_pre<NS>(u, ldX, H, mat(pk, pp, FHEAD), d.F, ring,
+  gemm_rows_pre(rg, u, ldX, H, FHEAD, d.F,
                 [&](int, int c) { return c < d.F ? bf[c] : 0.f; },
                 [&](int r, int c, float v, float b) {
                   if (c < d.F) fout(r, c, v + b);
@@ -333,11 +347,11 @@ __device__ __forceinline__ void sdf_primal_tc(const Dims& d, const Layout& L, un
 
 // colour primal: relu layers (outputs to aout(l), and to the log when
 // alog(l, ptr, ld)), the raw head into head
-template <int NS, class Aout, class ALog = NoLog>
+template <class Aout, class ALog = NoLog>
 __device__ __forceinline__ void colour_primal_tc(const Dims& d, const Layout& L, unsigned char* sm,
-                                 const float* wts, const WeightOffsets& wo, const uint2* pk,
-                                 const Pack& pp, Aout aout, ALog alog = NoLog()) {
-  uint2* ring = (uint2*)(sm + L.ring);
+                                                 Ring& rg, const float* wts,
+                                                 const WeightOffsets& wo, Aout aout,
+                                                 ALog alog = NoLog()) {
   const bf16* x = (const bf16*)(sm + L.cin);
   int ldx = L.ldC;
   for (int l = 0; l < d.NHC; ++l) {
@@ -345,7 +359,7 @@ __device__ __forceinline__ void colour_primal_tc(const Dims& d, const Layout& L,
     bf16* a = aout(l);
     const int ldX = L.ldX, HC = d.HC;
     phase_tag(3);
-    gemm_rows_pre<NS>(x, ldx, col_in(d, l), mat(pk, pp, FC + l), HC, ring,
+    gemm_rows_pre(rg, x, ldx, col_in(d, l), FC + l, HC,
                   [&](int, int c) { return c < HC ? bias[c] : 0.f; },
                   [&](int r, int c, float v, float b) {
       if (c < HC) a[r * ldX + c] = to_bf(fmaxf(v + b, 0.f));
@@ -359,7 +373,7 @@ __device__ __forceinline__ void colour_primal_tc(const Dims& d, const Layout& L,
   float* head = (float*)(sm + L.head);
   const float* bh = wts + wo.cb[d.NHC];
   phase_tag(3);
-  gemm_rows_pre<NS>(x, ldx, d.HC, mat(pk, pp, FC + d.NHC), d.W, ring,
+  gemm_rows_pre(rg, x, ldx, d.HC, FC + d.NHC, d.W,
                 [&](int, int c) { return c < d.W ? bh[c] : 0.f; },
                 [&](int r, int c, float v, float b) {
                   if (c < d.W) head[r * 8 + c] = v + b;
@@ -374,13 +388,11 @@ __device__ __forceinline__ void colour_primal_tc(const Dims& d, const Layout& L,
 // and skip_in (the skip layer's input, free by now) ping-pong. Shared by
 // B1's and B3's forward (neus_tc_fwd_kernel) and B6's (sdf_tc_fwd_kernel).
 // Ends with __syncthreads.
-template <int NS>
 __device__ __forceinline__ void gradient_sweep_tc(const Dims& d, const Layout& L, unsigned char* sm,
-                                                  const float* wts, const WeightOffsets& wo,
-                                                  const uint2* pk, const Pack& pp, const f16* P,
-                                                  bf16* ts, bf16* skip_in) {
+                                                  Ring& rg, const float* wts,
+                                                  const WeightOffsets& wo, const f16* P, bf16* ts,
+                                                  bf16* skip_in) {
   const int H = d.H, SW = d.SW, E = d.E, ldX = L.ldX;
-  uint2* ring = (uint2*)(sm + L.ring);
   float* g = (float*)(sm + L.g);
   float* qe = (float*)(sm + L.qe);
   const bf16* cur = ts;
@@ -391,8 +403,8 @@ __device__ __forceinline__ void gradient_sweep_tc(const Dims& d, const Layout& L
       const f16* Pm = P + (size_t)(i - 1) * ROWS * H;
       bf16* o = nxt;
       phase_tag(11);
-      gemm_rows_pre<NS>(
-          cur, ldX, K, mat(pk, pp, RS + i), N, ring,
+      gemm_rows_pre(
+          rg, cur, ldX, K, RS + i, N,
           [&](int r, int c) {
             float p = 0.f, q;
             if (c < N) sig_load(Pm[r * H + c], p, q);
@@ -405,7 +417,7 @@ __device__ __forceinline__ void gradient_sweep_tc(const Dims& d, const Layout& L
       cur = o;
     } else {
       phase_tag(11);
-      gemm_rows<NS>(cur, ldX, K, mat(pk, pp, RS + 0), N, ring, [&](int r, int c, float v) {
+      gemm_rows(rg, cur, ldX, K, RS + 0, N, [&](int r, int c, float v) {
         if (c < N) qe[r * E + c] = v;
       });
     }
@@ -438,7 +450,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_fwd_kernel(
     const float* __restrict__ mid_z, const float* __restrict__ dists,
     const float* __restrict__ inv_s_ptr, float cos_r, int R, FwdOut out,
     float* __restrict__ eik_part, unsigned char* __restrict__ scr_all, long long scr_stride) {
-  extern __shared__ __align__(16) unsigned char sm[];
+  extern __shared__ __align__(128) unsigned char sm[];
   const Layout L = tc_layout(d, false);
   const WeightOffsets wo = weight_offsets(d);
   unsigned char* scr = scr_all + (size_t)blockIdx.x * scr_stride;
@@ -460,6 +472,8 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_fwd_kernel(
   // every bf16 operand buffer starts zero: padding columns are never written
   for (size_t e = tid; e < L.smem / 4; e += TNT) ((float*)sm)[e] = 0.f;
   __syncthreads();
+  Ring rg = ring_init(sm + L.ring, sm + L.rbar, d, pp, pk, PLAN_RAY_FWD,
+                      tiles_of(R, blockIdx.x, gridDim.x));
   float eik_num = 0.f, eik_den = 0.f;
   for (int rid = blockIdx.x; rid < R; rid += gridDim.x) {
     if (tid < 3) {
@@ -472,7 +486,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_fwd_kernel(
     // the buffer the skip layer does not read
     bf16* skip_in = (d.NH % 2) ? ha : hb;
     bf16* ts = skip_in == ha ? hb : ha;
-    sdf_primal_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, P, AS, (f16*)nullptr, ts,
+    sdf_primal_tc(d, L, sm, rg, wts, wo, P, AS, (f16*)nullptr, ts,
                   [&](int i) { return (i % 2) ? hb : ha; }, NoLog(), CinFeat{cin, L.ldC});
     // the head's sdf row in f32: four threads a row, fixed order
     if (tid < 4 * ROWS) {
@@ -486,13 +500,13 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_fwd_kernel(
       acc += __shfl_xor_sync(0xffffffffu, acc, 2);
       if (q == 0) srow[r] = acc * RSQRT2 + wts[wo.sb[d.NH + 1]];
     }
-    gradient_sweep_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, P, ts, skip_in);
+    gradient_sweep_tc(d, L, sm, rg, wts, wo, P, ts, skip_in);
     for (int e = tid; e < ROWS * 6; e += TNT) {
       const int r = e / 6, c = e % 6;
       cin[r * L.ldC + c] = to_bf(c < 3 ? pts[r * 3 + c] : g[r * 3 + c - 3]);
     }
     __syncthreads();
-    colour_primal_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, [&](int l) { return (l % 2) ? hb : ha; });
+    colour_primal_tc(d, L, sm, rg, wts, wo, [&](int l) { return (l % 2) ? hb : ha; });
     phase_mark(PH_OTHER);
     for (int r = tid; r < S; r += TNT) {
       const float* gr = g + r * 3;
@@ -580,8 +594,8 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_fwd_kernel(
 // Ends with __syncthreads.
 template <class LPut>
 __device__ __forceinline__ void sdf_reverse_tc(const Dims& d, const Layout& L, unsigned char* sm,
-                                               const float* wts, const WeightOffsets& wo,
-                                               const uint2* pk, const Pack& pp, const f16* P,
+                                               Ring& rg, const float* wts,
+                                               const WeightOffsets& wo, const f16* P,
                                                const f16* AS, bf16* ZD, const f16* PS, bf16* ZDS,
                                                float* CH, float* CHD, float* gp, LPut lput,
                                                const float* ccin6) {
@@ -598,7 +612,6 @@ __device__ __forceinline__ void sdf_reverse_tc(const Dims& d, const Layout& L, u
   float* dx = (float*)(sm + L.dx);
   float* cue = (float*)(sm + L.cue);
   const float* wfin = wts + wo.sw[d.NH + 1];
-  uint2* ring = (uint2*)(sm + L.ring);
   float* red = (float*)(sm + L.red);
   for (int e = tid; e < ROWS * E; e += TNT) {
     const int r = e / E, j = e % E;
@@ -617,8 +630,8 @@ __device__ __forceinline__ void sdf_reverse_tc(const Dims& d, const Layout& L, u
       bf16* ZDi = ZD + (size_t)i * ROWS * H;
       bf16* to = (i % 2) ? czd : cz;
       phase_tag(6);
-      gemm_rows_pre<NSTAGE_BWD>(
-          tin, ld_in, sdf_in(d, i), mat(pk, pp, FS + i), H, ring,
+      gemm_rows_pre(
+          rg, tin, ld_in, sdf_in(d, i), FS + i, H,
           [&](int r, int c) {
             float p = 0.f, q;
             if (c < H) sig_load(Pi[r * H + c], p, q);
@@ -635,7 +648,7 @@ __device__ __forceinline__ void sdf_reverse_tc(const Dims& d, const Layout& L, u
       ld_in = ldX;
     }
     phase_tag(7);
-    gemm_rows<NSTAGE_BWD>(tin, ldX, H, mat(pk, pp, FS + d.NH), SW, ring, [&](int r, int c, float v) {
+    gemm_rows(rg, tin, ldX, H, FS + d.NH, SW, [&](int r, int c, float v) {
       if (c < SW) ZDS[r * SW + c] = to_bf(v);
     });
   }
@@ -680,8 +693,8 @@ __device__ __forceinline__ void sdf_reverse_tc(const Dims& d, const Layout& L, u
   // p_s (cad = w0 / sqrt2), summed into the skip bias; the embedding half
   // of cu to cue
   phase_tag(8);
-  gemm_fused<NSTAGE_BWD, false>(
-      CF, nullptr, ldF, F, mat(pk, pp, RHEAD), H, ring, red, gp + wo.sb[d.NH], 0, SW,
+  gemm_fused<false>(
+      rg, CF, nullptr, ldF, F, RHEAD, H, red, gp + wo.sb[d.NH], 0, SW,
       [&](int r, int c) {
         float p = 0.f, q = 0.f, zd = 0.f;
         if (c < SW) {
@@ -714,9 +727,8 @@ __device__ __forceinline__ void sdf_reverse_tc(const Dims& d, const Layout& L, u
     const f16* Pi = P + (size_t)i * ROWS * H;
     const bf16* ZDi = ZD + (size_t)i * ROWS * H;
     phase_tag(9);
-    gemm_fused<NSTAGE_BWD, true>(
-        cz, czd, ldX, i + 1 == d.NH ? SW : H, mat(pk, pp, RS + i + 1), H, ring, red, gp + wo.sb[i],
-        0, H,
+    gemm_fused<true>(
+        rg, cz, czd, ldX, i + 1 == d.NH ? SW : H, RS + i + 1, H, red, gp + wo.sb[i], 0, H,
         [&](int r, int c) {
           float p = 0.f, q = 0.f, zd = 0.f;
           if (c < H) {
@@ -737,8 +749,8 @@ __device__ __forceinline__ void sdf_reverse_tc(const Dims& d, const Layout& L, u
   }
   // layer 0's reverse products: the embedding cotangents
   phase_tag(10);
-  gemm_fused<NSTAGE_BWD, true>(cz, czd, ldX, H, mat(pk, pp, RS + 0), E, ring, red, nullptr, 0, 0,
-                               NoPre(), [&](int r, int c, float ch, float chd, float) {
+  gemm_fused<true>(rg, cz, czd, ldX, H, RS + 0, E, red, nullptr, 0, 0,
+                   NoPre(), [&](int r, int c, float ch, float chd, float) {
                                  if (c < E) {
                                    CH[r * E + c] = ch;
                                    CHD[r * E + c] = chd;
@@ -783,7 +795,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_bwd_kernel(
     float* __restrict__ d_z, float* __restrict__ d_t, float* __restrict__ gpart,
     unsigned char* __restrict__ scr_all, long long scr_stride, WLog lg, bf16* __restrict__ log,
     long long log_rows, int ray0, int ray1) {
-  extern __shared__ __align__(16) unsigned char sm[];
+  extern __shared__ __align__(128) unsigned char sm[];
   const Layout L = tc_layout(d, true);
   const WeightOffsets wo = weight_offsets(d);
   unsigned char* scr = scr_all + (size_t)blockIdx.x * scr_stride;
@@ -821,11 +833,12 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_bwd_kernel(
   float* CH = (float*)(scr + L.CH);
   float* CHD = (float*)(scr + L.CHD);
   float* ccin6 = (float*)(sm + L.ccin6);
-  uint2* ring = (uint2*)(sm + L.ring);
   float* red = (float*)(sm + L.red);
   // gp: zero from the caller, summed over the chunks
   for (size_t e = tid; e < L.smem / 4; e += TNT) ((float*)sm)[e] = 0.f;
   __syncthreads();
+  Ring rg = ring_init(sm + L.ring, sm + L.rbar, d, pp, pk, PLAN_RAY_BWD,
+                      tiles_of(ray1 - ray0, blockIdx.x, gridDim.x));
   float civ = 0.f;
   for (int rid = ray0 + blockIdx.x; rid < ray1; rid += gridDim.x) {
     // this ray's rows of log region m, and its stride
@@ -851,7 +864,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_bwd_kernel(
     // ---- primal stacks (the gradient and sdf are the forward's residuals);
     // the hidden and colour activations ping-pong in shared memory, with a
     // copy in the log for the weight gradients
-    sdf_primal_tc<NSTAGE_BWD>(d, L, sm, wts, wo, pk, pp, P, AS, PS, nullptr,
+    sdf_primal_tc(d, L, sm, rg, wts, wo, P, AS, PS, nullptr,
                   [&](int i) { return (i % 2) ? czd : cz; }, to_log(LG_X), CinFeat{cin, ldC});
     for (int e = tid; e < ROWS * 3; e += TNT) {
       const int r = e / 3;
@@ -870,8 +883,8 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_bwd_kernel(
     }
     __syncthreads();
     lput(LG_CIN, cin, ldC, CW);
-    colour_primal_tc<NSTAGE_BWD>(d, L, sm, wts, wo, pk, pp, [&](int l) { return (l % 2) ? czd : cz; },
-                                 to_log(LG_ACT));
+    colour_primal_tc(d, L, sm, rg, wts, wo, [&](int l) { return (l % 2) ? czd : cz; },
+                     to_log(LG_ACT));
     // ---- compositing VJP on warp 0: L = sum_k w_k u_k, w_k = alpha_k T_k,
     // dL/dalpha_k = T_k (u_k - B_k) with B_{k-1} = u_k alpha_k + x_k B_k
     // (an affine suffix scan), lane k holding samples k and k + 32
@@ -987,8 +1000,8 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_bwd_kernel(
         const bf16* al = lp(LG_ACT + l - 1);
         const int ldal = lg.ld[LG_ACT + l - 1];
         phase_tag(4);
-        gemm_fused<NSTAGE_BWD, false>(
-            A, nullptr, lda, K, mat(pk, pp, RC + l), HC, ring, red, gp + wo.cb[l - 1], 0, HC,
+        gemm_fused<false>(
+            rg, A, nullptr, lda, K, RC + l, HC, red, gp + wo.cb[l - 1], 0, HC,
             [&](int r, int c) { return c < HC ? __bfloat162float(al[r * ldal + c]) : 0.f; },
             [&](int r, int c, float v, float, float a) {
               const float zc = c < HC && a > 0.f ? v : 0.f;
@@ -1003,13 +1016,12 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_bwd_kernel(
       for (int e = tid; e < ROWS * (ldF - F); e += TNT)
         CF[(e / (ldF - F)) * ldF + F + e % (ldF - F)] = to_bf(0.f);
       phase_tag(5);
-      gemm_fused<NSTAGE_BWD, false>(A, nullptr, lda, K, mat(pk, pp, RC + 0), CW, ring, red,
-                                    gp + wo.sb[d.NH + 1] + 1, 6, CW, NoPre(),
-                                    [&](int r, int c, float v, float, float) {
-                                      if (c < 6) ccin6[r * 6 + c] = v;
-                                      else if (c < CW) CF[r * ldF + c - 6] = to_bf(v);
-                                      return c >= 6 && c < CW ? v : 0.f;
-                                    });
+      gemm_fused<false>(rg, A, nullptr, lda, K, RC + 0, CW, red, gp + wo.sb[d.NH + 1] + 1, 6, CW,
+                        NoPre(), [&](int r, int c, float v, float, float) {
+                          if (c < 6) ccin6[r * 6 + c] = v;
+                          else if (c < CW) CF[r * ldF + c - 6] = to_bf(v);
+                          return c >= 6 && c < CW ? v : 0.f;
+                        });
     }
     // ---- SDF reverse: forward-over-reverse, tangent direction v = cg
     for (int e = tid; e < ROWS * 3; e += TNT) {
@@ -1017,7 +1029,7 @@ __global__ void __launch_bounds__(TNT, 1) neus_tc_bwd_kernel(
       cg[e] += ccin6[r * 6 + 3 + c];
     }
     __syncthreads();
-    sdf_reverse_tc(d, L, sm, wts, wo, pk, pp, P, AS, ZD, PS, ZDS, CH, CHD, gp, lput, ccin6);
+    sdf_reverse_tc(d, L, sm, rg, wts, wo, P, AS, ZD, PS, ZDS, CH, CHD, gp, lput, ccin6);
     for (int r = tid; r < S; r += TNT) {
       const float* dxr = dx + r * 3;
       d_z[(size_t)rid * S + r] = dxr[0] * ray[3] + dxr[1] * ray[4] + dxr[2] * ray[5];
@@ -1052,7 +1064,7 @@ __global__ void __launch_bounds__(TNT, 1) sdf_tc_bwd_kernel(
     float* __restrict__ d_pts, float* __restrict__ gpart, unsigned char* __restrict__ scr_all,
     long long scr_stride, WLog lg, bf16* __restrict__ log, long long log_rows, int blk0,
     int blk1) {
-  extern __shared__ __align__(16) unsigned char sm[];
+  extern __shared__ __align__(128) unsigned char sm[];
   const Layout L = tc_layout(d, true);
   const WeightOffsets wo = weight_offsets(d);
   unsigned char* scr = scr_all + (size_t)blockIdx.x * scr_stride;
@@ -1078,6 +1090,8 @@ __global__ void __launch_bounds__(TNT, 1) sdf_tc_bwd_kernel(
   // every bf16 operand buffer starts zero: padding columns are never written
   for (size_t e = tid; e < L.smem / 4; e += TNT) ((float*)sm)[e] = 0.f;
   __syncthreads();
+  Ring rg = ring_init(sm + L.ring, sm + L.rbar, d, pp, pk, PLAN_SDF_BWD,
+                      tiles_of(blk1 - blk0, blockIdx.x, gridDim.x));
   for (int blk = blk0 + blockIdx.x; blk < blk1; blk += gridDim.x) {
     const long long row0 = (long long)blk * ROWS;
     const int n = n_pts - row0 < ROWS ? (int)(n_pts - row0) : ROWS;
@@ -1093,7 +1107,7 @@ __global__ void __launch_bounds__(TNT, 1) sdf_tc_bwd_kernel(
     __syncthreads();
     encode_points(d, L, sm, false);
     lput(LG_EB, eb, ldE, E);
-    sdf_primal_tc<NSTAGE_BWD>(d, L, sm, wts, wo, pk, pp, P, AS, PS, nullptr,
+    sdf_primal_tc(d, L, sm, rg, wts, wo, P, AS, PS, nullptr,
                               [&](int i) { return (i % 2) ? czd : cz; },
                               [&](int i, bf16*& p, int& ld) {
                                 const int m = i < 0 ? LG_U : LG_X + i;
@@ -1118,7 +1132,7 @@ __global__ void __launch_bounds__(TNT, 1) sdf_tc_bwd_kernel(
       }
       return acc;
     });
-    sdf_reverse_tc(d, L, sm, wts, wo, pk, pp, P, AS, ZD, PS, ZDS, CH, CHD, gp, lput,
+    sdf_reverse_tc(d, L, sm, rg, wts, wo, P, AS, ZD, PS, ZDS, CH, CHD, gp, lput,
                    (const float*)nullptr);
     for (int e = tid; e < n * 3; e += TNT) d_pts[row0 * 3 + e] = dx[e];
     __syncthreads();
@@ -1151,7 +1165,7 @@ __global__ void __launch_bounds__(TNT, 1) sdf_tc_fwd_kernel(
     const float* __restrict__ pts_in, int n_pts, float* __restrict__ sdf_out,
     float* __restrict__ feat_out, float* __restrict__ g_out, unsigned char* __restrict__ scr_all,
     long long scr_stride) {
-  extern __shared__ __align__(16) unsigned char sm[];
+  extern __shared__ __align__(128) unsigned char sm[];
   const Layout L = tc_layout(d, false);
   const WeightOffsets wo = weight_offsets(d);
   unsigned char* scr = scr_all + (size_t)blockIdx.x * scr_stride;
@@ -1170,6 +1184,8 @@ __global__ void __launch_bounds__(TNT, 1) sdf_tc_fwd_kernel(
   for (size_t e = tid; e < L.smem / 4; e += TNT) ((float*)sm)[e] = 0.f;
   __syncthreads();
   const int n_blk = (n_pts + ROWS - 1) / ROWS;
+  Ring rg = ring_init(sm + L.ring, sm + L.rbar, d, pp, pk, PLAN_SDF_FWD,
+                      tiles_of(n_blk, blockIdx.x, gridDim.x));
   for (int blk = blockIdx.x; blk < n_blk; blk += gridDim.x) {
     const long long row0 = (long long)blk * ROWS;
     const int n = n_pts - row0 < ROWS ? (int)(n_pts - row0) : ROWS;
@@ -1178,9 +1194,9 @@ __global__ void __launch_bounds__(TNT, 1) sdf_tc_fwd_kernel(
     encode_points(d, L, sm, true);
     bf16* skip_in = (d.NH % 2) ? ha : hb;
     bf16* ts = skip_in == ha ? hb : ha;
-    sdf_primal_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, P, AS, (f16*)nullptr, ts,
-                              [&](int i) { return (i % 2) ? hb : ha; }, NoLog(),
-                              FeatOut{feat_out + row0 * d.F, d.F, n});
+    sdf_primal_tc(d, L, sm, rg, wts, wo, P, AS, (f16*)nullptr, ts,
+                  [&](int i) { return (i % 2) ? hb : ha; }, NoLog(),
+                  FeatOut{feat_out + row0 * d.F, d.F, n});
     // the sdf row, rounded: eight threads a row, strided partial sums, then
     // three xor shuffles within the eight consecutive lanes
     {
@@ -1193,7 +1209,7 @@ __global__ void __launch_bounds__(TNT, 1) sdf_tc_fwd_kernel(
       acc += __shfl_xor_sync(0xffffffffu, acc, 4);
       if (q == 0 && r < n) sdf_out[row0 + r] = (acc + b0) / d.scale;
     }
-    gradient_sweep_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, P, ts, skip_in);
+    gradient_sweep_tc(d, L, sm, rg, wts, wo, P, ts, skip_in);
     phase_mark(PH_OTHER);
     for (int e = tid; e < n * 3; e += TNT) g_out[row0 * 3 + e] = g[e];
     __syncthreads();
@@ -1217,7 +1233,7 @@ __global__ void __launch_bounds__(TNT, 1) sdf_only_tc_fwd_kernel(
     Dims d, Pack pp, const float* __restrict__ wts, const uint2* __restrict__ pk,
     const float* __restrict__ pts_in, int n_pts, float* __restrict__ sdf_out,
     unsigned char* __restrict__ scr_all, long long scr_stride) {
-  extern __shared__ __align__(16) unsigned char sm[];
+  extern __shared__ __align__(128) unsigned char sm[];
   const Layout L = tc_layout(d, false);
   const WeightOffsets wo = weight_offsets(d);
   float* AS = (float*)(scr_all + (size_t)blockIdx.x * scr_stride + L.AS);
@@ -1233,15 +1249,16 @@ __global__ void __launch_bounds__(TNT, 1) sdf_only_tc_fwd_kernel(
   for (size_t e = tid; e < L.smem / 4; e += TNT) ((float*)sm)[e] = 0.f;
   __syncthreads();
   const int n_blk = (n_pts + ROWS - 1) / ROWS;
+  Ring rg = ring_init(sm + L.ring, sm + L.rbar, d, pp, pk, PLAN_SDF_ONLY,
+                      tiles_of(n_blk, blockIdx.x, gridDim.x));
   for (int blk = blockIdx.x; blk < n_blk; blk += gridDim.x) {
     const long long row0 = (long long)blk * ROWS;
     const int n = n_pts - row0 < ROWS ? (int)(n_pts - row0) : ROWS;
     for (int e = tid; e < ROWS * 3; e += TNT) pts[e] = e < n * 3 ? pts_in[row0 * 3 + e] : 0.f;
     __syncthreads();
     encode_points(d, L, sm, true);
-    sdf_primal_tc<NSTAGE_FWD, false>(d, L, sm, wts, wo, pk, pp, (f16*)nullptr, AS, (f16*)nullptr,
-                                     (bf16*)nullptr, [&](int i) { return (i % 2) ? hb : ha; },
-                                     NoLog(), NoFeat());
+    sdf_primal_tc<false>(d, L, sm, rg, wts, wo, (f16*)nullptr, AS, (f16*)nullptr, (bf16*)nullptr,
+                         [&](int i) { return (i % 2) ? hb : ha; }, NoLog(), NoFeat());
     phase_mark(PH_OTHER);
     // the head's sdf row in f32: four threads a row, fixed order
     if (tid < 4 * ROWS) {
@@ -1278,7 +1295,7 @@ __global__ void __launch_bounds__(TNT, 1) colour_tc_bwd_kernel(
     int cv, const float* __restrict__ c_out, float* __restrict__ dx, float* __restrict__ dn,
     float* __restrict__ dv, float* __restrict__ df, float* __restrict__ gpart, WLog lg,
     bf16* __restrict__ log, long long log_rows, int blk0, int blk1) {
-  extern __shared__ __align__(16) unsigned char sm[];
+  extern __shared__ __align__(128) unsigned char sm[];
   const Layout L = tc_layout(d, true);
   const WeightOffsets wo = weight_offsets(d);
   float* gp = gpart + (size_t)blockIdx.x * wo.total;
@@ -1291,7 +1308,6 @@ __global__ void __launch_bounds__(TNT, 1) colour_tc_bwd_kernel(
   const float* head = (const float*)(sm + L.head);
   float* chead = (float*)(sm + L.chead);
   bf16* cheadb = (bf16*)(sm + L.cheadb);
-  uint2* ring = (uint2*)(sm + L.ring);
   float* red = (float*)(sm + L.red);
   const int vcol[3] = {cx, cn, cv};
   const float* vin[3] = {x_in, n_in, v_in};
@@ -1299,6 +1315,8 @@ __global__ void __launch_bounds__(TNT, 1) colour_tc_bwd_kernel(
   // every bf16 operand buffer starts zero: padding columns are never written
   for (size_t e = tid; e < L.smem / 4; e += TNT) ((float*)sm)[e] = 0.f;
   __syncthreads();
+  Ring rg = ring_init(sm + L.ring, sm + L.rbar, d, pp, pk, PLAN_COL_BWD,
+                      tiles_of(blk1 - blk0, blockIdx.x, gridDim.x));
   for (int blk = blk0 + blockIdx.x; blk < blk1; blk += gridDim.x) {
     const long long row0 = (long long)blk * ROWS;
     const int n = n_pts - row0 < ROWS ? (int)(n_pts - row0) : ROWS;
@@ -1330,7 +1348,7 @@ __global__ void __launch_bounds__(TNT, 1) colour_tc_bwd_kernel(
     __syncthreads();
     phase_mark(PH_COMPOSITE);
     lput(LG_CIN, cin, ldC, CW);
-    colour_primal_tc<NSTAGE_BWD>(d, L, sm, wts, wo, pk, pp, [&](int l) { return (l % 2) ? czd : cz; },
+    colour_primal_tc(d, L, sm, rg, wts, wo, [&](int l) { return (l % 2) ? czd : cz; },
                                  [&](int l, bf16*& p, int& ld) {
                                    p = lp(LG_ACT + l);
                                    ld = lg.ld[LG_ACT + l];
@@ -1370,8 +1388,8 @@ __global__ void __launch_bounds__(TNT, 1) colour_tc_bwd_kernel(
       const bf16* al = lp(LG_ACT + l - 1);
       const int ldal = lg.ld[LG_ACT + l - 1];
       phase_tag(4);
-      gemm_fused<NSTAGE_BWD, false>(
-          A, nullptr, lda, K, mat(pk, pp, RC + l), HC, ring, red, gp + wo.cb[l - 1], 0, HC,
+      gemm_fused<false>(
+          rg, A, nullptr, lda, K, RC + l, HC, red, gp + wo.cb[l - 1], 0, HC,
           [&](int r, int c) { return c < HC ? __bfloat162float(al[r * ldal + c]) : 0.f; },
           [&](int r, int c, float v, float, float a) {
             const float zc = c < HC && a > 0.f ? v : 0.f;
@@ -1386,7 +1404,7 @@ __global__ void __launch_bounds__(TNT, 1) colour_tc_bwd_kernel(
     // layer 0's reverse product: the input cotangents in f32 from the
     // accumulators, the feature's to df and each vector's to its output
     phase_tag(5);
-    gemm_fused<NSTAGE_BWD, false>(A, nullptr, lda, K, mat(pk, pp, RC + 0), CW, ring, red, nullptr,
+    gemm_fused<false>(rg, A, nullptr, lda, K, RC + 0, CW, red, nullptr,
                                   0, 0, NoPre(), [&](int r, int c, float v, float, float) {
                                     if (r < n && c < CW) {
                                       if (c >= cf) {
@@ -1421,7 +1439,7 @@ __global__ void __launch_bounds__(TNT, 1) colour_tc_fwd_kernel(
     const float* __restrict__ x_in, const float* __restrict__ n_in,
     const float* __restrict__ v_in, const float* __restrict__ f_in, int n_pts, int cx, int cn,
     int cv, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char sm[];
+  extern __shared__ __align__(128) unsigned char sm[];
   const Layout L = colour_fwd_layout(d);
   const WeightOffsets wo = weight_offsets(d);
   const int tid = threadIdx.x, F = d.F, W = d.W, cf = d.CW - d.F, ldC = L.ldC;
@@ -1450,6 +1468,8 @@ __global__ void __launch_bounds__(TNT, 1) colour_tc_fwd_kernel(
     if ((int)blockIdx.x < n_blk) fetch(blockIdx.x);
   }
   __syncthreads();
+  Ring rg = ring_init(sm + L.ring, sm + L.rbar, d, pp, pk, PLAN_COL_FWD,
+                      tiles_of(n_blk, blockIdx.x, gridDim.x));
   unsigned parity = 0;
   for (int blk = blockIdx.x; blk < n_blk; blk += gridDim.x, parity ^= 1u) {
     const long long row0 = (long long)blk * ROWS;
@@ -1466,7 +1486,7 @@ __global__ void __launch_bounds__(TNT, 1) colour_tc_fwd_kernel(
     __syncthreads();  // the stage is read: the next tile's rows may land in it
     if (tid == 0 && blk + (int)gridDim.x < n_blk) fetch(blk + gridDim.x);
     phase_mark(PH_COMPOSITE);
-    colour_primal_tc<NSTAGE_FWD>(d, L, sm, wts, wo, pk, pp, [&](int l) { return (l % 2) ? hb : ha; });
+    colour_primal_tc(d, L, sm, rg, wts, wo, [&](int l) { return (l % 2) ? hb : ha; });
     phase_mark(PH_OTHER);
     float* o = out + row0 * W;
     for (int e = tid; e < n * W; e += TNT) o[e] = rgb_of(d, head[(e / W) * 8 + e % W]);
@@ -1487,7 +1507,7 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WLog lg, WProbs ps,
                                                            long long rows, int n_split,
                                                            float* __restrict__ part_base,
                                                            long long part_stride) {
-  extern __shared__ __align__(16) unsigned char sm[];
+  extern __shared__ __align__(128) unsigned char sm[];
   bf16* st = (bf16*)sm;
   phase_start();
   // which problem and tile

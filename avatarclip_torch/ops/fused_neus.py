@@ -356,29 +356,73 @@ _FC, _RC, _NMAT = 2 * MAX_NH + 4, 3 * MAX_NH + 5, 4 * MAX_NH + 6
 
 class Pack(ctypes.Structure):
     """Mirror of ``neus::tc::Pack``: each packed matrix's offset in uint2
-    fragments (4 bf16)."""
+    (4 bf16)."""
 
     _fields_ = [("off", ctypes.c_longlong * _NMAT)]
 
 
+TC_PASS = 32  # n-tiles (8 columns each) of a product pass: csrc/neus_tc.cuh's NTP
+TC_SLICE = 8  # n-tiles of a warpgroup's slice of a pass: neus_tc.cuh's WGN
+TC_KS = 2  # k-steps one bulk copy brings: neus_tc.cuh's KS
+
+
+def _slices(NT: int):
+    """(first n-tile, n-tiles) of each warpgroup slice, pass by pass."""
+    for n0 in range(0, NT, TC_PASS):
+        ntp = min(TC_PASS, NT - n0)
+        for j0 in range(0, ntp, TC_SLICE):
+            yield n0 + j0, min(TC_SLICE, ntp - j0)
+
+
 def pack_b(b: torch.Tensor) -> torch.Tensor:
-    """A product's (K, N) right operand as mma.m16n8k16 B-fragments in bf16,
-    zero-padded to (16 KT, 8 NT), k-step major: fragment (kt, nt) of lane
-    4 g + t holds B[16 kt + 2t + {0, 1, 8, 9}][8 nt + g] (csrc/neus_tc.cuh)."""
+    """A product's (K, N) right operand in bf16, zero-padded to (16 KT, 8 NT),
+    in wgmma's K-major shared-memory layout without swizzle
+    (csrc/neus_tc.cuh): passes of TC_PASS n-tiles, each cut into warpgroup
+    slices of TC_SLICE n-tiles (the last may be narrower); a slice holds
+    k-step by k-step (16 rows) its nw n-tiles, each n-tile two 8 x 8 core
+    matrices (k 0-7, k 8-15) of 8 rows of n by 8 contiguous k. Element (16
+    kt + 8 kh + kk, 8 n + g) of n-tile n = n0 + j of the slice starting at
+    n-tile n0 lies at ``n0 KT 128 + (kt nw + j) 128 + kh 64 + 8 g + kk``, so
+    any run of a slice's k-steps is contiguous (:func:`chunk_span`). A
+    slice is one copy (two when the pass ends in a narrower one)."""
     K, N = b.shape
     KT, NT = -(-K // 16), -(-N // 8)
-    p = b.new_zeros(KT * 16, NT * 8)
-    p[:K, :N] = b
-    # k = 16 kt + 8 kh + 2 t + kk, n = 8 nt + g -> (kt, nt, g, t, kh, kk)
-    p = p.reshape(KT, 2, 4, 2, NT, 8).permute(0, 4, 5, 2, 1, 3)
-    return p.reshape(-1).to(torch.bfloat16)
+    p = torch.nn.functional.pad(b, (0, NT * 8 - N, 0, KT * 16 - K))
+    out = torch.empty(KT * 16 * NT * 8, dtype=torch.bfloat16, device=b.device)
+    n0 = 0
+    while n0 < NT:
+        # the pass's whole slices at once, then a narrower last one
+        ntp = min(TC_PASS, TC_PASS - n0 % TC_PASS, NT - n0)
+        ns = ntp // TC_SLICE
+        nw, count = (TC_SLICE, ns) if ns else (ntp, 1)
+        # k = 16 kt + 8 kh + kk, n = 8 (n0 + nw s + j) + g -> (s, kt, j, kh, g, kk), rounded as copied
+        q = p[:, 8 * n0:8 * (n0 + count * nw)].reshape(KT, 2, 8, count, nw, 8).permute(3, 0, 4, 1, 5, 2)
+        out[KT * 128 * n0:KT * 128 * (n0 + count * nw)].view(count, KT, nw, 2, 8, 8).copy_(q)
+        n0 += count * nw
+    return out
 
 
 def unpack_b(packed: torch.Tensor, K: int, N: int) -> torch.Tensor:
     """The inverse of :func:`pack_b` (f32, unpadded)."""
     KT, NT = -(-K // 16), -(-N // 8)
-    p = packed.float().reshape(KT, NT, 8, 4, 2, 2).permute(0, 4, 3, 5, 1, 2)
-    return p.reshape(KT * 16, NT * 8)[:K, :N]
+    cols = []
+    for n0, nw in _slices(NT):
+        q = packed[KT * 128 * n0:KT * 128 * (n0 + nw)].float().reshape(KT, nw, 2, 8, 8)
+        cols.append(q.permute(0, 2, 4, 1, 3).reshape(KT * 16, nw * 8))
+    return torch.cat(cols, 1)[:K, :N]
+
+
+def chunk_span(K: int, N: int, pas: int, w: int, kt: int) -> tuple[int, int]:
+    """(element offset, elements) within :func:`pack_b`'s pack of a (K, N)
+    matrix of the chunk that warpgroup ``w``'s producer copies at k-step
+    ``kt`` of pass ``pas``: TC_KS k-steps (fewer at the pass's end) of the
+    warpgroup's slice, one bulk copy into a slot of its ring (ring_fill in
+    csrc/neus_tc.cuh)."""
+    KT, NT = -(-K // 16), -(-N // 8)
+    n0 = pas * TC_PASS + w * TC_SLICE
+    nw = min(TC_SLICE, NT - n0)
+    nk = min(TC_KS, KT - kt)
+    return (n0 * KT + kt * nw) * 128, nk * nw * 128
 
 
 def pack_tc(spec, weights) -> tuple[torch.Tensor, Pack]:
@@ -457,6 +501,8 @@ def pack_flat(spec, flat) -> tuple[torch.Tensor, Pack]:
 def check_packed(pk, device):
     if pk.dtype != torch.bfloat16 or pk.device != device or not pk.is_contiguous():
         raise ValueError("the packed weights must be a contiguous bf16 tensor on the card")
+    if pk.data_ptr() % 128:
+        raise ValueError("the packed weights must start 128-byte aligned (the bulk copies' runs)")
 
 
 def _tc_lib():

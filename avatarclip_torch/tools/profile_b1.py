@@ -20,7 +20,10 @@ nets of chip_smoke.neus_problem at bf16, then, for each kernel asked for:
   ``-DNEUS_TC_PROF``, runs the kernel once, and prints its cycles by phase
   (``neus_tc.cuh``: thread 0 of every CTA stamps clock64 at each phase
   boundary, so a phase's share is of the CTAs' summed cycles; the
-  milliseconds beside it are that share of the median time);
+  milliseconds beside it are that share of the median time). Thread 0 is
+  a thread of consumer warpgroup 0 and that warpgroup's producer: its
+  k-loops leave out its waits for a slot's copy to land and its issuing of
+  the copies, two phases of their own;
 * prints the card's name and power limit as nvidia-smi gives them.
 """
 
@@ -33,9 +36,10 @@ import statistics
 import subprocess
 import sys
 
-PHASES = ("other", "product k-loops", "weight grads", "stage copies", "column passes",
-          "compositing / per-point I/O", "product epilogues", "log stores")
-N_PHASE = 24  # neus_tc.cuh's PH_N: PHASES, then the epilogues by tag
+PHASES = ("other", "product k-loops", "weight grads", "producer issuing copies",
+          "column passes", "compositing / per-point I/O", "product epilogues", "log stores")
+N_PHASE = 24  # neus_tc.cuh's PH_N: PHASES, the epilogues by tag, then PH_FULL
+PH_FULL = 20  # neus_tc.cuh's: waits for a slot's weights to land
 TAGS = ("sdf primal hidden", "skip primal", "head primal", "colour primal", "colour reverse",
         "colour input reverse", "tangent hidden", "tangent skip", "head reverse", "sdf reverse pairs",
         "embedding reverse", "gradient sweep")
@@ -205,9 +209,9 @@ def phases(lib, name: str, k: int, n_cta: int, ms: float) -> None:
     buf = (ctypes.c_longlong * (n_cta * N_PHASE))()
     _build.check(lib.neus_tc_phases(k, buf, n_cta), "neus_tc_phases")
     tot = [sum(buf[c * N_PHASE + i] for c in range(n_cta)) for i in range(N_PHASE)]
-    all_ = max(sum(tot[:len(PHASES)]), 1)
-    rows = [f"{PHASES[i]} {tot[i] / all_:.1%} ({tot[i] / all_ * ms:.2f} ms)"
-            for i in range(len(PHASES)) if tot[i]]
+    named = list(enumerate(PHASES)) + [(PH_FULL, "waits on full slots")]
+    all_ = max(sum(tot[i] for i, _ in named), 1)
+    rows = [f"{name} {tot[i] / all_:.1%} ({tot[i] / all_ * ms:.2f} ms)" for i, name in named if tot[i]]
     print(f"[profile] {name} phases (profiling build, shares of {all_ / n_cta:.4g} cycles a CTA): "
           + ", ".join(rows))
     rows = [f"{TAGS[i]} {tot[8 + i] / all_ * ms:.2f} ms" for i in range(len(TAGS)) if tot[8 + i]]

@@ -287,20 +287,26 @@ def test_sdf_only_plain_matches_pallas_kernel_at_bf16(sdf_nets):
 @pytest.mark.parametrize("K,N", [(39, 256), (256, 217), (217, 256), (262, 256), (256, 6),
                                  (256, 39), (89, 128), (134, 128)])
 def test_packed_weight_layout(K, N):
-    """pack_b: k-step-major mma B-fragments, zero-padded to 16 x 8 tiles;
-    fragment (kt, nt) of lane 4 g + t holds B[16 kt + 2t + {0, 1, 8, 9}][8 nt + g]."""
+    """pack_b: wgmma's K-major shared-memory layout without swizzle,
+    zero-padded to 16 x 8 tiles, in passes of TC_PASS n-tiles cut into
+    warpgroup slices of TC_SLICE: within the slice that starts at n-tile
+    n0 (nw wide), n-tile n0 + j of k-step kt has its core matrix kh (k 0-7
+    or 8-15) at (n0 KT + kt nw + j) 128 + 64 kh, holding B[16 kt + 8 kh +
+    kk][8 n + g] at row g, column kk: 128 bytes a core matrix."""
     b = torch.randn(K, N, generator=torch.Generator().manual_seed(K * N))
     packed = tfn.pack_b(b)
     KT, NT = -(-K // 16), -(-N // 8)
     assert packed.dtype == torch.bfloat16 and packed.numel() == KT * 16 * NT * 8
     torch.testing.assert_close(tfn.unpack_b(packed, K, N), b.bfloat16().float(), rtol=0, atol=0)
-    frags = packed.float().reshape(KT, NT, 32, 4)
     padded = torch.zeros(KT * 16, NT * 8)
     padded[:K, :N] = b.bfloat16().float()
-    for kt, nt, lane in ((0, 0, 0), (KT - 1, NT - 1, 31), (KT // 2, NT // 3, 13)):
-        g, t = lane // 4, lane % 4
-        want = padded[[16 * kt + 2 * t + o for o in (0, 1, 8, 9)], 8 * nt + g]
-        torch.testing.assert_close(frags[kt, nt, lane], want, rtol=0, atol=0)
+    for kt, n, kh in ((0, 0, 0), (KT - 1, NT - 1, 1), (KT // 2, NT // 3, 1)):
+        n0 = n // tfn.TC_SLICE * tfn.TC_SLICE
+        nw = min(tfn.TC_SLICE, NT - n0, tfn.TC_PASS - n0 % tfn.TC_PASS)
+        at = (n0 * KT + kt * nw + n - n0) * 128 + kh * 64
+        core = packed[at:at + 64].float().reshape(8, 8)
+        want = padded[16 * kt + 8 * kh:16 * kt + 8 * kh + 8, 8 * n:8 * n + 8].t()
+        torch.testing.assert_close(core, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("width", [256, 128])

@@ -598,6 +598,32 @@ def _neus_fields(width: int, n_rays: int, dev, dtype: str, seed: int, S: int = 6
     return fields.to(dev), [t.to(dev) for t in ins]
 
 
+def test_b1_tensor_core_backward_is_deterministic(dev):
+    """B1's tensor-core backward, twice on the same inputs at the train_clip
+    step's 12,544 rays x 64 samples (4x256 / 2x256): every gradient the same
+    bits (the column sums and the weight-gradient partial rows in a fixed
+    order, no atomics)."""
+    from avatarclip_torch.ops import fused_neus as fn
+
+    R = 12544
+    fields, ins = _neus_fields(256, R, dev, "bfloat16", seed=21)
+    spec = fn.spec_from_configs(fields.sdf.cfg, fields.color.cfg, 64)
+    with torch.no_grad():
+        weights = fn.dense_weights(fields.sdf, fields.color)
+        flat = torch.cat([w.reshape(-1) for w in weights])
+        pk, pack = fn.pack_tc(spec, weights)
+        inv_s = fields.variance.inv_s().reshape(()).float().contiguous()
+    args = (flat, pk, pack, *ins, inv_s, 0.4)
+    res = fn.neus_ray_tc_fwd(spec, *args)
+    g = torch.Generator().manual_seed(4)
+    cots = [torch.randn(R, k, generator=g).to(dev) for k in (spec.rgb_width, 3, 1)]
+    cots.append(torch.tensor([0.5, 0.0], device=dev))
+    first = fn.neus_ray_tc_bwd(spec, *args, res[3], res[4], *cots)
+    second = fn.neus_ray_tc_bwd(spec, *args, res[3], res[4], *cots)
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+
+
 @pytest.mark.parametrize("width,n_rays", [(256, 2048), (256, 2045), (128, 2048), (128, 2045)])
 def test_b3_tensor_core_forward_holds_at_bf16(dev, width, n_rays):
     """B3's forward in the bf16 operand mode (the tensor-core kernel) under

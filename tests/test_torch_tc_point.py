@@ -8,6 +8,12 @@
 * the flat layout's shapes (``fused_neus.flat_shapes``) and packing from a
   flat buffer (``fused_neus.pack_flat``), as the wrappers pack when they are
   not handed a pack;
+* the packs' placement for the kernels' bulk copies: every matrix of
+  ``pack_tc``, ``pack_sdf_only_tc`` and ``pack_colour_tc`` starts 128-byte
+  aligned, the matrices follow one another without gaps, and each chunk a
+  warpgroup's producer copies into its ring (TC_KS k-steps of its slice of
+  a pass, ``fused_neus.chunk_span``) is one aligned, contiguous run holding
+  exactly those k-steps of the slice's columns;
 * the mode dispatch of ``fused_neus.neus_point_fwd`` and
   ``fused_sdf.sdf_bwd``: the tensor-core library in the bf16 operand mode,
   the CUDA-core one in f32, checked without a launch (the library getters
@@ -20,6 +26,7 @@ import pytest
 import torch
 
 from avatarclip_torch.fields import networks as nets
+from avatarclip_torch.ops import fused_color as fc
 from avatarclip_torch.ops import fused_neus as fn
 from avatarclip_torch.ops import fused_sdf as fs
 
@@ -35,6 +42,74 @@ def _fields(width: int, dtype: str = "bfloat16"):
     skw, ckw = WIDTHS[width]
     return nets.NeuSFields(nets.SDFConfig(**skw, dtype=dtype), nets.ColorConfig(**ckw, dtype=dtype),
                            0.3, torch.Generator().manual_seed(width))
+
+
+def _packed_matrices(kind: str, width: int):
+    """(pack, Pack, {slot: (K, N) matrix}) of B1's pair, #12 or B7 (the
+    colour net in no_view_dir, with its 262- or 134-wide first layer)."""
+    fields = _fields(width)
+    if kind == "colour":
+        spec = fc.spec_from_config(fields.color.cfg)
+        tcw = fc.tc_weights(spec, [w.detach() for w in fc.dense_weights(fields.color, spec)])
+        pk, pack = fn.pack_colour_tc(tcw)
+        mats = tcw[0::2]
+        return pk, pack, {s: m for l, w in enumerate(mats) for s, m in ((fn._FC + l, w.t()), (fn._RC + l, w))}
+    if kind == "sdf_only":
+        sdf = fields.sdf
+        spec = fs.spec_from_config(sdf.cfg)
+        weights = fs.dense_weights(sdf)
+        pk, pack = fn.pack_sdf_only_tc(spec, weights)
+        return pk, pack, {fn._FS + i: w.detach().t() for i, w in enumerate(weights[0:2 * (spec.n_hidden + 1):2])}
+    spec = fn.spec_from_configs(fields.sdf.cfg, fields.color.cfg, 64)
+    weights = [w.detach() for w in fn.dense_weights(fields.sdf, fields.color)]
+    pk, pack = fn.pack_tc(spec, weights)
+    NH, mats = spec.n_hidden, weights[0::2]
+    head = mats[NH + 1][1:] / 2.0 ** 0.5
+    want = {fn._FHEAD: head.t(), fn._RHEAD: head}
+    for i in range(NH + 1):
+        want[fn._FS + i], want[fn._RS + i] = mats[i].t(), mats[i]
+    for l, w in enumerate(mats[NH + 2:]):
+        want[fn._FC + l], want[fn._RC + l] = w.t(), w
+    return pk, pack, want
+
+
+@pytest.mark.parametrize("width", [256, 128])
+@pytest.mark.parametrize("kind", ["pair", "sdf_only", "colour"])
+def test_pack_stages_are_aligned_contiguous_runs(kind, width):
+    """Every packed matrix starts on 128 bytes (a bulk copy's and a wgmma
+    descriptor's alignment, given a 128-byte-aligned pack, which
+    fused_neus.check_packed requires), the matrices tile the pack without a
+    gap, and each chunk a warpgroup's producer copies, TC_KS k-steps from kt
+    of warpgroup w's slice of pass p (chunk_span: one bulk copy into a slot
+    of its ring), starts on 128 bytes and holds those k-steps of the slice's
+    columns and nothing else, core matrix by core matrix."""
+    pk, pack, mats = _packed_matrices(kind, width)
+    end = 0
+    for slot in sorted(mats, key=lambda s: pack.off[s]):
+        K, N = mats[slot].shape
+        base = pack.off[slot] * 4  # bf16 elements
+        assert base * 2 % 128 == 0 and base == end
+        KT, NT = -(-K // 16), -(-N // 8)
+        end = base + KT * 16 * NT * 8
+        padded = torch.zeros(KT * 16, NT * 8)
+        padded[:K, :N] = mats[slot].bfloat16().float()
+        for p in range(-(-NT // fn.TC_PASS)):
+            for w in range(fn.TC_PASS // fn.TC_SLICE):
+                n0 = p * fn.TC_PASS + w * fn.TC_SLICE
+                if n0 >= NT:
+                    continue
+                nw = min(fn.TC_SLICE, NT - n0)
+                for kt in range(0, KT, fn.TC_KS):
+                    nk = min(fn.TC_KS, KT - kt)
+                    off, size = fn.chunk_span(K, N, p, w, kt)
+                    assert (base + off) * 2 % 128 == 0 and size == nk * nw * 128
+                    run = pk[base + off:base + off + size].float().reshape(nk, nw, 2, 8, 8)
+                    cols = padded[16 * kt:16 * (kt + nk), 8 * n0:8 * (n0 + nw)]
+                    torch.testing.assert_close(run.permute(0, 2, 4, 1, 3).reshape(16 * nk, 8 * nw), cols,
+                                               rtol=0, atol=0)
+    assert end == pk.numel()
+    if kind == "pair" and width == 256:  # the colour input's reverse is 262 wide: two passes
+        assert mats[fn._RC + 0].shape[1] == 262
 
 
 @pytest.mark.parametrize("width", [256, 128])
